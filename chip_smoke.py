@@ -19,12 +19,26 @@ Phases, in order; any failure raises and the script exits nonzero:
               true relative residual of 1e-8, 4 MG levels. The residual is
               recomputed with the port's float64 operator, and the A00
               kernel's launch count must grow during the solve.
+6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
+              (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
+              CONVERGED_RTOL in exactly the JAX package's iteration count,
+              with first and last monitor values equal to the JAX run's to
+              1e-5 relative. Builds the native ILU/ILDL/ordering libraries
+              first (g++) and prints the build seconds.
+7. host_mg -- the full-size host route: the 3d_mg_1 tree at mx=32 (859,812
+              dofs) with a 4-level rediscretised saddle PCMG (dense LU of
+              2,312 dofs on the coarse level). Converges; the true residual
+              ||F - A x||, recomputed with the float64 SaddleOperator, equals
+              the last monitored residual to 1e-6; repeated applies are
+              bitwise equal and a repeated solve (-twosolves) gives the same
+              iteration count and a bitwise-equal x.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,6 +48,7 @@ import torch
 
 from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import models as emodels
+from exsaddle_tpu_torch import native
 from exsaddle_tpu_torch.assembly import FESpace
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
@@ -197,6 +212,110 @@ def phase_main():
     return launches
 
 
+# (name, argv, iterations, first and last monitor values) of the JAX
+# package's host route on these trees (float64 on the CPU)
+HOST_ANCHORS = [
+    ("3d_mg_1", "-model 2 -sinker_n 1 -mx 8 -mg -nlevels 2 "
+     "-saddle_ksp_type fgmres -saddle_mg_levels_ksp_type gmres "
+     "-saddle_mg_levels_pc_type jacobi -saddle_mg_levels_ksp_max_it 10",
+     12, 0.0179029, 1.57335e-07),
+    ("abf.opts -tpu 0", " ".join(tdriver.ABF_OPTS)
+     + " -model 11 -size_x 0.1 -mx 4 -tpu 0", 21, 0.00495115, 3.13656e-08),
+    ("ildl_1", "-mx 8 -model 6 -eta1 100 -eta0 1 -saddle_pc_type ildl "
+     "-saddle_pc_ildl_droptol 1e-3 -saddle_ksp_pc_side right",
+     7, 0.0180253, 9.43046e-08),
+]
+
+_MON = re.compile(r"^\s*(\d+) KSP Residual norm (\S+) $")
+
+
+def _monitor_values(lines):
+    return [float(m.group(2)) for m in map(_MON.match, lines) if m]
+
+
+def phase_host_anchor():
+    t0 = time.perf_counter()
+    built = native.build_all()
+    log(f"[host_anchor] native libraries {built or 'reused'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, argv, its, first, last in HOST_ANCHORS:
+        lines = []
+        t0 = time.perf_counter()
+        r = tdriver.saddle_solve(Options.from_args(
+            argv.split() + ["-saddle_ksp_monitor_short"]), 3,
+            log=lines.append)
+        mon = _monitor_values(lines)
+        log(f"[host_anchor] {name}: {r['reason']} in {r['its']} its, "
+            f"monitor {mon[0]:g} .. {mon[-1]:g}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(r["reason"] == "CONVERGED_RTOL" and r["its"] == its,
+              f"{name}: {r['reason']} in {r['its']} its, expected "
+              f"CONVERGED_RTOL in {its}")
+        check(len(mon) == its + 1, f"{name}: {len(mon)} monitor lines")
+        for got, want in ((mon[0], first), (mon[-1], last)):
+            check(abs(got - want) <= 1e-5 * want,
+                  f"{name}: monitor value {got:g} != {want:g}")
+
+
+def phase_host_mg(device):
+    argv = ("-model 2 -sinker_n 1 -mx 32 -mg -nlevels 4 "
+            "-saddle_ksp_type fgmres -saddle_mg_levels_ksp_type gmres "
+            "-saddle_mg_levels_pc_type jacobi -saddle_mg_levels_ksp_max_it 10 "
+            "-saddle_ksp_monitor_short -saddle_ksp_converged_reason "
+            "-diagnostics").split()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a00.LAUNCHES.reset()
+    lines = []
+
+    def tee(msg=""):
+        lines.append(msg)
+        log(msg)
+    r = tdriver.saddle_solve(Options.from_args(argv), 3, log=tee)
+    mesh, its = r["mesh"], r["its"]
+    log(f"[host_mg] A00 kernel launches during the driver run: "
+        f"{a00.LAUNCHES.n} (the host route applies A00 through "
+        f"SaddleOperator.mult_u)")
+    check(r["reason"] == "CONVERGED_RTOL", f"host_mg: {r['reason']}")
+    check(r["X"].shape == (mesh.ndof,) and np.all(np.isfinite(r["X"])),
+          "host_mg: solution not finite or of the wrong shape")
+    mon = _monitor_values(lines)
+    check(len(mon) == its + 1 and mon[-1] <= 1e-5 * mon[0],
+          "host_mg: monitor history does not show the converged solve")
+
+    # independent true residual with the float64 SaddleOperator
+    op = r["levels"][-1].op
+    x = r["result"].x
+    F = torch.as_tensor(r["F"], device=device)
+    true = float(torch.linalg.vector_norm(F - op.mult(x)))
+    rel = abs(true - r["rnorm"]) / r["rnorm"]
+    log(f"[host_mg] true residual {true:.9e}, last monitored "
+        f"{r['rnorm']:.9e}, relative difference {rel:.3e}")
+    check(rel <= 1e-6, f"host_mg: true residual differs by {rel:.3e}")
+
+    # determinism: repeated applies and a repeated solve are bitwise equal
+    xr = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        mesh.ndof), device=device)
+    check(torch.equal(op.mult(xr), op.mult(xr)),
+          "host_mg: SaddleOperator.mult not bitwise repeatable")
+    P = r["ksp"].pc.levels[-1].P
+    check(torch.equal(P.restrict(xr), P.restrict(xr)),
+          "host_mg: Prolongation.restrict not bitwise repeatable")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = tdriver._extra_solves(r["ksp"], F, log=log)
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    check(res2.its == its and torch.equal(res2.x, x),
+          f"host_mg: repeated solve gave {res2.its} its"
+          f"{'' if torch.equal(res2.x, x) else ' and a different x'}")
+    t_setup, t_solve = r["seconds"]["setup"], r["seconds"]["solve"]
+    log(f"[host_mg] mx=32 ndof {mesh.ndof}, 4 levels: setup {t_setup:.2f} s, "
+        f"solve {t_solve:.3f} s, repeated solve {t_again:.3f} s, outer its "
+        f"{its}, {1e3 * t_solve / its:.2f} ms/outer it, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -207,6 +326,8 @@ def main():
     k1 = phase_k1(device)
     phase_anchor()
     launches = phase_main()
+    phase_host_anchor()
+    phase_host_mg(device)
     log(json.dumps({"kernels": [{
         "name": "a00_apply", "route": "cuda",
         "source": "exsaddle_tpu_torch/csrc/a00_apply.cu",

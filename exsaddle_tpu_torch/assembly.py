@@ -1,11 +1,12 @@
 """Element-batched FE setup for the Q2-Q1 saddle system (host, numpy).
 
 A copy of exsaddle_tpu/assembly.py for the PyTorch port, which cannot import
-the JAX package: the FE space, right-hand side, Schur-pre element blocks and
-the coefficient projection pipeline of the reference's VecAssemble_F1_qp /
-VecAssemble_F2_qp / MatAssemble_Schur (femixedspace.c:2306-2948). The element
-stiffness batch is not needed: the port's operator is the factored
-matrix-free form of matfree.py.
+the JAX package: the FE space, element stiffness batches, right-hand side, Schur-pre element
+blocks and the coefficient projection pipeline of the reference's
+MatAssemble_Saddle / VecAssemble_F1_qp / VecAssemble_F2_qp /
+MatAssemble_Schur (femixedspace.c:2306-2948). The ABF route uses the
+factored matrix-free form of matfree.py instead of the element batches; the
+host KSP/PC route (operator.SaddleOperator) uses the batches.
 
 Weak forms (femixedspace.c:2487-2610):
   A11 = sum_q w_q detJ_q eta_q B^T D B,  D = diag(2,2,[2],1,[1,1])
@@ -113,6 +114,56 @@ class FESpace:
         samp = np.unique(np.linspace(0, nel - 1, 8).astype(np.int64))
         return all(np.abs((xu[e] - xu[e, 0]) - rel0).max() <= 1e-12 * scale
                    for e in samp)
+
+
+def assemble_element_matrices(fes, coeff_qp, lame=False):
+    """Element matrices for the saddle operator.
+
+    coeff_qp: dict with per-qp coefficient arrays of shape (nel, nqp):
+       Stokes: eta ; Lame: mu, lambda.
+    Returns dict with A11 (nel,nud,nud), A12 (nel,nud,npb), A22 (nel,npb,npb)
+    or None.
+    """
+    mesh = fes.mesh
+    nd = mesh.ndim
+    nbu = mesh.u_basis
+    fac = fes.wq[None, :] * fes.detJ_u                        # (nel, nqp)
+    visc = coeff_qp["mu"] if lame else coeff_qp["eta"]
+    facv = fac * visc
+
+    G = fes.dNu_glob                                          # (nel,nqp,d,nbu)
+    # A11 via strain-rate (B^T D B) structure. Split into the "2 eta dN_a dN_a"
+    # normal-strain part and the shear parts.
+    # normal: sum_a 2 * G[a,i] G[a,j] on (component a, component a) blocks
+    # shear (2D row 2; 3D rows 3..5): mixed component couplings.
+    nel = mesh.nel
+    nud = nd * nbu
+    A11 = np.zeros((nel, nud, nud))
+    # index helper: dof (i, a) -> nd*i + a
+    for a in range(nd):
+        blk = 2.0 * np.einsum("eq,eqi,eqj->eij", facv, G[:, :, a], G[:, :, a])
+        A11[:, a::nd, a::nd] += blk
+    # shear strains: for each unordered pair (a,b), strain e_ab row of B has
+    # entries G[b] at component a and G[a] at component b, weight 1*fac.
+    for a in range(nd):
+        for b in range(a + 1, nd):
+            Gaa = G[:, :, b]  # entry multiplying component a
+            Gbb = G[:, :, a]  # entry multiplying component b
+            A11[:, a::nd, a::nd] += np.einsum("eq,eqi,eqj->eij", facv, Gaa, Gaa)
+            A11[:, a::nd, b::nd] += np.einsum("eq,eqi,eqj->eij", facv, Gaa, Gbb)
+            A11[:, b::nd, a::nd] += np.einsum("eq,eqi,eqj->eij", facv, Gbb, Gaa)
+            A11[:, b::nd, b::nd] += np.einsum("eq,eqi,eqj->eij", facv, Gbb, Gbb)
+
+    # A12: el_A12[(nd*i+a), j] = -sum_q G[a,i] Np[j] fac
+    A12 = -np.einsum("eq,eqai,qj->eaij", fac, G, fes.Np)
+    A12 = A12.transpose(0, 2, 1, 3).reshape(nel, nud, mesh.p_basis)
+
+    A22 = None
+    if lame:
+        facp = fes.wq[None, :] * fes.detJ_p
+        A22 = -np.einsum("eq,qi,qj->eij", facp / coeff_qp["lambda"],
+                         fes.Np, fes.Np)
+    return {"A11": A11, "A12": A12, "A22": A22}
 
 
 def assemble_rhs(fes, Fu_qp, Fp_qp):

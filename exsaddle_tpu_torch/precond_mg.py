@@ -1,14 +1,44 @@
-"""Structured multilinear prolongation and the Galerkin coarse hierarchy
-(host setup, numpy/scipy).
+"""Geometric multigrid: structured prolongation/restriction, PCMG V-cycle
+and the Galerkin coarse hierarchy (the torch port of
+exsaddle_tpu/precond_mg.py).
 
-The setup half of exsaddle_tpu/precond_mg.py: the ABF u-block multigrid
-(-saddle_fieldsplit_u_pc_mg_galerkin, abf.opts:13) needs the DMDA
-interpolation between node grids only to form the RAP products of its deep
-levels; the solve itself applies transfers in the parity/grid layouts of
-abf.py. Index/weight arrays are built exactly as the JAX package builds them,
-so the coarse operators are the same matrices."""
+Capability parity with the reference's two MG configurations:
+  - monolithic saddle PCMG with per-level *re-assembled* operators
+    (PC_MG_GALERKIN_NONE) and DMComposite interpolation = blockdiag of the
+    Q2-velocity and Q1-pressure multilinear interpolations
+    (exSaddle.c:333-402);
+  - Galerkin MG inside the velocity block of a fieldsplit
+    (-saddle_fieldsplit_u_pc_mg_galerkin, abf.opts:13) with RAP coarse
+    operators.
+
+Interpolation between structured node grids is multilinear (DMDA's default
+Q1 interpolation). Index/weight arrays are built on the host exactly as the
+JAX package builds them, so the coarse operators are the same matrices. On
+the device, P is a gather with weights and its transpose (restriction) is
+stored as a padded-row (ELL) gather of P^T: both are sums over fixed-width
+rows, with no scatter, so they are deterministic on CUDA. The ABF route
+needs only the host half (restriction_scale, to_scipy, the Galerkin
+products); its solve applies transfers in the parity/grid layouts of
+abf.py."""
 
 import numpy as np
+import torch
+
+
+def _ell(A_csr):
+    """Padded-row (ELL) form of a scipy CSR matrix: (cols, vals) numpy
+    arrays of shape (n, max row length), padding col 0 / val 0."""
+    A = A_csr.tocsr().sorted_indices()
+    n = A.shape[0]
+    counts = np.diff(A.indptr)
+    k = int(counts.max())
+    cols = np.zeros((n, k), dtype=np.int64)
+    vals = np.zeros((n, k))
+    rows = np.repeat(np.arange(n), counts)
+    slot = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
+    cols[rows, slot] = A.indices
+    vals[rows, slot] = A.data
+    return cols, vals
 
 
 class Prolongation:
@@ -67,20 +97,34 @@ class Prolongation:
             wts = np.repeat(wts, dof, axis=0)
         self.cidx = cidx
         self.wts = wts
+        self._dev = {}            # (device, dtype) -> device arrays
+
+    def _device_arrays(self, x):
+        key = (x.device, x.dtype)
+        if key not in self._dev:
+            rcols, rvals = _ell(self.to_scipy().T)
+            self._dev[key] = tuple(
+                torch.as_tensor(a, device=x.device,
+                                dtype=None if a.dtype == np.int64
+                                else x.dtype)
+                for a in (self.cidx, self.wts, rcols, rvals))
+        return self._dev[key]
 
     def apply(self, xc):
-        """x_fine = P x_coarse."""
-        return np.sum(np.asarray(xc)[self.cidx] * self.wts, axis=1)
+        """x_fine = P x_coarse (tensor)."""
+        cidx, wts, _, _ = self._device_arrays(xc)
+        return (xc[cidx] * wts).sum(dim=1)
 
     def restrict(self, rf):
-        """r_coarse = P^T r_fine (MatRestrict)."""
-        contrib = np.asarray(rf)[:, None] * self.wts
-        return np.bincount(self.cidx.ravel(), weights=contrib.ravel(),
-                           minlength=self.coarse_n)
+        """r_coarse = P^T r_fine (MatRestrict; tensor): an ELL gather of
+        P^T, deterministic on every device."""
+        _, _, rcols, rvals = self._device_arrays(rf)
+        return (rf[rcols] * rvals).sum(dim=1)
 
     def restriction_scale(self):
-        """DMCreateInterpolationScale: 1 / (P^T ones)."""
-        return 1.0 / self.restrict(np.ones(self.fine_n))
+        """DMCreateInterpolationScale: 1 / (P^T ones) (numpy)."""
+        return 1.0 / np.bincount(self.cidx.ravel(), weights=self.wts.ravel(),
+                                 minlength=self.coarse_n)
 
     def to_scipy(self):
         """CSR form of P for setup-phase Galerkin RAP products."""
@@ -90,6 +134,61 @@ class Prolongation:
                           shape=(self.fine_n, self.coarse_n)).tocsr()
         P.sum_duplicates()
         return P
+
+
+class BlockDiagProlongation:
+    """DMComposite interpolation: blockdiag(P_u, P_p) on [u | p] vectors
+    (exSaddle.c:348 via DMCreateInterpolation on the composite)."""
+
+    def __init__(self, P_u, P_p):
+        self.P_u = P_u
+        self.P_p = P_p
+        self.fine_nu = P_u.fine_n
+        self.coarse_nu = P_u.coarse_n
+        self.fine_n = P_u.fine_n + P_p.fine_n
+        self.coarse_n = P_u.coarse_n + P_p.coarse_n
+
+    def apply(self, xc):
+        return torch.cat([self.P_u.apply(xc[: self.coarse_nu]),
+                          self.P_p.apply(xc[self.coarse_nu:])])
+
+    def restrict(self, rf):
+        return torch.cat([self.P_u.restrict(rf[: self.fine_nu]),
+                          self.P_p.restrict(rf[self.fine_nu:])])
+
+
+class MGLevel:
+    """One PCMG level: smoother KSP (pre==post, nonzero initial guess on the
+    post sweep), operator apply, prolongation from the next-coarser level."""
+
+    def __init__(self, apply_A, smoother, prolong):
+        self.A = apply_A
+        self.smoother = smoother
+        self.P = prolong
+
+
+class PCMG:
+    """PCMG multiplicative V-cycle, 1 cycle per application (the reference's
+    configuration; testref view: 'type is MULTIPLICATIVE, levels=N cycles=v,
+    Cycles per PCApply=1')."""
+
+    def __init__(self, levels, coarse_ksp):
+        self.levels = levels      # levels[1..] from coarsest+1 to finest
+        self.coarse_ksp = coarse_ksp
+        self.nlevels = len(levels) + 1
+
+    def apply(self, b):
+        return self._cycle(self.nlevels - 1, b)
+
+    def _cycle(self, k, b):
+        if k == 0:
+            return self.coarse_ksp.solve(b).x
+        lv = self.levels[k - 1]
+        x = lv.smoother.solve(b).x                 # pre-smooth from zero
+        r = b - lv.A(x)
+        xc = self._cycle(k - 1, lv.P.restrict(r))
+        x = x + lv.P.apply(xc)
+        return lv.smoother.solve(b, x0=x).x        # post-smooth, x warm
 
 
 def galerkin_coarse_operators(A_fine_csr, prolongations, dof=1):
@@ -136,3 +235,18 @@ def galerkin_coarse_operators(A_fine_csr, prolongations, dof=1):
                               shape=A.shape)
         ops[k] = A
     return ops
+
+
+def csr_apply(A_csr, device, max_dense=4096):
+    """Return a matvec closure on `device` for a scipy CSR operator: a dense
+    matrix at or below max_dense rows, a padded-row ELL gather + row sum
+    above (every row of a Q2/Q1 grid operator has <= a few hundred
+    entries)."""
+    n = A_csr.shape[0]
+    if n <= max_dense:
+        Ad = torch.as_tensor(A_csr.toarray(), device=device)
+        return lambda x: Ad @ x
+    cols, vals = _ell(A_csr)
+    cols_t = torch.as_tensor(cols, device=device)
+    vals_t = torch.as_tensor(vals, device=device)
+    return lambda x: (vals_t * x[cols_t]).sum(dim=1)

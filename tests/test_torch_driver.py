@@ -1,5 +1,5 @@
-"""The PyTorch port's driver (abf.opts route) against the JAX driver, and the
-port's import boundary.
+"""The PyTorch port's driver (abf.opts route) against the JAX driver, the
+flags it refuses, and the port's import boundary.
 
 The same argv goes to both drivers at mx=4 pseudoice: the port with
 -device cpu, the JAX driver with -tpu 1 (its jitted ABF dispatch; with the 8
@@ -77,13 +77,16 @@ def test_driver_ir_mode_converges():
 
 
 def test_driver_refuses_other_trees():
-    with pytest.raises(ValueError, match="abf.opts"):
-        tdriver.saddle_solve(TOptions.from_args(["-mx", "2", "-device",
-                                                 "cpu"]), 3)
-    with pytest.raises(ValueError, match="abf.opts"):
-        tdriver.saddle_solve(TOptions.from_args(
-            tdriver.ABF_OPTS + ["-mx", "2", "-device", "cpu",
-                                "-diagnostics"]), 3)
+    """Every options tree now has a route (the host KSP/PC stack takes the
+    non-abf trees); the output flags that are not ported yet are refused
+    with an error that names them."""
+    for flag in ("-saddle_ksp_view", "-view_fields", "-dump_solution"):
+        with pytest.raises(ValueError, match=f"not port.*{flag}"):
+            tdriver.saddle_solve(TOptions.from_args(
+                ["-mx", "2", "-device", "cpu", flag]), 3)
+        with pytest.raises(ValueError, match=f"not port.*{flag}"):
+            tdriver.saddle_solve(TOptions.from_args(
+                tdriver.ABF_OPTS + ["-mx", "2", "-device", "cpu", flag]), 3)
 
 
 def test_driver_default_device_is_cuda():
@@ -97,7 +100,9 @@ def test_driver_default_device_is_cuda():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, exsaddle_tpu_torch.driver, exsaddle_tpu_torch.abf;"
+    code = ("import sys, exsaddle_tpu_torch.driver, exsaddle_tpu_torch.abf, "
+            "exsaddle_tpu_torch.solver_config, exsaddle_tpu_torch.precond, "
+            "exsaddle_tpu_torch.operator, exsaddle_tpu_torch.native;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'exsaddle_tpu' or "
             "m.startswith('exsaddle_tpu.'));"

@@ -1,12 +1,16 @@
 """Card-only tests of the PyTorch port: each hand-written kernel against its
-plain PyTorch version on CUDA tensors, and the driver on CUDA against the
-driver on the CPU. They skip where there is no CUDA device.
+plain PyTorch version on CUDA tensors, the driver on CUDA against the driver
+on the CPU (ABF route and host KSP/PC route), and the determinism of the host
+route's device operators. They skip where there is no CUDA device.
 
 This file imports nothing of JAX, so it runs on a machine that has only the
 port's dependencies; there, skip tests/conftest.py (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
+
+import os
+import warnings
 
 import numpy as np
 import pytest
@@ -19,6 +23,16 @@ from exsaddle_tpu_torch.assembly import FESpace
 from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.mesh import SaddleMesh
 from exsaddle_tpu_torch.options import Options
+from exsaddle_tpu_torch.precond import PCLU
+
+# cuBLAS is bitwise reproducible under torch.use_deterministic_algorithms
+# only with a fixed workspace; read when the first cuBLAS handle is made
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+HOST_MG_1 = ("-model 2 -sinker_n 1 -mx 8 -mg -nlevels 2 "
+             "-saddle_ksp_type fgmres -saddle_mg_levels_ksp_type gmres "
+             "-saddle_mg_levels_pc_type jacobi "
+             "-saddle_mg_levels_ksp_max_it 10").split()
 
 # (nd, m_el, lame, model, size): test_fast_apply.CASES plus an odd 3D shape
 CASES = [(2, (5, 4), False, "0", None),
@@ -98,3 +112,74 @@ def test_driver_on_cuda_matches_cpu(cuda):
     assert g["its"] == c["its"] and g["reason"] == c["reason"]
     assert np.abs(np.array(g["history"]) - np.array(c["history"])).max() \
         <= 1e-8 * max(c["history"])
+
+
+def _host_history(argv, device):
+    """The host route's solve, then the same solve again with a recorder
+    in place of the monitor: (its, reason, exact history, x, result)."""
+    r = tdriver.saddle_solve(Options.from_args(argv + ["-device", device]),
+                             3, log=lambda *a: None)
+    hist = []
+    ksp = r["ksp"]
+    ksp.cfg.monitor = lambda i, rn: hist.append(rn)
+    dev = r["levels"][-1].op.device
+    res = ksp.solve(torch.as_tensor(r["F"], device=dev))
+    assert (res.its, res.reason) == (r["its"], r["reason"])
+    return res.its, res.reason, np.array(hist), res.x, r
+
+
+@pytest.mark.gpu
+def test_host_route_on_cuda_matches_cpu(cuda):
+    """3d_mg_1 on the host route: identical iteration count and reason on
+    CUDA and on the CPU, histories to 1e-10 relative; under
+    torch.use_deterministic_algorithms nothing on the path warns."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            g_its, g_reason, g_hist, g_x, _ = _host_history(HOST_MG_1,
+                                                            "cuda")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = [str(w.message) for w in caught
+               if "determinis" in str(w.message)]
+    assert not flagged, flagged
+    c_its, c_reason, c_hist, c_x, _ = _host_history(HOST_MG_1, "cpu")
+    assert (g_its, g_reason) == (c_its, c_reason) == (12, "CONVERGED_RTOL")
+    assert np.all(np.abs(g_hist - c_hist) <= 1e-10 * c_hist)
+    xc = c_x.numpy()
+    assert np.abs(g_x.cpu().numpy() - xc).max() <= 1e-8 * np.abs(xc).max()
+
+
+@pytest.mark.gpu
+def test_host_operators_bitwise_repeatable(cuda):
+    """SaddleOperator.mult (colour-swept scatter) and Prolongation.restrict
+    (ELL gather of P^T) give bitwise-equal results on repeated calls, and
+    a repeated solve gives a bitwise-equal x."""
+    its, _, _, x, r = _host_history(HOST_MG_1, "cuda")
+    op = r["levels"][-1].op
+    P = r["ksp"].pc.levels[-1].P
+    v = torch.as_tensor(np.random.default_rng(3).standard_normal(op.ndof),
+                        device=cuda)
+    y = op.mult(v)
+    rc = P.restrict(v)
+    for _ in range(3):
+        assert torch.equal(op.mult(v), y)
+        assert torch.equal(P.restrict(v), rc)
+    res = r["ksp"].solve(torch.as_tensor(r["F"], device=cuda))
+    assert res.its == its and torch.equal(res.x, x)
+
+
+@pytest.mark.gpu
+def test_pclu_on_cuda_matches_cpu(cuda):
+    """The coarse-level dense LU of the mx=4 3D saddle operator (2,312
+    dofs, the coarse level of the full-size MG tree) on CUDA and on the
+    CPU."""
+    r = tdriver.saddle_solve(Options.from_args(
+        "-model 2 -sinker_n 1 -mx 4 -saddle_pc_type lu -device cpu".split()),
+        3, log=lambda *a: None)
+    A = r["levels"][-1].op.to_dense()
+    b = np.random.default_rng(4).standard_normal(A.shape[0])
+    yc = PCLU(A, "cpu").apply(torch.as_tensor(b)).numpy()
+    yg = PCLU(A, cuda).apply(torch.as_tensor(b, device=cuda)).cpu().numpy()
+    assert np.abs(yg - yc).max() <= 1e-10 * np.abs(yc).max()
