@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --profile    # device, build, then one profiled
+                                       # mx=32 IR solve (PERF.md section 5)
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -10,14 +12,23 @@ Phases, in order; any failure raises and the script exits nonzero:
               into exsaddle_tpu_torch/_build/ (skipped when built already).
 3. K1      -- the A00 kernel against its plain PyTorch version at the
               main path's shapes (mx=32 pseudoice, 3D) and on 2D SolCx at
-              mx=my=64, in float32 and float64; median per-apply times.
+              mx=my=64, in float32 and float64: agreement, bitwise-equal
+              repeated applies, 2 device launches per apply (torch.profiler);
+              each kernel's device time per launch (torch.profiler); median
+              per-apply times (CUDA
+              events over 20 back-to-back calls) of the kernel, the plain
+              version and one library call for the same function (SpMV of
+              the raw A00 as an int32 CSR tensor, built here only), beside
+              the bound (data-sheet peaks) and the kernel's share of it.
+              The build phase prints every kernel's registers and spills.
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
 5. main    -- the driver on the flagship: model 11, size_x 0.1, mx=32,
               float32 inner solves with float64 iterative refinement to a
               true relative residual of 1e-8, 4 MG levels. The residual is
-              recomputed with the port's float64 operator, and the A00
+              recomputed with the port's float64 operator, the refinement
+              must take 3 rounds and 34-38 inner iterations, and the A00
               kernel's launch count must grow during the solve.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
@@ -50,6 +61,7 @@ from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import models as emodels
 from exsaddle_tpu_torch import native
 from exsaddle_tpu_torch.assembly import FESpace
+from exsaddle_tpu_torch.grid_ops import gather_u_parity, split_u_parity
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
@@ -87,9 +99,13 @@ def phase_build():
     a00._fn(torch.float32)          # load and bind
     log(f"[build] {'built' if built else 'reused'} {path} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in blog.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            log(f"[build] {line.strip()}")
+    # ptxas -v: each entry function, its spills, then its registers
+    lines = [ln.strip() for ln in blog.splitlines() if "ptxas info" in ln
+             or "spill" in ln]
+    check(any("Used" in ln for ln in lines),
+          "no ptxas register report in the build log")
+    for line in lines:
+        log(f"[build] {line}")
 
 
 def _operator(ndim, m, model, size, dtype, device):
@@ -105,7 +121,10 @@ def _operator(ndim, m, model, size, dtype, device):
                                        dtype=dtype, device=device)
 
 
-def _median_ms(fn, reps=30, warmup=3):
+def _median_ms(fn, reps=15, inner=20, warmup=3):
+    """Per-call ms: CUDA events around `inner` back-to-back calls (so the
+    device, not the host's issue, sets the time once a call outlasts its
+    issue), median over `reps` such runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -114,20 +133,92 @@ def _median_ms(fn, reps=30, warmup=3):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return float(np.median(times))
 
 
+# H100 SXM data-sheet peaks (dense rates at 700 W): FP32 CUDA cores, FP64
+# tensor cores (the float64 products run there), HBM3
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def k1_bound(op, dtype):
+    """(bound in ms, what sets it) of one A00 apply on this operator: the
+    products' FLOP at the peak rate of their type against x, scale_visc and
+    Bs read once and y written once at the memory rate."""
+    nd = len(op.m_el)
+    nel, nrow = op.scale_visc.shape
+    ncol = 3 ** nd * nd
+    flop = 2 * 2 * nel * nrow * ncol
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * (2 * op.nu + nel * nrow + nrow * ncol)
+    t_ops, t_bytes = flop / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def raw_a00_csr(op):
+    """The raw A00 (no Dirichlet masks) as a CSR tensor with int32 indices
+    in float64: sum_e G_e^T Bs^T diag(s_e) Bs G_e, coalesced from the
+    element matrices. The yardstick of one library call for K1's function;
+    the port never calls it."""
+    nd = len(op.m_el)
+    dev = op.Bs.device
+    G = gather_u_parity(split_u_parity(torch.arange(op.nu, device=dev),
+                                       op.cls_shapes, nd), op.m_el)
+    nel, ncol = G.shape
+    Bs = op.Bs.double()
+    s = op.scale_visc.double()
+    Ke = torch.empty(nel, ncol, ncol, dtype=torch.float64, device=dev)
+    for c in range(0, nel, 4096):
+        Ke[c:c + 4096] = (Bs.T[None] * s[c:c + 4096, None, :]) @ Bs
+    idx = torch.stack([G[:, :, None].expand(nel, ncol, ncol).reshape(-1),
+                       G[:, None, :].expand(nel, ncol, ncol).reshape(-1)])
+    A = torch.sparse_coo_tensor(idx, Ke.reshape(-1), (op.nu, op.nu))
+    del idx, Ke, G
+    A = A.coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(A.crow_indices().to(torch.int32),
+                                   A.col_indices().to(torch.int32),
+                                   A.values(), A.shape)
+
+
+def _device_kernels(fn, calls=10):
+    """{kernel name: (launches per call, mean device us per launch)} of the
+    K1 kernels one call of fn launches, from torch.profiler; empty where
+    the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / calls, _self_device_us(e) / e.count)
+            for e in prof.key_averages()
+            if "a00" in e.key and _self_device_us(e) > 0}
+
+
+def _self_device_us(evt):
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
 def phase_k1(device):
-    """K1 against its plain version; returns the float32 3D numbers (the
-    main path's working precision and shapes)."""
+    """K1 against its plain version and the library's CSR SpMV; returns the
+    float32 3D numbers (the main path's working precision and shapes)."""
     out = {}
     cases = [("3D mx=32 pseudoice", 3, (32, 32, 32), 11, (0.1, 1.0, 1.0)),
              ("2D mx=my=64 SolCx", 2, (64, 64), 0, (1.0, 1.0))]
     for name, ndim, m, model, size in cases:
+        op64 = _operator(ndim, m, model, size, torch.float64, device)
+        t0 = time.perf_counter()
+        csr64 = raw_a00_csr(op64)
+        log(f"[K1] {name}: raw A00 CSR nnz {csr64.values().numel()}, built "
+            f"in {time.perf_counter() - t0:.2f} s")
         for dtype in (torch.float32, torch.float64):
             op = _operator(ndim, m, model, size, dtype, device)
             x = torch.as_tensor(np.random.default_rng(0).standard_normal(
@@ -138,16 +229,41 @@ def phase_k1(device):
             err = float((y_k - y_p).abs().max())
             rel = err / float(y_p.abs().max())
             ok = bool(torch.isfinite(y_k).all()) and rel <= TOL[dtype]
+            check(ok, f"K1 {name} {dtype} disagrees with its plain version "
+                  f"(relative {rel:.3e})")
+            check(torch.equal(a00.a00_apply(op, x), y_k),
+                  f"K1 {name} {dtype}: repeated applies differ")
+            csr = csr64 if dtype == torch.float64 else torch.sparse_csr_tensor(
+                csr64.crow_indices(), csr64.col_indices(),
+                csr64.values().to(dtype), csr64.shape)
+            lib_rel = float((csr @ x - y_p).abs().max() / y_p.abs().max())
+            check(lib_rel <= 1e3 * TOL[dtype],
+                  f"K1 {name} {dtype}: CSR yardstick off by {lib_rel:.3e}")
+            kern = _device_kernels(lambda: a00.a00_apply(op, x))
+            per_apply = sum(n for n, _ in kern.values())
+            check(per_apply == a00.KERNELS_PER_APPLY,
+                  f"K1 {name} {dtype}: the profiler saw {per_apply} device "
+                  f"launches per apply")
+            for kname, (n, us) in kern.items():
+                log(f"[K1] {name} {str(dtype)[6:]}: device {us:.2f} us per "
+                    f"launch, {n:g} per apply: {kname[:110]}")
             ms = _median_ms(lambda: a00.a00_apply(op, x))
             plain_ms = _median_ms(lambda: a00.a00_apply_plain(op, x))
+            library_ms = _median_ms(lambda: csr @ x)
+            bound_ms, bound_by = k1_bound(op, dtype)
             log(f"[K1] {name} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                f"rel {rel:.3e} (tol {TOL[dtype]:g}) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms")
-            check(ok, f"K1 {name} {dtype} disagrees with its plain version")
+                f"rel {rel:.3e} (tol {TOL[dtype]:g}), bitwise repeatable, "
+                f"{per_apply:g} device launches per apply; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (CSR SpMV, "
+                f"int32) {library_ms:.4f} ms, bound {1e3 * bound_ms:.1f} us "
+                f"({bound_by}), kernel at {100 * bound_ms / ms:.1f}% of it")
             if ndim == 3 and dtype == torch.float32:
-                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-            del op, x, y_k, y_p
-    torch.cuda.empty_cache()
+                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+            del op, x, y_k, y_p, csr
+        del op64, csr64
+        torch.cuda.empty_cache()
     return out
 
 
@@ -170,12 +286,14 @@ def phase_main():
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
         "-saddle_ksp_converged_reason").split()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     a00.LAUNCHES.reset()
     r = tdriver.saddle_solve(Options.from_args(argv), 3, log=log)
-    launches = a00.LAUNCHES.n
+    launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
     res = r["res"]
     slv = r["solver"]
-    log(f"[main] A00 kernel launches during the driver run: {launches}")
+    log(f"[main] A00 kernels during the driver run: {launches} device "
+        f"launches in {applies} applies")
     check(launches > 0, "the main path never launched the A00 kernel")
     check(not res["stalled"], "iterative refinement stalled")
     check(res["converged"], "iterative refinement did not converge")
@@ -203,13 +321,16 @@ def phase_main():
               "timed IR solve did not converge")
     t_solve = float(np.median(times))
     its = res["inner_its"]
+    check(res["rounds"] == 3 and 34 <= its <= 38,
+          f"IR took {res['rounds']} rounds / {its} inner its, expected 3 / "
+          f"34-38")
     log(f"[main] mx=32 ndof {r['mesh'].ndof}: setup "
         f"{r['seconds']['setup']:.2f} s, first solve "
         f"{r['seconds']['solve']:.3f} s, solve median of 3 {t_solve:.3f} s "
         f"(spread {min(times):.3f}-{max(times):.3f}), rounds {res['rounds']},"
         f" inner its {its}, {1e3 * t_solve / max(its, 1):.2f} ms/outer it, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, applies
 
 
 # (name, argv, iterations, first and last monitor values) of the JAX
@@ -316,6 +437,48 @@ def phase_host_mg(device):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def phase_profile():
+    """One mx=32 IR solve of the main path under torch.profiler, after a
+    warm-up solve: device time by kernel, the card's busy share of the
+    unprofiled solve, kernel launches, then the profiler's table."""
+    from torch.profiler import ProfilerActivity, profile
+    argv = tdriver.ABF_OPTS + (
+        "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
+        "-saddle_fieldsplit_u_pc_mg_levels 4").split()
+    r = tdriver.saddle_solve(Options.from_args(argv), 3, log=lambda *a: None)
+    slv, F = r["solver"], r["F"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = slv.solve_ir(F, rtol=1e-8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a00.LAUNCHES.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = slv.solve_ir(F, rtol=1e-8)
+        torch.cuda.synchronize()
+    check(res["converged"], "profiled solve did not converge")
+    ka = prof.key_averages()
+    # device-side rows only: an operator's row repeats its kernels' time
+    dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+           and _self_device_us(e) > 0]
+    total = sum(_self_device_us(e) for e in dev) / 1e6
+    check(total > 0, "the profiler recorded no device time")
+    k1 = sum(_self_device_us(e) for e in dev if "a00" in e.key) / 1e6
+    launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel",
+                                                    "cuLaunchKernel",
+                                                    "cudaLaunchKernelExC"))
+    log(f"[profile] mx=32 IR solve: unprofiled wall {wall:.3f} s, "
+        f"{res['rounds']} rounds / {res['inner_its']} inner its, device "
+        f"time {total:.3f} s (busy {100 * total / wall:.1f}% of the "
+        f"unprofiled wall), K1 {k1:.3f} s ({100 * k1 / total:.1f}%) in "
+        f"{a00.LAUNCHES.applies} applies, kernel launches {launches}")
+    for e in sorted(dev, key=_self_device_us, reverse=True)[:12]:
+        log(f"[profile] {_self_device_us(e) / 1e3:10.3f} ms "
+            f"{e.count:7d} x  {e.key[:90]}")
+    log(ka.table(sort_by="self_cuda_time_total", row_limit=25))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -323,17 +486,27 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
+    if "--profile" in sys.argv[1:]:
+        phase_profile()
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     k1 = phase_k1(device)
     phase_anchor()
-    launches = phase_main()
+    launches, applies = phase_main()
     phase_host_anchor()
     phase_host_mg(device)
     log(json.dumps({"kernels": [{
         "name": "a00_apply", "route": "cuda",
         "source": "exsaddle_tpu_torch/csrc/a00_apply.cu",
         "replaces": "exsaddle_tpu/pallas_apply.py:61",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+        "launches": launches, "applies": applies,
+        "launches_per_apply": launches / applies,
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_us": 1e3 * k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

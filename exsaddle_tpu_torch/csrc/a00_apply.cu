@@ -2,10 +2,11 @@
 //
 //     y_u = sum_e G_e^T Bs^T diag(s_e) Bs G_e x_u          (no Dirichlet masks)
 //
-// Replaces exsaddle_tpu/pallas_apply.py:make_pallas_mult_u. Per element:
-// gather 3^nd nodes x nd dofs from the parity-permuted vector, strain =
-// Bs (nrow x ncol) x_e, scale by s_e, y_e = Bs^T strain, scatter-add. Bs is
-// shared by every element (uniform box geometry); only s_e varies.
+// Replaces exsaddle_tpu/pallas_apply.py:make_pallas_mult_u (pl.pallas_call
+// at :190). Per element: gather 3^nd nodes x nd dofs from the
+// parity-permuted vector, strain = Bs (nrow x ncol) x_e, scale by s_e,
+// y_e = Bs^T strain, sum into the nodes. Bs is shared by every element
+// (uniform box geometry); only s_e varies.
 //
 // Layout (matfree.parity_permutation): x is ONE flat vector holding the 2^nd
 // parity classes of the Q2 node grid one after another; class p (bit a of p
@@ -15,177 +16,532 @@
 // (2ex+la, 2ey+lb, 2ez+lc), i.e. class (la&1 | (lb&1)<<1 | (lc&1)<<2) at
 // (ex + la/2, ey + lb/2, ez + lc/2). Bs column nd*(la + 3 lb + 9 lc) + a.
 //
-// Determinism without atomics: elements are swept in 2^nd colours
-// (ex&1, ey&1, ez&1), one launch per colour. Two elements of one colour are
-// two apart along some axis and share no node, so each launch adds into y
-// with plain read-modify-writes, and the result does not depend on the
-// schedule (iteration counts of the solves that use it are reproducible).
+// Bound on an H100 SXM (data-sheet peaks). At mx=32 one apply is 32,768
+// elements x 2 products x 2*162*81 FLOP = 1.72 GFLOP against >= 27.9 MB
+// moved in float32 (x, y, scale_visc once each; 55.8 MB in float64).
+// TF32 is not allowed (precision policy), so float32 runs on the FP32 CUDA
+// cores: 25.7 us at 67 TFLOP/s against 8.3 us for the bytes, compute bound.
+// float64 runs on the FP64 tensor cores (mma.sync m16n8k4, IEEE FMA): 25.7
+// us at 67 TFLOP/s against 16.7 us for the bytes. Measured on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py, phase K1): ~0.10 ms per apply in either
+// precision, a quarter of the bound.
 //
-// Bound on an H100 SXM (data-sheet figures, not measured): at mx=32 one
-// apply is 32768 elements x 2 products x 2*162*81 FLOP = 1.72 GFLOP against
-// >= ~28 MB moved in float32 (x, y, scale_visc). TF32 is not allowed
-// (precision policy), so the products run on the FP32 CUDA cores (67
-// TFLOP/s) and the kernel is compute bound: >= 26 us at peak vs >= 8 us for
-// the bytes. This first version keeps Bs in shared memory (52,488 B float32,
-// 104,976 B float64; dynamic shared memory above the 48 KB static limit),
-// stages a few elements' x_e and strain in shared memory, and computes each
-// output row as a dot product in one thread. Its shared-memory traffic (one
-// Bs load per FMA) bounds it well below the FP32 peak; register tiling and
-// tensor-core float64 (DMMA) are later work.
+// Two launches per apply:
+//
+// 1. a00_element_kernel: persistent blocks (as many as fit on the card at
+//    once: 2 per SM in float32, 1 in float64) walk tiles of TM = 32
+//    consecutive elements in linear order over ALL elements. Per tile:
+//    S = X Bs^T (TM x ncol times ncol x nrow), S *= scale_visc (one
+//    contiguous TM x nrow block), Ye = S Bs (TM x nrow times nrow x ncol),
+//    written to a scratch (nel, ncol) array that stays in the 50 MB L2.
+// 2. a00_node_gather_kernel: one thread per velocity dof sums its <= 2^nd
+//    element contributions in a fixed order (an ELL table built on the
+//    host, kernels/a00.py:node_gather_table) and writes y: no zero fill, no
+//    atomic, no colour, so repeated applies are bitwise equal.
+//
+// What this does about the faults of the first (8-colour) version:
+// - It computed each output in one thread, one Bs value and one x value
+//   read from shared memory per FMA. Here each float32 thread owns a
+//   register micro-tile (4 elements x 6 strain rows, then 4 elements x 3
+//   columns) read with 16-byte vector loads, so one shared-memory read
+//   feeds 3-6 FMAs; each float64 warp feeds the tensor cores 8-byte
+//   fragments, 2 loads per 16x8x4 product.
+// - It restaged Bs for every 8 elements (~215 MB of L2 -> shared traffic
+//   per float32 apply). Here each persistent block stages Bs once.
+// - It launched 8 colour kernels of 1.3 waves each per apply. Here one
+//   element launch fills the card exactly once and the node gather follows;
+//   the next tile's x_e gather runs with cp.async into a second buffer
+//   while the current tile computes.
+//
+// Shared memory per block (padded strides keep the vector and fragment
+// reads free of bank conflicts; padding is zero):
+// - float32: Bs 164 x 84, x tiles 2 x 32 x 84, strain 32 x 164 values:
+//   97,600 B, two blocks of 216 threads per SM;
+// - float64: Bs 168 x 84, x tiles 2 x 32 x 84, strain 32 x 164 values:
+//   197,888 B, one block of 384 threads per SM;
+// both above the 48 KB static limit, set with cudaFuncSetAttribute.
+// 2D (Bs 27 x 18) runs the same two passes with its own shapes.
 
 #include <cuda_runtime.h>
-#include <cstdint>
 
 namespace {
 
 template <int ND> struct Shape;
 template <> struct Shape<3> {
-  static constexpr int NCLS = 8, NROW = 162, NCOL = 81;
-  static constexpr int THREADS = 324, ELEMS = 8;   // 2 threads per row
+  static constexpr int NCLS = 8, R = 162, C = 81, TC = 27;
 };
 template <> struct Shape<2> {
-  static constexpr int NCLS = 4, NROW = 27, NCOL = 18;
-  static constexpr int THREADS = 216, ELEMS = 16;
+  static constexpr int NCLS = 4, R = 27, C = 18, TC = 9;
 };
 
-struct Classes {
-  long long off[8];   // start of class p in the flat vector (in values)
+constexpr int TM = 32;   // elements per tile
+
+constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Row stride (values) of a shared tile read with 16-byte vector loads, rows
+// on consecutive threads: a multiple of the vector width v and an odd number
+// of 16-byte units, so 8 consecutive rows start in 8 different bank groups.
+constexpr int vec_stride(int len, int v) {
+  return (round_up(len, v) / v) % 2 ? round_up(len, v) : round_up(len, v) + v;
+}
+
+// Row stride (doubles) of a tile read as MMA fragments (8 rows x 4 columns
+// per warp, half a warp per shared-memory wavefront): 4 or 12 mod 16, so
+// the 4 rows of a half warp land in 4 different groups of 8 banks.
+constexpr int mma_stride(int len) {
+  return round_up(len, 4) % 16 == 4 || round_up(len, 4) % 16 == 12
+             ? round_up(len, 4) : mma_stride(len + 4);
+}
+
+struct Grid {
+  int off[8];         // start of class p in the flat vector (in values)
   int nx[8], ny[8];   // node counts of class p along x and y
 };
 
-template <int ND>
-__device__ __forceinline__ long long dof_index(const Classes& c, int ex,
-                                               int ey, int ez, int col) {
-  const int node = col / ND, a = col - node * ND;
-  const int la = node % 3, lb = (node / 3) % 3, lc = node / 9;
-  const int p = (la & 1) | ((lb & 1) << 1) | ((lc & 1) << 2);
-  const long long ii = ex + (la >> 1), jj = ey + (lb >> 1), kk = ez + (lc >> 1);
-  return c.off[p] + ((kk * c.ny[p] + jj) * c.nx[p] + ii) * ND + a;
-}
-
-template <typename T, int ND>
-__global__ void __launch_bounds__(Shape<ND>::THREADS)
-a00_colour_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                  const T* __restrict__ Bs, T* __restrict__ y, int mx, int my,
-                  int cx, int cy, int cz, int ncx, int ncy, int ncol_el,
-                  Classes cls) {
-  using S = Shape<ND>;
-  constexpr int R = S::NROW, C = S::NCOL, E = S::ELEMS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bs = reinterpret_cast<T*>(smem_raw);   // R x C
-  T* xs = bs + R * C;                       // E x C
-  T* ss = xs + E * C;                       // E x R
-  __shared__ int eidx[E][4];                // ex, ey, ez, linear element
-
-  for (int i = threadIdx.x; i < R * C; i += blockDim.x) bs[i] = Bs[i];
-
-  for (int first = blockIdx.x * E; first < ncol_el; first += gridDim.x * E) {
-    const int ne = min(E, ncol_el - first);
-    __syncthreads();   // Bs loaded / previous chunk done with xs, ss, eidx
-    if (threadIdx.x < ne) {
-      const int ci = first + threadIdx.x;
-      const int ix = ci % ncx, iy = (ci / ncx) % ncy, iz = ci / (ncx * ncy);
-      const int ex = cx + 2 * ix, ey = cy + 2 * iy, ez = cz + 2 * iz;
-      eidx[threadIdx.x][0] = ex;
-      eidx[threadIdx.x][1] = ey;
-      eidx[threadIdx.x][2] = ez;
-      eidx[threadIdx.x][3] = ex + mx * (ey + my * ez);
-    }
-    __syncthreads();
-    // gather x_e
-    for (int i = threadIdx.x; i < ne * C; i += blockDim.x) {
-      const int el = i / C, col = i - el * C;
-      xs[i] = x[dof_index<ND>(cls, eidx[el][0], eidx[el][1], eidx[el][2], col)];
-    }
-    __syncthreads();
-    // strain = Bs x_e, scaled by s_e
-    for (int i = threadIdx.x; i < ne * R; i += blockDim.x) {
-      const int el = i / R, r = i - el * R;
-      const T* brow = bs + r * C;
-      const T* xe = xs + el * C;
-      T acc = T(0);
-#pragma unroll 9
-      for (int k = 0; k < C; ++k) acc += brow[k] * xe[k];
-      ss[i] = acc * scale[(long long)eidx[el][3] * R + r];
-    }
-    __syncthreads();
-    // y_e = Bs^T strain, scatter-add (no other element of this colour
-    // touches these dofs)
-    for (int i = threadIdx.x; i < ne * C; i += blockDim.x) {
-      const int el = i / C, col = i - el * C;
-      const T* se = ss + el * R;
-      T acc = T(0);
-#pragma unroll 9
-      for (int r = 0; r < R; ++r) acc += bs[r * C + col] * se[r];
-      y[dof_index<ND>(cls, eidx[el][0], eidx[el][1], eidx[el][2], col)] += acc;
-    }
-  }
-}
-
-template <typename T, int ND>
-int launch_all(const T* x, const T* scale, const T* Bs, T* y, int mx, int my,
-               int mz, cudaStream_t stream) {
-  using S = Shape<ND>;
-  if (ND == 2) mz = 1;
-  Classes cls{};
-  long long off = 0;
-  for (int p = 0; p < S::NCLS; ++p) {
-    const int nx = mx + 1 - (p & 1), ny = my + 1 - ((p >> 1) & 1);
-    const int nz = ND == 3 ? mz + 1 - ((p >> 2) & 1) : 1;
-    cls.off[p] = off;
-    cls.nx[p] = nx;
-    cls.ny[p] = ny;
-    off += (long long)nx * ny * nz * ND;
-  }
-  const size_t smem = sizeof(T) * (size_t)(S::NROW * S::NCOL
-                                           + S::ELEMS * (S::NROW + S::NCOL));
-  cudaError_t err = cudaFuncSetAttribute(
-      a00_colour_kernel<T, ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  for (int colour = 0; colour < (1 << ND); ++colour) {
-    const int cx = colour & 1, cy = (colour >> 1) & 1, cz = (colour >> 2) & 1;
-    const int ncx = (mx - cx + 1) / 2, ncy = (my - cy + 1) / 2;
-    const int ncz = ND == 3 ? (mz - cz + 1) / 2 : 1;
-    const int n = ncx * ncy * ncz;
-    if (n == 0) continue;
-    const int blocks = (n + S::ELEMS - 1) / S::ELEMS;
-    a00_colour_kernel<T, ND><<<blocks, S::THREADS, smem, stream>>>(
-        x, scale, Bs, y, mx, my, cx, cy, cz, ncx, ncy, n, cls);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
 template <typename T>
-int dispatch(const void* x, const void* scale, const void* Bs, void* y,
-             int nd, int mx, int my, int mz, void* stream) {
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// ---------------------------------------------------------------------------
+// Products on the CUDA cores (float32). Thread (te, tc) owns elements
+// te*AE .. te*AE+AE-1 of the tile and strain rows tc + TC*j (B1 of them),
+// then element columns tc + TC*j (B2 of them).
+// ---------------------------------------------------------------------------
+template <int ND> struct Simt {
+  using S = Shape<ND>;
+  using T = float;
+  using V = float4;
+  static constexpr int VW = 4;
+  static constexpr int AE = 4, TE = TM / AE, TC = S::TC;
+  static constexpr int NT = TE * TC, MINB = 2;
+  static constexpr int B1 = S::R / TC, B2 = S::C / TC;
+  static constexpr int KC = round_up(S::C, VW);   // depth of S = X Bs^T
+  static constexpr int RP = round_up(S::R, VW);   // Bs rows = depth of S Bs
+  static constexpr int LDX = vec_stride(S::C, VW);
+  static constexpr int LDS = vec_stride(S::R, VW);
+  static_assert(B1 * TC == S::R && B2 * TC == S::C, "TC must divide R, C");
+
+  // ss[el][r] = (X Bs^T)[el][r] * scale[e0 + el][r]
+  __device__ static void strain(const T* xt, const T* bs, T* ss,
+                                const T* __restrict__ scale, int e0,
+                                int nel) {
+    const int te = threadIdx.x / TC, tc = threadIdx.x - te * TC;
+    T sc[AE][B1], acc[AE][B1];
+#pragma unroll
+    for (int i = 0; i < AE; ++i) {
+      const int e = e0 + te * AE + i;
+#pragma unroll
+      for (int j = 0; j < B1; ++j) {
+        sc[i][j] = e < nel ? scale[(size_t)e * S::R + tc + TC * j] : T(0);
+        acc[i][j] = T(0);
+      }
+    }
+    for (int k = 0; k < KC; k += VW) {
+      V xv[AE], bv[B1];
+#pragma unroll
+      for (int i = 0; i < AE; ++i)
+        xv[i] = *reinterpret_cast<const V*>(xt + (te * AE + i) * LDX + k);
+#pragma unroll
+      for (int j = 0; j < B1; ++j)
+        bv[j] = *reinterpret_cast<const V*>(bs + (tc + TC * j) * LDX + k);
+#pragma unroll
+      for (int q = 0; q < VW; ++q)
+#pragma unroll
+        for (int i = 0; i < AE; ++i)
+#pragma unroll
+          for (int j = 0; j < B1; ++j)
+            acc[i][j] = fma(comp(xv[i], q), comp(bv[j], q), acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < AE; ++i)
+#pragma unroll
+      for (int j = 0; j < B1; ++j)
+        ss[(te * AE + i) * LDS + tc + TC * j] = acc[i][j] * sc[i][j];
+  }
+
+  // ye[e0 + el][c] = (S Bs)[el][c]
+  __device__ static void element_out(const T* ss, const T* bs,
+                                     T* __restrict__ ye, int e0, int nel) {
+    const int te = threadIdx.x / TC, tc = threadIdx.x - te * TC;
+    T acc[AE][B2];
+#pragma unroll
+    for (int i = 0; i < AE; ++i)
+#pragma unroll
+      for (int j = 0; j < B2; ++j) acc[i][j] = T(0);
+    for (int r = 0; r < RP; r += VW) {
+      V sv[AE];
+#pragma unroll
+      for (int i = 0; i < AE; ++i)
+        sv[i] = *reinterpret_cast<const V*>(ss + (te * AE + i) * LDS + r);
+#pragma unroll
+      for (int q = 0; q < VW; ++q) {
+        T b[B2];
+#pragma unroll
+        for (int j = 0; j < B2; ++j) b[j] = bs[(r + q) * LDX + tc + TC * j];
+#pragma unroll
+        for (int i = 0; i < AE; ++i)
+#pragma unroll
+          for (int j = 0; j < B2; ++j)
+            acc[i][j] = fma(comp(sv[i], q), b[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < AE; ++i) {
+      const int e = e0 + te * AE + i;
+      if (e < nel)
+#pragma unroll
+        for (int j = 0; j < B2; ++j)
+          ye[(size_t)e * S::C + tc + TC * j] = acc[i][j];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Products on the FP64 tensor cores (float64): mma.sync m16n8k4 per warp.
+// Fragments (PTX ISA, f64 m16n8k4), g = lane / 4, t = lane % 4, h < 2:
+//   A (16x4, row) a[h] = A[g + 8h][t];  B (4x8, col) b = B[t][g];
+//   C (16x8)      c[2h + i] = C[g + 8h][2t + i].
+// Twelve warps: element tiles of 16 (2 per tile of TM), strain-row and
+// element-column tiles of 8. S = X Bs^T: warp w owns both element tiles x
+// row tiles w + 12s. Ye = S Bs: warp w owns element tile w%2 x column tiles
+// w/2 + 6s.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mma16x8x4(double (&c)[4], const double (&a)[2],
+                                          double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+template <int ND> struct Mma {
+  using S = Shape<ND>;
+  using T = double;
+  static constexpr int NW = 12, NT = 32 * NW, MINB = 1;
+  static constexpr int MT = TM / 16;            // element tiles
+  static constexpr int N1 = (S::R + 7) / 8;     // strain-row tiles
+  static constexpr int N2 = (S::C + 7) / 8;     // element-column tiles
+  static constexpr int KC = round_up(S::C, 4);  // depth of S = X Bs^T
+  static constexpr int K2 = round_up(S::R, 4);  // depth of S Bs
+  static constexpr int RP = imax(8 * N1, K2);   // Bs rows
+  static constexpr int LDX = mma_stride(KC);
+  static constexpr int LDS = mma_stride(K2);
+  static constexpr int NP1 = (N1 + NW - 1) / NW;
+  static constexpr int NP2 = (N2 + NW / 2 - 1) / (NW / 2);
+  static_assert(MT == 2, "the Ye split assigns one element tile per warp");
+
+  __device__ static void strain(const T* xt, const T* bs, T* ss,
+                                const T* __restrict__ scale, int e0,
+                                int nel) {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    T acc[MT][NP1][4], sc[MT][NP1][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int s = 0; s < NP1; ++s)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int e = e0 + m * 16 + g + 8 * (v >> 1);
+          const int r = (w + NW * s) * 8 + 2 * t + (v & 1);
+          sc[m][s][v] = e < nel && r < S::R ? scale[(size_t)e * S::R + r]
+                                            : T(0);
+          acc[m][s][v] = T(0);
+        }
+#pragma unroll
+    for (int k = 0; k < KC; k += 4) {
+      T a[MT][2], b[NP1];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a[m][h] = xt[(m * 16 + g + 8 * h) * LDX + k + t];
+#pragma unroll
+      for (int s = 0; s < NP1; ++s)
+        b[s] = w + NW * s < N1 ? bs[((w + NW * s) * 8 + g) * LDX + k + t]
+                               : T(0);
+#pragma unroll
+      for (int s = 0; s < NP1; ++s)
+        if (w + NW * s < N1)   // warp-uniform
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma16x8x4(acc[m][s], a[m], b[s]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int s = 0; s < NP1; ++s)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = (w + NW * s) * 8 + 2 * t + (v & 1);
+          if (r < S::R)
+            ss[(m * 16 + g + 8 * (v >> 1)) * LDS + r] =
+                acc[m][s][v] * sc[m][s][v];
+        }
+  }
+
+  __device__ static void element_out(const T* ss, const T* bs,
+                                     T* __restrict__ ye, int e0, int nel) {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int m = w & 1, n0 = w >> 1;
+    T acc[NP2][4];
+#pragma unroll
+    for (int s = 0; s < NP2; ++s)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[s][v] = T(0);
+#pragma unroll
+    for (int k = 0; k < K2; k += 4) {
+      T a[2], b[NP2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[h] = ss[(m * 16 + g + 8 * h) * LDS + k + t];
+#pragma unroll
+      for (int s = 0; s < NP2; ++s) {
+        const int c = (n0 + (NW / 2) * s) * 8 + g;
+        b[s] = c < S::C ? bs[(k + t) * LDX + c] : T(0);
+      }
+#pragma unroll
+      for (int s = 0; s < NP2; ++s)
+        if (n0 + (NW / 2) * s < N2)   // warp-uniform
+          mma16x8x4(acc[s], a, b[s]);
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int e = e0 + m * 16 + g + 8 * (v >> 1);
+      if (e < nel)
+#pragma unroll
+        for (int s = 0; s < NP2; ++s) {
+          const int c = (n0 + (NW / 2) * s) * 8 + 2 * t + (v & 1);
+          if (c < S::C) ye[(size_t)e * S::C + c] = acc[s][v];
+        }
+    }
+  }
+};
+
+template <typename T, int ND> struct Products;
+template <int ND> struct Products<float, ND> { using type = Simt<ND>; };
+template <int ND> struct Products<double, ND> { using type = Mma<ND>; };
+
+template <class P, typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (size_t)(P::RP * P::LDX + 2 * TM * P::LDX +
+                              TM * P::LDS);
+}
+
+// ---------------------------------------------------------------------------
+// Pass 1: Ye = (X_e Bs^T * s_e) Bs for every element, persistent blocks.
+// ---------------------------------------------------------------------------
+template <typename T, int ND, class P>
+__global__ void __launch_bounds__(P::NT, P::MINB)
+a00_element_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   const T* __restrict__ Bs, T* __restrict__ ye, int nel,
+                   int mx, int my, Grid g) {
+  using S = Shape<ND>;
+  constexpr int R = S::R, C = S::C, NCLS = S::NCLS;
+  constexpr int LDX = P::LDX, NT = P::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* bs = reinterpret_cast<T*>(smem_raw);   // P::RP x LDX
+  T* xs = bs + P::RP * LDX;                 // 2 x TM x LDX
+  T* ss = xs + 2 * TM * LDX;                // TM x P::LDS
+  __shared__ int col_off[C], col_cls[C];    // per element column
+  __shared__ int ebase[TM][NCLS];           // per tile element and class
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < P::RP * LDX; i += NT) {
+    const int r = i / LDX, c = i - r * LDX;
+    bs[i] = r < R && c < C ? Bs[r * C + c] : T(0);
+  }
+  for (int i = tid; i < 2 * TM * LDX + TM * P::LDS; i += NT) xs[i] = T(0);
+  for (int c = tid; c < C; c += NT) {
+    const int node = c / ND, a = c - node * ND;
+    const int la = node % 3, lb = (node / 3) % 3, lc = node / 9;
+    const int p = (la & 1) | ((lb & 1) << 1) | ((lc & 1) << 2);
+    col_cls[c] = p;
+    col_off[c] = g.off[p] +
+                 (((lc >> 1) * g.ny[p] + (lb >> 1)) * g.nx[p] + (la >> 1)) *
+                     ND + a;
+  }
+
+  const int ntiles = (nel + TM - 1) / TM;
+  // flat-vector offset of each tile element's node (0,0,0) shifted into
+  // class p: x index of column c = col_off[c] + ebase[el][col_cls[c]]
+  auto element_bases = [&](int tile) {
+    for (int i = tid; i < TM * NCLS; i += NT) {
+      const int el = i / NCLS, p = i - el * NCLS;
+      const int e = min(tile * TM + el, nel - 1);
+      const int ex = e % mx, ey = (e / mx) % my, ez = e / (mx * my);
+      ebase[el][p] = ((ez * g.ny[p] + ey) * g.nx[p] + ex) * ND;
+    }
+  };
+  auto gather = [&](int tile, T* dst) {
+    const int ne = min(TM, nel - tile * TM);
+    for (int i = tid; i < ne * C; i += NT) {
+      const int el = i / C, c = i - el * C;
+      cp_async(dst + el * LDX + c, x + col_off[c] + ebase[el][col_cls[c]]);
+    }
+    cp_async_commit();
+  };
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) element_bases(tile);
+  __syncthreads();
+  if (tile < ntiles) gather(tile, xs);
+  __syncthreads();   // every thread has read ebase
+  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < ntiles) element_bases(next);
+    // ebase ready; the other x buffer and the strain tile are free
+    __syncthreads();
+    if (next < ntiles)
+      gather(next, xs + ((it + 1) & 1) * TM * LDX);
+    else
+      cp_async_commit();
+    cp_async_wait_prev();   // this tile's group has landed
+    __syncthreads();
+    P::strain(xs + (it & 1) * TM * LDX, bs, ss, scale, tile * TM, nel);
+    __syncthreads();
+    P::element_out(ss, bs, ye, tile * TM, nel);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 2: y[dof] = sum over the node's elements, in table order.
+// ---------------------------------------------------------------------------
+constexpr int GATHER_THREADS = 256;
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(GATHER_THREADS)
+a00_node_gather_kernel(const T* __restrict__ ye, const int* __restrict__ ell,
+                       T* __restrict__ y, int nu) {
+  constexpr int NS = 1 << ND;   // elements per node, at most
+  const int i = blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (i >= nu) return;
+  const int node = i / ND, a = i - node * ND;
+  const int4* row = reinterpret_cast<const int4*>(ell + (size_t)node * NS);
+  int idx[NS];
+#pragma unroll
+  for (int v = 0; v < NS / 4; ++v) {
+    const int4 q = __ldg(row + v);
+    idx[4 * v] = q.x;
+    idx[4 * v + 1] = q.y;
+    idx[4 * v + 2] = q.z;
+    idx[4 * v + 3] = q.w;
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    if (idx[s] >= 0) acc += ye[idx[s] + a];
+  y[i] = acc;
+}
+
+// Sets the element kernel's dynamic shared memory and returns how many of
+// its blocks fit on one SM.
+template <typename T, int ND, class P>
+cudaError_t blocks_per_sm(int* per_sm) {
+  constexpr size_t smem = smem_bytes<P, T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      a00_element_kernel<T, ND, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, a00_element_kernel<T, ND, P>, P::NT, smem);
+}
+
+template <typename T, int ND, class P>
+int launch(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
+           T* y, int mx, int my, int mz, cudaStream_t stream) {
+  using S = Shape<ND>;
+  if (ND == 2) mz = 1;
+  Grid g{};
+  int off = 0;
+  for (int p = 0; p < S::NCLS; ++p) {
+    const int nx = mx + 1 - (p & 1), ny = my + 1 - ((p >> 1) & 1);
+    const int nz = ND == 3 ? mz + 1 - ((p >> 2) & 1) : 1;
+    g.off[p] = off;
+    g.nx[p] = nx;
+    g.ny[p] = ny;
+    off += nx * ny * nz * ND;
+  }
+  const int nu = off, nel = mx * my * mz;
+  // blocks resident at once on this device, found once per device
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = blocks_per_sm<T, ND, P>(&per_sm);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = per_sm * sms;
+  }
+  const int ntiles = (nel + TM - 1) / TM;
+  const int blocks = ntiles < resident[dev] ? ntiles : resident[dev];
+  constexpr size_t smem = smem_bytes<P, T>();
+  a00_element_kernel<T, ND, P><<<blocks, P::NT, smem, stream>>>(
+      x, scale, Bs, ye, nel, mx, my, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  a00_node_gather_kernel<T, ND>
+      <<<(nu + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS, 0,
+         stream>>>(ye, ell, y, nu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* scale, const void* Bs,
+             const void* ell, void* ye, void* y, int nd, int mx, int my,
+             int mz, void* stream) {
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   const T* bt = static_cast<const T*>(Bs);
+  const int* et = static_cast<const int*>(ell);
+  T* yet = static_cast<T*>(ye);
   T* yt = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nd == 3) return launch_all<T, 3>(xt, st, bt, yt, mx, my, mz, s);
-  if (nd == 2) return launch_all<T, 2>(xt, st, bt, yt, mx, my, mz, s);
+  if (nd == 3)
+    return launch<T, 3, typename Products<T, 3>::type>(xt, st, bt, et, yet,
+                                                       yt, mx, my, mz, s);
+  if (nd == 2)
+    return launch<T, 2, typename Products<T, 2>::type>(xt, st, bt, et, yet,
+                                                       yt, mx, my, mz, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// y must be zeroed by the caller; x, scale_visc (nel x nrow), Bs (nrow x
-// ncol) and y are contiguous device arrays of one dtype on the stream's
-// device. Returns 0 or the cudaError_t of the failed launch.
+// x (nu), scale_visc (nel x nrow), Bs (nrow x ncol), the node table ell
+// (nu / nd x 2^nd int32, kernels/a00.py:node_gather_table), the scratch ye
+// (nel x ncol) and y (nu) are contiguous device arrays on the stream's
+// device, of one dtype but for ell; y is fully written (no zero fill).
+// Returns 0 or the cudaError_t of the failed launch.
 extern "C" int a00_apply_f32(const void* x, const void* scale, const void* Bs,
-                             void* y, int nd, int mx, int my, int mz,
-                             void* stream) {
-  return dispatch<float>(x, scale, Bs, y, nd, mx, my, mz, stream);
+                             const void* ell, void* ye, void* y, int nd,
+                             int mx, int my, int mz, void* stream) {
+  return dispatch<float>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, stream);
 }
 
 extern "C" int a00_apply_f64(const void* x, const void* scale, const void* Bs,
-                             void* y, int nd, int mx, int my, int mz,
-                             void* stream) {
-  return dispatch<double>(x, scale, Bs, y, nd, mx, my, mz, stream);
+                             const void* ell, void* ye, void* y, int nd,
+                             int mx, int my, int mz, void* stream) {
+  return dispatch<double>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, stream);
 }
 
 extern "C" const char* a00_error_string(int err) {

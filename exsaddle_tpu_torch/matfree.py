@@ -22,6 +22,7 @@ The host half (factored_host, parity_permutation) is numpy, copied from the
 JAX package so both build the same numbers."""
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -29,7 +30,7 @@ import torch
 from exsaddle_tpu_torch.grid_ops import (split_u_parity, gather_u_parity,
                                          scatter_u_parity, _gather_q1,
                                          _scatter_q1)
-from exsaddle_tpu_torch.kernels.a00 import a00_apply
+from exsaddle_tpu_torch.kernels.a00 import a00_apply, node_gather_table
 
 def _strain_matrix(G, nd, nbu):
     """Shared strain operator rows.
@@ -204,6 +205,13 @@ class ParityMatFreeOperator:
     @property
     def p_shape(self):
         return tuple(reversed(self.nn_p))
+
+    @cached_property
+    def node_table(self):
+        """K1's node gather table (kernels/a00.py:node_gather_table) on this
+        operator's device, built at its first CUDA apply."""
+        return torch.as_tensor(node_gather_table(self.m_el),
+                               device=self.Bs.device)
 
     def split_u(self, xu):
         """Flat u vector -> list of per-class grid views."""

@@ -1,12 +1,13 @@
 """Native (C++) host factorizations and orderings, bound via ctypes (the port
 of exsaddle_tpu/native/__init__.py).
 
-The sources are the JAX package's own C++ files, exsaddle_tpu/native/
-{ilu0,ildl,order}.cpp, read by path (reading a file imports nothing of that
-package). Each is compiled with g++ on first use into exsaddle_tpu_torch/
-_build/ (listed in .gitignore) under a name that carries the hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. A failed build raises. Nothing is built at import time.
+The sources are the port's own copies of the JAX package's C++ files,
+exsaddle_tpu_torch/host_src/{ilu0,ildl,order}.cpp, byte for byte the same
+(tests/test_torch_native.py holds them so). Each is compiled with g++ on
+first use into exsaddle_tpu_torch/_build/ (listed in .gitignore) under a
+name that carries the hash of the source and flags, so an edited source is
+rebuilt and an unchanged one is reused. A failed build raises. Nothing is
+built at import time.
 
 These are sequential sparse factorizations (ILU(0), incomplete LDL^T,
 AMD / nested-dissection orderings, MC64 scalings) that belong next to, not
@@ -24,7 +25,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "exsaddle_tpu", "native")
+SRC_DIR = os.path.join(_PKG, "host_src")
 BUILD_DIR = os.path.join(_PKG, "_build")
 GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -394,7 +395,7 @@ def mc64_scaling(A_csr):
 class ILU0Factor:
     """ILU(0) on the original CSR pattern, natural ordering (PETSc PCILU
     defaults). Factorization and triangular solves run in native C++
-    (exsaddle_tpu/native/ilu0.cpp)."""
+    (host_src/ilu0.cpp)."""
 
     def __init__(self, A_csr):
         lib = _load("ilu0")

@@ -35,12 +35,14 @@ HOST_MG_1 = ("-model 2 -sinker_n 1 -mx 8 -mg -nlevels 2 "
              "-saddle_mg_levels_ksp_max_it 10").split()
 
 # (nd, m_el, lame, model, size): test_fast_apply.CASES plus an odd 3D shape
+# and 4,096 elements, where every persistent block of K1 walks several tiles
 CASES = [(2, (5, 4), False, "0", None),
          (3, (3, 4, 2), False, "11", (0.1, 1.0, 1.0)),
          (2, (4, 4), True, "6", None),
          (3, (3, 3, 3), True, "6", None),
          (2, (1, 1), False, "0", None),
-         (3, (5, 7, 3), False, "11", (0.1, 1.0, 1.0))]
+         (3, (5, 7, 3), False, "11", (0.1, 1.0, 1.0)),
+         (3, (16, 16, 16), False, "11", (0.1, 1.0, 1.0))]
 
 # kernel vs plain: float32 to float32 summation order, float64 to ~ulps
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -75,14 +77,16 @@ def test_a00_kernel_matches_plain(cuda, case, dtype):
     op = _operator(case, dtype, cuda)
     x = torch.as_tensor(np.random.default_rng(8).standard_normal(op.nu),
                         dtype=dtype, device=cuda)
-    n0 = a00.LAUNCHES.n
+    n0, a0 = a00.LAUNCHES.n, a00.LAUNCHES.applies
     yk = a00.a00_apply(op, x)
-    assert a00.LAUNCHES.n == n0 + 1
+    # one apply: the element kernel and the node gather
+    assert a00.LAUNCHES.n == n0 + 2 and a00.LAUNCHES.applies == a0 + 1
     yp = a00.a00_apply_plain(op, x)
     torch.cuda.synchronize()
     assert float((yk - yp).abs().max()) <= TOL[dtype] * float(
         yp.abs().max())
-    # the colour sweep has no atomics: repeated applies are bitwise equal
+    # the node gather sums in a fixed order, with no atomics: repeated
+    # applies are bitwise equal
     assert torch.equal(a00.a00_apply(op, x), yk)
 
 
