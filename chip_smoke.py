@@ -43,31 +43,72 @@ Phases, in order; any failure raises and the script exits nonzero:
               the last monitored residual to 1e-6; repeated applies are
               bitwise equal and a repeated solve (-twosolves) gives the same
               iteration count and a bitwise-equal x.
+8. compiled -- the fixed-work FGMRES path with no host reads
+              (compiled.make_fgmres_cycle_tree) on the mx=32 pseudoice
+              parity operator (859,812 dofs), Jacobi PC, F from
+              default_rng(2): one FGMRES(30) cycle in float64 and in float32,
+              each under torch.cuda.set_sync_debug_mode("error"), each 2 x 32
+              K1 launches; the float64 cycle also captured as one CUDA graph
+              (capture fails on a host sync) and replayed, bitwise equal;
+              the float64 residual equals the host KSP's
+              (FGMRES(30), 30 its, convergence test skipped, over the flat
+              ParityMatFreeOperator.mult) to 1e-8, the float32 one is within
+              1% of it; ms per cycle and per iteration (CUDA events, median
+              of 5) beside the host KSP's ms per iteration. At mx=16 in
+              float64, GridSaddleOperator, MatFreeSaddleOperator and the flat
+              parity mult equal SaddleOperator.mult to 1e-12, bitwise
+              repeatable.
+9. outputs -- the flagship -saddle_ksp_view argv at mx=6 on CUDA: the JAX
+              package's iteration count and tree length, and the tree of a
+              -device cpu run line for line (the two esteig line classes to
+              1e-5). Every -dump_* flag, -view_fields and -view_coeffs at
+              mx=4 in 3D into a temporary directory: every file reloads, the
+              dumped solution is X bitwise, the dumped operator maps X to
+              F - r, postproc.spectrum runs on the preconditioned operator.
+              ex23 at -n 50 with the default PC and ildl, ilupack, jacobi,
+              ilu: error below 1e-9.
+10. ex42  -- the sinker (model 1) at mx=my=mz=32 (143,748 dofs), FGMRES
+              to rtol 1e-7 with an additive fieldsplit: a 4-level Galerkin MG
+              u-block (Chebyshev/Jacobi smoothers), a Jacobi p-block.
+              Converges in the JAX package's iteration count with p-rows of F - A X below
+              1e-8 ||F||; setup and solve seconds, ms per iteration.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
 
+from exsaddle_tpu_torch import compiled
 from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import models as emodels
 from exsaddle_tpu_torch import native
-from exsaddle_tpu_torch.assembly import FESpace
-from exsaddle_tpu_torch.grid_ops import gather_u_parity, split_u_parity
+from exsaddle_tpu_torch import postproc
+from exsaddle_tpu_torch.assembly import FESpace, assemble_element_matrices
+from exsaddle_tpu_torch.ex23 import solve_ex23
+from exsaddle_tpu_torch.ex42 import solve_stokes_3d_coupled
+from exsaddle_tpu_torch.grid_ops import (GridSaddleOperator, gather_u_parity,
+                                         split_u_parity)
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
-from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
-                                        tree_aux)
+from exsaddle_tpu_torch.krylov import KSP, KSPConfig
+from exsaddle_tpu_torch.matfree import (MatFreeSaddleOperator,
+                                        ParityMatFreeOperator, mult_tree,
+                                        parity_permutation, tree_aux)
 from exsaddle_tpu_torch.mesh import SaddleMesh
+from exsaddle_tpu_torch.operator import apply_dirichlet_elimination
 from exsaddle_tpu_torch.options import Options
+from exsaddle_tpu_torch.precond import PCJacobi
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -108,15 +149,22 @@ def phase_build():
         log(f"[build] {line}")
 
 
-def _operator(ndim, m, model, size, dtype, device):
+def _problem(ndim, m, model, size):
+    """(mesh, fes, coefficients, bc indices and values, natural-order bc
+    mask) of one structured-grid problem."""
     opts = Options.from_args(["-model", str(model)])
     ctx = emodels.ModelContext(opts, ndim, log=lambda *a, **k: None)
     mesh = SaddleMesh(ndim, m, size)
     fes = FESpace(mesh)
-    bc_idx, _ = emodels.create_bc_list(ctx, mesh)
+    bc_idx, bc_vals = emodels.create_bc_list(ctx, mesh)
     coeff = tdriver.fine_coefficients(ctx, fes)
     bc_mask = np.zeros(mesh.ndof)
     bc_mask[:mesh.nu][bc_idx] = 1.0
+    return mesh, fes, coeff, bc_idx, bc_vals, bc_mask
+
+
+def _operator(ndim, m, model, size, dtype, device):
+    mesh, fes, coeff, _, _, bc_mask = _problem(ndim, m, model, size)
     return ParityMatFreeOperator.build(mesh, fes, coeff, bc_mask,
                                        dtype=dtype, device=device)
 
@@ -437,6 +485,272 @@ def phase_host_mg(device):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+COMPILED_K = 30
+
+
+def phase_compiled(device, card):
+    """The fixed-work tree FGMRES cycle on K1 at mx=32 (float64, float32)
+    against the host KSP, then the natural-order operators at mx=16.
+    Returns (K1 launches, applies) of the two sync-checked cycles."""
+    k = COMPILED_K
+    cycle = compiled.make_fgmres_cycle_tree(k)
+    mesh, fes, coeff, _, _, bc_mask = _problem(3, (32, 32, 32), 11,
+                                               (0.1, 1.0, 1.0))
+    F_np = np.random.default_rng(2).standard_normal(mesh.ndof)
+    out, launches, applies = {}, 0, 0
+    for dtype in (torch.float64, torch.float32):
+        op = ParityMatFreeOperator.build(mesh, fes, coeff, bc_mask,
+                                         dtype=dtype, device=device)
+        d = op.diagonal()
+        inv = 1.0 / torch.where(d == 0.0, torch.ones_like(d), d)
+        F = torch.as_tensor(F_np, dtype=dtype, device=device)
+        x0 = torch.zeros_like(F)
+        aux = tree_aux(op)
+        op.node_table                      # K1's table on the device
+        torch.cuda.synchronize()
+        a00.LAUNCHES.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x, rn = cycle(op, aux, inv, F, x0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n, a = a00.LAUNCHES.n, a00.LAUNCHES.applies
+        launches += n
+        applies += a
+        check(n == 2 * (k + 2) and a == k + 2,
+              f"compiled {dtype}: {n} K1 launches in {a} applies, expected "
+              f"{2 * (k + 2)} in {k + 2}")
+        rn = float(rn)
+        check(np.isfinite(rn) and bool(torch.isfinite(x).all()),
+              f"compiled {dtype}: residual {rn} or x not finite")
+        ms = _median_ms(lambda: cycle(op, aux, inv, F, x0), reps=5, inner=1,
+                         warmup=1)
+        out[dtype] = (rn, ms)
+        log(f"[compiled] mx=32 ndof {mesh.ndof} {str(dtype)[6:]}: FGMRES({k}) "
+            f"cycle, no host sync, {n} K1 launches in {a} applies, "
+            f"||F - A x|| {rn:.10e}, {ms:.3f} ms per cycle, {ms / k:.4f} ms per "
+            f"iteration ({card})")
+        if dtype == torch.float64:
+            # the same cycle captured into a CUDA graph: capture fails on any
+            # host synchronisation; a replay shows the device's own time
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                cycle(op, aux, inv, F, x0)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                xg, rg = cycle(op, aux, inv, F, x0)
+            graph.replay()
+            check(torch.equal(xg, x) and float(rg) == rn,
+                  "compiled float64: the graph replay differs from the cycle")
+            g_ms = _median_ms(graph.replay, reps=5, inner=1, warmup=1)
+            log(f"[compiled] the float64 cycle captured as one CUDA graph: "
+                f"replay {g_ms:.3f} ms per cycle, {g_ms / k:.4f} ms per "
+                f"iteration, bitwise equal to the cycle ({card})")
+            del graph, xg, rg
+            hist = []
+            cfg = KSPConfig(type="fgmres", restart=k, max_it=k,
+                            convergence_test="skip",
+                            monitor=lambda i, r: hist.append(r))
+            ksp = KSP(op.mult, pc=PCJacobi(d, device), cfg=cfg)
+            ksp.solve(F)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist.clear()
+            ksp.solve(F)
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0) / k
+            rel = abs(hist[-1] - rn) / hist[-1]
+            log(f"[compiled] host KSP FGMRES({k}) over the flat parity mult: "
+                f"residual {hist[-1]:.10e} (relative difference {rel:.3e}), "
+                f"{host_ms:.4f} ms per iteration ({card})")
+            check(rel <= 1e-8, f"compiled float64 residual differs from the "
+                  f"host KSP's by {rel:.3e}")
+        del op, d, inv, F, x0, x, aux
+    r64, r32 = out[torch.float64][0], out[torch.float32][0]
+    check(abs(r32 - r64) <= 1e-2 * r64,
+          f"compiled float32 residual {r32} vs float64 {r64}")
+    torch.cuda.empty_cache()
+
+    # natural-order operators against the element-batched SaddleOperator
+    mesh, fes, coeff, bc_idx, bc_vals, bc_mask = _problem(
+        3, (16, 16, 16), 11, (0.1, 1.0, 1.0))
+    elm = assemble_element_matrices(fes, coeff)
+    sop, _, _, _ = apply_dirichlet_elimination(mesh, elm, bc_idx, bc_vals,
+                                               device)
+    del elm
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(mesh.ndof),
+                        device=device)
+    y = sop.mult(x)
+    scale = float(y.abs().max())
+    perm, _ = parity_permutation(mesh)
+    perm = torch.as_tensor(perm, device=device)
+    mf = MatFreeSaddleOperator.build(mesh, fes, coeff, bc_mask,
+                                     dtype=torch.float64, device=device)
+    pop = ParityMatFreeOperator.from_matfree(mf, mesh)
+    for name, fn, ref in (
+            ("GridSaddleOperator",
+             GridSaddleOperator.from_operator(mesh, sop).mult, y),
+            ("MatFreeSaddleOperator", mf.mult, y),
+            ("ParityMatFreeOperator.mult", lambda v: pop.mult(v[perm]),
+             y[perm])):
+        got = fn(x)
+        rel = float((got - ref).abs().max()) / scale
+        log(f"[compiled] mx=16 {name}: relative {rel:.3e} against "
+            f"SaddleOperator.mult")
+        check(rel <= 1e-12, f"{name} differs from SaddleOperator.mult by "
+              f"{rel:.3e}")
+        check(torch.equal(fn(x), got), f"{name}: repeated applies differ")
+    return launches, applies, out
+
+
+# the JAX package's -saddle_ksp_view run of the flagship argv at mx=6
+# (float64 on the CPU): iterations and the tree's lines, rerun by
+# tests/test_torch_chip_anchors.py
+VIEW_ITS, VIEW_TREE_LINES = 21, 289
+_ESTEIG = re.compile(r"eigenvalues estimate via gmres|eigenvalue estimates "
+                     r"used")
+_FLOAT = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+
+
+def _same_esteig(a, b):
+    """Two esteig lines: the same words, numbers to 1e-5 relative."""
+    if _FLOAT.sub("#", a) != _FLOAT.sub("#", b):
+        return False
+    return all(abs(float(x) - float(y)) <= 1e-5 * max(abs(float(y)), 1e-300)
+               for x, y in zip(_FLOAT.findall(a), _FLOAT.findall(b)))
+
+
+def _tree(lines):
+    return lines[lines.index("KSP Object: (saddle_) 1 MPI processes"):]
+
+
+DUMP_FILES = ("coeffs_0.vts", "coeffs_1.vts", "uvw.vts", "p.vts",
+              "solution.npy", "operator_0.npz", "operator_1.npz",
+              "preconditioner.npz", "preconditioned_operator_out.npz",
+              "smoother_1.npz", "mpscaled.npz")
+
+
+def phase_outputs(device, card):
+    argv = tdriver.ABF_OPTS + ("-model 11 -size_x 0.1 -mx 6 -saddle_ksp_view "
+                               "-saddle_ksp_monitor_short").split()
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        lines = []
+        t0 = time.perf_counter()
+        r = tdriver.saddle_solve(Options.from_args(argv + ["-device", dev]),
+                                 3, log=lines.append)
+        trees[dev] = _tree(lines)
+        log(f"[outputs] -saddle_ksp_view mx=6 -device {dev}: {r['reason']} "
+            f"in {r['its']} its, tree of {len(trees[dev])} lines, "
+            f"{time.perf_counter() - t0:.2f} s ({card})")
+        if dev == "cuda":
+            check(r["its"] == VIEW_ITS and "history" not in r,
+                  f"-saddle_ksp_view run: {r['its']} its, expected "
+                  f"{VIEW_ITS} on the host route")
+    check(len(trees["cuda"]) == len(trees["cpu"]) == VIEW_TREE_LINES,
+          f"tree lengths {len(trees['cuda'])} / {len(trees['cpu'])}, "
+          f"expected {VIEW_TREE_LINES}")
+    for a, b in zip(trees["cuda"], trees["cpu"]):
+        ok = _same_esteig(a, b) if _ESTEIG.search(b) else a == b
+        check(ok, f"-saddle_ksp_view trees differ:\ncuda: {a}\ncpu:  {b}")
+
+    argv = ("-model 2 -sinker_n 1 -mx 4 -mg -nlevels 2 -saddle_ksp_type "
+            "fgmres -saddle_mg_levels_ksp_type gmres "
+            "-saddle_mg_levels_pc_type jacobi -saddle_mg_levels_ksp_max_it 3 -view_fields -view_coeffs "
+            "-dump_solution -dump_operator -dump_preconditioner "
+            "-dump_preconditioned_operator -dump_smoother "
+            "-dump_scaled_mass_matrix").split()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            r = tdriver.saddle_solve(Options.from_args(argv), 3,
+                                     log=lambda *a: None)
+            t_run = time.perf_counter() - t0
+            check(r["reason"] == "CONVERGED_RTOL", f"dumps: {r['reason']}")
+            files = sorted(os.listdir(tmp))
+            check(files == sorted(DUMP_FILES), f"dumps wrote {files}")
+            for f in files:
+                if f.endswith(".vts"):
+                    arrays = [np.array(a.text.split(), float) for a in
+                              ET.parse(f).getroot().iter("DataArray")]
+                    check(all(np.isfinite(a).all() for a in arrays),
+                          f"{f}: not finite")
+                else:
+                    z = np.load(f)
+                    arrs = [z] if f.endswith(".npy") else [z[k] for k in z]
+                    check(all(np.isfinite(a).all() for a in arrs),
+                          f"{f}: not finite")
+            X = np.load("solution.npy")
+            check(np.array_equal(X, r["X"]),
+                  "solution.npy is not the returned X")
+            A = postproc.load_operator("operator_1.npz")
+            op = r["levels"][-1].op
+            res = r["F"] - op.mult(torch.as_tensor(X, device=device)).cpu(
+                ).numpy()
+            rel = np.abs(A @ X - (r["F"] - res)).max() / np.abs(r["F"]).max()
+            check(rel <= 1e-12, f"dumped operator: A X vs F - r {rel:.3e}")
+            t0 = time.perf_counter()
+            s = postproc.spectrum(postproc.load_operator(
+                "preconditioned_operator_out.npz"))
+            check(s["pos"].size + s["neg"].size == X.size,
+                  "spectrum: eigenvalue count")
+            log(f"[outputs] mx=4 dumps ({len(files)} files, ndof {X.size}): "
+                f"{t_run:.2f} s; A X = F - r to {rel:.3e}; spectrum of M^-1 A "
+                f"in {time.perf_counter() - t0:.2f} s: {s['pos'].size} "
+                f"positive, {s['neg'].size} negative, max|imag| "
+                f"{s['max_imag']:.3e} ({card})")
+        finally:
+            os.chdir(cwd)
+
+    for args in ("-n 50", "-n 50 -pc_type ildl", "-n 50 -pc_type ilupack",
+                 "-n 50 -pc_type jacobi", "-n 50 -pc_type ilu"):
+        res, err = solve_ex23(Options.from_args(args.split()),
+                              log=lambda *a: None)
+        log(f"[outputs] ex23 {args}: error {err:.3e} in {res.its} its")
+        check(err < 1e-9, f"ex23 {args}: error {err}")
+
+
+# the JAX package's ex42 run of EX42_ARGV at mx=32 (float64 on the CPU),
+# rerun by tests/test_torch_chip_anchors.py
+EX42_ITS = 84
+EX42_ARGV = ("-model 1 -stokes_ksp_type fgmres -stokes_ksp_rtol 1e-7 "
+             "-stokes_fieldsplit_u_ksp_type preonly "
+             "-stokes_fieldsplit_u_pc_type mg "
+             "-stokes_fieldsplit_u_pc_mg_levels 4 "
+             "-stokes_fieldsplit_u_pc_mg_galerkin "
+             "-stokes_fieldsplit_u_mg_levels_pc_type jacobi "
+             "-stokes_fieldsplit_p_ksp_type preonly "
+             "-stokes_fieldsplit_p_pc_type jacobi -stokes_ksp_monitor_blocks")
+
+
+def phase_ex42(device, card):
+    lines = []
+    r = solve_stokes_3d_coupled(32, 32, 32, Options.from_args(
+        EX42_ARGV.split()), log=lines.append, device=device)
+    res, prob = r["result"], r["prob"]
+    mon = [ln for ln in lines if "KSP Component" in ln]
+    for ln in (mon[0], mon[-1]):
+        log(f"[ex42] {ln}")
+    X = r["X"].cpu().numpy()
+    rp = np.abs((prob.F - prob.A @ X)[3::4]).max() / np.linalg.norm(prob.F)
+    t_setup, t_solve = r["seconds"]["setup"], r["seconds"]["solve"]
+    log(f"[ex42] sinker mx=32 ndof {prob.ndof}: {res.reason} in {res.its} "
+        f"its, max p-row |F - A X| / ||F|| {rp:.3e}; setup {t_setup:.2f} s, "
+        f"solve {t_solve:.3f} s, {1e3 * t_solve / res.its:.2f} ms per "
+        f"iteration ({card})")
+    check(res.reason == "CONVERGED_RTOL" and res.its == EX42_ITS,
+          f"ex42: {res.reason} in {res.its} its, expected CONVERGED_RTOL in "
+          f"{EX42_ITS}")
+    check(len(mon) == res.its + 1, f"ex42: {len(mon)} block monitor lines")
+    check(np.all(np.isfinite(X)) and X.shape == (prob.ndof,),
+          "ex42: solution not finite or of the wrong shape")
+    check(rp < 1e-8, f"ex42: p-rows of F - A X at {rp:.3e} of ||F||")
+
+
 def phase_profile():
     """One mx=32 IR solve of the main path under torch.profiler, after a
     warm-up solve: device time by kernel, the card's busy share of the
@@ -484,7 +798,8 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    phase_device()
+    t_start = time.perf_counter()
+    card = phase_device()
     phase_build()
     if "--profile" in sys.argv[1:]:
         phase_profile()
@@ -497,12 +812,20 @@ def main():
     launches, applies = phase_main()
     phase_host_anchor()
     phase_host_mg(device)
+    t0 = time.perf_counter()
+    c_launches, c_applies, _ = phase_compiled(device, card)
+    phase_outputs(device, card)
+    phase_ex42(device, card)
+    log(f"[smoke] compiled, outputs and ex42 phases "
+        f"{time.perf_counter() - t0:.1f} s; whole script "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "a00_apply", "route": "cuda",
         "source": "exsaddle_tpu_torch/csrc/a00_apply.cu",
         "replaces": "exsaddle_tpu/pallas_apply.py:61",
         "launches": launches, "applies": applies,
         "launches_per_apply": launches / applies,
+        "compiled_launches": c_launches, "compiled_applies": c_applies,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_us": 1e3 * k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -3,25 +3,28 @@ exsaddle_tpu/driver.saddle_solve (the reference's SaddleSolve_Q2Q1,
 exSaddle.c:124-566).
 
 Pipeline: options -> MG mesh hierarchy -> BC lists -> coefficient evaluation
-+ Q1 projection + restriction chain -> solver -> diagnostics / error checks.
-Output lines reproduce the reference's stdout. Two routes, as the JAX
-driver's one-binary dispatch:
++ Q1 projection + restriction chain -> solver -> diagnostics / error checks
+/ -ksp_view / VTK views and dumps. Output lines reproduce the reference's
+stdout. Two routes, as the JAX driver's one-binary dispatch:
 
   ABF   the abf.opts tree (_abf_options_match) on one level: the factored
         ABFSolver, direct float64, or with -ir float32 inner solves + float64
         iterative refinement to -rtol_true (monitor lines are then the true
         float64 residual per round). This is the default for that tree;
         -tpu 0 sends it to the host route instead.
-  host  every other tree (and abf.opts under -tpu 0, -constant_pressure_
-        nullspace or virtual ranks): per-level element assembly with
-        Dirichlet elimination into operator.SaddleOperator, MatShells with
-        fieldsplit/MG/DM info, and the KSP/PC tree built from the options
-        (solver_config), including the programmatic rediscretised saddle
-        PCMG of -mg -nlevels N.
+  host  every other tree, and abf.opts under -tpu 0, -constant_pressure_
+        nullspace, virtual ranks or an introspection flag (-saddle_ksp_view
+        and every -dump_* flag but -dump_solution): per-level element
+        assembly with Dirichlet elimination into operator.SaddleOperator,
+        MatShells with fieldsplit/MG/DM and -ksp_view info, and the KSP/PC
+        tree built from the options (solver_config), including the
+        programmatic rediscretised saddle PCMG of -mg -nlevels N.
+
+-view_fields, -view_coeffs and -dump_solution write their files on both
+routes.
 
 -device {cuda,cpu} picks the device, default cuda; with no CUDA device the
-default raises instead of falling back. -saddle_ksp_view, -view_fields,
--view_coeffs and the -dump_* flags are not ported yet and raise.
+default raises instead of falling back.
 
     python -m exsaddle_tpu_torch.driver [-ndim 3] [-lame] [-device cuda] \\
         -model 2 -sinker_n 1 -mx 8 -mg -nlevels 2 -saddle_ksp_type fgmres \\
@@ -43,6 +46,7 @@ from exsaddle_tpu_torch.assembly import (FESpace, assemble_element_matrices,
                                          assemble_rhs, assemble_schur_pre,
                                          scatter_vector, project_qp_to_q1,
                                          interp_q1_to_qp)
+from exsaddle_tpu_torch.matfree import allocated_nnz, coupling_nnz
 from exsaddle_tpu_torch.krylov import (KSPConfig, KSPResult, Reason,
                                        converged_reason_message,
                                        make_monitor_short)
@@ -67,13 +71,6 @@ ABF_OPTS = (
     "-saddle_fieldsplit_u_mg_levels_pc_type jacobi "
     "-saddle_fieldsplit_p_ksp_type preonly "
     "-saddle_fieldsplit_p_pc_type bjacobi").split()
-
-# output flags the port does not produce yet (the next slice ports
-# ksp_view.py and the io/postproc outputs)
-_UNPORTED = ("saddle_ksp_view", "view_fields", "view_coeffs",
-             "dump_solution", "dump_operator", "dump_preconditioner",
-             "dump_preconditioned_operator", "dump_smoother",
-             "dump_scaled_mass_matrix")
 
 
 @dataclass
@@ -121,11 +118,28 @@ def _coefficient_pipeline(levels, ctx):
     (femixedspace.c:1937-2266): evaluate at fine qps, project to Q1 nodes,
     re-interpolate; coarse levels by scaled restriction of the nodal fields.
     """
+    nlev = len(levels)
     fine = levels[-1]
     nodal = _fine_nodal(ctx, fine.fes)
     fine.coeff_qp = _qp_dict(ctx, interp_q1_to_qp(fine.fes, nodal))
+
+    view_coeffs = ctx.opts.get_bool("view_coeffs", False)
+
+    def _dump_coeffs(lvl_idx, lvl, nod):
+        """-view_coeffs: nodal Q1 coefficient fields as VTK
+        (femixedspace.c:2092-2123, 2224-2254)."""
+        names = (["mu", "Fu_x", "Fu_y", "Fp", "lambda", "Fu_z"][:nod.shape[1]]
+                 if ctx.lame else
+                 ["eta", "Fu_x", "Fu_y", "Fp", "Fu_z"][:nod.shape[1]])
+        esio.write_vts(f"coeffs_{lvl_idx}.vts", lvl.mesh.nn_p,
+                       lvl.mesh.p_coords,
+                       {nm: nod[:, j] for j, nm in enumerate(names)})
+
+    if view_coeffs:
+        _dump_coeffs(nlev - 1, fine, nodal)
+
     nodal_f = nodal
-    for k in range(len(levels) - 2, -1, -1):
+    for k in range(nlev - 2, -1, -1):
         P = Prolongation(levels[k].mesh.nn_p, levels[k + 1].mesh.nn_p, dof=1)
         scale = P.restriction_scale()
         nodal_c = np.stack(
@@ -134,13 +148,21 @@ def _coefficient_pipeline(levels, ctx):
              for j in range(nodal_f.shape[1])], axis=1)
         levels[k].coeff_qp = _qp_dict(
             ctx, interp_q1_to_qp(levels[k].fes, nodal_c))
+        if view_coeffs:
+            _dump_coeffs(k, levels[k], nodal_c)
         nodal_f = nodal_c
 
 
-def _make_saddle_matshell(lv, lame, device, dm_info=None):
+def _make_saddle_matshell(lv, lame, device, dm_info=None,
+                          names=("Asaddle", "Mpscaled")):
     """MatShell for a level's saddle operator, with fieldsplit block info,
     velocity-grid MG info, and DM decomposition info (for -pc_type asm
-    virtual-rank subdomains) attached."""
+    virtual-rank subdomains) attached.
+
+    names: (saddle matrix name, Schur-pre name) for -ksp_view. The
+    reference names ONLY the fine-level objects "Asaddle"/"Mpscaled"
+    (exSaddle.c:272,316) and the fs_coarse Schur-pre "Mpscaled_coarse"
+    (exSaddle.c:369); rediscretized coarse saddle matrices are unnamed."""
     op = lv.op
     mesh = lv.mesh
     A00 = sc.MatShell(
@@ -161,6 +183,17 @@ def _make_saddle_matshell(lv, lame, device, dm_info=None):
     amat = sc.MatShell(mesh.ndof, op.mult, device, diagonal=op.diagonal,
                        csr=op.to_csr, fieldsplit=fieldsplit)
     amat.Sp = Sp
+    # -ksp_view metadata (ksp_view.py): names, the reference's
+    # preallocation estimate, I-node counts (dof-triple velocity rows
+    # coalesce; pressure rows do not), coupling-block sizes
+    amat.view_info = {"name": names[0],
+                      "allocated": allocated_nnz(mesh),
+                      "inode": mesh.n_u_nodes + mesh.np_}
+    A00.view_info = {"inode": mesh.n_u_nodes}
+    Sp.view_info = {"name": names[1]}
+    fieldsplit["view"] = {"A10_nnz": coupling_nnz(mesh),
+                          "A01_inode": mesh.n_u_nodes,
+                          "A00_n": mesh.nu}
     if dm_info is not None:
         amat.dm_info = dict(dm_info, mesh=mesh)
         nranks = dm_info["nranks"]
@@ -279,11 +312,6 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     seconds {setup, solve}; the ABF route adds history, solver and res (the
     ABF solver's own result dict)."""
     device = resolve_device(opts.get_string("device", "cuda"))
-    bad = [f for f in _UNPORTED if opts.get_bool(f, False)]
-    if bad:
-        raise ValueError(
-            "exsaddle_tpu_torch does not port these output flags yet: "
-            + " ".join(f"-{f}" for f in bad))
     mx = opts.get_int("mx", 4)
     my = opts.get_int("my", mx)
     mz = opts.get_int("mz", mx)
@@ -297,7 +325,14 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     nlevels = opts.get_int("nlevels", 1)
     refinefactor = opts.get_int("refinefactor", 2)
     diagnostics = opts.get_bool("diagnostics", False)
+    view_fields = opts.get_bool("view_fields", False)
+    dump_solution = opts.get_bool("dump_solution", False)
+    dump_operator = opts.get_bool("dump_operator", False)
     twosolves = opts.get_bool("twosolves", False)
+    dump_pc = opts.get_bool("dump_preconditioner", False)
+    dump_pc_op = opts.get_bool("dump_preconditioned_operator", False)
+    dump_smoother = opts.get_bool("dump_smoother", False)
+    dump_mpscaled = opts.get_bool("dump_scaled_mass_matrix", False)
     check_solution = opts.get_bool("check_solution", False)
     nullspace_flag = opts.get_bool("constant_pressure_nullspace", False)
 
@@ -351,12 +386,16 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     prefix = "saddle_"
 
     # --- dispatch: the abf.opts tree takes the ABF route unless -tpu 0,
-    # a nullspace or virtual ranks ask for the host stack ---
+    # a nullspace, virtual ranks or a host-KSP introspection flag ask for
+    # the host stack ---
+    introspect = (opts.get_bool("ksp_view", False, prefix=prefix)
+                  or dump_pc or dump_pc_op or dump_smoother
+                  or dump_mpscaled or dump_operator or nullspace_flag
+                  or nranks > 1)
     tpu_flag = opts.get_bool("tpu", None)
     ir_flag = opts.get_bool("ir", False)
     rtol_true = opts.get_real("rtol_true", 1e-8)
-    use_abf = (_abf_options_match(opts)
-               and not (nullspace_flag or nranks > 1) and nlevels == 1)
+    use_abf = _abf_options_match(opts) and not introspect and nlevels == 1
     if tpu_flag is not None:
         use_abf = use_abf and bool(tpu_flag)
 
@@ -372,6 +411,7 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
 
     ksp = None
     slv = None
+    amat = None
     if use_abf:
         from exsaddle_tpu_torch.abf import ABFSolver
         max_it = opts.get_int("ksp_max_it", 10000, prefix=prefix)
@@ -453,6 +493,10 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     stage_t["KSPSolve"] = time.perf_counter() - _t0
     X = _numpy(result.x)
 
+    if opts.get_bool("ksp_view", False, prefix=prefix):
+        from exsaddle_tpu_torch.ksp_view import view_ksp
+        view_ksp(ksp, log=log, nranks=nranks)
+
     if twosolves:
         _t0 = time.perf_counter()
         _extra_solves(ksp, F_solve, log=log)
@@ -487,6 +531,38 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
 
     if diagnostics:
         esio.report_solution_diagnostics(mesh, X, log=log)
+    if view_fields:
+        esio.view_fields(mesh, X, log=log)
+        if check_solution:
+            Xr = emodels.compute_reference_solution(ctx, mesh)
+            if Xr is not None:
+                esio.view_fields(mesh, Xr, tag="ref_", log=log)
+    if dump_solution:
+        esio.dump_solution(X, "solution.npy", log=log)
+    if dump_operator:
+        for k, lv in enumerate(levels):
+            esio.dump_operator(lv.op.to_csr(), f"operator_{k}.npz", log=log)
+    if dump_pc:
+        # explicit preconditioner M^-1 (DumpPreconditioner,
+        # exSaddle_io.c:91-104)
+        esio.dump_dense_operator(ksp.pc.apply, mesh.ndof,
+                                 "preconditioner.npz", device, log=log)
+    if dump_pc_op:
+        # explicit M^-1 A (DumpPreconditionedOperator, exSaddle_io.c:106-126)
+        esio.dump_dense_operator(lambda v: ksp.pc.apply(amat.apply(v)),
+                                 mesh.ndof, "preconditioned_operator_out.npz",
+                                 device, log=log)
+    if dump_smoother:
+        from exsaddle_tpu_torch import precond_mg
+        if not isinstance(ksp.pc, precond_mg.PCMG):
+            raise ValueError("Smoother dump requires PC type PCMG")
+        for k, lvl in enumerate(ksp.pc.levels):
+            esio.dump_dense_operator(
+                lambda v, s=lvl.smoother: s.solve(v).x,
+                levels[k + 1].mesh.ndof, f"smoother_{k + 1}.npz", device,
+                log=log)
+    if dump_mpscaled:
+        esio.dump_operator(amat.Sp.csr(), "mpscaled.npz", log=log)
 
     if log_view:
         # lightweight -log_view: per-stage wall-clock summary (the
@@ -518,8 +594,12 @@ def _build_saddle_mg(opts, prefix, levels, lame, fs_coarse, device,
     """Programmatic monolithic saddle PCMG with per-level re-assembled
     operators (PC_MG_GALERKIN_NONE) and composite interpolation
     (exSaddle.c:333-402)."""
-    mats = [_make_saddle_matshell(lv, lame, device, dm_info=dm_info)
-            for lv in levels]
+    nlv = len(levels)
+    mats = [_make_saddle_matshell(
+        lv, lame, device, dm_info=dm_info,
+        names=(("Asaddle", "Mpscaled") if k == nlv - 1
+               else (None, "Mpscaled_coarse" if k == 0 else None)))
+            for k, lv in enumerate(levels)]
     prolongs = []
     for k in range(len(levels) - 1):
         Pu = Prolongation(levels[k].mesh.nn_u, levels[k + 1].mesh.nn_u,

@@ -199,9 +199,26 @@ class KSP:
         # Krylov bases in preallocated device buffers; rows [0, it] are valid
         Vbuf = None
         Zbuf = None
+        H = np.zeros((restart + 1, restart))
+        g = np.zeros(restart + 1)
+        built = False
+
+        def build_current():
+            """KSPBuildSolution mid-cycle (used by residual monitors)."""
+            if built or it == 0 or Vbuf is None:
+                return x
+            y = torch.as_tensor(np.linalg.solve(H[:it, :it], g[:it]),
+                                dtype=Vbuf.dtype, device=Vbuf.device)
+            if flexible:
+                return x + y @ Zbuf[:it]
+            vy = y @ Vbuf[:it]
+            return x + (self._pc_apply(vy) if side == "right" else vy)
+
+        self.build_solution = build_current
 
         while True:
             # --- initial residual for this cycle (KSPInitialResidual) ---
+            built = False
             r = b - self.A(x) if (guess_nonzero or itcount > 0) else b
             if side == "left":
                 v0 = self._pc_apply(r)
@@ -298,6 +315,7 @@ class KSP:
                     break
 
             # --- build solution (BuildGmresSoln) ---
+            built = True
             if it > 0:
                 y = torch.as_tensor(np.linalg.solve(H[:it, :it], g[:it]),
                                     dtype=Vbuf.dtype, device=Vbuf.device)
@@ -325,8 +343,12 @@ class KSP:
     # --- GCR --------------------------------------------------------------
     def _solve_gcr(self, b, x0=None):
         """KSPSolve_GCR: right-preconditioned, unpreconditioned norm,
-        truncated to `restart` directions per cycle."""
+        truncated to `restart` directions per cycle. Tracks the cumulative
+        'restarts performed' statistic printed by KSPView_GCR (each cycle
+        after the very first across the KSP's lifetime restarts the
+        direction set)."""
         cfg = self.cfg
+        self.gcr_restarts = getattr(self, "gcr_restarts", -1) + 1
         x = (x0 if (cfg.initial_guess_nonzero and x0 is not None)
              else torch.zeros_like(b))
         r = b - self.A(x) if (cfg.initial_guess_nonzero and x0 is not None) \
@@ -339,7 +361,11 @@ class KSP:
         n = b.shape[0]
         Vbuf = b.new_empty((cfg.restart, n))
         Sbuf = torch.empty_like(Vbuf)
+        first_cycle = True
         while not reason:
+            if not first_cycle:
+                self.gcr_restarts += 1
+            first_cycle = False
             ndir = 0
             while ndir < cfg.restart:
                 s = self._pc_apply(r)
@@ -402,6 +428,7 @@ class KSP:
             emin = a * emin_est + bb * emax_est
             emax = c * emin_est + d * emax_est
             self._cheb_eigs = (emin, emax)
+            self.cheb_eig_estimates = (emin_est, emax_est)
         elif hasattr(self, "_cheb_eigs"):
             emin, emax = self._cheb_eigs
         else:

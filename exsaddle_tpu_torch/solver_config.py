@@ -149,7 +149,10 @@ def make_ksp(opts, prefix, amat, pmat=None, ksp_defaults=None,
     else:
         pc = make_pc(opts, prefix, amat, pmat, pc_default, nullspace=nullspace,
                      log=log)
-    return KSP(amat.apply, pc, cfg, nullspace=nullspace)
+    ksp = KSP(amat.apply, pc, cfg, nullspace=nullspace)
+    ksp.amat = amat            # for -ksp_view introspection
+    ksp.pmat = pmat
+    return ksp
 
 
 def make_pc(opts, prefix, amat, pmat, default_type="ilu", nullspace=None,
@@ -162,9 +165,10 @@ def make_pc(opts, prefix, amat, pmat, default_type="ilu", nullspace=None,
         default_type = "bjacobi"
     ptype = opts.get_string("pc_type", default_type, prefix=prefix)
     # the configured factor package (umfpack in the reference's coarse/LU
-    # configs): consumed so -options_left accounting matches; the stable
-    # dense LU stands in for it
-    opts.get_string("pc_factor_mat_solver_type", None, prefix=prefix)
+    # configs): the stable dense LU stands in for it; -ksp_view reports the
+    # configured package
+    factor_pkg = opts.get_string("pc_factor_mat_solver_type", None,
+                                 prefix=prefix)
     device = pmat.device
 
     if ptype == "none":
@@ -179,9 +183,11 @@ def make_pc(opts, prefix, amat, pmat, default_type="ilu", nullspace=None,
         # PETSc's parallel coarse default is PCREDUNDANT(LU) -- the serial
         # equivalent replicates + direct-solves; consume its nested factor
         # option so -options_left accounting matches
-        opts.get_string("redundant_pc_factor_mat_solver_type", None,
-                        prefix=prefix)
-        return precond.PCLU(pmat.dense(), device)
+        rpkg = opts.get_string("redundant_pc_factor_mat_solver_type", None,
+                               prefix=prefix)
+        pc = precond.PCLU(pmat.dense(), device)
+        pc.factor_package = factor_pkg or rpkg
+        return pc
     if ptype == "bjacobi":
         blocks = getattr(pmat, "block_info", None)
         if blocks is None or nranks <= 1:
@@ -318,6 +324,12 @@ def make_fieldsplit(opts, prefix, amat, nullspace=None, log=print):
     mult_pu = info["mult_pu"]  # xu -> A10 xu
     Sp = info["Sp"]            # MatShell: user Schur pre matrix (Mpscaled)
 
+    # -ksp_view display names for the split operators
+    if getattr(A00, "view_info", None) is not None:
+        A00.view_info.setdefault("name", f"({prefix}fieldsplit_u_)")
+    if getattr(A11, "view_info", None) is None:
+        A11.view_info = {}
+    A11.view_info.setdefault("name", f"({prefix}fieldsplit_p_)")
     ksp_u = make_ksp(opts, prefix + "fieldsplit_u_", A00,
                      ksp_defaults=KSPConfig(type="gmres"),
                      pc_default="ilu", log=log)
@@ -327,7 +339,12 @@ def make_fieldsplit(opts, prefix, amat, nullspace=None, log=print):
     ksp_p = make_ksp(opts, prefix + "fieldsplit_p_", schur_mat, pmat=Sp,
                      ksp_defaults=KSPConfig(type="gmres"),
                      pc_default="ilu", log=log)
-    return precond.PCFieldSplitSchurUpper(A00.n, ksp_u, ksp_p, mult_up)
+    pc = precond.PCFieldSplitSchurUpper(A00.n, ksp_u, ksp_p, mult_up)
+    vw = info.get("view")
+    if vw is not None:
+        pc.schur_view = dict(vw, A11=A11)
+        schur_mat.schur_of = pc
+    return pc
 
 
 def _dmda_coarsen(nn):
@@ -366,11 +383,14 @@ def make_pc_mg(opts, prefix, amat, log=print):
                                                        dof=dof)
     mats = []
     for P, A in zip(prolongs, coarse_csrs):
-        mats.append(MatShell(P.coarse_n,
-                             precond_mg.csr_apply(A, amat.device),
-                             amat.device,
-                             diagonal=lambda A=A: np.asarray(A.diagonal()),
-                             csr=A))
+        m = MatShell(P.coarse_n, precond_mg.csr_apply(A, amat.device),
+                     amat.device,
+                     diagonal=lambda A=A: np.asarray(A.diagonal()), csr=A)
+        # PETSc's MatPtAP products: bs=dof, no preallocation, I-nodes over
+        # dof-blocks (testref/exSaddle3d_pseudoice_1.ref coarse Mat lines)
+        m.view_info = ({"bs": dof, "allocated": 0,
+                        "inode": P.coarse_n // dof} if dof > 1 else {})
+        mats.append(m)
     mats.append(amat)             # finest
 
     pcmg = build_mg(opts, prefix, mats, prolongs, log=log)

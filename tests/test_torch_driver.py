@@ -1,5 +1,5 @@
-"""The PyTorch port's driver (abf.opts route) against the JAX driver, the
-flags it refuses, and the port's import boundary.
+"""The PyTorch port's driver (abf.opts route) against the JAX driver, its
+output flags on both routes, and the port's import boundary.
 
 The same argv goes to both drivers at mx=4 pseudoice: the port with
 -device cpu, the JAX driver with -tpu 1 (its jitted ABF dispatch; with the 8
@@ -76,17 +76,33 @@ def test_driver_ir_mode_converges():
     assert r["X"].dtype == np.float64
 
 
-def test_driver_refuses_other_trees():
-    """Every options tree now has a route (the host KSP/PC stack takes the
-    non-abf trees); the output flags that are not ported yet are refused
-    with an error that names them."""
-    for flag in ("-saddle_ksp_view", "-view_fields", "-dump_solution"):
-        with pytest.raises(ValueError, match=f"not port.*{flag}"):
-            tdriver.saddle_solve(TOptions.from_args(
-                ["-mx", "2", "-device", "cpu", flag]), 3)
-        with pytest.raises(ValueError, match=f"not port.*{flag}"):
-            tdriver.saddle_solve(TOptions.from_args(
-                tdriver.ABF_OPTS + ["-mx", "2", "-device", "cpu", flag]), 3)
+def test_driver_output_flags_run_on_both_routes(tmp_path, monkeypatch):
+    """The output flags run on a host-route argv and on the abf.opts argv:
+    -view_fields and -dump_solution keep the abf.opts tree on the ABF
+    route, -saddle_ksp_view sends it to the host route (as in the JAX
+    driver), and each writes its files or prints the tree."""
+    monkeypatch.chdir(tmp_path)
+    host = ["-mx", "2", "-device", "cpu"]
+    abf = tdriver.ABF_OPTS + ["-model", "11", "-size_x", "0.1", "-mx", "4",
+                              "-device", "cpu"]
+    for flag, made in (("-saddle_ksp_view", None),
+                       ("-view_fields", "uvw.vts"),
+                       ("-dump_solution", "solution.npy")):
+        for argv, abf_route in ((host, False),
+                                (abf, flag != "-saddle_ksp_view")):
+            for f in os.listdir(tmp_path):
+                os.remove(f)
+            lines = []
+            r = tdriver.saddle_solve(TOptions.from_args(argv + [flag]), 3,
+                                     log=lines.append)
+            assert ("history" in r) == abf_route, (flag, argv)
+            assert r["reason"] == "CONVERGED_RTOL"
+            if made is None:
+                assert "KSP Object: (saddle_) 1 MPI processes" in lines
+            else:
+                assert os.path.exists(made), (flag, argv)
+                if made == "solution.npy":
+                    assert np.array_equal(np.load(made), r["X"])
 
 
 def test_driver_default_device_is_cuda():
@@ -102,7 +118,11 @@ def test_driver_default_device_is_cuda():
 def test_port_never_imports_jax():
     code = ("import sys, exsaddle_tpu_torch.driver, exsaddle_tpu_torch.abf, "
             "exsaddle_tpu_torch.solver_config, exsaddle_tpu_torch.precond, "
-            "exsaddle_tpu_torch.operator, exsaddle_tpu_torch.native;"
+            "exsaddle_tpu_torch.operator, exsaddle_tpu_torch.native, "
+            "exsaddle_tpu_torch.ksp_view, exsaddle_tpu_torch.io, "
+            "exsaddle_tpu_torch.postproc, exsaddle_tpu_torch.ex23, "
+            "exsaddle_tpu_torch.ex42, exsaddle_tpu_torch.compiled, "
+            "exsaddle_tpu_torch.grid_ops, exsaddle_tpu_torch.matfree;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'exsaddle_tpu' or "
             "m.startswith('exsaddle_tpu.'));"

@@ -187,3 +187,69 @@ def test_pclu_on_cuda_matches_cpu(cuda):
     yc = PCLU(A, "cpu").apply(torch.as_tensor(b)).numpy()
     yg = PCLU(A, cuda).apply(torch.as_tensor(b, device=cuda)).cpu().numpy()
     assert np.abs(yg - yc).max() <= 1e-10 * np.abs(yc).max()
+
+
+def _flagship_parity(mx, device):
+    """mx^3 pseudoice parity operator (float64), its Jacobi inverse
+    diagonal and a seeded right-hand side, on `device`."""
+    op = _operator((3, (mx, mx, mx), False, "11", (0.1, 1.0, 1.0)),
+                   torch.float64, device)
+    d = op.diagonal()
+    inv = 1.0 / torch.where(d == 0.0, torch.ones_like(d), d)
+    F = torch.as_tensor(np.random.default_rng(2).standard_normal(op.ndof),
+                        device=device)
+    return op, inv, F
+
+
+@pytest.mark.gpu
+def test_compiled_tree_cycle_on_cuda_matches_cpu(cuda):
+    """The tree-form FGMRES(k) cycle on CUDA: no host synchronisation
+    (sync debug mode "error"), 2 x (k + 2) K1 launches, and the CPU
+    cycle's residual and x to 1e-10 in float64."""
+    from exsaddle_tpu_torch.compiled import make_fgmres_cycle_tree
+    k = 12
+    cycle = make_fgmres_cycle_tree(k)
+    out = {}
+    for dev in ("cpu", cuda):
+        op, inv, F = _flagship_parity(6, dev)
+        aux = tmf.tree_aux(op)
+        if dev != "cpu":
+            op.node_table                  # K1's table: built before timing
+            n0, a0 = a00.LAUNCHES.n, a00.LAUNCHES.applies
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            x, rn = cycle(op, aux, inv, F, torch.zeros_like(F))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if dev != "cpu":
+            assert a00.LAUNCHES.n - n0 == 2 * (k + 2)
+            assert a00.LAUNCHES.applies - a0 == k + 2
+        out[str(dev)] = (x.cpu().numpy(), float(rn))
+    (xc, rc), (xg, rg) = out["cpu"], out[str(cuda)]
+    assert abs(rg - rc) <= 1e-10 * rc
+    assert np.abs(xg - xc).max() <= 1e-10 * np.abs(xc).max()
+
+
+@pytest.mark.gpu
+def test_ex42_on_cuda_matches_cpu(cuda):
+    """ex42's FGMRES/fieldsplit tree with the Galerkin MG u-block at mx=8:
+    the CPU's iteration count and reason on CUDA."""
+    from exsaddle_tpu_torch.ex42 import solve_stokes_3d_coupled
+    argv = ("-model 1 -stokes_ksp_type fgmres -stokes_ksp_rtol 1e-7 "
+            "-stokes_fieldsplit_u_ksp_type preonly "
+            "-stokes_fieldsplit_u_pc_type mg "
+            "-stokes_fieldsplit_u_pc_mg_levels 4 "
+            "-stokes_fieldsplit_u_pc_mg_galerkin "
+            "-stokes_fieldsplit_u_mg_levels_pc_type jacobi "
+            "-stokes_fieldsplit_p_ksp_type preonly "
+            "-stokes_fieldsplit_p_pc_type jacobi").split()
+    res = {}
+    for dev in ("cpu", cuda):
+        r = solve_stokes_3d_coupled(8, 8, 8, Options.from_args(argv),
+                                    log=lambda *a: None,
+                                    device=torch.device(dev))
+        res[str(dev)] = (r["result"].its, r["result"].reason,
+                         r["X"].cpu().numpy())
+    (ic, rc, xc), (ig, rg, xg) = res["cpu"], res[str(cuda)]
+    assert (ig, rg) == (ic, rc) == (60, "CONVERGED_RTOL")
+    assert np.abs(xg - xc).max() <= 1e-8 * np.abs(xc).max()

@@ -80,7 +80,7 @@ def check_same_output(args, ndim, lame=False, nranks=1):
                                          jr["result"].reason)
     X = np.asarray(jr["X"])
     assert np.abs(tr["X"] - X).max() <= 1e-8 * np.abs(X).max()
-    return tl, tr
+    return tl, tr, jl
 
 
 def test_line_rules():

@@ -34,7 +34,7 @@ CASES = [
 
 @pytest.mark.parametrize("name,args", CASES, ids=[c[0] for c in CASES])
 def test_host_driver_matches_jax_3d(name, args):
-    lines, r = check_same_output(args, 3)
+    lines, r, _ = check_same_output(args, 3)
     if name == "abf_host":
         # -tpu 0 really took the host stack: a KSP tree, no ABF solver
         assert "solver" not in r and r["its"] == 21
