@@ -72,6 +72,24 @@ Phases, in order; any failure raises and the script exits nonzero:
               u-block (Chebyshev/Jacobi smoothers), a Jacobi p-block.
               Converges in the JAX package's iteration count with p-rows of F - A X below
               1e-8 ||F||; setup and solve seconds, ms per iteration.
+11. cart  -- the sharded runtime (parallel/), every shard on this card. At
+              mx=16 pseudoice in float64 over a 2x2x2 device grid: the
+              element-batched make_cart_mult and the sharded mult_tree (K1
+              once per shard, 2 x 8 launches per apply) equal the
+              single-device SaddleOperator.mult and mult_tree to 1e-12,
+              bitwise repeatable; make_cart_fgmres(k=30) runs under
+              torch.cuda.set_sync_debug_mode("error") and its residual equals
+              the single-device compiled cycle's to 1e-8. DistABFSolver over 4
+              slabs gives the single-device float64 ABF solve's iteration
+              count and x to 1e-10. Then the flagship argv (model 11, size_x
+              0.1, mx=32, 4 MG levels) through driver.saddle_solve with
+              devices=[cuda:0] * 4 (device grid 1x2x2, mode cart) against
+              the single-device float64 direct solve of the same argv: the
+              same iteration count and reason, the history to 1e-8 and x to
+              1e-9 (norm-relative), the true residual recomputed with the float64
+              parity operator; K1 launches 2 x 4 per sharded apply; a
+              repeated solve is bitwise equal; setup / solve seconds, ms per
+              outer iteration, halo exchanges, K1 launches, peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -751,6 +769,213 @@ def phase_ex42(device, card):
     check(rp < 1e-8, f"ex42: p-rows of F - A X at {rp:.3e} of ||F||")
 
 
+# the cart phase's sharded layouts: the operator checks, the flagship
+CART_OP_GRID, CART_SLABS, CART_DEVICES = (2, 2, 2), 4, 4
+CART_ARGV = tdriver.ABF_OPTS + (
+    "-model 11 -size_x 0.1 -mx 32 -saddle_fieldsplit_u_pc_mg_levels 4 "
+    "-saddle_ksp_monitor_short -saddle_ksp_converged_reason").split()
+# the flagship's history, sharded against single-device, per entry
+HIST_TOL = 1e-7
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_cart(device, card):
+    """The sharded runtime with every shard on this card; returns the K1
+    (launches, applies) of the flagship's sharded driver run."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    from exsaddle_tpu_torch.assembly import assemble_rhs, scatter_vector
+    from exsaddle_tpu_torch.parallel.cart import (CartOperator,
+                                                  CartPartition,
+                                                  make_cart_fgmres,
+                                                  make_cart_mult)
+    from exsaddle_tpu_torch.parallel.cart_abf import CartABFSolver
+    from exsaddle_tpu_torch.parallel.dist_abf import DistABFSolver
+
+    # --- mx=16 pseudoice, float64: the sharded applies and the cycle ----
+    mesh, fes, coeff, bc_idx, bc_vals, bc_mask = _problem(
+        3, (16, 16, 16), 11, (0.1, 1.0, 1.0))
+    ctx = emodels.ModelContext(Options.from_args(["-model", "11"]), 3,
+                               log=lambda *a, **k: None)
+    sop, _, _, _ = apply_dirichlet_elimination(
+        mesh, assemble_element_matrices(fes, coeff), bc_idx, bc_vals, device)
+    ndev = int(np.prod(CART_OP_GRID))
+    part = CartPartition(mesh, CART_OP_GRID)
+    t0 = time.perf_counter()
+    cop = CartOperator.build(part, ctx, bc_idx, part.device_mesh(
+        [device] * ndev))
+    cslv = CartABFSolver(part, ctx, bc_idx, bc_vals, [device] * ndev,
+                         nlevels=3)
+    t_build = time.perf_counter() - t0
+    smesh, blk = cslv.smesh, cslv.blocks
+    x = np.random.default_rng(5).standard_normal(mesh.ndof)
+    y1 = sop.mult(torch.as_tensor(x, device=device)).cpu().numpy()
+    scale = float(np.abs(y1).max())
+    mult = make_cart_mult(cop.smesh)
+    xs = cop.smesh.shard(part.shard_vector(x))
+    yc = mult(cop, xs)
+    rel = float(np.abs(part.unshard_vector(yc) - y1).max()) / scale
+    log(f"[cart] mx=16 make_cart_mult over {CART_OP_GRID}: relative {rel:.3e} "
+        f"against SaddleOperator.mult (CartOperator and CartABFSolver built "
+        f"in {t_build:.2f} s)")
+    check(rel <= 1e-12, f"cart: make_cart_mult differs by {rel:.3e}")
+    check(all(torch.equal(a, b) for a, b in zip(mult(cop, xs).parts,
+                                                yc.parts)),
+          "cart: make_cart_mult not bitwise repeatable")
+
+    pop = ParityMatFreeOperator.build(mesh, fes, coeff, bc_mask,
+                                      dtype=torch.float64, device=device)
+    perm, iperm = parity_permutation(mesh)
+    yt1 = mult_tree(pop, tree_aux(pop), torch.as_tensor(
+        x[perm], device=device)).cpu().numpy()[iperm]
+    xt = cslv.shard_saddle(x)
+    torch.cuda.synchronize()
+    a00.LAUNCHES.reset()
+    yt = blk.saddle_mult(xt)
+    n, a = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    check(n == 2 * ndev and a == ndev,
+          f"cart: {n} K1 launches in {a} applies per sharded mult_tree, "
+          f"expected {2 * ndev} in {ndev}")
+    rel = float(np.abs(cslv.unshard_saddle(yt) - yt1).max()
+                / np.abs(yt1).max())
+    log(f"[cart] mx=16 sharded mult_tree over {CART_OP_GRID}: {n} K1 "
+        f"launches per apply, relative {rel:.3e} against the single-device "
+        f"mult_tree")
+    check(rel <= 1e-12, f"cart: sharded mult_tree differs by {rel:.3e}")
+    check(all(torch.equal(p, q) for p, q in zip(blk.saddle_mult(xt).parts,
+                                                yt.parts)),
+          "cart: sharded mult_tree not bitwise repeatable")
+
+    k = COMPILED_K
+    f1, f2 = assemble_rhs(fes, coeff["Fu"], coeff["Fp"])
+    F = scatter_vector(mesh, f1, f2)
+    d = sop.diagonal()
+    inv = 1.0 / torch.where(d == 0.0, torch.ones_like(d), d)
+    shard = lambda v: cop.smesh.shard(part.shard_vector(v))
+    Fs, invs, x0s = shard(F), shard(inv.cpu().numpy()), shard(
+        np.zeros(mesh.ndof))
+    cycle = make_cart_fgmres(cop.smesh, k)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        xk, rn = cycle(cop, invs, Fs, x0s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rn = float(rn)
+    x1, r1 = compiled.make_fgmres_cycle(sop.mult, lambda v: inv * v, k)(
+        torch.as_tensor(F, device=device), torch.zeros_like(d))
+    r1 = float(r1)
+    ms = _median_ms(lambda: cycle(cop, invs, Fs, x0s), reps=3, inner=1,
+                    warmup=1)
+    log(f"[cart] mx=16 make_cart_fgmres({k}) over {CART_OP_GRID}, no host "
+        f"sync: ||F - A x|| {rn:.10e} vs single-device {r1:.10e} (relative "
+        f"{abs(rn - r1) / r1:.3e}), {ms:.2f} ms per cycle ({card})")
+    check(abs(rn - r1) <= 1e-8 * r1, "cart: the sharded cycle's residual "
+          "differs from the single-device cycle's")
+    del sop, cop, cslv, blk, pop, xs, yc, xt, yt, Fs, invs, x0s, xk, x1
+    torch.cuda.empty_cache()
+
+    # --- DistABFSolver over 4 slabs vs the single-device float64 solve --
+    single = ABFSolver(mesh, fes, coeff, bc_idx, bc_vals, device=device,
+                       nlevels=3)
+    Fd = F.copy()
+    Fd[: mesh.nu][bc_idx] = bc_vals
+    Fd = Fd + single.setup["rhs_diri"]
+    r1 = single.solve(Fd)
+    t0 = time.perf_counter()
+    dslv = DistABFSolver(mesh, fes, coeff, bc_idx, bc_vals,
+                         [device] * CART_SLABS, nlevels=3)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rd = dslv.solve(Fd)
+    t_solve = time.perf_counter() - t0
+    rel = _rel(rd["x"], r1["x"])
+    log(f"[cart] mx=16 DistABFSolver over {CART_SLABS} slabs: {rd['reason']} "
+        f"in {rd['its']} its (single device {r1['its']}), x relative "
+        f"{rel:.3e}; setup {t_setup:.2f} s, solve {t_solve:.3f} s ({card})")
+    check(rd["its"] == r1["its"] and rd["reason"] == r1["reason"]
+          == "CONVERGED_RTOL", "cart: the slab solve's iterations differ")
+    check(rel <= 1e-10, f"cart: the slab solve's x differs by {rel:.3e}")
+    del single, dslv
+    torch.cuda.empty_cache()
+
+    # --- the flagship through the driver, sharded over 4 shards --------
+    a00.LAUNCHES.reset()
+    r1 = tdriver.saddle_solve(Options.from_args(CART_ARGV), 3,
+                              log=lambda *a: None, devices=[device])
+    applies1 = a00.LAUNCHES.applies
+    check(r1["mode"] == "direct", f"cart: reference ran as {r1['mode']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a00.LAUNCHES.reset()
+    lines = []
+    r = tdriver.saddle_solve(Options.from_args(CART_ARGV), 3,
+                             log=lines.append,
+                             devices=[device] * CART_DEVICES)
+    launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slv = r["solver"]
+    halos = slv.blocks.halo_exchanges
+    its, t_setup, t_solve = r["its"], r["seconds"]["setup"], \
+        r["seconds"]["solve"]
+    for ln in (lines[-3], lines[-2], lines[-1]):
+        log(f"[cart] {ln}")
+    check(r["mode"] == "cart" and slv.part.dev_shape == (1, 2, 2),
+          f"cart: driver ran as {r['mode']}")
+    check(r["reason"] == r1["reason"] == "CONVERGED_RTOL"
+          and its == r1["its"],
+          f"cart: {r['reason']} in {its} its, the single device "
+          f"{r1['reason']} in {r1['its']}")
+    h, h1 = np.array(r["history"]), np.array(r1["history"])
+    # entry by entry, each against its own size: the sharded sums are in
+    # another order, and the worst entry read 2.05e-8 on the H100
+    hrel, hworst = _rel(h, h1), float(np.max(np.abs(h - h1) / h1))
+    xrel = _rel(r["X"], r1["X"])
+    check(hworst <= HIST_TOL, f"cart: history entry differs by {hworst:.3e}")
+    check(xrel <= 1e-9, f"cart: x differs by {xrel:.3e}")
+    check(launches > 0 and launches == 2 * applies
+          and applies % CART_DEVICES == 0,
+          f"cart: {launches} K1 launches in {applies} applies")
+    # independent float64 true residual with the port's parity operator
+    s1 = r1["solver"]
+    op64, aux64 = s1.setup["op64"], tree_aux(s1.setup["op64"])
+    F64 = s1.vec_to_tree(r["F"], dtype=torch.float64)
+    true = float(torch.linalg.norm(F64 - mult_tree(
+        op64, aux64, s1.vec_to_tree(r["X"], dtype=torch.float64))))
+    log(f"[cart] true float64 residual {true:.6e}, last monitored "
+        f"{r['rnorm']:.6e}, ||F|| {float(torch.linalg.norm(F64)):.6e}")
+    check(abs(true - r["rnorm"]) <= 1e-4 * r["rnorm"],
+          "cart: the true residual differs from the monitored one")
+    # one sharded apply: 2 K1 launches per shard; a repeated solve
+    n0 = a00.LAUNCHES.n
+    slv.blocks.saddle_mult(slv.shard_saddle(r["X"]))
+    check(a00.LAUNCHES.n - n0 == 2 * CART_DEVICES,
+          "cart: K1 launches per sharded apply")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = slv.solve(r["F"])
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    bitwise = bool(np.array_equal(again["x"], r["X"]))
+    check(again["its"] == its and _rel(again["x"], r["X"]) <= 1e-12,
+          "cart: a repeated sharded solve differs")
+    log(f"[cart] mx=32 ndof {r['mesh'].ndof} over {CART_DEVICES} shards "
+        f"{slv.part.dev_shape} on one card: {its} its (single device "
+        f"{r1['its']}), history relative {hrel:.3e} (worst entry "
+        f"{hworst:.3e}), x relative {xrel:.3e}; "
+        f"setup {t_setup:.2f} s (single device "
+        f"{r1['seconds']['setup']:.2f} s), solve {t_solve:.3f} s, repeated "
+        f"{t_again:.3f} s ({'bitwise equal' if bitwise else 'to 1e-12'}; "
+        f"single device {r1['seconds']['solve']:.3f} s), "
+        f"{1e3 * t_solve / its:.1f} ms per outer it, {halos} halo "
+        f"exchanges, {launches} K1 launches in {applies} applies (single "
+        f"device {applies1} applies), peak mem "
+        f"{peak:.2f} GiB ({card})")
+    return launches, applies
+
+
 def phase_profile():
     """One mx=32 IR solve of the main path under torch.profiler, after a
     warm-up solve: device time by kernel, the card's busy share of the
@@ -816,7 +1041,10 @@ def main():
     c_launches, c_applies, _ = phase_compiled(device, card)
     phase_outputs(device, card)
     phase_ex42(device, card)
-    log(f"[smoke] compiled, outputs and ex42 phases "
+    t_cart = time.perf_counter()
+    cart_launches, cart_applies = phase_cart(device, card)
+    log(f"[smoke] cart phase {time.perf_counter() - t_cart:.1f} s")
+    log(f"[smoke] compiled, outputs, ex42 and cart phases "
         f"{time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -826,6 +1054,7 @@ def main():
         "launches": launches, "applies": applies,
         "launches_per_apply": launches / applies,
         "compiled_launches": c_launches, "compiled_applies": c_applies,
+        "cart_launches": cart_launches, "cart_applies": cart_applies,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_us": 1e3 * k1["bound_ms"], "bound_by": k1["bound_by"],

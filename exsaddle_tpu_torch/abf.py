@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from exsaddle_tpu_torch import treeops
+from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
 from exsaddle_tpu_torch.kernels.a00 import a00_apply
@@ -43,40 +44,62 @@ from exsaddle_tpu_torch.mesh import SaddleMesh
 # BC-eliminated saddle matrix, as PETSc's MatCreateSubMatrix extracts them)
 # --------------------------------------------------------------------------
 
-def mult_u_tree(op, aux, xu):
+def mult_u_tree(op, aux, xu, halo_u=None):
     """A00 x_u (flat u vector): K1 with keep/mask Dirichlet elimination
-    (unit diagonal on BC rows)."""
+    (unit diagonal on BC rows). In a sharded layout (parallel/) op, aux and
+    xu are per shard and halo_u adds the interface planes of K1's raw
+    output before the keep/mask terms."""
     ks, ms, _, _ = aux
-    return a00_apply(op, xu * ks) * ks + ms * xu
+    y = smap(a00_apply, op, xu * ks)
+    if halo_u is not None:
+        y = halo_u(y)
+    return y * ks + ms * xu
 
 
-def mult_up_tree(op, aux, pg):
-    """A01 x_p: pressure-gradient block into u space (BC rows zeroed).
-    pg: pressure grid; returns a flat u vector."""
-    ks, _, _, _ = aux
+def _up_local(op, pg):
     pe = _gather_q1(pg, op.m_el)
     ptmp = pe @ op.Np.T
     yue = -((ptmp * op.fac[None, :]) @ op.Dm)
-    return scatter_u_parity(yue, op.m_el, op.cls_shapes) * ks
+    return scatter_u_parity(yue, op.m_el, op.cls_shapes)
 
 
-def mult_pu_tree(op, aux, xu):
-    """A10 x_u: divergence block into p space (BC columns zeroed).
-    Returns a pressure grid."""
+def mult_up_tree(op, aux, pg, halo_u=None):
+    """A01 x_p: pressure-gradient block into u space (BC rows zeroed).
+    pg: pressure grid; returns a flat u vector."""
     ks, _, _, _ = aux
-    xe = gather_u_parity(op.split_u(xu * ks), op.m_el)
+    y = smap(_up_local, op, pg)
+    if halo_u is not None:
+        y = halo_u(y)
+    return y * ks
+
+
+def _pu_local(op, xk):
+    xe = gather_u_parity(op.split_u(xk), op.m_el)
     div = xe @ op.Dm.T
     ype = -(div * op.fac[None, :]) @ op.Np
     return _scatter_q1(ype, op.m_el, op.nn_p)
 
 
-def mp_apply(op, pscale, pg):
-    """Mpscaled x_p: viscosity-scaled pressure mass matrix in factored form
-    (MatAssemble_Schur weights, femixedspace.c:2837-2948).
-    pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)]."""
+def mult_pu_tree(op, aux, xu, halo_p=None):
+    """A10 x_u: divergence block into p space (BC columns zeroed).
+    Returns a pressure grid."""
+    ks, _, _, _ = aux
+    yp = smap(_pu_local, op, xu * ks)
+    return yp if halo_p is None else halo_p(yp)
+
+
+def _mp_local(op, pscale, pg):
     pe = _gather_q1(pg, op.m_el)
     ptmp = (pe @ op.Np.T) * pscale
     return _scatter_q1(ptmp @ op.Np, op.m_el, op.nn_p)
+
+
+def mp_apply(op, pscale, pg, halo_p=None):
+    """Mpscaled x_p: viscosity-scaled pressure mass matrix in factored form
+    (MatAssemble_Schur weights, femixedspace.c:2837-2948).
+    pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)]."""
+    yp = smap(_mp_local, op, pscale, pg)
+    return yp if halo_p is None else halo_p(yp)
 
 
 # --------------------------------------------------------------------------
@@ -714,18 +737,10 @@ def _device_data(op, host, dtype, device):
     }
 
 
-def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
-    """The port's (cfg, data, setup) from the JAX package's build_abf
-    output brought to numpy, so both packages solve the same system from
-    the same numbers.
-
-    cfg_dict: dataclasses.asdict of the JAX ABFConfig (its TPU matmul
-    precisions are dropped; the fixed-V-cycle u-block variant is not
-    ported and is refused). data_np: the JAX
-    `data` with numpy leaves (jax.device_get); its "op" only needs the
-    ParityMatFreeOperator fields as attributes. setup_np: the JAX `setup`;
-    its W-form "stencils_w" (the JAX data holds only the merged form), its
-    float64 "sop" (natural order) and "mesh" are read."""
+def config_from_dict(cfg_dict):
+    """The port's ABFConfig from dataclasses.asdict of the JAX ABFConfig
+    (its TPU matmul precisions are dropped; the fixed-V-cycle u-block
+    variant is not ported and is refused)."""
     if cfg_dict.get("u_fixed_vcycles", 0):
         raise ValueError("u_fixed_vcycles > 0 is not ported")
     drop = ("matmul_precision", "pc_matmul_precision", "u_fixed_vcycles")
@@ -733,8 +748,21 @@ def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
     for key in ("cls_shapes", "level_grids"):
         kw[key] = tuple(tuple(int(n) for n in s) for s in kw[key])
     kw["m_el"] = tuple(int(m) for m in kw["m_el"])
-    cfg = ABFConfig(**kw)
+    return ABFConfig(**kw)
 
+
+def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
+    """The port's (cfg, data, setup) from the JAX package's build_abf
+    output brought to numpy, so both packages solve the same system from
+    the same numbers.
+
+    cfg_dict: dataclasses.asdict of the JAX ABFConfig (config_from_dict).
+    data_np: the JAX
+    `data` with numpy leaves (jax.device_get); its "op" only needs the
+    ParityMatFreeOperator fields as attributes. setup_np: the JAX `setup`;
+    its W-form "stencils_w" (the JAX data holds only the merged form), its
+    float64 "sop" (natural order) and "mesh" are read."""
+    cfg = config_from_dict(cfg_dict)
     m = setup_np["mesh"]
     mesh = SaddleMesh(m.ndim, tuple(m.m_el), tuple(m.size))
     jop = data_np["op"]

@@ -21,6 +21,7 @@ full-column-rank H that is the JAX package's jnp.linalg.lstsq solution.
 import torch
 
 from exsaddle_tpu_torch.matfree import mult_tree, tree_norm
+from exsaddle_tpu_torch.treeops import smap
 
 
 def _safe(a):
@@ -42,31 +43,37 @@ def _lstsq_hessenberg(H, beta):
                                          upper=True).squeeze(1)
 
 
-def _fgmres_cycle(mult, pc_apply, k, F, x0):
+def _fgmres_cycle(mult, pc_apply, k, F, x0, dots=None):
     """One FGMRES(k) cycle from x0: right preconditioning, classical
     Gram-Schmidt (one pass of dots against the basis, then one fused
     subtraction), the bases as (k+1, n) / (k, n) device matrices. Returns
-    (x, ||F - A x||) with the norm a device scalar; k + 2 applies of mult."""
-    n = F.shape[0]
+    (x, ||F - A x||) with the norm a device scalar; k + 2 applies of mult.
+    dots: optional treeops.make_dots pair for sharded vectors (parallel/);
+    the small Hessenberg problem then runs on every shard's copy."""
+    if dots is None:
+        norm, bdots = tree_norm, (lambda V, w: V @ w)
+    else:
+        dot, bdots = dots
+        norm = lambda a: smap(torch.sqrt, dot(a, a))
     r0 = F - mult(x0)
-    beta = tree_norm(r0)
-    V = F.new_zeros((k + 1, n))
-    Z = F.new_zeros((k, n))
-    H = F.new_zeros((k + 1, k))
-    V[0] = r0 / _safe(beta)
+    beta = norm(r0)
+    V = smap(lambda f: f.new_zeros((k + 1,) + f.shape), F)
+    Z = smap(lambda f: f.new_zeros((k,) + f.shape), F)
+    H = smap(lambda b: b.new_zeros((k + 1, k)), beta)
+    V[0] = r0 / smap(_safe, beta)
     for j in range(k):
         z = pc_apply(V[j])
         w = mult(z)
-        h = V[: j + 1] @ w                        # (j+1,)
+        h = bdots(V[: j + 1], w)                  # (j+1,)
         w = w - h @ V[: j + 1]
-        hj1 = tree_norm(w)
-        V[j + 1] = w / _safe(hj1)
+        hj1 = norm(w)
+        V[j + 1] = w / smap(_safe, hj1)
         Z[j] = z
         H[: j + 1, j] = h
         H[j + 1, j] = hj1
-    y = _lstsq_hessenberg(H, beta)
+    y = smap(_lstsq_hessenberg, H, beta)
     x = x0 + y @ Z
-    return x, tree_norm(F - mult(x))
+    return x, norm(F - mult(x))
 
 
 def make_fgmres_cycle(mult, pc_apply, k):

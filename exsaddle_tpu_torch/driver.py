@@ -11,7 +11,10 @@ stdout. Two routes, as the JAX driver's one-binary dispatch:
         ABFSolver, direct float64, or with -ir float32 inner solves + float64
         iterative refinement to -rtol_true (monitor lines are then the true
         float64 residual per round). This is the default for that tree;
-        -tpu 0 sends it to the host route instead.
+        -tpu 0 sends it to the host route instead. Handed more than one
+        device (saddle_solve's `devices`), it solves in float64 on the
+        cartesian device grid _choose_dev_shape picks
+        (parallel/cart_abf.CartABFSolver, mode "cart").
   host  every other tree, and abf.opts under -tpu 0, -constant_pressure_
         nullspace, virtual ranks or an introspection flag (-saddle_ksp_view
         and every -dump_* flag but -dump_solution): per-level element
@@ -24,7 +27,10 @@ stdout. Two routes, as the JAX driver's one-binary dispatch:
 routes.
 
 -device {cuda,cpu} picks the device, default cuda; with no CUDA device the
-default raises instead of falling back.
+default raises instead of falling back. The ABF route's devices default to
+every visible CUDA device under -device cuda and to the CPU under -device
+cpu; a caller may hand saddle_solve a list with repeats (4 shards on one
+card).
 
     python -m exsaddle_tpu_torch.driver [-ndim 3] [-lame] [-device cuda] \\
         -model 2 -sinker_n 1 -mx 8 -mg -nlevels 2 -saddle_ksp_type fgmres \\
@@ -301,16 +307,60 @@ def resolve_device(name):
     return torch.device(name)
 
 
+def default_devices(device):
+    """The ABF route's devices for -device: every visible CUDA device, or
+    the CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _choose_dev_shape(m_el, ndev):
+    """Cartesian device grid for `ndev` devices over `m_el` elements (the
+    JAX driver's choice): prime factors of ndev assigned largest-first to
+    the axis with the largest local element count that divides (balanced
+    slabs, z-major tie-break so single-axis splits land on the outermost
+    axis -- the cross-host layout of parallel.multihost.host_partition).
+    Returns None when ndev does not factor into the mesh (the caller falls
+    back to the single-device solver)."""
+    nd = len(m_el)
+    shape = [1] * nd
+    mloc = list(m_el)
+    rem = ndev
+    factors = []
+    f = 2
+    while f * f <= rem:
+        while rem % f == 0:
+            factors.append(f)
+            rem //= f
+        f += 1
+    if rem > 1:
+        factors.append(rem)
+    for f in sorted(factors, reverse=True):
+        cands = [d for d in range(nd) if mloc[d] % f == 0]
+        if not cands:
+            return None
+        d = max(cands, key=lambda d: (mloc[d], d))
+        shape[d] *= f
+        mloc[d] //= f
+    return tuple(shape)
+
+
 def _numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
+def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
     """The reference's SaddleSolve_Q2Q1. Returns a dict with X (natural
     ordering, numpy), result (KSPResult; on the host route its x is the
     device tensor), mesh, levels, ksp, F (numpy), reason, its, rnorm and
-    seconds {setup, solve}; the ABF route adds history, solver and res (the
-    ABF solver's own result dict)."""
+    seconds {setup, solve}; the ABF route adds history, solver, res (the
+    ABF solver's own result dict) and mode ("direct", "ir" or "cart").
+
+    devices: the ABF route's devices, one per shard, repeats allowed
+    (default_devices(-device) when None); with more than one the solve is
+    sharded over them."""
     device = resolve_device(opts.get_string("device", "cuda"))
     mx = opts.get_int("mx", 4)
     my = opts.get_int("my", mx)
@@ -432,10 +482,43 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
                                     prefix=prefix),
             cheb_its=opts.get_int("fieldsplit_u_mg_levels_ksp_max_it", 8,
                                   prefix=prefix))
-        slv = ABFSolver(mesh, fine.fes, fine.coeff_qp, fine.bc_idx,
-                        fine.bc_vals, device=device, lame=lame, ir=ir_flag,
-                        dtype=torch.float32 if ir_flag else torch.float64,
-                        **cfg_kw)
+        devices = (default_devices(device) if devices is None
+                   else [torch.device(d) for d in devices])
+        # more than one device: the cartesian device grid (the mpiexec -n
+        # N leg of the reference's one executable) when the element grid
+        # factors over it
+        cart_shape = (_choose_dev_shape(m_el, len(devices))
+                      if len(devices) > 1 else None)
+        if cart_shape is not None:
+            from exsaddle_tpu_torch.parallel.cart import CartPartition
+            from exsaddle_tpu_torch.parallel.cart_abf import CartABFSolver
+            if ir_flag:
+                log("# -ir: distributed solve runs directly in float64 "
+                    "(mixed-precision refinement is the single-device "
+                    "path); -rtol_true ignored")
+                ir_flag = False
+            # one process drives every shard: there is no cross-process
+            # halo or psum, so each process of a group would solve the
+            # whole problem again
+            if (torch.distributed.is_initialized()
+                    and torch.distributed.get_world_size() > 1):
+                raise RuntimeError(
+                    "the sharded solve runs in one process; a torch."
+                    "distributed group of "
+                    f"{torch.distributed.get_world_size()} processes "
+                    "carries only build_cart_abf's setup reductions "
+                    "(parallel/multihost.py)")
+            slv = CartABFSolver(CartPartition(mesh, cart_shape), ctx,
+                                fine.bc_idx, fine.bc_vals, devices,
+                                lame=lame, **cfg_kw)
+            mode = "cart"
+        else:
+            slv = ABFSolver(mesh, fine.fes, fine.coeff_qp, fine.bc_idx,
+                            fine.bc_vals, device=device, lame=lame,
+                            ir=ir_flag,
+                            dtype=torch.float32 if ir_flag
+                            else torch.float64, **cfg_kw)
+            mode = "ir" if ir_flag else "direct"
         fine.rhs_diri = slv.setup["rhs_diri"]
         monitor = (make_monitor_short(prefix, log=log)
                    if opts.get_bool("ksp_monitor_short", False,
@@ -585,7 +668,8 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
            "seconds": {"setup": stage_t["Setup"] + stage_t["SolverSetup"],
                        "solve": stage_t["KSPSolve"]}}
     if use_abf:
-        out.update(history=ksp.last["history"], solver=slv, res=ksp.last)
+        out.update(history=ksp.last["history"], solver=slv, res=ksp.last,
+                   mode=mode)
     return out
 
 

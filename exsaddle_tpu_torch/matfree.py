@@ -36,6 +36,7 @@ from exsaddle_tpu_torch.grid_ops import (split_u_parity, gather_u_parity,
                                          scatter_u_parity, _gather_q1,
                                          _scatter_q1, _gather_q2, _scatter_q2)
 from exsaddle_tpu_torch.kernels.a00 import a00_apply, node_gather_table
+from exsaddle_tpu_torch.treeops import smap
 
 def _strain_matrix(G, nd, nbu):
     """Shared strain operator rows.
@@ -291,7 +292,9 @@ class ParityMatFreeOperator:
 
     Bs (nqp*ncomp, nud), Dm (nqp, nud), Np (nqp, npb), scale_visc
     (nel, nqp*ncomp), fac (nqp,), facp_lam ((nel, nqp) Lame, else (1, 1)),
-    keep / bc_mask (ndof,) permuted."""
+    keep / bc_mask (ndof,) permuted. gather_table: K1's node table, when
+    the caller shares one among operators of one box shape on one device
+    (the shards of parallel/cart_abf.CartBlocks); None builds it here."""
     Bs: torch.Tensor
     Dm: torch.Tensor
     Np: torch.Tensor
@@ -308,6 +311,7 @@ class ParityMatFreeOperator:
     ncomp: int
     nqp: int
     cls_shapes: tuple
+    gather_table: torch.Tensor = None
 
     @classmethod
     def build(cls, mesh, fes, coeff_qp, bc_mask, *, device, lame=False,
@@ -373,7 +377,10 @@ class ParityMatFreeOperator:
     @cached_property
     def node_table(self):
         """K1's node gather table (kernels/a00.py:node_gather_table) on this
-        operator's device, built at its first CUDA apply."""
+        operator's device: gather_table when given, else built at its first
+        CUDA apply."""
+        if self.gather_table is not None:
+            return self.gather_table
         return torch.as_tensor(node_gather_table(self.m_el),
                                device=self.Bs.device)
 
@@ -435,13 +442,11 @@ def tree_norm(a):
     return torch.linalg.vector_norm(a)
 
 
-def mult_tree(op, aux, x):
-    """y = A x for the flat parity-layout vector x (ndof,); returns a new
-    flat vector. The u-u term is K1 (kernels/a00.py)."""
-    ks, ms, kp, mp = aux
-    xu = x[: op.nu]
+def _mult_local(op, ks, kp, x):
+    """The raw apply of one shard: K1 plus the couplings on keep * x,
+    without the output masks. Returns (flat u vector, pressure grid)."""
     pg = x[op.nu:].view(op.p_shape)
-    xk = xu * ks
+    xk = x[: op.nu] * ks
     pe = _gather_q1(pg * kp, op.m_el)
     ptmp = pe @ op.Np.T
     xe = gather_u_parity(op.split_u(xk), op.m_el)
@@ -452,8 +457,25 @@ def mult_tree(op, aux, x):
     yu = a00_apply(op, xk)
     yu += scatter_u_parity(-((ptmp * op.fac[None, :]) @ op.Dm), op.m_el,
                            op.cls_shapes)
-    yp = _scatter_q1(ype, op.m_el, op.nn_p)
+    return yu, _scatter_q1(ype, op.m_el, op.nn_p)
+
+
+def _masked(op, x, yu, yp, ks, ms, kp, mp):
     y = torch.empty_like(x)
-    y[: op.nu] = yu * ks + ms * xu
-    y[op.nu:] = (yp * kp + mp * pg).reshape(-1)
+    y[: op.nu] = yu * ks + ms * x[: op.nu]
+    y[op.nu:] = (yp * kp + mp * x[op.nu:].view(op.p_shape)).reshape(-1)
     return y
+
+
+def mult_tree(op, aux, x, halo_u=None, halo_p=None):
+    """y = A x for the flat parity-layout vector x (ndof,); returns a new
+    flat vector. The u-u term is K1 (kernels/a00.py). In a sharded layout
+    (parallel/) op, aux and x are per shard and halo_u / halo_p add the
+    interface planes of the raw result before the keep/mask terms."""
+    ks, ms, kp, mp = aux
+    yu, yp = smap(_mult_local, op, ks, kp, x)
+    if halo_u is not None:
+        yu = halo_u(yu)
+    if halo_p is not None:
+        yp = halo_p(yp)
+    return smap(_masked, op, x, yu, yp, ks, ms, kp, mp)

@@ -2,8 +2,12 @@
 Chebyshev recurrence, with the exact semantics of exsaddle_tpu/treeops.py.
 
 Vectors are plain tensors (the flat parity-layout vectors of matfree.py, or
-grid tensors on the stencil levels). Krylov bases are (k, n) buffers, so the
-classical Gram-Schmidt reduction is one matrix-vector product.
+grid tensors on the stencil levels) or, in the sharded layouts of parallel/,
+ShardVecs: one tensor per shard. Krylov bases are (k, n) buffers (one per
+shard), so the classical Gram-Schmidt reduction is one matrix-vector product
+per shard. The reductions come from a `make_dots` pair: plain dots on one
+device, ownership-weighted per-shard dots summed by the mesh's psum in a
+sharded layout.
 
 PETSc's algorithmic choices are kept so iteration counts line up with the
 JAX package: classical (unmodified) Gram-Schmidt, Givens residual
@@ -47,6 +51,93 @@ def np_dtype(t):
     return NP_DTYPE[t.dtype]
 
 
+class ShardVec:
+    """A sharded vector: one tensor per shard (`parts`), each on its shard's
+    device. Arithmetic, indexing and `@` act shard by shard: a ShardVec
+    operand pairs up part for part, anything else (a number, a 0-d tensor on
+    the right device) is used as it is for every part. A replicated value,
+    such as the sum a psum returns, is a ShardVec whose parts are copies, one
+    object per distinct device."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = tuple(parts)
+
+    def map(self, fn, *others):
+        """ShardVec of fn(part, other parts...), ShardVec others paired."""
+        return ShardVec(fn(*a) for a in _zip_args((self,) + others))
+
+    def __add__(self, o):
+        return self.map(lambda a, b: a + b, o)
+
+    def __radd__(self, o):
+        return self.map(lambda a, b: b + a, o)
+
+    def __sub__(self, o):
+        return self.map(lambda a, b: a - b, o)
+
+    def __rsub__(self, o):
+        return self.map(lambda a, b: b - a, o)
+
+    def __mul__(self, o):
+        return self.map(lambda a, b: a * b, o)
+
+    def __rmul__(self, o):
+        return self.map(lambda a, b: b * a, o)
+
+    def __truediv__(self, o):
+        return self.map(lambda a, b: a / b, o)
+
+    def __rtruediv__(self, o):
+        return self.map(lambda a, b: b / a, o)
+
+    def __matmul__(self, o):
+        return self.map(lambda a, b: a @ b, o)
+
+    def __rmatmul__(self, o):
+        return self.map(lambda a, b: b @ a, o)
+
+    def __neg__(self):
+        return self.map(lambda a: -a)
+
+    def __getitem__(self, idx):
+        return self.map(lambda a: a[idx])
+
+    def __setitem__(self, idx, value):
+        for a, v in _zip_args((self, value)):
+            a[idx] = v
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+
+def _zip_args(args):
+    """Per-shard argument tuples: ShardVec arguments give their parts in
+    order, any other argument repeats."""
+    n = next(len(a.parts) for a in args if isinstance(a, ShardVec))
+    return zip(*[a.parts if isinstance(a, ShardVec) else (a,) * n
+                 for a in args])
+
+
+def smap(fn, *args):
+    """fn(*args), shard by shard when any argument is a ShardVec. A tuple
+    result comes back as a tuple of ShardVecs."""
+    if not any(isinstance(a, ShardVec) for a in args):
+        return fn(*args)
+    outs = [fn(*a) for a in _zip_args(args)]
+    if isinstance(outs[0], tuple):
+        return tuple(ShardVec(o) for o in zip(*outs))
+    return ShardVec(outs)
+
+
+def first(t):
+    """The tensor a host read takes: t itself, or shard 0's part (of a
+    replicated value, every part holds the same numbers)."""
+    return t.parts[0] if isinstance(t, ShardVec) else t
+
+
 def tdot(a, b):
     """Global dot product (0-d tensor on the vectors' device)."""
     return torch.dot(a.reshape(-1), b.reshape(-1))
@@ -54,6 +145,51 @@ def tdot(a, b):
 
 def tnorm(a):
     return torch.sqrt(tdot(a, a))
+
+
+def _bdots(V, t):
+    return V @ t
+
+
+def make_dots(weight=None, psum=None):
+    """(dot, bdots) pair for make_gcr / make_fgmres / compiled cycles:
+    dot(a, b) and bdots(V, t) = the dots of the rows of the basis V with t.
+
+    Default: plain tensors on one device. weight: ShardVec of per-entry
+    ownership weights -- with interface planes stored on both neighbours,
+    the duplicate copies weigh 0 so every dof counts once; it multiplies
+    the first argument of dot and the vector t of bdots, never the basis.
+    psum: the mesh's sum of per-shard partials (parallel.shard_mesh), which
+    returns the replicated total."""
+    if weight is None and psum is None:
+        return tdot, _bdots
+
+    def dot(a, b):
+        aw = a if weight is None else weight * a
+        s = smap(tdot, aw, b)
+        return s if psum is None else psum(s)
+
+    def bdots(V, t):
+        tw = t if weight is None else weight * t
+        s = V @ tw
+        return s if psum is None else psum(s)
+
+    return dot, bdots
+
+
+def _safe(a):
+    """a, with exact zeros replaced by 1 (a divisor that never branches)."""
+    return torch.where(a == 0.0, torch.ones_like(a), a)
+
+
+def _norm(dot, a):
+    return smap(torch.sqrt, dot(a, a))
+
+
+def _basis(t, k):
+    """A zero (k, *t.shape) basis buffer on t's device (per shard)."""
+    return smap(lambda a: torch.zeros((k,) + a.shape, dtype=a.dtype,
+                                      device=a.device), t)
 
 
 # --- Chebyshev smoother ------------------------------------------------------
@@ -92,18 +228,20 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False):
 # --- GCR ---------------------------------------------------------------------
 
 def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
-             max_it=200):
+             max_it=200, dots=None):
     """KSPGCR: right-preconditioned, unpreconditioned norm, truncated
     restart (gcr.c semantics as in exsaddle_tpu/treeops.make_gcr).
+    dots: optional (dot, bdots) pair from make_dots (sharded layouts).
     Returns solve(b) -> (x, its, rnorm). Zero initial guess."""
+    dot, bdots = dots if dots is not None else make_dots()
 
     def solve(b):
         npdt = np_dtype(b)
-        x = torch.zeros_like(b)
-        r = b.clone()
-        rnorm0 = npdt(tnorm(r).item())
-        V = torch.zeros((restart,) + b.shape, dtype=b.dtype, device=b.device)
-        S = torch.zeros_like(V)
+        x = smap(torch.zeros_like, b)
+        r = smap(torch.clone, b)
+        rnorm0 = npdt(first(_norm(dot, r)).item())
+        V = _basis(b, restart)
+        S = _basis(b, restart)
         target = max(npdt(rtol) * rnorm0, npdt(atol))
         state = CONVERGED_ATOL if rnorm0 <= npdt(atol) else RUNNING
         nv = 0
@@ -113,21 +251,21 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
             s = pc_apply(r)
             v = mult(s)
             if nv > 0:
-                beta = V[:nv] @ v
+                beta = bdots(V[:nv], v)
                 v = v - beta @ V[:nv]
                 s = s - beta @ S[:nv]
-            alpha = tnorm(v)
-            inv = 1.0 / torch.where(alpha == 0.0, torch.ones_like(alpha),
-                                    alpha)
+            alpha = _norm(dot, v)
+            inv = 1.0 / smap(_safe, alpha)
             v = inv * v
             s = inv * s
             V[nv] = v
             S[nv] = s
-            gamma = tdot(r, v)
+            gamma = dot(r, v)
             x = gamma * s + x
             r = -gamma * v + r
-            rn = tnorm(r)
-            alpha_h, rn_h = torch.stack([alpha, rn]).cpu().numpy()
+            rn = _norm(dot, r)
+            alpha_h, rn_h = torch.stack([first(alpha),
+                                         first(rn)]).cpu().numpy()
             rnorm = npdt(rn_h)
             its += 1
             nv = 0 if nv + 1 >= restart else nv + 1
@@ -145,23 +283,25 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
 # --- FGMRES ------------------------------------------------------------------
 
 def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
-                dtol=1e4, max_it=10000, hist_len=None):
+                dtol=1e4, max_it=10000, hist_len=None, dots=None):
     """KSPFGMRES: right preconditioning, classical Gram-Schmidt, Givens
     recurrence, unpreconditioned norm, KSPConvergedDefault, restarts with
     the solution built at each cycle end (BuildGmresSoln).
+    dots: optional (dot, bdots) pair from make_dots (sharded layouts).
 
     Returns solve(F, x0) -> (x, its, rnorm, state, hist); hist[i] is the
     residual at iteration i (the -ksp_monitor_short values), length
     hist_len (default max_it+1); entries never reached hold -1."""
     if hist_len is None:
         hist_len = max_it + 1
+    dot, bdots = dots if dots is not None else make_dots()
     k = restart
 
     def solve(F, x0):
         npdt = np_dtype(F)
-        x = x0.clone()
-        V = torch.zeros((k + 1,) + F.shape, dtype=F.dtype, device=F.device)
-        Z = torch.zeros((k,) + F.shape, dtype=F.dtype, device=F.device)
+        x = smap(torch.clone, x0)
+        V = _basis(F, k + 1)
+        Z = _basis(F, k)
         H = np.zeros((k + 1, k), npdt)
         g = np.zeros(k + 1, npdt)
         cs = np.zeros(k, npdt)
@@ -185,8 +325,7 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
             if it < 0:
                 # cycle start: true residual of the current iterate
                 r = F - mult(x)
-                beta_t = tnorm(r)
-                beta = npdt(beta_t.item())
+                beta = npdt(first(_norm(dot, r)).item())
                 rnorm = beta
                 hist[min(itc, hist_len - 1)] = rnorm
                 if itc == 0:
@@ -207,12 +346,11 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
             z = pc_apply(V[it])
             w = mult(z)
             Z[it] = z
-            h_t = V[: it + 1] @ w
+            h_t = bdots(V[: it + 1], w)
             w = w - h_t @ V[: it + 1]
-            tt_t = tnorm(w)
-            V[it + 1] = (1.0 / torch.where(tt_t == 0.0,
-                                           torch.ones_like(tt_t), tt_t)) * w
-            hv = torch.cat([h_t, tt_t.reshape(1)]).cpu().numpy()
+            tt_t = _norm(dot, w)
+            V[it + 1] = (1.0 / smap(_safe, tt_t)) * w
+            hv = torch.cat([first(h_t), first(tt_t).reshape(1)]).cpu().numpy()
             h, tt = hv[:-1], hv[-1]
             git = g[it]
             hapbnd = min(abs(tt / (git if git != 0.0 else npdt(1))),
@@ -254,7 +392,8 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
                 # end of cycle: x += Z y with y from the rotated triangle
                 y = scipy.linalg.solve_triangular(H[:it, :it], g[:it],
                                                   lower=False)
-                yt = torch.as_tensor(y.astype(npdt), device=F.device)
+                yt = smap(lambda f: torch.as_tensor(y.astype(npdt),
+                                                    device=f.device), F)
                 x = x + yt @ Z[:it]
                 it = -1
         return x, itc, rnorm, state, hist

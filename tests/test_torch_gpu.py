@@ -19,7 +19,7 @@ import torch
 from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import matfree as tmf
 from exsaddle_tpu_torch import models as tmodels
-from exsaddle_tpu_torch.assembly import FESpace
+from exsaddle_tpu_torch.assembly import FESpace, assemble_rhs, scatter_vector
 from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.mesh import SaddleMesh
 from exsaddle_tpu_torch.options import Options
@@ -253,3 +253,94 @@ def test_ex42_on_cuda_matches_cpu(cuda):
     (ic, rc, xc), (ig, rg, xg) = res["cpu"], res[str(cuda)]
     assert (ig, rg) == (ic, rc) == (60, "CONVERGED_RTOL")
     assert np.abs(xg - xc).max() <= 1e-8 * np.abs(xc).max()
+
+
+def _cart_solver(devices, model="11", mx=6, dev_shape=(1, 2, 2)):
+    """The cartesian ABF solver of a mx^3 problem over `devices`, and the
+    problem (mesh, fes, coefficients, bc indices and values)."""
+    from exsaddle_tpu_torch.parallel.cart import CartPartition
+    from exsaddle_tpu_torch.parallel.cart_abf import CartABFSolver
+    size = (0.1, 1.0, 1.0) if model == "11" else (1.0, 1.0, 1.0)
+    opts = Options.from_args(["-model", model, "-size_x", str(size[0])])
+    ctx = tmodels.ModelContext(opts, 3, log=lambda *a, **k: None)
+    mesh = SaddleMesh(3, (mx, mx, mx), size)
+    fes = FESpace(mesh)
+    bci, bcv = tmodels.create_bc_list(ctx, mesh)
+    slv = CartABFSolver(CartPartition(mesh, dev_shape), ctx, bci, bcv,
+                        devices, nlevels=3)
+    return slv, (mesh, fes, tdriver.fine_coefficients(ctx, fes), bci, bcv)
+
+
+@pytest.mark.gpu
+def test_sharded_mult_tree_on_cuda(cuda):
+    """The sharded mult_tree on [cuda:0] * 4: K1 once per shard (2 device
+    launches each), bitwise-repeatable, equal to the CPU shards' result
+    and to the single-device CUDA mult_tree (float64, 1e-12)."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    out = {}
+    for dev in ("cpu", cuda):
+        slv, prob = _cart_solver([dev] * 4)
+        blk = slv.blocks
+        x = slv.shard_saddle(np.random.default_rng(6).standard_normal(
+            prob[0].ndof))
+        n0, a0 = a00.LAUNCHES.n, a00.LAUNCHES.applies
+        y = blk.saddle_mult(x)
+        if torch.device(dev).type == "cuda":
+            assert a00.LAUNCHES.n - n0 == 2 * 4
+            assert a00.LAUNCHES.applies - a0 == 4
+        assert all(torch.equal(a, b) for a, b in
+                   zip(blk.saddle_mult(x).parts, y.parts))
+        out[str(dev)] = slv.unshard_saddle(y)
+    single = ABFSolver(*prob, device=cuda, nlevels=3)
+    perm = single.setup["perm"]
+    xs = np.random.default_rng(6).standard_normal(prob[0].ndof)
+    y1 = single.tree_to_vec(single.data["op"].mult(torch.as_tensor(
+        xs[perm], device=cuda)))
+    yc, yg = out["cpu"], out[str(cuda)]
+    scale = np.abs(yc).max()
+    assert np.abs(yg - yc).max() <= 1e-12 * scale
+    assert np.abs(yg - y1).max() <= 1e-12 * scale
+
+
+@pytest.mark.gpu
+def test_halos_and_psum_bitwise_repeatable_on_cuda(cuda):
+    """halo_add_all, ghost_extend_axis and psum over 8 shards on one card:
+    the same bits on every call, and psum is the shard-ordered sum."""
+    from exsaddle_tpu_torch.parallel import cart, shard_mesh
+    smesh = shard_mesh.ShardMesh((2, 2, 2), [cuda] * 8)
+    g = np.random.default_rng(9).standard_normal((8, 5, 4, 3, 3))
+
+    def halos():
+        v = smesh.shard(list(g))
+        cart.halo_add_all(smesh, v)
+        return [p.clone() for p in
+                shard_mesh.ghost_extend_axis(smesh, v, 2).parts]
+    first = halos()
+    assert all(torch.equal(a, b) for a, b in zip(halos(), first))
+    parts = smesh.shard(list(g[:, 0, 0]))
+    s = smesh.psum(parts)
+    want = g[0, 0, 0].copy()
+    for i in range(1, 8):
+        want = want + g[i, 0, 0]
+    for _ in range(3):
+        assert all(np.array_equal(p.cpu().numpy(), want)
+                   for p in smesh.psum(parts).parts)
+    assert all(torch.equal(p, s.parts[0]) for p in s.parts)
+
+
+@pytest.mark.gpu
+def test_cart_solve_on_cuda_matches_cpu(cuda):
+    """The sinker at mx=4 on [cuda:0] * 4 and on four CPU shards: the same
+    iteration count and reason, x to 1e-10."""
+    res = {}
+    for dev in ("cpu", cuda):
+        slv, prob = _cart_solver([dev] * 4, model="2", mx=4)
+        mesh, fes, coeff, bci, bcv = prob
+        f1, f2 = assemble_rhs(fes, coeff["Fu"], coeff["Fp"])
+        F = scatter_vector(mesh, f1, f2)
+        F[:mesh.nu][bci] = bcv
+        res[str(dev)] = slv.solve(F + slv.setup["rhs_diri"])
+    c, g = res["cpu"], res[str(cuda)]
+    assert (g["its"], g["reason"]) == (c["its"], c["reason"])
+    assert c["reason"] == "CONVERGED_RTOL"
+    assert np.linalg.norm(g["x"] - c["x"]) <= 1e-10 * np.linalg.norm(c["x"])

@@ -1,0 +1,216 @@
+"""The port's multi-host scaffolding (exsaddle_tpu_torch/parallel/
+multihost.py) against the JAX package's (exsaddle_tpu/parallel/
+multihost.py): the single-process no-op, the host-axis layout and box
+ownership, the additive host-local assembly, the simulated two-host
+constructor path, and a real two-process gloo run on localhost whose
+reductions equal the simulated ones."""
+
+import os
+import socket
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from exsaddle_tpu.parallel import multihost as jmultihost
+from exsaddle_tpu.parallel.cart_abf import (
+    assemble_host_local as j_assemble_host_local)
+from exsaddle_tpu.precond_mg import Prolongation as JProlongation
+
+from exsaddle_tpu_torch.parallel import multihost
+from exsaddle_tpu_torch.parallel.cart import CartPartition
+from exsaddle_tpu_torch.parallel.cart_abf import (CartABFSolver,
+                                                  assemble_host_local,
+                                                  build_cart_abf)
+from exsaddle_tpu_torch.precond_mg import Prolongation
+
+import torch_multihost_worker as worker
+from torch_parallel_common import PSEUDOICE, problems, rhs
+
+N_HOSTS, CHIPS = worker.N_HOSTS, worker.CHIPS
+
+
+@pytest.fixture(scope="module")
+def layout():
+    """(jax problem, port problem, port host partition, 3-level grids and
+    the fine -> L-2 interpolation)."""
+    j, t = problems(3, (4, 4, 4), PSEUDOICE, size=(0.1, 1.0, 1.0))
+    part = multihost.host_partition(t[1], N_HOSTS, CHIPS, chip_shape=(2, 2))
+    grids = [tuple(t[1].nn_u)]
+    for _ in range(2):
+        grids.append(tuple((m + 1) // 2 for m in grids[-1]))
+    grids = grids[::-1]
+    P_f = Prolongation(grids[-2], grids[-1], 3).to_scipy()
+    return j, t, part, grids, P_f
+
+
+def test_initialize_single_process_noop():
+    assert multihost.initialize() == (1, 0)
+    assert not torch.distributed.is_initialized()
+    comm = multihost.HostComm()
+    assert (comm.n_hosts, comm.process_id) == (1, 0)
+    a = np.arange(3.0)
+    assert comm.allreduce_dense(a, "x") is a
+
+
+def test_host_partition_and_boxes_match_jax(layout):
+    j, t, part, *_ = layout
+    jpart = jmultihost.host_partition(j[1], N_HOSTS, CHIPS,
+                                      chip_shape=(2, 2))
+    assert part.dev_shape == jpart.dev_shape == (2, 2, N_HOSTS)
+    assert part._stack_shape() == jpart._stack_shape() == (N_HOSTS, 2, 2)
+    assert part.dev_boxes() == jpart.dev_boxes()
+    smesh = part.device_mesh(["cpu"] * part.ndev)
+    for h in range(N_HOSTS):
+        mine = multihost.local_boxes(part, h, N_HOSTS)
+        assert mine == jmultihost.local_boxes(jpart, h, N_HOSTS)
+        # host h's boxes are shards h*CHIPS .. (h+1)*CHIPS-1 of the stack
+        assert sorted(smesh.boxes.index(b) for b in mine) == list(
+            range(h * CHIPS, (h + 1) * CHIPS))
+    for bad in ((3,), (1, 2)):
+        with pytest.raises(ValueError) as je:
+            jmultihost.host_partition(j[1], N_HOSTS, CHIPS, chip_shape=bad)
+        with pytest.raises(ValueError) as te:
+            multihost.host_partition(t[1], N_HOSTS, CHIPS, chip_shape=bad)
+        assert str(te.value) == str(je.value)
+
+
+def test_host_local_assembly_additive_and_matches_jax(layout):
+    """Per-host partials sum to the single-shot assembly (exactly for the
+    disjoint per-box data) and equal the JAX package's partials."""
+    j, t, part, grids, P_f = layout
+    jpart = jmultihost.host_partition(j[1], N_HOSTS, CHIPS,
+                                      chip_shape=(2, 2))
+    jP_f = JProlongation(grids[-2], grids[-1], 3).to_scipy()
+    full = assemble_host_local(part, t[0], t[4], P_f, grids)
+    parts = []
+    for h in range(N_HOSTS):
+        acc = assemble_host_local(
+            part, t[0], t[4], P_f, grids,
+            boxes=multihost.local_boxes(part, h, N_HOSTS))
+        jacc = j_assemble_host_local(
+            jpart, j[0], j[4], jP_f, grids,
+            boxes=jmultihost.local_boxes(jpart, h, N_HOSTS))
+        for key in ("diag_u", "dmp", "sv_stack", "ps_stack", "p_elbounds",
+                    "el_ids_loc", "sv_loc"):
+            assert np.array_equal(acc[key], np.asarray(jacc[key])), key
+        for key in ("A1", "Mp"):
+            assert abs(acc[key] - jacc[key]).max() == 0.0, key
+        parts.append(acc)
+    for key in ("sv_stack", "ps_stack"):
+        assert np.array_equal(sum(p[key] for p in parts), full[key])
+    for key in ("diag_u", "dmp"):
+        np.testing.assert_allclose(sum(p[key] for p in parts), full[key],
+                                   rtol=1e-13, atol=1e-300)
+    for key in ("A1", "Mp"):
+        diff = abs(sum(p[key] for p in parts) - full[key])
+        assert (diff.max() if diff.nnz else 0.0) <= \
+            1e-13 * abs(full[key]).max()
+    assert sorted(np.concatenate([p["el_ids_loc"] for p in parts])) == \
+        list(range(t[1].nel))
+
+
+def test_simulated_comm_matches_single_process(layout):
+    """build_cart_abf with a simulated two-host HostComm: process 0
+    assembles only its own boxes, every cross-host payload is node-sized or
+    a stencil form, and the setup equals the one-process build; the solve
+    (the sinker, a few iterations) matches the one-process solver's."""
+    _, t, part, grids, P_f = layout
+    comm = multihost.simulated_comm(part, t[0], t[4], P_f, grids,
+                                    n_hosts=N_HOSTS, process_id=0)
+    recorded = []
+    inner = comm._allreduce
+
+    def recording(arr, tag):
+        recorded.append((tag, np.asarray(arr).nbytes))
+        return inner(arr, tag)
+    comm._allreduce = recording
+    _, dd, st = build_cart_abf(part, t[0], *t[4:], nlevels=3,
+                               multihost=comm)
+    _, dd1, st1 = build_cart_abf(part, t[0], *t[4:], nlevels=3)
+    got, want = worker.flatten(dd, st), worker.flatten(dd1, st1)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        scale = max(np.abs(want[key]).max(initial=0.0), 1e-300)
+        assert np.abs(got[key] - want[key]).max(initial=0.0) <= \
+            1e-13 * scale, key
+    placement = {"sv_stack", "ps_stack", "fl_stack"}
+    sums = {tag for tag, _ in recorded} - placement
+    assert sums <= {"diag_u", "dmp", "A1_stencil", "Mp_stencil",
+                    "p_elbounds", "fine_esteig", "rhs_diri"}, sums
+    el_bytes = t[1].nel * 27 * 6 * 8
+    assert all(n < el_bytes / 2 for tag, n in recorded
+               if tag not in placement | {"A1_stencil", "Mp_stencil"})
+
+    _, ts = problems(3, (4, 4, 4), ["-model", "2"])
+    tpart = multihost.host_partition(ts[1], N_HOSTS, CHIPS,
+                                     chip_shape=(2, 2))
+    tcomm = multihost.simulated_comm(tpart, ts[0], ts[4], P_f, grids,
+                                     n_hosts=N_HOSTS, process_id=1)
+    devs = ["cpu"] * tpart.ndev
+    slv = CartABFSolver(tpart, ts[0], *ts[4:], devs, nlevels=3,
+                        multihost=tcomm)
+    ref = CartABFSolver(CartPartition(ts[1], (2, 2, 2)), ts[0], *ts[4:],
+                        devs, nlevels=3)
+    F = rhs(ts, ref.setup["rhs_diri"])
+    a, b = slv.solve(F), ref.solve(F)
+    assert a["its"] == b["its"] and a["reason"] == "CONVERGED_RTOL"
+    assert np.linalg.norm(a["x"] - b["x"]) <= 1e-10 * np.linalg.norm(b["x"])
+
+
+def _free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(fn, out_dir):
+    """Run fn(rank, init_method, out_dir) in N_HOSTS processes joined on
+    localhost; fails after 120 s."""
+    init = f"tcp://localhost:{_free_port()}"
+    ctx = mp.spawn(fn, args=(init, str(out_dir)), nprocs=N_HOSTS, join=False)
+    deadline = time.monotonic() + 120
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "two-process run timed out"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+
+
+def test_two_process_gloo_run_matches_simulated(layout, tmp_path):
+    """Two processes on localhost (gloo): each builds the setup with a real
+    HostComm, assembling its own boxes; its numbers equal the simulated
+    two-host build for the same process id, bitwise (each sum has two
+    operands), and the probe reductions are the sums / min-max."""
+    _, t, part, grids, P_f = layout
+    _spawn(worker.run, tmp_path)
+    for rank in range(N_HOSTS):
+        got = dict(np.load(os.path.join(tmp_path, f"rank{rank}.npz")))
+        assert (int(got.pop("world")), int(got.pop("rank"))) == \
+            (N_HOSTS, rank)
+        assert (int(got.pop("n_hosts")), int(got.pop("process_id"))) == \
+            (N_HOSTS, rank)
+        assert got.pop("sum").tolist() == [3.0]
+        assert got.pop("minmax").tolist() == [-1.0, 1.5]
+        comm = multihost.simulated_comm(part, t[0], t[4], P_f, grids,
+                                        n_hosts=N_HOSTS, process_id=rank)
+        want = worker.flatten(*build_cart_abf(part, t[0], *t[4:], nlevels=3,
+                                           multihost=comm)[1:])
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert np.array_equal(got[key], want[key]), (rank, key)
+
+
+def test_driver_refuses_sharded_solve_in_a_group(tmp_path):
+    """The solve has no cross-process halo or psum: inside a two-process
+    group, every rank's driver refuses the sharded solve instead of solving
+    the whole problem again."""
+    _spawn(worker.run_driver, tmp_path)
+    for rank in range(N_HOSTS):
+        msg = str(np.load(os.path.join(tmp_path, f"driver{rank}.npz"))["msg"])
+        assert msg.startswith("the sharded solve runs in one process; a "
+                              f"torch.distributed group of {N_HOSTS} "), msg
