@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # device, build, then one profiled
-                                       # mx=32 IR solve (PERF.md section 5)
+                                       # mx=32 IR solve under the bench's
+                                       # tuned schedule (PERF.md section 5)
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -90,6 +91,19 @@ Phases, in order; any failure raises and the script exits nonzero:
               parity operator; K1 launches 2 x 4 per sharded apply; a
               repeated solve is bitwise equal; setup / solve seconds, ms per
               outer iteration, halo exchanges, K1 launches, peak memory.
+12. bench -- the port's bench (exsaddle_tpu_torch/bench.py) at mx=32:
+              bench_apply (100 float32 saddle applies captured as one CUDA
+              graph and replayed, beside the same applies issued eagerly;
+              calibration; top device kernels) and bench_solve (float32 +
+              float64 refinement to a true 1e-8) under the tuned schedule,
+              with the abf.opts schedule and the tuned one with 3 fixed
+              V-cycles in place of GCR (u_fixed_vcycles=3) alternated with
+              it; prints the bench's JSON line. The graph replay equals the
+              eager loop bitwise, the scaled loop is stable, one eager loop
+              makes 2 x 100 K1 launches; every schedule converges without
+              stalling to a float64 residual <= 1e-8 recomputed with the
+              port's float64 operator, in rounds and inner iterations
+              inside BENCH_BANDS.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -107,12 +121,16 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import torch
 
+from exsaddle_tpu_torch import abf as tabf
+from exsaddle_tpu_torch import bench
 from exsaddle_tpu_torch import compiled
 from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import models as emodels
 from exsaddle_tpu_torch import native
 from exsaddle_tpu_torch import postproc
+from exsaddle_tpu_torch import treeops
 from exsaddle_tpu_torch.assembly import FESpace, assemble_element_matrices
+from exsaddle_tpu_torch.bench import self_device_us
 from exsaddle_tpu_torch.ex23 import solve_ex23
 from exsaddle_tpu_torch.ex42 import solve_stokes_3d_coupled
 from exsaddle_tpu_torch.grid_ops import (GridSaddleOperator, gather_u_parity,
@@ -263,14 +281,9 @@ def _device_kernels(fn, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: (e.count / calls, _self_device_us(e) / e.count)
+    return {e.key: (e.count / calls, self_device_us(e) / e.count)
             for e in prof.key_averages()
-            if "a00" in e.key and _self_device_us(e) > 0}
-
-
-def _self_device_us(evt):
-    return getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0.0))
+            if "a00" in e.key and self_device_us(e) > 0}
 
 
 def phase_k1(device):
@@ -976,44 +989,152 @@ def phase_cart(device, card):
     return launches, applies
 
 
+# the bench phase's schedules beside the tuned one, and the (rounds, inner
+# its) bands of each around the first card run's counts (tuned 4 / 37,
+# abf.opts 3 / 35, fixed3 4 / 72 on an H100; PERF.md section 6): inner its
+# +-20%, since float32 perturbations of 1e-7 move them by ~10%
+BENCH_OTHERS = {"abfopts": bench.ABFOPTS_KW, "fixed3": {"u_fixed_vcycles": 3}}
+BENCH_BANDS = {"solve_": ((3, 5), (30, 44)),
+               "solve_abfopts_": ((3, 4), (28, 42)),
+               "solve_fixed3_": ((3, 5), (58, 86))}
+BENCH_INNER = 100
+
+
+def phase_bench(device, card):
+    """The port's bench at mx=32 (apply and solve legs); prints its JSON
+    line and returns the K1 (launches, applies) of the phase."""
+    torch.cuda.synchronize()
+    a00.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    extras = bench.bench_apply(32, BENCH_INNER, 5, device)
+    t_apply = time.perf_counter() - t0
+    extras.update(bench.bench_solve(32, 1e-8, device, others=BENCH_OTHERS))
+    launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    log(json.dumps(bench.result_line(extras, 32, 1e-8, device)))
+    kb = extras["kernel_breakdown"]
+    roof, cal = kb["roofline"], kb["device_calibration"]
+    log(f"[bench] apply mx=32: graph replay {extras['t_apply_us']:.2f} us "
+        f"(min/median/max {kb['apply_spread_us']}), eager "
+        f"{extras['t_apply_eager_us']:.2f} us ({kb['apply_eager_spread_us']}),"
+        f" normloop {kb['apply_normloop_us']:.2f} us; effective CSR "
+        f"{extras['effective_csr_gbs']} GB/s, {extras['apply_tflops']} "
+        f"TFLOP/s, {roof['fraction_of_floor']} of the data-sheet floor "
+        f"{roof['t_floor_us']} us, {roof['fraction_of_shape_ceiling']} of the "
+        f"shape ceiling {cal['t_2gemm_shape_us']} us; triad "
+        f"{cal['stream_gbs']} GB/s, 4096^3 GEMM {cal['gemm4k_f32_tflops']} "
+        f"TFLOP/s; power rho {kb['power_rho']:.6g}; {t_apply:.1f} s ({card})")
+    check(extras["apply_timing"] == "graph", "bench: the apply was not "
+          "timed as a CUDA graph replay")
+    check(kb["graph_bitwise_equal"], "bench: the graph replay differs from "
+          "the eager apply loop")
+    check(kb["k1_launches_per_loop"] == 2 * BENCH_INNER,
+          f"bench: {kb['k1_launches_per_loop']} K1 launches in one eager "
+          f"loop of {BENCH_INNER} applies")
+    for pre, ((r0, r1), (i0, i1)) in BENCH_BANDS.items():
+        rounds, its = extras[pre + "ir_rounds"], extras[pre + "outer_its"]
+        rel = extras[pre + "recomputed_rel_resid"]
+        log(f"[bench] {pre[:-1]}: {rounds} rounds, {its} inner its, median "
+            f"{extras[pre + 'seconds']:.3f} s (min/median/max "
+            f"{extras[pre + 'spread_s']}), {extras[pre + 'ms_per_outer_it']}"
+            f" ms/outer it, true float64 relative residual {rel:.3e} "
+            f"(recomputed), setup {extras['solve_setup_seconds']} s ({card})")
+        check(extras[pre + "converged"] and not extras[pre + "stalled"],
+              f"bench {pre[:-1]}: did not converge or stalled")
+        check(rel <= 1e-8, f"bench {pre[:-1]}: true residual {rel:.3e}")
+        check(r0 <= rounds <= r1 and i0 <= its <= i1,
+              f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
+              f"{r0}-{r1} / {i0}-{i1}")
+    return launches, applies
+
+
+def _ranged(name, fn):
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+    return wrapped
+
+
+# ROADMAP section 2's K2-K7, as the port's functions whose device work each
+# counts (the innermost enclosing one; K1 by kernel name wherever it runs)
+PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
+                  ("K3 mp_apply", tabf, "mp_apply"),
+                  ("K4 stencil_apply", tabf, "stencil_apply"),
+                  ("K5 transfers", tabf, "prolong_parity"),
+                  ("K5 transfers", tabf, "restrict_parity"),
+                  ("K5 transfers", tabf, "prolong_grid"),
+                  ("K5 transfers", tabf, "restrict_grid"),
+                  ("K6 cheb_smooth", treeops, "cheb_smooth"),
+                  ("K7 dots", treeops, "tdot"),
+                  ("K7 dots", treeops, "_bdots"))
+
+
 def phase_profile():
-    """One mx=32 IR solve of the main path under torch.profiler, after a
-    warm-up solve: device time by kernel, the card's busy share of the
-    unprofiled solve, kernel launches, then the profiler's table."""
+    """One mx=32 IR solve under the bench's tuned schedule with
+    torch.profiler, after a warm-up solve: device time by K1-K7 (the rest:
+    Krylov vector updates, the coarse matvec, casts), by kernel, the card's
+    busy share of the unprofiled solve, kernel launches, then the
+    profiler's table."""
     from torch.profiler import ProfilerActivity, profile
-    argv = tdriver.ABF_OPTS + (
-        "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
-        "-saddle_fieldsplit_u_pc_mg_levels 4").split()
-    r = tdriver.saddle_solve(Options.from_args(argv), 3, log=lambda *a: None)
-    slv, F = r["solver"], r["F"]
+    device = torch.device("cuda", 0)
+    p = bench._build_problem(32, with_rhs=True)
+    slv = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                         p["bc_vals"], device=device, dtype=torch.float32,
+                         nlevels=bench.bench_nlevels(p["mesh"]), ir=True,
+                         **bench.bench_solver_kw(env=False))
+    F = p["F_raw"] + slv.setup["rhs_diri"]
+    slv.solve_ir(F, rtol=1e-8)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = slv.solve_ir(F, rtol=1e-8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in
+             PROFILE_RANGES]
+    for (name, mod, attr), (_, _, fn) in zip(PROFILE_RANGES, saved):
+        setattr(mod, attr, _ranged(name, fn))
     a00.LAUNCHES.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = slv.solve_ir(F, rtol=1e-8)
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = slv.solve_ir(F, rtol=1e-8)
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
     check(res["converged"], "profiled solve did not converge")
     ka = prof.key_averages()
-    # device-side rows only: an operator's row repeats its kernels' time
+    names = {name for name, _, _ in PROFILE_RANGES}
+    # kernel rows only: an operator's row repeats its kernels' time, and a
+    # range's device-side row spans the kernels inside it
     dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
-           and _self_device_us(e) > 0]
-    total = sum(_self_device_us(e) for e in dev) / 1e6
+           and self_device_us(e) > 0 and e.key not in names]
+    total = sum(self_device_us(e) for e in dev) / 1e6
     check(total > 0, "the profiler recorded no device time")
-    k1 = sum(_self_device_us(e) for e in dev if "a00" in e.key) / 1e6
+    buckets = {"K1 a00_apply": sum(self_device_us(e) for e in dev
+                                   if "a00" in e.key) / 1e6}
+    for e in prof.events():
+        for k in e.kernels:
+            if "a00" in k.name:
+                continue
+            q = e
+            while q is not None and q.name not in names:
+                q = q.cpu_parent
+            if q is not None:
+                buckets[q.name] = buckets.get(q.name, 0.0) + k.duration / 1e6
+    buckets["rest"] = total - sum(buckets.values())
     launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel",
                                                     "cuLaunchKernel",
                                                     "cudaLaunchKernelExC"))
-    log(f"[profile] mx=32 IR solve: unprofiled wall {wall:.3f} s, "
-        f"{res['rounds']} rounds / {res['inner_its']} inner its, device "
-        f"time {total:.3f} s (busy {100 * total / wall:.1f}% of the "
-        f"unprofiled wall), K1 {k1:.3f} s ({100 * k1 / total:.1f}%) in "
-        f"{a00.LAUNCHES.applies} applies, kernel launches {launches}")
-    for e in sorted(dev, key=_self_device_us, reverse=True)[:12]:
-        log(f"[profile] {_self_device_us(e) / 1e3:10.3f} ms "
+    log(f"[profile] mx=32 IR solve, tuned schedule: unprofiled wall "
+        f"{wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} inner "
+        f"its, device time {total:.3f} s (busy {100 * total / wall:.1f}% of "
+        f"the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, kernel "
+        f"launches {launches}")
+    for name in sorted(buckets):
+        log(f"[profile] {name:18s} {buckets[name]:8.3f} s "
+            f"({100 * buckets[name] / total:5.1f}% of device time)")
+    for e in sorted(dev, key=self_device_us, reverse=True)[:12]:
+        log(f"[profile] {self_device_us(e) / 1e3:10.3f} ms "
             f"{e.count:7d} x  {e.key[:90]}")
     log(ka.table(sort_by="self_cuda_time_total", row_limit=25))
 
@@ -1044,7 +1165,10 @@ def main():
     t_cart = time.perf_counter()
     cart_launches, cart_applies = phase_cart(device, card)
     log(f"[smoke] cart phase {time.perf_counter() - t_cart:.1f} s")
-    log(f"[smoke] compiled, outputs, ex42 and cart phases "
+    t_bench = time.perf_counter()
+    bench_launches, bench_applies = phase_bench(device, card)
+    log(f"[smoke] bench phase {time.perf_counter() - t_bench:.1f} s")
+    log(f"[smoke] compiled, outputs, ex42, cart and bench phases "
         f"{time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -1055,6 +1179,7 @@ def main():
         "launches_per_apply": launches / applies,
         "compiled_launches": c_launches, "compiled_applies": c_applies,
         "cart_launches": cart_launches, "cart_applies": cart_applies,
+        "bench_launches": bench_launches, "bench_applies": bench_applies,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_us": 1e3 * k1["bound_ms"], "bound_by": k1["bound_by"],

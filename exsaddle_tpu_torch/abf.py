@@ -21,8 +21,12 @@ given device. Vectors are flat tensors in the parity-permuted dof order of
 matfree.py; the "_tree" names of the JAX package are kept for the block
 applies so each counterpart is easy to find."""
 
+import contextlib
 import itertools
+import os
+import sys
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -274,6 +278,23 @@ def stencil_apply(W, x):
 # Setup (host numpy; the same arithmetic as the JAX package's build)
 # --------------------------------------------------------------------------
 
+def _setup_profile():
+    return os.environ.get("EXSADDLE_SETUP_PROFILE") == "1"
+
+
+@contextlib.contextmanager
+def _stage(name):
+    """Setup-phase stage timer: prints the stage's wall time to stderr as
+    `[setup] <name>: <s> s` when EXSADDLE_SETUP_PROFILE=1, else nothing."""
+    if not _setup_profile():
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    print(f"[setup] {name}: {time.perf_counter() - t0:.2f} s",
+          file=sys.stderr, flush=True)
+
+
 @dataclass(frozen=True)
 class ABFConfig:
     """Static solver configuration (the JAX package's ABFConfig without its
@@ -290,6 +311,11 @@ class ABFConfig:
     gcr_rtol: float = 1e-2
     gcr_restart: int = 30
     gcr_max_it: int = 200
+    # >0: the u-block solve is this many MG-preconditioned Richardson steps
+    # (n V-cycles and n-1 fine applies, no Krylov window and no host read)
+    # in place of GCR; the outer FGMRES is flexible, so a fixed-work inner
+    # solve is admissible. 0 is GCR at gcr_rtol, as abf.opts:5-6.
+    u_fixed_vcycles: int = 0
     cheb_its: int = 8
     # pre-smoothing iteration count; 0 means "same as cheb_its"
     cheb_pre_its: int = 0
@@ -560,35 +586,39 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
     bc_u = bc_mask[:nu]
     keep_u = 1.0 - bc_u
 
-    fd = factored_host(mesh, fes, coeff_qp, lame=lame)
+    with _stage("factored_host"):
+        fd = factored_host(mesh, fes, coeff_qp, lame=lame)
     Bs, Dm_m, Np_m, fac = fd["Bs"], fd["Dm"], fd["Np"], fd["fac"]
     s_flat = fd["scale"]                          # (nel, nqp*ncomp), f64
 
-    pop = ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
-                                      lame=lame, dtype=dtype,
-                                      device=device, host=fd)
-    perm, iperm = parity_permutation(mesh)
+    with _stage("parity op build"):
+        pop = ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
+                                          lame=lame, dtype=dtype,
+                                          device=device, host=fd)
+        perm, iperm = parity_permutation(mesh)
 
     # rhs_diri = -(A_raw x_bc), BC rows zeroed (femixedspace.c:2634-2643);
     # only the O(surface) elements touching a BC node contribute
-    bce = np.nonzero(bc_u[ue].any(axis=1))[0]
-    xbe = x_bc[:nu][ue[bce]]
-    yue = ((xbe @ Bs.T) * s_flat[bce]) @ Bs
-    ype = -((xbe @ Dm_m.T) * fac[None, :]) @ Np_m
-    rhs_diri = np.zeros(mesh.ndof)
-    rhs_diri[:nu] = np.bincount(ue[bce].ravel(), weights=yue.ravel(),
-                                minlength=nu)
-    rhs_diri[nu:] = np.bincount(
-        np.asarray(mesh.p_el_nodes)[bce].ravel(),
-        weights=ype.ravel(), minlength=mesh.np_)
-    rhs_diri = -rhs_diri
-    rhs_diri[:nu][np.asarray(bc_idx)] = 0.0
+    with _stage("rhs_diri"):
+        bce = np.nonzero(bc_u[ue].any(axis=1))[0]
+        xbe = x_bc[:nu][ue[bce]]
+        yue = ((xbe @ Bs.T) * s_flat[bce]) @ Bs
+        ype = -((xbe @ Dm_m.T) * fac[None, :]) @ Np_m
+        rhs_diri = np.zeros(mesh.ndof)
+        rhs_diri[:nu] = np.bincount(ue[bce].ravel(), weights=yue.ravel(),
+                                    minlength=nu)
+        rhs_diri[nu:] = np.bincount(
+            np.asarray(mesh.p_el_nodes)[bce].ravel(),
+            weights=ype.ravel(), minlength=mesh.np_)
+        rhs_diri = -rhs_diri
+        rhs_diri[:nu][np.asarray(bc_idx)] = 0.0
 
     # float64 operator for true residuals (tests, iterative refinement)
-    op64 = pop if dtype == torch.float64 else \
-        ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
-                                    lame=lame, dtype=torch.float64,
-                                    device=device, host=fd)
+    with _stage("f64 saddle op"):
+        op64 = pop if dtype == torch.float64 else \
+            ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
+                                        lame=lame, dtype=torch.float64,
+                                        device=device, host=fd)
 
     # velocity-grid hierarchy (fine -> coarse), DMDA (M+1)/2 coarsening
     grids = [tuple(mesh.nn_u)]
@@ -599,13 +629,15 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         if not all(n >= 2 for n in g):
             raise ValueError("too many MG levels for this mesh")
 
-    prolongs = [Prolongation(grids[k], grids[k + 1], nd)
-                for k in range(nlevels - 2)]
+    with _stage("prolongations"):
+        prolongs = [Prolongation(grids[k], grids[k + 1], nd)
+                    for k in range(nlevels - 2)]
 
-    keep_e = keep_u[ue]
-    diag_e = s_flat @ (Bs ** 2)           # (nel, nud)
-    fine_diag = bc_u + np.bincount(
-        ue.ravel(), weights=(keep_e * diag_e).ravel(), minlength=nu)
+    with _stage("fine diagonal"):
+        keep_e = keep_u[ue]
+        diag_e = s_flat @ (Bs ** 2)           # (nel, nud)
+        fine_diag = bc_u + np.bincount(
+            ue.ravel(), weights=(keep_e * diag_e).ravel(), minlength=nu)
 
     ue_flat = ue.ravel()
 
@@ -630,36 +662,44 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
             fine_est["error"] = e
 
     th = threading.Thread(target=_fine_esteig)
+    t_est0 = time.perf_counter()
     th.start()
+    # per-level Jacobi diagonals + esteig bounds (levels coarsest..finest;
+    # smoothers live on levels 1..nlevels-1, the fine one's from the thread)
+    diags, bounds = [], []
     try:
-        A1e = _galerkin_l2_elements(mesh, _p_loc_l2(nd), Bs, s_flat,
-                                    keep_e, bc_u)
-        W1 = _stencil_from_l2_elements(A1e, mesh.m_el, nd)
-        A1 = csr_from_stencil(W1, tuple(reversed(grids[-2])), nd)
-        coarse_csrs = galerkin_coarse_operators(A1, prolongs) + [A1]
+        with _stage("L-2 Galerkin elements"):
+            A1e = _galerkin_l2_elements(mesh, _p_loc_l2(nd), Bs, s_flat,
+                                        keep_e, bc_u)
+        with _stage("L-2 stencil + csr"):
+            W1 = _stencil_from_l2_elements(A1e, mesh.m_el, nd)
+            A1 = csr_from_stencil(W1, tuple(reversed(grids[-2])), nd)
+        with _stage("deep Galerkin RAPs"):
+            coarse_csrs = galerkin_coarse_operators(A1, prolongs) + [A1]
+        for k in range(1, nlevels - 1):
+            A = coarse_csrs[k]
+            d = A.diagonal()
+            d = np.where(d == 0.0, 1.0, d)
+            with _stage(f"esteig level {k}"):
+                emin, emax = _esteig_bounds(lambda v, A=A: A @ np.asarray(v),
+                                            d, A.shape[0])
+            diags.append(d)
+            bounds.append((emin, emax))
     finally:
-        th.join()
+        with _stage("fine esteig join"):
+            th.join()
     if "error" in fine_est:
         raise fine_est["error"]
-
-    # per-level Jacobi diagonals + esteig bounds (levels coarsest..finest;
-    # smoothers live on levels 1..nlevels-1)
-    diags, bounds = [], []
-    for k in range(1, nlevels):
-        if k == nlevels - 1:
-            diags.append(d_fine_w)
-            bounds.append(fine_est["bounds"])
-            continue
-        A = coarse_csrs[k]
-        d = A.diagonal()
-        d = np.where(d == 0.0, 1.0, d)
-        emin, emax = _esteig_bounds(lambda v, A=A: A @ np.asarray(v),
-                                    d, A.shape[0])
-        diags.append(d)
-        bounds.append((emin, emax))
+    if _setup_profile():
+        print(f"[setup] fine esteig total (overlapped): "
+              f"{time.perf_counter() - t_est0:.2f} s", file=sys.stderr,
+              flush=True)
+    diags.append(d_fine_w)
+    bounds.append(fine_est["bounds"])
 
     # coarse inverse (PCREDUNDANT + stable dense LU stand-in for UMFPACK)
-    coarse_inv = np.linalg.inv(coarse_csrs[0].toarray())
+    with _stage("coarse inverse"):
+        coarse_inv = np.linalg.inv(coarse_csrs[0].toarray())
 
     # block stencils for every intermediate level 1..nlevels-2, including
     # the L-2 Galerkin level (built with A1, no re-extract)
@@ -673,23 +713,25 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
                                              lvl_grids[k], nd))
 
     # Schur p-block: Mpscaled factored weights + Jacobi + Chebyshev bounds
-    if lame:
-        inv = 1.0 / coeff_qp["lambda"] + 1.0 / coeff_qp["mu"]
-    else:
-        inv = 1.0 / coeff_qp["eta"]
-    pscale = -(fes.wq[None, :] * fes.detJ_p) * inv      # (nel, nqp)
-    Sel = assemble_schur_pre(fes, coeff_qp, lame=lame)
-    dmp = np.bincount(mesh.p_el_nodes.ravel(),
-                      weights=np.einsum("eii->ei", Sel).ravel(),
-                      minlength=mesh.np_)
-    rows = np.broadcast_to(mesh.p_el_nodes[:, :, None],
-                           Sel.shape).ravel()
-    cols = np.broadcast_to(mesh.p_el_nodes[:, None, :],
-                           Sel.shape).ravel()
-    Mp = sp.coo_matrix((Sel.ravel(), (rows, cols)),
-                       shape=(mesh.np_, mesh.np_)).tocsr()
-    p_emin, p_emax = p_spectrum_bounds_assembled(
-        Mp, dmp, p_spectrum_bounds(Sel))
+    with _stage("Schur-pre assembly"):
+        if lame:
+            inv = 1.0 / coeff_qp["lambda"] + 1.0 / coeff_qp["mu"]
+        else:
+            inv = 1.0 / coeff_qp["eta"]
+        pscale = -(fes.wq[None, :] * fes.detJ_p) * inv      # (nel, nqp)
+        Sel = assemble_schur_pre(fes, coeff_qp, lame=lame)
+        dmp = np.bincount(mesh.p_el_nodes.ravel(),
+                          weights=np.einsum("eii->ei", Sel).ravel(),
+                          minlength=mesh.np_)
+        rows = np.broadcast_to(mesh.p_el_nodes[:, :, None],
+                               Sel.shape).ravel()
+        cols = np.broadcast_to(mesh.p_el_nodes[:, None, :],
+                               Sel.shape).ravel()
+        Mp = sp.coo_matrix((Sel.ravel(), (rows, cols)),
+                           shape=(mesh.np_, mesh.np_)).tocsr()
+    with _stage("p-block spectrum"):
+        p_emin, p_emax = p_spectrum_bounds_assembled(
+            Mp, dmp, p_spectrum_bounds(Sel))
 
     cfg = ABFConfig(ndim=nd, nlevels=nlevels,
                     cls_shapes=tuple(tuple(s) for s in pop.cls_shapes),
@@ -707,7 +749,8 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         "inv_diag_p": (1.0 / dmp).reshape(tuple(reversed(mesh.nn_p))),
         "p_bounds": (p_emin, p_emax),
     }
-    data = _device_data(pop, host, dtype, device)
+    with _stage("device cast"):
+        data = _device_data(pop, host, dtype, device)
     setup = {"mesh": mesh, "op64": op64, "aux64": tree_aux(op64),
              "rhs_diri": rhs_diri, "bc_mask": bc_mask, "x_bc": x_bc,
              "perm": perm, "iperm": iperm, "coarse_csrs": coarse_csrs,
@@ -739,11 +782,8 @@ def _device_data(op, host, dtype, device):
 
 def config_from_dict(cfg_dict):
     """The port's ABFConfig from dataclasses.asdict of the JAX ABFConfig
-    (its TPU matmul precisions are dropped; the fixed-V-cycle u-block
-    variant is not ported and is refused)."""
-    if cfg_dict.get("u_fixed_vcycles", 0):
-        raise ValueError("u_fixed_vcycles > 0 is not ported")
-    drop = ("matmul_precision", "pc_matmul_precision", "u_fixed_vcycles")
+    (its TPU matmul precisions are dropped)."""
+    drop = ("matmul_precision", "pc_matmul_precision")
     kw = {k: v for k, v in cfg_dict.items() if k not in drop}
     for key in ("cls_shapes", "level_grids"):
         kw[key] = tuple(tuple(int(n) for n in s) for s in kw[key])
@@ -856,8 +896,17 @@ def make_abf_solver(cfg):
             return vcycle(nlev - 1, r)
 
         # --- u-block solve (abf.opts:5-6) ---------------------------------
-        gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
-                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
+        if cfg.u_fixed_vcycles > 0:
+            nfv = cfg.u_fixed_vcycles
+
+            def gcr(ru):
+                x = mg_pc(ru)
+                for _ in range(nfv - 1):
+                    x = mg_pc(ru - fineA(x)) + x
+                return x, nfv, 0.0
+        else:
+            gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
+                                   rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
 
         # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled ---
         p_emin, p_emax = data["p_bounds"]
@@ -941,6 +990,13 @@ class ABFSolver:
         cfg, data, setup = build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals,
                                      device=device, lame=lame, dtype=dtype,
                                      nlevels=nlevels, cfg_kw=cfg_kw)
+        if ir:
+            # the float64 residual operator's K1 node table: built here, so
+            # its host-to-device copy does not fall into the first solve
+            with _stage("ir op64 build"):
+                op64 = setup["op64"]
+                if op64.Bs.device.type == "cuda":
+                    op64.node_table
         self._init(cfg, data, setup, dtype, device, ir)
 
     @classmethod
@@ -967,6 +1023,13 @@ class ABFSolver:
 
     def tree_to_vec(self, t):
         return t.cpu().numpy()[self.setup["iperm"]]
+
+    def rhs_tree(self, coeff_qp=None, F_flat=None):
+        """F_flat (natural ordering) in the solver's layout; coeff_qp is
+        accepted for the JAX package's signature and not read."""
+        if F_flat is None:
+            raise ValueError("pass F_flat (natural ordering)")
+        return self.vec_to_tree(F_flat)
 
     def solve(self, F_flat, x0_flat=None):
         """Solve A x = F. Returns dict with x (natural ordering), its,

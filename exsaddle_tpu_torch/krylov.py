@@ -514,6 +514,11 @@ def converged_reason_message(prefix, result):
             f"iterations {result.its}")
 
 
+def fmt_petsc_g(v):
+    """PETSc '%g' float formatting."""
+    return f"{v:g}"
+
+
 def noisy_vector(n):
     """Deterministic 'noisy' esteig RHS -- the KSPSetNoisy_Private stand-in
     of the JAX package (b_i = sin(i); see exsaddle_tpu/krylov.py for why

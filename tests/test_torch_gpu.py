@@ -344,3 +344,62 @@ def test_cart_solve_on_cuda_matches_cpu(cuda):
     assert (g["its"], g["reason"]) == (c["its"], c["reason"])
     assert c["reason"] == "CONVERGED_RTOL"
     assert np.linalg.norm(g["x"] - c["x"]) <= 1e-10 * np.linalg.norm(c["x"])
+
+
+# the port's bench at mx=16: median graph-replayed float32 saddle apply
+# (inner=20) measured on an NVIDIA H100 80GB HBM3 at 700 W, the median of
+# three runs' medians (168.2, 171.91, 173.9 us; PERF.md section 6);
+# the band is 3x
+MX16_APPLY_US = 171.91
+
+
+@pytest.mark.gpu
+def test_bench_apply_graph_equals_eager_on_cuda(cuda):
+    """bench_apply at mx=16: the applies captured as one CUDA graph give the
+    eager loop's output bit for bit, the scaled loop is stable, one eager
+    loop makes 2 K1 launches per apply, and the replayed apply takes less
+    than 3x the median measured on the H100."""
+    from exsaddle_tpu_torch import bench
+    inner = 20
+    out = bench.bench_apply(16, inner, 5, cuda)
+    kb = out["kernel_breakdown"]
+    assert out["apply_timing"] == "graph" and kb["graph_bitwise_equal"]
+    assert kb["k1_launches_per_loop"] == 2 * inner
+    assert 1e-12 < kb["scaled_loop_final_norm"] < 1e12
+    assert kb["trace_top_ops"]["source"] == "device"
+    assert out["t_apply_us"] <= 3 * MX16_APPLY_US, out["t_apply_us"]
+
+
+@pytest.mark.gpu
+def test_bench_solve_mx16_band_on_cuda(cuda):
+    """bench_solve at mx=16 (3 levels) on the card: the tuned schedule
+    inside the JAX package's mx=16 anchor band (3 +- 1 rounds, 27-41 inner
+    its; tests/test_abf_compiled.py), and both schedules at a true float64
+    1e-8."""
+    from exsaddle_tpu_torch import bench
+    out = bench.bench_solve(16, 1e-8, cuda)
+    assert abs(out["solve_ir_rounds"] - 3) <= 1
+    assert 27 <= out["solve_outer_its"] <= 41, out["solve_outer_its"]
+    for pre in ("solve_", "solve_abfopts_"):
+        assert out[pre + "converged"] and not out[pre + "stalled"]
+        assert out[pre + "recomputed_rel_resid"] <= 1e-8
+
+
+@pytest.mark.gpu
+def test_u_fixed_vcycles_on_cuda_matches_cpu(cuda):
+    """3 fixed V-cycles in place of the u-block GCR, float64 direct solve
+    at mx=6 pseudoice: the CPU's reason and iteration count on CUDA, x to
+    1e-8."""
+    from exsaddle_tpu_torch import bench
+    from exsaddle_tpu_torch.abf import ABFSolver
+    p = bench._build_problem(6, with_rhs=True)
+    res = {}
+    for dev in ("cpu", cuda):
+        slv = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                        p["bc_vals"], device=dev, nlevels=3,
+                        u_fixed_vcycles=3)
+        res[str(dev)] = slv.solve(p["F_raw"] + slv.setup["rhs_diri"])
+    c, g = res["cpu"], res[str(cuda)]
+    assert (g["its"], g["reason"]) == (c["its"], c["reason"])
+    assert c["reason"] == "CONVERGED_RTOL"
+    assert np.abs(g["x"] - c["x"]).max() <= 1e-8 * np.abs(c["x"]).max()
