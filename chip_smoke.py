@@ -88,10 +88,30 @@ Phases, in order; any failure raises and the script exits nonzero:
               the single-device float64 direct solve of the same argv: the
               same iteration count and reason, the history to 1e-8 and x to
               1e-9 (norm-relative), the true residual recomputed with the float64
-              parity operator; K1 launches 2 x 4 per sharded apply; a
-              repeated solve is bitwise equal; setup / solve seconds, ms per
-              outer iteration, halo exchanges, K1 launches, peak memory.
-12. bench -- the port's bench (exsaddle_tpu_torch/bench.py) at mx=32:
+              parity operator; K1 launches 2 x 4 per sharded apply; setup /
+              solve seconds, ms per outer iteration, halo exchanges, K1
+              launches, peak memory. (A repeated flagship solve, bitwise
+              equal, ran here until phase cart_procs took its time; that
+              phase's one-process-setup leg repeats the solve bitwise.)
+12. cart_procs -- the same flagship in 2 processes x 2 shards on this card
+              (torch.multiprocessing spawn, a gloo group on localhost with
+              a 120 s timeout; device grid 1x2x2, host axis z), each rank
+              running driver.saddle_solve with devices=[cuda:0] * 2 (each
+              assembles its own boxes, the setup partials summed through a
+              HostComm), held against phase cart's one-process 4-shard
+              solve: the same iteration count and reason, history and x to
+              1e-9 norm-relative (max differences printed; the HostComm
+              setup sums per process first, so its last bits differ from
+              the one-process setup's), both ranks the same X, the true float64 residual recomputed, 2 x 2 K1
+              launches per sharded apply in each process. Then each rank
+              solves phase cart's F over the same shards with the setup
+              every process builds alone (the one-process setup): its,
+              history and x bitwise phase cart's. Per rank: setup / solve
+              seconds, ms per outer iteration, cross-process messages and
+              bytes, gathers, halo exchanges, K1 launches, peak memory. A
+              child's exception, nonzero exit or the 480 s deadline fails
+              the phase.
+13. bench -- the port's bench (exsaddle_tpu_torch/bench.py) at mx=32:
               bench_apply (100 float32 saddle applies captured as one CUDA
               graph and replayed, beside the same applies issued eagerly;
               calibration; top device kernels) and bench_solve (float32 +
@@ -797,7 +817,9 @@ def _rel(a, b):
 
 def phase_cart(device, card):
     """The sharded runtime with every shard on this card; returns the K1
-    (launches, applies) of the flagship's sharded driver run."""
+    (launches, applies) of the flagship's sharded driver run and that run
+    (its, reason, history, X, F and a float64 true-residual function) for
+    phase cart_procs."""
     from exsaddle_tpu_torch.abf import ABFSolver
     from exsaddle_tpu_torch.assembly import assemble_rhs, scatter_vector
     from exsaddle_tpu_torch.parallel.cart import (CartOperator,
@@ -961,32 +983,199 @@ def phase_cart(device, card):
         f"{r['rnorm']:.6e}, ||F|| {float(torch.linalg.norm(F64)):.6e}")
     check(abs(true - r["rnorm"]) <= 1e-4 * r["rnorm"],
           "cart: the true residual differs from the monitored one")
-    # one sharded apply: 2 K1 launches per shard; a repeated solve
+    # one sharded apply: 2 K1 launches per shard
     n0 = a00.LAUNCHES.n
     slv.blocks.saddle_mult(slv.shard_saddle(r["X"]))
     check(a00.LAUNCHES.n - n0 == 2 * CART_DEVICES,
           "cart: K1 launches per sharded apply")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = slv.solve(r["F"])
-    torch.cuda.synchronize()
-    t_again = time.perf_counter() - t0
-    bitwise = bool(np.array_equal(again["x"], r["X"]))
-    check(again["its"] == its and _rel(again["x"], r["X"]) <= 1e-12,
-          "cart: a repeated sharded solve differs")
     log(f"[cart] mx=32 ndof {r['mesh'].ndof} over {CART_DEVICES} shards "
         f"{slv.part.dev_shape} on one card: {its} its (single device "
         f"{r1['its']}), history relative {hrel:.3e} (worst entry "
         f"{hworst:.3e}), x relative {xrel:.3e}; "
         f"setup {t_setup:.2f} s (single device "
-        f"{r1['seconds']['setup']:.2f} s), solve {t_solve:.3f} s, repeated "
-        f"{t_again:.3f} s ({'bitwise equal' if bitwise else 'to 1e-12'}; "
-        f"single device {r1['seconds']['solve']:.3f} s), "
+        f"{r1['seconds']['setup']:.2f} s), solve {t_solve:.3f} s (single "
+        f"device {r1['seconds']['solve']:.3f} s), "
         f"{1e3 * t_solve / its:.1f} ms per outer it, {halos} halo "
         f"exchanges, {launches} K1 launches in {applies} applies (single "
         f"device {applies1} applies), peak mem "
         f"{peak:.2f} GiB ({card})")
-    return launches, applies
+
+    def true_residual(X):
+        return float(torch.linalg.norm(F64 - mult_tree(
+            op64, aux64, s1.vec_to_tree(X, dtype=torch.float64))))
+    ref = {"its": its, "reason": r["reason"], "history": h, "X": r["X"],
+           "F": r["F"], "setup": t_setup, "solve": t_solve,
+           "true_residual": true_residual}
+    return launches, applies, ref
+
+
+# phase cart_procs: processes x shards per process, all on this card; a
+# message or collective that never completes fails the group after
+# PROCS_GROUP_TIMEOUT seconds, the whole phase after PROCS_DEADLINE
+CART_PROCS, CART_PROCS_SHARDS = 2, 2
+# history and x of the group's driver run (HostComm setup) against phase
+# cart's, norm-relative: phase cart's bound on x of the sharded solve
+# against the single device (a CPU run of mx=4 over the same layout read
+# 1.5e-12 and 4.2e-12, the H100 at mx=32 1.2e-11 and 7.8e-13)
+PROCS_TOL = 1e-9
+PROCS_GROUP_TIMEOUT, PROCS_DEADLINE = 120, 480
+
+
+def _free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _procs_child(rank, init_method, out_dir):
+    """One process of phase cart_procs: the flagship through
+    driver.saddle_solve in the group ([cuda:0] * CART_PROCS_SHARDS, a
+    HostComm setup), one sharded apply's K1 launches, then the same shards
+    with the setup every process builds alone (the one-process setup) on
+    phase cart's F. Saves its numbers to out_dir."""
+    from exsaddle_tpu_torch.parallel import multihost
+    from exsaddle_tpu_torch.parallel.cart_abf import (CartABFSolver,
+                                                      build_cart_abf)
+    multihost.initialize(init_method, CART_PROCS, rank,
+                         timeout=PROCS_GROUP_TIMEOUT)
+    try:
+        device = torch.device("cuda", 0)
+        devices = [device] * CART_PROCS_SHARDS
+        opts = Options.from_args(CART_ARGV)
+        torch.cuda.init()           # the peak-memory counters need it
+        torch.cuda.reset_peak_memory_stats(device)
+        a00.LAUNCHES.reset()
+        r = tdriver.saddle_solve(opts, 3, log=lambda *a: None,
+                                 devices=devices)
+        launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+        peak = torch.cuda.max_memory_allocated(device)
+        slv = r["solver"]
+        traffic = dict(slv.smesh.traffic)
+        halos = slv.blocks.halo_exchanges
+        n0 = a00.LAUNCHES.n
+        slv.blocks.saddle_mult(slv.shard_saddle(r["X"]))
+        per_apply = a00.LAUNCHES.n - n0
+        fine = r["levels"][-1]
+        ctx = emodels.ModelContext(Options.from_args(CART_ARGV), 3,
+                                   log=lambda *a, **k: None)
+        t0 = time.perf_counter()
+        _, ddata, setup = build_cart_abf(slv.part, ctx, fine.bc_idx,
+                                         fine.bc_vals,
+                                         nlevels=slv.dcfg.base.nlevels)
+        alone = CartABFSolver.from_parts(slv.part, slv.dcfg, ddata, setup,
+                                         devices)
+        t_setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ra = alone.solve(np.load(os.path.join(out_dir, "F.npy")))
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 X=r["X"], its=r["its"], reason=r["reason"],
+                 history=np.array(r["history"]), rnorm=r["rnorm"],
+                 setup=r["seconds"]["setup"], solve=r["seconds"]["solve"],
+                 launches=launches, applies=applies, per_apply=per_apply,
+                 peak=peak, halos=halos,
+                 shards=np.array(slv.smesh.shards),
+                 dev_shape=np.array(slv.part.dev_shape),
+                 **{f"traffic_{k}": v for k, v in traffic.items()},
+                 X_alone=ra["x"], its_alone=ra["its"],
+                 history_alone=np.array(ra["history"]),
+                 setup_alone=t_setup, solve_alone=t_solve)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_cart_procs(card, ref):
+    """The flagship in CART_PROCS processes x CART_PROCS_SHARDS shards on
+    this card, held against phase cart's one-process 4-shard solve `ref`;
+    returns the K1 (launches, applies) of the group's driver runs, summed
+    over the ranks."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "F.npy"), ref["F"])
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_procs_child, nprocs=CART_PROCS, join=False, args=(
+            f"tcp://localhost:{_free_port()}", tmp))
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < PROCS_DEADLINE,
+                      f"cart_procs: the group ran past {PROCS_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(timeout=30)
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{k}.npz")))
+                 for k in range(CART_PROCS)]
+    h0, X0 = ref["history"], ref["X"]
+    for k, g in enumerate(ranks):
+        its = int(g["its"])
+        check(g["dev_shape"].tolist() == [1, 2, 2] and g["shards"].tolist()
+              == list(range(k * CART_PROCS_SHARDS,
+                            (k + 1) * CART_PROCS_SHARDS)),
+              f"cart_procs: rank {k} held shards {g['shards'].tolist()} of "
+              f"{g['dev_shape'].tolist()}")
+        check(its == ref["its"] and str(g["reason"]) == ref["reason"]
+              == "CONVERGED_RTOL",
+              f"cart_procs: rank {k} {g['reason']} in {its} its, one "
+              f"process {ref['reason']} in {ref['its']}")
+        # the HostComm setup sums each node's box contributions per process
+        # first, so its last bits differ from the one-process setup's and
+        # the solve carries that (PROCS_TOL); the one-process-setup leg
+        # below is bitwise
+        h = g["history"]
+        check(h.shape == h0.shape, f"cart_procs: rank {k} history of "
+              f"{h.size} entries, one process {h0.size}")
+        hrel, xrel = _rel(h, h0), _rel(g["X"], X0)
+        hworst = float(np.max(np.abs(h - h0) / h0))
+        check(hrel <= PROCS_TOL and xrel <= PROCS_TOL,
+              f"cart_procs: rank {k} history relative {hrel:.3e}, x "
+              f"relative {xrel:.3e}")
+        check(np.array_equal(g["X"], ranks[0]["X"]),
+              f"cart_procs: ranks 0 and {k} return different X")
+        check(int(g["per_apply"]) == 2 * CART_PROCS_SHARDS,
+              f"cart_procs: rank {k} made {int(g['per_apply'])} K1 "
+              f"launches per sharded apply")
+        n, a = int(g["launches"]), int(g["applies"])
+        check(n > 0 and n == 2 * a and a % CART_PROCS_SHARDS == 0,
+              f"cart_procs: rank {k} made {n} K1 launches in {a} applies")
+        alone_same = (int(g["its_alone"]) == ref["its"]
+                      and np.array_equal(g["history_alone"], h0)
+                      and np.array_equal(g["X_alone"], X0))
+        check(alone_same, f"cart_procs: rank {k}'s solve with the "
+              f"one-process setup is not bitwise phase cart's (x relative "
+              f"{_rel(g['X_alone'], X0):.3e})")
+        true = ref["true_residual"](g["X"])
+        check(abs(true - float(g["rnorm"])) <= 1e-4 * float(g["rnorm"]),
+              f"cart_procs: rank {k}'s true residual {true:.6e} against "
+              f"the monitored {float(g['rnorm']):.6e}")
+        log(f"[cart_procs] rank {k}: {its} its, history relative "
+            f"{hrel:.3e} (worst entry {hworst:.3e}, max |diff| "
+            f"{np.abs(h - h0).max():.3e}), x "
+            f"relative {xrel:.3e} (max |diff| "
+            f"{np.abs(g['X'] - X0).max():.3e}) against one process; true "
+            f"float64 residual {true:.6e}; setup "
+            f"{float(g['setup']):.2f} s, solve {float(g['solve']):.3f} s, "
+            f"{1e3 * float(g['solve']) / its:.1f} ms per outer it (one "
+            f"process {1e3 * ref['solve'] / ref['its']:.1f}); "
+            f"{int(g['traffic_messages'])} messages "
+            f"{int(g['traffic_bytes'])} B sent, "
+            f"{int(g['traffic_gathers'])} gathers "
+            f"{int(g['traffic_gather_bytes'])} B given, "
+            f"{int(g['halos'])} halo exchanges; {n} K1 launches in {a} "
+            f"applies, {int(g['per_apply'])} per sharded apply; peak mem "
+            f"{int(g['peak']) / 2 ** 30:.2f} GiB; with the one-process "
+            f"setup: bitwise, setup {float(g['setup_alone']):.2f} s, solve "
+            f"{float(g['solve_alone']):.3f} s ({card})")
+    log(f"[cart_procs] mx=32 ndof {X0.size} in {CART_PROCS} processes x "
+        f"{CART_PROCS_SHARDS} shards on one card (device grid 1x2x2, host "
+        f"axis z): both ranks the same X; phase {wall:.1f} s ({card})")
+    return (sum(int(g["launches"]) for g in ranks),
+            sum(int(g["applies"]) for g in ranks))
 
 
 # the bench phase's schedules beside the tuned one, and the (rounds, inner
@@ -1163,12 +1352,18 @@ def main():
     phase_outputs(device, card)
     phase_ex42(device, card)
     t_cart = time.perf_counter()
-    cart_launches, cart_applies = phase_cart(device, card)
+    cart_launches, cart_applies, cart_ref = phase_cart(device, card)
     log(f"[smoke] cart phase {time.perf_counter() - t_cart:.1f} s")
+    torch.cuda.empty_cache()
+    t_procs = time.perf_counter()
+    procs_launches, procs_applies = phase_cart_procs(card, cart_ref)
+    del cart_ref
+    log(f"[smoke] cart_procs phase {time.perf_counter() - t_procs:.1f} s")
     t_bench = time.perf_counter()
     bench_launches, bench_applies = phase_bench(device, card)
     log(f"[smoke] bench phase {time.perf_counter() - t_bench:.1f} s")
-    log(f"[smoke] compiled, outputs, ex42, cart and bench phases "
+    log(f"[smoke] compiled, outputs, ex42, cart, cart_procs and bench "
+        f"phases "
         f"{time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -1179,6 +1374,8 @@ def main():
         "launches_per_apply": launches / applies,
         "compiled_launches": c_launches, "compiled_applies": c_applies,
         "cart_launches": cart_launches, "cart_applies": cart_applies,
+        "cart_procs_launches": procs_launches,
+        "cart_procs_applies": procs_applies,
         "bench_launches": bench_launches, "bench_applies": bench_applies,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

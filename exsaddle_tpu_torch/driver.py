@@ -347,6 +347,19 @@ def _choose_dev_shape(m_el, ndev):
     return tuple(shape)
 
 
+def _check_device_counts(n, world):
+    """Check with one collective that every rank of a group of `world`
+    processes hands the same device count n."""
+    if world == 1:
+        return
+    got = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    torch.distributed.all_gather(got, torch.tensor([n]))
+    counts = [int(c) for c in got]
+    if len(set(counts)) != 1:
+        raise ValueError("every process of the group must hand the same "
+                         f"number of devices; ranks hand {counts}")
+
+
 def _numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -360,7 +373,11 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
 
     devices: the ABF route's devices, one per shard, repeats allowed
     (default_devices(-device) when None); with more than one the solve is
-    sharded over them."""
+    sharded over them. Inside a torch.distributed group of W processes
+    (multihost.initialize) every rank calls this with the same count L of
+    its own devices: the solve is sharded over W * L shards, each process
+    assembling and holding its own, and every rank returns the same
+    result."""
     device = resolve_device(opts.get_string("device", "cuda"))
     mx = opts.get_int("mx", 4)
     my = opts.get_int("my", mx)
@@ -484,11 +501,19 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
                                   prefix=prefix))
         devices = (default_devices(device) if devices is None
                    else [torch.device(d) for d in devices])
-        # more than one device: the cartesian device grid (the mpiexec -n
+        # more than one shard: the cartesian device grid (the mpiexec -n
         # N leg of the reference's one executable) when the element grid
-        # factors over it
-        cart_shape = (_choose_dev_shape(m_el, len(devices))
-                      if len(devices) > 1 else None)
+        # factors over it. In a torch.distributed group of W processes
+        # each hands its own devices and the grid spans W times as many
+        from exsaddle_tpu_torch.parallel import multihost
+        world, _ = multihost.process_identity()
+        _check_device_counts(len(devices), world)
+        nshards = world * len(devices)
+        cart_shape = (_choose_dev_shape(m_el, nshards)
+                      if nshards > 1 else None)
+        if world > 1 and cart_shape is None:
+            raise ValueError(f"{nshards} shards over {world} processes do "
+                             f"not factor into the element grid {m_el}")
         if cart_shape is not None:
             from exsaddle_tpu_torch.parallel.cart import CartPartition
             from exsaddle_tpu_torch.parallel.cart_abf import CartABFSolver
@@ -497,20 +522,14 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
                     "(mixed-precision refinement is the single-device "
                     "path); -rtol_true ignored")
                 ir_flag = False
-            # one process drives every shard: there is no cross-process
-            # halo or psum, so each process of a group would solve the
-            # whole problem again
-            if (torch.distributed.is_initialized()
-                    and torch.distributed.get_world_size() > 1):
-                raise RuntimeError(
-                    "the sharded solve runs in one process; a torch."
-                    "distributed group of "
-                    f"{torch.distributed.get_world_size()} processes "
-                    "carries only build_cart_abf's setup reductions "
-                    "(parallel/multihost.py)")
+            # each process assembles only its own boxes (local_boxes,
+            # which raises when W does not divide the outermost grid axis,
+            # the host axis) and the setup partials are summed across the
+            # group (the JAX driver's HostComm under jax.process_count() > 1)
+            comm = multihost.HostComm() if world > 1 else None
             slv = CartABFSolver(CartPartition(mesh, cart_shape), ctx,
                                 fine.bc_idx, fine.bc_vals, devices,
-                                lame=lame, **cfg_kw)
+                                lame=lame, multihost=comm, **cfg_kw)
             mode = "cart"
         else:
             slv = ABFSolver(mesh, fine.fes, fine.coeff_qp, fine.bc_idx,

@@ -78,8 +78,14 @@ class CartPartition:
         return tuple(reversed(self.dev_shape))
 
     def device_mesh(self, devices):
-        """ShardMesh of this layout over `devices` (one per shard)."""
-        return ShardMesh(self.dev_shape, devices)
+        """ShardMesh of this layout over `devices`, one per shard of this
+        process: in a torch.distributed group of W processes process r
+        holds the shards multihost.local_shards gives it, 1/W of the grid
+        along its outermost axis; in one process, every shard."""
+        from exsaddle_tpu_torch.parallel import multihost
+        world, rank = multihost.process_identity()
+        return ShardMesh(self.dev_shape, devices,
+                         shards=multihost.local_shards(self, rank, world))
 
     def unstack(self, a):
         """Stacked host array (stack dims leading) -> per-shard list in
@@ -112,13 +118,15 @@ class CartPartition:
             for box in stack_boxes(self.dev_shape)]
 
     def unshard_vector(self, parts):
-        """Inverse of shard_vector (a ShardVec or a list of host arrays);
-        both copies of an interface plane hold the same value for a
-        consistent vector."""
+        """Inverse of shard_vector (a ShardVec or a list of host arrays,
+        every shard's); both copies of an interface plane hold the same
+        value for a consistent vector."""
         mesh = self.mesh
         nd = mesh.ndim
         if isinstance(parts, ShardVec):
             parts = [p.cpu().numpy() for p in parts.parts]
+        if len(parts) != self.ndev:
+            raise ValueError(f"{len(parts)} parts for {self.ndev} shards")
         nu_loc = int(np.prod(self.nn_u_loc)) * nd
         xu = np.zeros(tuple(reversed(mesh.nn_u)) + (nd,), parts[0].dtype)
         xp = np.zeros(tuple(reversed(mesh.nn_p)), parts[0].dtype)
@@ -130,7 +138,8 @@ class CartPartition:
         return np.concatenate([xu.reshape(-1), xp.reshape(-1)])
 
     def natural_weight(self, smesh):
-        """ShardVec of ownership weights of the flat natural local layout."""
+        """ShardVec of ownership weights of the flat natural local layout
+        (each shard's by its global index; smesh places the local ones)."""
         nd = self.mesh.ndim
         out = []
         for i in range(smesh.ndev):

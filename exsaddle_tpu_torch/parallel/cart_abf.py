@@ -24,11 +24,13 @@ reference's DMDA decomposition (femixedspace.c:1154-1161):
     are accumulated box by box -- and, with a multihost.HostComm, summed
     across processes.
 
-One process drives every shard (shard_mesh.py). Per-shard vectors are the
-port's flat parity-layout tensors of the local box: the local velocity
-parity classes one after another, then the local pressure grid. Setup is
-host numpy and returns stacked arrays laid out as the JAX package's ddata
-(leading device axes, z-major); shard_data places them on the devices."""
+Each process drives the shards of its own devices (shard_mesh.py); in a
+torch.distributed group the halos, psums and the L-2 gather cross processes
+and give the one-process bits. Per-shard vectors are the port's flat
+parity-layout tensors of the local box: the local velocity parity classes
+one after another, then the local pressure grid. Setup is host numpy and
+returns stacked arrays laid out as the JAX package's ddata (leading device
+axes, z-major); shard_data places this process's shards on its devices."""
 
 from dataclasses import dataclass
 
@@ -48,6 +50,7 @@ from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
 from exsaddle_tpu_torch.parallel.cart import ghost_ring_coefficients
 from exsaddle_tpu_torch.parallel.shard_mesh import (DTYPE,
                                                     ghost_extend_axis,
+                                                    halo_add_axes,
                                                     halo_add_axis,
                                                     owned_weight,
                                                     stack_boxes)
@@ -528,7 +531,8 @@ _SHARDED = {"scale_visc", "pscale", "facp_lam", "ks", "ms", "kp", "mp",
 def shard_data(ddata, smesh, nstack):
     """Place a ddata dict of host arrays (the port's build_cart_abf /
     dist_abf.build_dist_abf output, or the JAX package's ddata brought to
-    numpy with jax.device_get) on the mesh's devices.
+    numpy with jax.device_get) on the mesh's devices: this process's shards
+    only.
 
     nstack: the number of leading device axes of the sharded arrays (the
     grid's ndim for the cartesian layout, 1 for slabs). Sharded entries
@@ -627,15 +631,15 @@ class CartBlocks:
         self.halo_exchanges = 0
 
     def halo_u(self, y):
-        """Per-axis halo-add of K1's raw output, class by class: a class
-        holds an interface plane along axis d only where its parity bit d
-        is even (in place on the flat vectors, which it returns)."""
+        """Per-axis halo-add of K1's raw output: a class holds an interface
+        plane along axis d only where its parity bit d is even; those
+        classes exchange along d together, axis by axis as each class
+        alone would (in place on the flat vectors, which it returns)."""
         views = [o.split_u(v) for o, v in zip(self.ops.parts, y.parts)]
-        for p in range(2 ** self.nd):
-            cls = ShardVec(v[p] for v in views)
-            for d in range(self.nd):
-                if not (p >> d) & 1:
-                    halo_add_axis(self.smesh, cls, d)
+        classes = [ShardVec(v[p] for v in views) for p in range(2 ** self.nd)]
+        for d in range(self.nd):
+            halo_add_axes(self.smesh, [c for p, c in enumerate(classes)
+                                       if not (p >> d) & 1], d)
         self.halo_exchanges += 1
         return y
 
@@ -660,19 +664,20 @@ class CartBlocks:
                      for d in reversed(range(nd)))
 
     def l1_to_replicated(self, slabs, full_shape):
-        """Ownership-weighted sum of the local L-2 slabs into the full L-2
-        grid (shard order, on the first shard's device), replicated."""
+        """Ownership-weighted sum of every shard's L-2 slab (gathered from
+        every process) into the full L-2 grid, in global shard order on the
+        first local device, replicated."""
         w = self.w_l1 * slabs
         dev0 = self.smesh.devices[0]
         full = torch.zeros(tuple(full_shape) + (self.nd,), dtype=w.dtype,
                            device=dev0)
-        for i, part in enumerate(w.parts):
-            full[self._l1_slices(i)] += part.to(dev0)
+        for i, part in enumerate(self.smesh.all_parts(w)):
+            full[self._l1_slices(i)] += part
         return self.smesh.replicate(full)
 
     def l1_from_replicated(self, full):
         return ShardVec(f[self._l1_slices(i)]
-                        for i, f in enumerate(full.parts))
+                        for i, f in zip(self.smesh.shards, full.parts))
 
 
 def make_cart_abf_solver(dcfg, smesh):
@@ -810,8 +815,10 @@ def _result(x, its, rnorm, state, hist):
 
 class CartABFSolver:
     """Host-facing distributed ABF over a cartesian device grid: per-shard
-    setup, placement on `devices` (one per shard, repeats allowed), the
-    sharded solve."""
+    setup, placement on `devices` (one per shard of this process, repeats
+    allowed), the sharded solve. In a torch.distributed group of W
+    processes each holds 1/W of the shards (CartPartition.device_mesh) and
+    every rank returns the full solution."""
 
     def __init__(self, part, ctx, bc_idx, bc_vals, devices, lame=False,
                  nlevels=3, multihost=None, **cfg_kw):
@@ -839,7 +846,8 @@ class CartABFSolver:
 
     # --- vector conversions ------------------------------------------------
     def shard_saddle(self, x_flat):
-        """Natural (ndof,) -> ShardVec of flat local parity-layout vectors."""
+        """Natural (ndof,) -> ShardVec of flat local parity-layout vectors
+        (this process's shards)."""
         mesh, part = self.mesh, self.part
         nd = mesh.ndim
         x = np.asarray(x_flat)
@@ -854,12 +862,15 @@ class CartABFSolver:
         return self.smesh.shard(parts)
 
     def unshard_saddle(self, t):
+        """ShardVec -> natural (ndof,) host vector, every process's shards
+        gathered (so every rank returns the whole vector)."""
         mesh, part = self.mesh, self.part
         nd = mesh.ndim
         g = np.zeros(tuple(reversed(mesh.nn_u)) + (nd,))
         gp = np.zeros(tuple(reversed(mesh.nn_p)))
-        for box, v in zip(stack_boxes(part.dev_shape), t.parts):
-            v = v.cpu().numpy()
+        for box, v in zip(stack_boxes(part.dev_shape),
+                          self.smesh.all_parts(t, "cpu")):
+            v = v.numpy()
             loc = np.zeros(tuple(reversed(part.nn_u_loc)) + (nd,), v.dtype)
             off = 0
             for p, s in enumerate(self.dcfg.cls_shapes_loc):

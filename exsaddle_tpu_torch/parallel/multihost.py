@@ -2,26 +2,27 @@
 exsaddle_tpu/parallel/multihost.py).
 
 The reference scales across nodes with plain MPI ranks (SURVEY.md section 5,
-PETSc stash exchange + VecScatter over the interconnect). The port's solve
-is single-controller: one process drives the shards of its own devices
-(shard_mesh.py). Across hosts, one process per host joins a
-torch.distributed group, which carries the per-shard setup's reductions --
-what jax.distributed carries in the JAX package:
+PETSc stash exchange + VecScatter over the interconnect). The port runs one
+process per host (or per group of devices), joined in a torch.distributed
+group -- what jax.distributed joins in the JAX package. Each process drives
+the shards of its own devices (shard_mesh.py):
 
   - `initialize()` wraps torch.distributed.init_process_group (gloo). It is
-    a no-op in one process. The group carries the setup reductions only:
-    there is no cross-process halo or psum yet, so the solve itself stays
-    in one process, and the driver refuses a sharded solve in a group of
-    more than one process.
+    a no-op in one process.
   - `host_partition()` builds the CartPartition whose OUTERMOST grid axis
     (z in 3D, the slowest axis of the shard stack) is the host axis, so a
-    halo crosses hosts on at most that one axis.
+    halo crosses processes on at most that one axis.
   - `local_boxes()` gives each process the element boxes of its own
-    devices, so per-shard setup (cart_abf.build_cart_abf) assembles only
-    those; `HostComm` sums the additive setup partials across processes
-    (PETSc's MatAssemblyBegin/End stash exchange, femixedspace.c:2624-2625).
+    devices and `local_shards()` their shard indices: per-shard setup
+    (cart_abf.build_cart_abf) assembles only those boxes, the process's
+    ShardMesh (CartPartition.device_mesh) places only those shards, and
+    the solve's halos, psums and L-2 gathers cross processes through the
+    group (shard_mesh.ShardMesh.exchange / all_parts);
+  - `HostComm` sums the additive setup partials across processes (PETSc's
+    MatAssemblyBegin/End stash exchange, femixedspace.c:2624-2625).
 """
 
+import datetime
 import os
 
 import numpy as np
@@ -29,38 +30,57 @@ import torch
 import torch.distributed as dist
 
 from exsaddle_tpu_torch.parallel.cart import CartPartition
+from exsaddle_tpu_torch.parallel.shard_mesh import stack_boxes
 
 
-def initialize(init_method=None, world_size=None, rank=None):
+def initialize(init_method=None, world_size=None, rank=None, timeout=None):
     """Join the torch.distributed group of a multi-process run; a no-op in
     one process.
 
     Multi-process mode is entered when any argument is given or the
     standard environment (MASTER_ADDR with WORLD_SIZE > 1) announces one;
-    the group uses the gloo backend (the setup reductions run on host
-    arrays). Returns (world size, rank) after the possible initialization.
-    """
+    the group uses the gloo backend (the setup reductions and the solve's
+    exchanges are staged through host memory). timeout: seconds after which
+    a collective or message that never completes raises (torch's default
+    when None). Returns (world size, rank) after the possible
+    initialization."""
     explicit = (init_method is not None or world_size is not None
                 or rank is not None)
     env = ("MASTER_ADDR" in os.environ
            and int(os.environ.get("WORLD_SIZE", "1")) > 1)
     if (explicit or env) and not dist.is_initialized():
+        kw = {} if timeout is None else {
+            "timeout": datetime.timedelta(seconds=timeout)}
         dist.init_process_group(
             "gloo", init_method=init_method or "env://",
             world_size=-1 if world_size is None else world_size,
-            rank=-1 if rank is None else rank)
+            rank=-1 if rank is None else rank, **kw)
+    return process_identity()
+
+
+def process_identity():
+    """(world size, rank) of this process's torch.distributed group, or
+    (1, 0) outside one."""
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
 
 
-def host_devices():
-    """This process's devices in order: every visible CUDA device, or the
-    CPU without one. The port's solve is single-controller per process, so
-    there is no global device list (jax.devices() in the JAX package)."""
+def host_devices(device="cuda"):
+    """This process's devices in order for `device` ("cuda" or "cpu"):
+    every visible CUDA device, which must exist, or the CPU when asked (the
+    rule of driver.resolve_device). The port's solve is single-controller
+    per process, so there is no global device list (jax.devices() in the
+    JAX package)."""
+    if device == "cpu":
+        return [torch.device("cpu")]
+    if device != "cuda":
+        raise ValueError(f"host_devices({device!r}): expected cuda or cpu")
     n = torch.cuda.device_count()
-    return ([torch.device("cuda", i) for i in range(n)] if n
-            else [torch.device("cpu")])
+    if not n:
+        raise RuntimeError("host_devices: no CUDA device is visible; ask "
+                           "for host_devices('cpu') to run on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def host_partition(mesh, n_hosts, chips_per_host, chip_shape=None):
@@ -209,3 +229,11 @@ def local_boxes(part, process_id, n_hosts):
     lo = process_id * per_host
     hi = lo + per_host
     return [b for b in part.dev_boxes() if lo <= b[-1] < hi]
+
+
+def local_shards(part, process_id, n_hosts):
+    """Shard-stack indices of `process_id`'s boxes (local_boxes): the
+    contiguous block of the z-major stack a process's ShardMesh holds."""
+    mine = set(local_boxes(part, process_id, n_hosts))
+    return [i for i, b in enumerate(stack_boxes(part.dev_shape))
+            if b in mine]

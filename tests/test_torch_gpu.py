@@ -346,6 +346,31 @@ def test_cart_solve_on_cuda_matches_cpu(cuda):
     assert np.linalg.norm(g["x"] - c["x"]) <= 1e-10 * np.linalg.norm(c["x"])
 
 
+@pytest.mark.gpu
+def test_two_process_cart_solve_on_cuda(cuda, tmp_path):
+    """Pseudoice at mx=16 in two gloo processes x 2 shards on cuda:0
+    (device grid 1x2x2, host axis z) against the one-process 4-shard
+    solve on cuda:0: its, history and x bitwise, with the setup of every
+    process alone and with a real HostComm (against the simulated one);
+    both ranks the same x."""
+    import torch_multihost_worker as worker
+    from exsaddle_tpu_torch.parallel import multihost
+    worker.spawn(worker.run_solve, tmp_path, 2, (1, 2), "cuda:0",
+                 (16, 16, 16), timeout=600)
+    part = multihost.host_partition(worker.problem((16, 16, 16))[1],
+                                    worker.N_HOSTS, 2, chip_shape=(1, 2))
+    for mode in ("none", "comm"):
+        want = worker.one_process(part, mode, device="cuda:0")
+        assert want["reason"] == "CONVERGED_RTOL"
+        for rank in range(worker.N_HOSTS):
+            got = dict(np.load(tmp_path / f"solve_{mode}{rank}.npz"))
+            assert got["shards"].tolist() == [2 * rank, 2 * rank + 1]
+            assert int(got["its"]) == want["its"]
+            assert np.array_equal(got["F"], want["F"])
+            assert np.array_equal(got["history"], want["history"]), mode
+            assert np.array_equal(got["x"], want["x"]), mode
+
+
 # the port's bench at mx=16: median graph-replayed float32 saddle apply
 # (inner=20) measured on an NVIDIA H100 80GB HBM3 at 700 W, the median of
 # three runs' medians (168.2, 171.91, 173.9 us; PERF.md section 6);

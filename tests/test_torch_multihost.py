@@ -2,23 +2,28 @@
 multihost.py) against the JAX package's (exsaddle_tpu/parallel/
 multihost.py): the single-process no-op, the host-axis layout and box
 ownership, the additive host-local assembly, the simulated two-host
-constructor path, and a real two-process gloo run on localhost whose
-reductions equal the simulated ones."""
+constructor path, a real two-process gloo run on localhost whose
+reductions equal the simulated ones, and the driver's sharded solve in a
+two-process group (tests/test_torch_multihost_solve.py holds the solver's
+own two-process runs)."""
 
 import os
-import socket
-import time
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
+from exsaddle_tpu import driver as jdriver
+from exsaddle_tpu.mesh import SaddleMesh as JSaddleMesh
+from exsaddle_tpu.options import Options as JOptions
 from exsaddle_tpu.parallel import multihost as jmultihost
+from exsaddle_tpu.parallel.cart import CartPartition as JCartPartition
 from exsaddle_tpu.parallel.cart_abf import (
     assemble_host_local as j_assemble_host_local)
 from exsaddle_tpu.precond_mg import Prolongation as JProlongation
 
+from exsaddle_tpu_torch import driver as tdriver
+from exsaddle_tpu_torch.options import Options as TOptions
 from exsaddle_tpu_torch.parallel import multihost
 from exsaddle_tpu_torch.parallel.cart import CartPartition
 from exsaddle_tpu_torch.parallel.cart_abf import (CartABFSolver,
@@ -160,34 +165,13 @@ def test_simulated_comm_matches_single_process(layout):
     assert np.linalg.norm(a["x"] - b["x"]) <= 1e-10 * np.linalg.norm(b["x"])
 
 
-def _free_port():
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(fn, out_dir):
-    """Run fn(rank, init_method, out_dir) in N_HOSTS processes joined on
-    localhost; fails after 120 s."""
-    init = f"tcp://localhost:{_free_port()}"
-    ctx = mp.spawn(fn, args=(init, str(out_dir)), nprocs=N_HOSTS, join=False)
-    deadline = time.monotonic() + 120
-    try:
-        while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "two-process run timed out"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-
-
 def test_two_process_gloo_run_matches_simulated(layout, tmp_path):
     """Two processes on localhost (gloo): each builds the setup with a real
     HostComm, assembling its own boxes; its numbers equal the simulated
     two-host build for the same process id, bitwise (each sum has two
     operands), and the probe reductions are the sums / min-max."""
     _, t, part, grids, P_f = layout
-    _spawn(worker.run, tmp_path)
+    worker.spawn(worker.run, tmp_path)
     for rank in range(N_HOSTS):
         got = dict(np.load(os.path.join(tmp_path, f"rank{rank}.npz")))
         assert (int(got.pop("world")), int(got.pop("rank"))) == \
@@ -205,12 +189,81 @@ def test_two_process_gloo_run_matches_simulated(layout, tmp_path):
             assert np.array_equal(got[key], want[key]), (rank, key)
 
 
-def test_driver_refuses_sharded_solve_in_a_group(tmp_path):
-    """The solve has no cross-process halo or psum: inside a two-process
-    group, every rank's driver refuses the sharded solve instead of solving
-    the whole problem again."""
-    _spawn(worker.run_driver, tmp_path)
-    for rank in range(N_HOSTS):
-        msg = str(np.load(os.path.join(tmp_path, f"driver{rank}.npz"))["msg"])
-        assert msg.startswith("the sharded solve runs in one process; a "
-                              f"torch.distributed group of {N_HOSTS} "), msg
+@pytest.fixture(scope="module")
+def driver_group(tmp_path_factory):
+    """Each rank's saved driver run (worker.run_driver) and the one-process
+    driver's result over [cpu] * 8."""
+    out = tmp_path_factory.mktemp("driver")
+    worker.spawn(worker.run_driver, out)
+    ranks = [dict(np.load(out / f"driver{r}.npz")) for r in range(N_HOSTS)]
+    one = tdriver.saddle_solve(
+        TOptions.from_args(tdriver.ABF_OPTS + worker.DRIVER_ARGS), 3,
+        log=lambda *a: None, devices=[torch.device("cpu")] * 8)
+    return ranks, one
+
+
+def test_driver_solves_in_a_group(driver_group):
+    """driver.saddle_solve in a two-process group, [cpu] * 4 per rank: a
+    2x2x2 device grid, each rank holding its 4 shards; both ranks return
+    the same X, bitwise the one-process solve over the same shards with the
+    same (HostComm) setup -- the one-process run under simulated_comm --
+    and the one-process driver's (setup summed in one process) and the JAX
+    driver's (-tpu 1 on 8 virtual devices) to 1e-10, with the JAX lines."""
+    ranks, one = driver_group
+    for rank, r in enumerate(ranks):
+        assert str(r["mode"]) == "cart"
+        assert r["dev_shape"].tolist() == [2, 2, 2]
+        assert r["shards"].tolist() == list(range(4 * rank, 4 * rank + 4))
+        assert np.array_equal(r["X"], ranks[0]["X"])
+        assert np.array_equal(r["history"], ranks[0]["history"])
+    r = ranks[0]
+    # the same shards and setup in one process
+    ctx, mesh, bc_idx, bc_vals = worker.problem(args=["-model", "2"],
+                                                size=(1.0, 1.0, 1.0))
+    part = one["solver"].part
+    grids = [tuple(mesh.nn_u)]
+    for _ in range(2):
+        grids.append(tuple((m + 1) // 2 for m in grids[-1]))
+    grids = grids[::-1]
+    comm = multihost.simulated_comm(
+        part, ctx, bc_idx, Prolongation(grids[-2], grids[-1], 3).to_scipy(),
+        grids, n_hosts=N_HOSTS)
+    _, ddata, setup = build_cart_abf(part, ctx, bc_idx, bc_vals, nlevels=3,
+                                     multihost=comm)
+    assert np.array_equal(worker.rhs(ctx, mesh, bc_idx, bc_vals,
+                                     setup["rhs_diri"]), r["F"])
+    sim = CartABFSolver.from_parts(part, one["solver"].dcfg, ddata, setup,
+                                   ["cpu"] * 8).solve(r["F"])
+    assert int(r["its"]) == sim["its"] == one["its"]
+    assert str(r["reason"]) == sim["reason"] == one["reason"] == \
+        "CONVERGED_RTOL"
+    assert np.array_equal(r["history"], np.array(sim["history"]))
+    assert np.array_equal(r["X"], sim["x"])
+    X1 = one["X"]
+    assert np.linalg.norm(r["X"] - X1) <= 1e-10 * np.linalg.norm(X1)
+    jl = []
+    jr = jdriver.saddle_solve(JOptions.from_args(
+        tdriver.ABF_OPTS + [a for a in worker.DRIVER_ARGS
+                            if a not in ("-device", "cpu")] + ["-tpu", "1"]),
+        3, log=jl.append)
+    assert r["lines"].tolist() == jl
+    assert int(r["its"]) == jr["result"].its
+    XJ = np.asarray(jr["X"])
+    assert np.linalg.norm(r["X"] - XJ) <= 1e-10 * np.linalg.norm(XJ)
+
+
+def test_driver_group_refuses_bad_layouts(driver_group):
+    """In the group: a device grid whose host axis (the outermost) the
+    world size does not divide raises local_boxes' error, as the JAX
+    package words it; unequal device counts across ranks raise on every
+    rank."""
+    ranks, _ = driver_group
+    jpart = JCartPartition(JSaddleMesh(3, (4, 4, 3), (1.0, 1.0, 1.0)),
+                           (1, 2, 1))
+    with pytest.raises(ValueError) as je:
+        jmultihost.local_boxes(jpart, 0, N_HOSTS)
+    for r in ranks:
+        layout, counts = r["errors"].tolist()
+        assert layout == str(je.value)
+        assert counts == ("every process of the group must hand the same "
+                          "number of devices; ranks hand [1, 2]")
