@@ -1,9 +1,10 @@
 """Smoke test of the PyTorch port on one CUDA card (H100).
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # device, build, then one profiled
-                                       # mx=32 IR solve under the bench's
-                                       # tuned schedule (PERF.md section 5)
+    python3 chip_smoke.py --profile    # device, build, then profiled
+                                       # mx=32 IR solves under the bench's
+                                       # tuned schedule, eager and graphed
+                                       # (PERF.md section 5)
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -27,10 +28,16 @@ Phases, in order; any failure raises and the script exits nonzero:
               initial residual.
 5. main    -- the driver on the flagship: model 11, size_x 0.1, mx=32,
               float32 inner solves with float64 iterative refinement to a
-              true relative residual of 1e-8, 4 MG levels. The residual is
-              recomputed with the port's float64 operator, the refinement
-              must take 3 rounds and 34-38 inner iterations, and the A00
-              kernel's launch count must grow during the solve.
+              true relative residual of 1e-8, 4 MG levels, through the
+              solver's CUDA graphs (FGMRES's operator, the V-cycle and the
+              p-block captured at setup and replayed). The residual is recomputed with the
+              port's float64 operator, and the A00 kernel's launch count
+              must grow during the run. Then 3 graphed and 3 eager=True
+              solves over the same setup, alternated: bitwise equal x,
+              history, rounds (3) and inner iterations (34-38), the same K1
+              launches per solve; each kind's median wall and spread, ms
+              per outer iteration, K1 launches and applies, graph replays
+              and peak memory per solve.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -145,6 +152,7 @@ from exsaddle_tpu_torch import abf as tabf
 from exsaddle_tpu_torch import bench
 from exsaddle_tpu_torch import compiled
 from exsaddle_tpu_torch import driver as tdriver
+from exsaddle_tpu_torch import graphs
 from exsaddle_tpu_torch import models as emodels
 from exsaddle_tpu_torch import native
 from exsaddle_tpu_torch import postproc
@@ -379,7 +387,34 @@ def phase_anchor():
           f"anchor initial residual {h0} != 0.00273569")
 
 
-def phase_main():
+# phase main's timed IR solves: graphed and eager=True over one setup, in
+# this order (each kind first and last in turn)
+MAIN_ORDER = ("graph", "eager", "eager", "graph", "graph", "eager")
+
+
+def _ir_solve(slv, F):
+    """One IR solve to a true 1e-8 with its wall seconds, K1 launches and
+    applies, graph replays and peak device memory (allocated, reserved)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a00.LAUNCHES.reset()
+    n0 = graphs.replays(slv.bodies())
+    t0 = time.perf_counter()
+    res = slv.solve_ir(F, rtol=1e-8)
+    torch.cuda.synchronize()
+    return {"res": res, "wall": time.perf_counter() - t0,
+            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
+            "replays": graphs.replays(slv.bodies()) - n0,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+
+def _same_ir(a, b):
+    return (a["rounds"] == b["rounds"] and a["inner_its"] == b["inner_its"]
+            and a["history"] == b["history"] and np.array_equal(a["x"], b["x"]))
+
+
+def phase_main(card):
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
@@ -391,9 +426,17 @@ def phase_main():
     launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
     res = r["res"]
     slv = r["solver"]
+    captured = {n: b for n, b in slv.bodies().items()
+                if isinstance(b, graphs.Captured)}
+    warm = sum(b.k1_launches for b in captured.values())
     log(f"[main] A00 kernels during the driver run: {launches} device "
-        f"launches in {applies} applies")
+        f"launches in {applies} applies ({warm} launches in the capture "
+        f"warm-ups); graph capture {slv.capture_seconds:.3f} s "
+        f"({', '.join(f'{n}: {b.k1_applies} K1 applies' for n, b in captured.items())})")
     check(launches > 0, "the main path never launched the A00 kernel")
+    check(sorted(captured) == ["mg_pc", "mult", "p_solve"]
+          and graphs.replays(captured) > 0, "the driver's solver did not "
+          "replay a captured operator, V-cycle and p-block")
     check(not res["stalled"], "iterative refinement stalled")
     check(res["converged"], "iterative refinement did not converge")
     check(np.all(np.isfinite(res["x"]))
@@ -408,27 +451,53 @@ def phase_main():
     log(f"[main] true float64 relative residual {rel:.3e}")
     check(rel <= 1e-8, f"true relative residual {rel} > 1e-8")
 
+    # the driver's graphed solver against eager=True over the same setup
     F = r["F"]
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = slv.solve_ir(F, rtol=1e-8)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(res["converged"] and not res["stalled"],
-              "timed IR solve did not converge")
-    t_solve = float(np.median(times))
-    its = res["inner_its"]
-    check(res["rounds"] == 3 and 34 <= its <= 38,
-          f"IR took {res['rounds']} rounds / {its} inner its, expected 3 / "
+    eager = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                      device=slv.device, dtype=slv.dtype,
+                                      ir=True, eager=True)
+    runs = {"graph": [], "eager": []}
+    for kind in MAIN_ORDER:
+        rec = _ir_solve(slv if kind == "graph" else eager, F)
+        runs[kind].append(rec)
+        check(rec["res"]["converged"] and not rec["res"]["stalled"],
+              f"timed {kind} IR solve did not converge")
+    first = runs["graph"][0]["res"]
+    same = all(_same_ir(rec["res"], first) for kind in runs
+               for rec in runs[kind])
+    check(same, "graphed and eager IR solves differ (x, history, rounds or "
+          "inner its)")
+    its = first["inner_its"]
+    check(first["rounds"] == 3 and 34 <= its <= 38,
+          f"IR took {first['rounds']} rounds / {its} inner its, expected 3 / "
           f"34-38")
+    rel = float(torch.linalg.norm(F64 - mult_tree(op64, aux64, slv.vec_to_tree(
+        first["x"], dtype=torch.float64))) / torch.linalg.norm(F64))
+    check(rel <= 1e-8, f"timed solve: true relative residual {rel} > 1e-8")
     log(f"[main] mx=32 ndof {r['mesh'].ndof}: setup "
-        f"{r['seconds']['setup']:.2f} s, first solve "
-        f"{r['seconds']['solve']:.3f} s, solve median of 3 {t_solve:.3f} s "
-        f"(spread {min(times):.3f}-{max(times):.3f}), rounds {res['rounds']},"
-        f" inner its {its}, {1e3 * t_solve / max(its, 1):.2f} ms/outer it, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{r['seconds']['setup']:.2f} s (graph capture "
+        f"{slv.capture_seconds:.3f} s), first solve "
+        f"{r['seconds']['solve']:.3f} s; graphed and eager=True solves "
+        f"bitwise equal (x, history, rounds {first['rounds']}, inner its "
+        f"{its}), true float64 relative residual {rel:.3e} ({card})")
+    for kind, recs in runs.items():
+        walls = [rec["wall"] for rec in recs]
+        med = float(np.median(walls))
+        rec = recs[0]
+        check(all((q["launches"], q["applies"], q["replays"])
+                  == (rec["launches"], rec["applies"], rec["replays"])
+                  for q in recs), f"{kind}: launches or replays vary")
+        log(f"[main] {kind}: median of {len(walls)} {med:.3f} s (spread "
+            f"{min(walls):.3f}-{max(walls):.3f}), "
+            f"{1e3 * med / its:.2f} ms/outer it, K1 {rec['launches']} "
+            f"launches in {rec['applies']} applies per solve, "
+            f"{rec['replays']} graph replays per solve, peak mem "
+            f"{max(q['peak'] for q in recs):.2f} GiB allocated, "
+            f"{max(q['reserved'] for q in recs):.2f} GiB reserved ({card})")
+    g, e = runs["graph"][0], runs["eager"][0]
+    check((g["launches"], g["applies"]) == (e["launches"], e["applies"]),
+          f"K1 per solve: graphed {g['launches']} / {g['applies']}, eager "
+          f"{e['launches']} / {e['applies']}")
     return launches, applies
 
 
@@ -1257,12 +1326,32 @@ PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K7 dots", treeops, "_bdots"))
 
 
-def phase_profile():
-    """One mx=32 IR solve under the bench's tuned schedule with
-    torch.profiler, after a warm-up solve: device time by K1-K7 (the rest:
-    Krylov vector updates, the coarse matvec, casts), by kernel, the card's
-    busy share of the unprofiled solve, kernel launches, then the
-    profiler's table."""
+_LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def _launches(ka):
+    """(kernel launch calls, graph launch calls) of a profile."""
+    return (sum(e.count for e in ka if e.key in _LAUNCH_APIS),
+            sum(e.count for e in ka if e.key in ("cudaGraphLaunch",
+                                                 "cuGraphLaunch")))
+
+
+def _timed_ir(slv, F):
+    """(wall seconds, result) of one unprofiled IR solve after a warm-up."""
+    slv.solve_ir(F, rtol=1e-8)
+    rec = _ir_solve(slv, F)
+    return rec["wall"], rec["res"]
+
+
+def phase_profile(card):
+    """mx=32 IR solves under the bench's tuned schedule with
+    torch.profiler, each after a warm-up solve. The eager=True solve: device
+    time by K1-K7 (the rest: Krylov vector updates, the coarse matvec,
+    casts; record_function ranges do not exist inside a graph replay), by
+    kernel, the card's busy share of the unprofiled solve, kernel launches,
+    then the profiler's table. The graphed solve (the solver's default on
+    CUDA) over the same setup: its busy share, kernel and graph launches
+    and replays per solve."""
     from torch.profiler import ProfilerActivity, profile
     device = torch.device("cuda", 0)
     p = bench._build_problem(32, with_rhs=True)
@@ -1270,22 +1359,26 @@ def phase_profile():
                          p["bc_vals"], device=device, dtype=torch.float32,
                          nlevels=bench.bench_nlevels(p["mesh"]), ir=True,
                          **bench.bench_solver_kw(env=False))
+
+    def eager():
+        return tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                         device=device, dtype=torch.float32,
+                                         ir=True, eager=True)
+
     F = p["F_raw"] + slv.setup["rhs_diri"]
-    slv.solve_ir(F, rtol=1e-8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = slv.solve_ir(F, rtol=1e-8)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, res = _timed_ir(eager(), F)
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in
              PROFILE_RANGES]
     for (name, mod, attr), (_, _, fn) in zip(PROFILE_RANGES, saved):
         setattr(mod, attr, _ranged(name, fn))
     a00.LAUNCHES.reset()
     try:
+        # built under the ranges: the Krylov loops bind their dots when
+        # they are made
+        eslv = eager()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res = slv.solve_ir(F, rtol=1e-8)
+            res = eslv.solve_ir(F, rtol=1e-8)
             torch.cuda.synchronize()
     finally:
         for mod, attr, fn in saved:
@@ -1311,14 +1404,12 @@ def phase_profile():
             if q is not None:
                 buckets[q.name] = buckets.get(q.name, 0.0) + k.duration / 1e6
     buckets["rest"] = total - sum(buckets.values())
-    launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel",
-                                                    "cuLaunchKernel",
-                                                    "cudaLaunchKernelExC"))
-    log(f"[profile] mx=32 IR solve, tuned schedule: unprofiled wall "
-        f"{wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} inner "
-        f"its, device time {total:.3f} s (busy {100 * total / wall:.1f}% of "
-        f"the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, kernel "
-        f"launches {launches}")
+    launches, _ = _launches(ka)
+    log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
+        f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
+        f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
+        f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, kernel "
+        f"launches {launches} ({card})")
     for name in sorted(buckets):
         log(f"[profile] {name:18s} {buckets[name]:8.3f} s "
             f"({100 * buckets[name] / total:5.1f}% of device time)")
@@ -1326,6 +1417,36 @@ def phase_profile():
         log(f"[profile] {self_device_us(e) / 1e3:10.3f} ms "
             f"{e.count:7d} x  {e.key[:90]}")
     log(ka.table(sort_by="self_cuda_time_total", row_limit=25))
+
+    # the graphed solve: the same kernels, its fixed-work bodies replayed
+    gwall, gres = _timed_ir(slv, F)
+    check(_same_ir(gres, res), "profile: the graphed solve differs from the "
+          "eager one")
+    a00.LAUNCHES.reset()
+    n0 = graphs.replays(slv.bodies())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as gprof:
+        slv.solve_ir(F, rtol=1e-8)
+        torch.cuda.synchronize()
+    replays = graphs.replays(slv.bodies()) - n0
+    gka = gprof.key_averages()
+    gdev = [e for e in gka if e.device_type == torch.autograd.DeviceType.CUDA
+            and self_device_us(e) > 0]
+    gtotal = sum(self_device_us(e) for e in gdev) / 1e6
+    g_launch, g_graph = _launches(gka)
+    kernels = sum(e.count for e in gdev)
+    busy = (f"device time {gtotal:.3f} s over {kernels} kernels, busy "
+            f"{100 * gtotal / gwall:.1f}% of the unprofiled wall"
+            if gtotal > 0 else "device time not measured (the profiler "
+            "recorded no kernel)")
+    log(f"[profile] mx=32 IR solve, tuned schedule, graphed: unprofiled wall "
+        f"{gwall:.3f} s (eager {wall:.3f} s), {busy}; per solve "
+        f"{g_launch} kernel launches and {g_graph} graph launches from the "
+        f"host, {replays} graph replays, {a00.LAUNCHES.applies} K1 applies; "
+        f"graph capture {slv.capture_seconds:.3f} s ({card})")
+    for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
+        log(f"[profile] graphed {self_device_us(e) / 1e3:10.3f} ms "
+            f"{e.count:7d} x  {e.key[:80]}")
 
 
 def main():
@@ -1337,14 +1458,14 @@ def main():
     card = phase_device()
     phase_build()
     if "--profile" in sys.argv[1:]:
-        phase_profile()
+        phase_profile(card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
     k1 = phase_k1(device)
     phase_anchor()
-    launches, applies = phase_main()
+    launches, applies = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()

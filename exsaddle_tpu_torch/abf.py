@@ -17,7 +17,9 @@ Multigrid structure (-saddle_fieldsplit_u_pc_mg_galerkin, abf.opts:13):
 
 Setup (build_abf) is host numpy, copied from the JAX package so both build
 the same numbers; its last step casts the solver data to tensors on the
-given device. Vectors are flat tensors in the parity-permuted dof order of
+given device. On CUDA the solver then captures its fixed-work bodies as CUDA
+graphs (make_abf_solver), the port's counterpart of the JAX package's one
+jitted solve. Vectors are flat tensors in the parity-permuted dof order of
 matfree.py; the "_tree" names of the JAX package are kept for the block
 applies so each counterpart is easy to find."""
 
@@ -32,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from exsaddle_tpu_torch import treeops
+from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
@@ -841,117 +843,154 @@ def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
 # The composed solver
 # --------------------------------------------------------------------------
 
-def make_abf_solver(cfg):
-    """Return solve(data, F, x0) -> (x, its, rnorm, state, hist) on flat
-    parity-layout vectors (matfree.to_tree gives their grid views)."""
+def _mg_pc(cfg, data, fineA):
+    """mg_pc(r): one PCMG multiplicative V-cycle from a zero initial guess
+    over the u-block hierarchy of `data`, fine level applied by fineA."""
     nlev = cfg.nlevels
 
-    def solver(data, F, x0):
-        op = data["op"]
-        aux = data["aux"]
-        nu = op.nu
+    # --- level applies (index k: 0 coarsest .. nlev-1 finest) -------------
+    def coarse_solve(xg):
+        return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
-        # --- level applies (index k: 0 coarsest .. nlev-1 finest) ---------
-        def fineA(xu):
-            return mult_u_tree(op, aux, xu)
-
-        def coarse_solve(xg):
-            return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
-
-        lvl_ops, lvl_pc = {}, {}
-        for k in range(1, nlev):
-            if k == nlev - 1:
-                lvl_ops[k] = fineA
-                lvl_pc[k] = lambda t, d=data["inv_diag_fine"]: d * t
-            else:
-                lvl_ops[k] = (lambda x, W=data["stencils"][k - 1]:
-                              stencil_apply(W, x))
-                lvl_pc[k] = lambda t, d=data["inv_diag_lvls"][k - 1]: d * t
-
-        pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
-
-        def smooth(k, b, x0v, pre=False):
-            emin, emax = data["bounds"][k - 1]
-            # pre-smooths start from zero: x0_zero skips the initial A x0
-            return treeops.cheb_smooth(lvl_ops[k], lvl_pc[k], emin, emax,
-                                       pre_its if pre else cfg.cheb_its,
-                                       b, x0v, x0_zero=pre)
-
-        def vcycle(k, b):
-            """PCMG multiplicative V-cycle from zero initial guess."""
-            if k == 0:
-                return coarse_solve(b)
-            x = smooth(k, b, torch.zeros_like(b), pre=True)
-            r = b - lvl_ops[k](x)
-            if k == nlev - 1:
-                xc = vcycle(k - 1, restrict_parity(r, cfg.cls_shapes,
-                                                   cfg.m_el))
-                x = prolong_parity(xc, cfg.cls_shapes, cfg.m_el) + x
-            else:
-                xc = vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
-                x = x + prolong_grid(xc, cfg.level_grids[k])
-            return smooth(k, b, x)
-
-        def mg_pc(r):
-            return vcycle(nlev - 1, r)
-
-        # --- u-block solve (abf.opts:5-6) ---------------------------------
-        if cfg.u_fixed_vcycles > 0:
-            nfv = cfg.u_fixed_vcycles
-
-            def gcr(ru):
-                x = mg_pc(ru)
-                for _ in range(nfv - 1):
-                    x = mg_pc(ru - fineA(x)) + x
-                return x, nfv, 0.0
+    lvl_ops, lvl_pc = {}, {}
+    for k in range(1, nlev):
+        if k == nlev - 1:
+            lvl_ops[k] = fineA
+            lvl_pc[k] = lambda t, d=data["inv_diag_fine"]: d * t
         else:
-            gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
-                                   rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
+            lvl_ops[k] = (lambda x, W=data["stencils"][k - 1]:
+                          stencil_apply(W, x))
+            lvl_pc[k] = lambda t, d=data["inv_diag_lvls"][k - 1]: d * t
 
-        # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled ---
-        p_emin, p_emax = data["p_bounds"]
+    pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
 
-        def p_solve(bp):
-            return treeops.cheb_smooth(
-                lambda pg: mp_apply(op, data["pscale"], pg),
-                lambda pg: data["inv_diag_p"] * pg, p_emin, p_emax,
-                cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True)
+    def smooth(k, b, x0v, pre=False):
+        emin, emax = data["bounds"][k - 1]
+        # pre-smooths start from zero: x0_zero skips the initial A x0
+        return treeops.cheb_smooth(lvl_ops[k], lvl_pc[k], emin, emax,
+                                   pre_its if pre else cfg.cheb_its,
+                                   b, x0v, x0_zero=pre)
 
-        # --- fieldsplit Schur UPPER (exSaddle.c:313-318) -------------------
-        def pc_apply(t):
-            yp = p_solve(t[nu:].view(op.p_shape))
-            ru = t[:nu] - mult_up_tree(op, aux, yp)
-            yu, _, _ = gcr(ru)
-            return torch.cat([yu, yp.reshape(-1)])
+    def vcycle(k, b):
+        if k == 0:
+            return coarse_solve(b)
+        x = smooth(k, b, torch.zeros_like(b), pre=True)
+        r = b - lvl_ops[k](x)
+        if k == nlev - 1:
+            xc = vcycle(k - 1, restrict_parity(r, cfg.cls_shapes, cfg.m_el))
+            x = prolong_parity(xc, cfg.cls_shapes, cfg.m_el) + x
+        else:
+            xc = vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
+            x = x + prolong_grid(xc, cfg.level_grids[k])
+        return smooth(k, b, x)
 
-        fgmres = treeops.make_fgmres(lambda t: mult_tree(op, aux, t),
-                                     pc_apply, restart=cfg.restart,
-                                     rtol=cfg.rtol, atol=cfg.atol,
-                                     dtol=cfg.dtol, max_it=cfg.max_it,
-                                     hist_len=cfg.hist_len)
-        return fgmres(F, x0)
-
-    return solver
+    return lambda r: vcycle(nlev - 1, r)
 
 
-def make_ir_solver(cfg, wdt, max_rounds=10):
+def _fieldsplit(op, aux, p_solve, u_solve):
+    """Fieldsplit Schur UPPER (exSaddle.c:313-318) on a flat saddle vector:
+    the p-block solve, its A01 coupling into the u right-hand side, then
+    the u-block solve."""
+    nu = op.nu
+
+    def pc_apply(t):
+        yp = p_solve(t[nu:].view(op.p_shape))
+        ru = t[:nu] - mult_up_tree(op, aux, yp)
+        return torch.cat([u_solve(ru), yp.reshape(-1)])
+
+    return pc_apply
+
+
+def make_abf_solver(cfg, data, eager=False):
+    """Return (solve, bodies) over `data`: solve(F, x0) -> (x, its, rnorm,
+    state, hist) on flat parity-layout vectors (matfree.to_tree gives their
+    grid views); bodies is {name: callable}, the bodies that solve runs:
+    mult (FGMRES's operator, the full saddle apply), mg_pc (one V-cycle on
+    a u vector), p_solve (the p-block's Chebyshev polynomial on a pressure
+    grid) and pc_apply (the fieldsplit PC on a saddle vector).
+
+    On a CUDA device, unless eager, the fixed-work bodies (no host read, no
+    data-dependent branch) are captured here once as CUDA graphs
+    (graphs.Captured) and replayed by every solve, as the JAX package jits
+    its solve once: mult, and mg_pc and p_solve or, with
+    cfg.u_fixed_vcycles > 0, the whole pc_apply; each graph has its own
+    memory pool, since they replay interleaved. The capture reads
+    data's tensors by address, so the caller keeps `data` alive and never
+    rebinds or writes its tensors while it solves. GCR and FGMRES read one
+    residual per iteration on the host and call the bodies. eager=True
+    launches every op from Python (the plain version the graphs are held
+    against); the CPU always does."""
+    op, aux = data["op"], data["aux"]
+
+    def fineA(xu):
+        return mult_u_tree(op, aux, xu)
+
+    mg_pc = _mg_pc(cfg, data, fineA)
+    p_emin, p_emax = data["p_bounds"]
+
+    # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled -------
+    def p_solve(bp):
+        return treeops.cheb_smooth(
+            lambda pg: mp_apply(op, data["pscale"], pg),
+            lambda pg: data["inv_diag_p"] * pg, p_emin, p_emax,
+            cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True)
+
+    capture = op.Bs.device.type == "cuda" and not eager
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
+
+    # --- u-block solve (abf.opts:5-6) -------------------------------------
+    if cfg.u_fixed_vcycles > 0:
+        nfv = cfg.u_fixed_vcycles
+
+        def fixed_vcycles(ru):
+            x = mg_pc(ru)
+            for _ in range(nfv - 1):
+                x = mg_pc(ru - fineA(x)) + x
+            return x
+
+        pc_apply = _fieldsplit(op, aux, p_solve, fixed_vcycles)
+        if capture:
+            pc_apply = graphs.Captured(pc_apply, zeros((op.ndof,)))
+    else:
+        if capture:
+            mg_pc = graphs.Captured(mg_pc, zeros((op.nu,)))
+            p_solve = graphs.Captured(p_solve, zeros(op.p_shape))
+        gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
+                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
+        pc_apply = _fieldsplit(op, aux, p_solve, lambda ru: gcr(ru)[0])
+
+    def mult(t):
+        return mult_tree(op, aux, t)
+
+    if capture:
+        mult = graphs.Captured(mult, zeros((op.ndof,)))
+    solve = treeops.make_fgmres(mult, pc_apply, restart=cfg.restart,
+                                rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
+                                max_it=cfg.max_it, hist_len=cfg.hist_len)
+    return solve, {"mult": mult, "mg_pc": mg_pc, "p_solve": p_solve,
+                   "pc_apply": pc_apply}
+
+
+def make_ir_solver(inner, wdt, max_rounds=10):
     """Mixed-precision iterative refinement: float64 true-residual
-    correction rounds around the ABF solve in the working dtype `wdt`.
+    correction rounds around `inner`, the ABF solve(F, x0) of
+    make_abf_solver in the working dtype `wdt`.
 
     Semantics of the JAX package's make_ir_solver: at least one round; a
     diverged inner solve or a non-contracting correction REJECTS the update
     and stops (stalled); otherwise rounds continue until the float64
     residual falls below rtol * ||r0|| or n_rounds is hit.
 
-    Returns solve(data, op64, aux64, F64, rtol, n_rounds) ->
+    Returns solve(op64, aux64, F64, rtol, n_rounds) ->
     (x64, rounds, inner_total, rnorm, rnorm0, history, stalled)."""
-    inner = make_abf_solver(cfg)
 
     def resid(op64, aux64, F64, x64):
         r = F64 - mult_tree(op64, aux64, x64)
         return r, float(treeops.tnorm(r))
 
-    def solve(data, op64, aux64, F64, rtol, n_rounds):
+    def solve(op64, aux64, F64, rtol, n_rounds):
         if n_rounds > max_rounds:
             raise ValueError(f"n_rounds {n_rounds} > max_rounds {max_rounds}")
         x64 = torch.zeros_like(F64)
@@ -962,7 +1001,7 @@ def make_ir_solver(cfg, wdt, max_rounds=10):
         stalled = False
         while rounds < n_rounds:
             rt = r64.to(wdt)
-            dx, its, _, state, _ = inner(data, rt, torch.zeros_like(rt))
+            dx, its, _, state, _ = inner(rt, torch.zeros_like(rt))
             x_try = x64 + dx.to(torch.float64)
             r_try, rn_try = resid(op64, aux64, F64, x_try)
             rounds += 1
@@ -982,11 +1021,17 @@ def make_ir_solver(cfg, wdt, max_rounds=10):
 class ABFSolver:
     """Host-facing wrapper: setup + solve + monitor history.
 
-    device is required: nothing here probes for a GPU."""
+    device is required: nothing here probes for a GPU. On a CUDA device the
+    solver captures its fixed-work bodies as CUDA graphs once, at
+    construction (setup stage "graph capture"; make_abf_solver), and every
+    solve replays them; eager=True launches every op from Python instead.
+    The graphs read the tensors of `data` by address: the solver holds
+    `data` for its lifetime and never rebinds it, and solvers built
+    from_parts over one `data` each capture their own graphs."""
 
     def __init__(self, mesh, fes, coeff_qp, bc_idx, bc_vals, *, device,
                  lame=False, dtype=torch.float64, nlevels=3, ir=False,
-                 **cfg_kw):
+                 eager=False, **cfg_kw):
         cfg, data, setup = build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals,
                                      device=device, lame=lame, dtype=dtype,
                                      nlevels=nlevels, cfg_kw=cfg_kw)
@@ -997,23 +1042,39 @@ class ABFSolver:
                 op64 = setup["op64"]
                 if op64.Bs.device.type == "cuda":
                     op64.node_table
-        self._init(cfg, data, setup, dtype, device, ir)
+        self._init(cfg, data, setup, dtype, device, ir, eager)
 
     @classmethod
-    def from_parts(cls, cfg, data, setup, *, device, dtype, ir=False):
+    def from_parts(cls, cfg, data, setup, *, device, dtype, ir=False,
+                   eager=False):
         """Solver over (cfg, data, setup) built elsewhere, e.g. by
-        data_from_numpy."""
+        data_from_numpy; on CUDA it captures its graphs against these
+        tensors."""
         self = cls.__new__(cls)
-        self._init(cfg, data, setup, dtype, device, ir)
+        self._init(cfg, data, setup, dtype, device, ir, eager)
         return self
 
-    def _init(self, cfg, data, setup, dtype, device, ir):
+    def _init(self, cfg, data, setup, dtype, device, ir, eager):
         self.cfg, self.data, self.setup = cfg, data, setup
         self.mesh = setup["mesh"]
         self.dtype = dtype
         self.device = torch.device(device)
-        self._solve = make_abf_solver(cfg)
-        self._solve_ir_fn = make_ir_solver(cfg, dtype) if ir else None
+        self.capture_seconds = 0.0
+        if self.device.type == "cuda" and not eager:
+            t0 = time.perf_counter()
+            with _stage("graph capture"):
+                self._solve, self._bodies = make_abf_solver(cfg, data)
+            self.capture_seconds = time.perf_counter() - t0
+        else:
+            self._solve, self._bodies = make_abf_solver(cfg, data,
+                                                        eager=eager)
+        self._solve_ir_fn = make_ir_solver(self._solve, dtype) if ir \
+            else None
+
+    def bodies(self):
+        """{name: callable}: the bodies the solve runs (make_abf_solver),
+        graphs.Captured where captured."""
+        return dict(self._bodies)
 
     def vec_to_tree(self, x_flat, dtype=None):
         """Natural-ordering (ndof,) vector -> flat parity-layout tensor."""
@@ -1037,7 +1098,7 @@ class ABFSolver:
         Ft = self.vec_to_tree(F_flat)
         x0 = (self.vec_to_tree(x0_flat) if x0_flat is not None
               else torch.zeros_like(Ft))
-        x, its, rnorm, state, hist = self._solve(self.data, Ft, x0)
+        x, its, rnorm, state, hist = self._solve(Ft, x0)
         history = [float(h) for h in hist[: its + 1] if h >= 0.0]
         return {"x": self.tree_to_vec(x), "its": int(its),
                 "rnorm": float(rnorm), "reason": treeops.reason_name(state),
@@ -1054,8 +1115,8 @@ class ABFSolver:
             raise ValueError("construct with ir=True")
         F64 = self.vec_to_tree(F_flat, dtype=torch.float64)
         x64, rounds, inner_total, rnorm, rnorm0, history, stalled = \
-            self._solve_ir_fn(self.data, self.setup["op64"],
-                              self.setup["aux64"], F64, rtol, max_rounds)
+            self._solve_ir_fn(self.setup["op64"], self.setup["aux64"], F64,
+                              rtol, max_rounds)
         return {"x": self.tree_to_vec(x64), "rounds": rounds,
                 "inner_its": int(inner_total), "rnorm": rnorm,
                 "rnorm0": rnorm0, "history": history, "stalled": stalled,

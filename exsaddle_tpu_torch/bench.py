@@ -19,7 +19,10 @@ BENCH_* environment variables; every function takes an explicit device.
 2. bench_solve: ABFSolver in float32 with float64 iterative refinement to a
    true relative residual of `rtol`, under the tuned schedule of
    bench_solver_kw; the abf.opts schedule (and any other given) solves
-   over the same setup, alternated with it in one call.
+   over the same setup, alternated with it in one call. On a card every
+   schedule's solver replays its own CUDA graphs of the operator, the
+   V-cycle and the p-block (abf.make_abf_solver); solve_peak_mem_gib holds
+   them all.
 
 main() prints exactly one JSON line {"metric", "value", "unit",
 "vs_baseline", "extras"}. On the CPU, which runs only when asked
@@ -46,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from exsaddle_tpu_torch import driver
+from exsaddle_tpu_torch import driver, graphs
 from exsaddle_tpu_torch import models as emodels
 from exsaddle_tpu_torch.abf import ABFSolver
 from exsaddle_tpu_torch.assembly import FESpace, assemble_rhs, scatter_vector
@@ -213,20 +216,6 @@ def _spread_us(t):
     return [round(lo * 1e6, 2), round(med * 1e6, 2), round(hi * 1e6, 2)]
 
 
-def _graph(fn):
-    """fn() captured as one CUDA graph, after a warm-up run on a side
-    stream; returns (graph, the captured output)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph, out
-
-
 def _trace_top_ops(run, device, n=5):
     """torch.profiler over one run(): the top-n device kernels by self
     device time on a card, the top-n host ops by self time on the CPU."""
@@ -285,14 +274,13 @@ def bench_apply(mx, inner, reps, device):
     op_c = dataclasses.replace(op, scale_visc=op.scale_visc * c,
                                fac=op.fac * c, gather_table=op.node_table)
 
-    def applies():
-        t = tree
+    def applies(t):
         for _ in range(inner):
             t = mult_tree(op_c, aux, t)
         return t
 
     n0 = a00.LAUNCHES.n
-    out = applies()
+    out = applies(tree)
     launches = a00.LAUNCHES.n - n0
     # stability audit: the scaled power iteration must stay in a sane
     # float32 range over `inner` applies or the timing is meaningless
@@ -303,16 +291,23 @@ def bench_apply(mx, inner, reps, device):
     breakdown = {"power_rho": rho, "scaled_loop_final_norm": fin,
                  "k1_launches_per_loop": launches}
 
-    t_eager = _timed(applies, inner, reps, device)
+    def eager():
+        return applies(tree)
+
+    t_eager = _timed(eager, inner, reps, device)
     if device.type == "cuda":
-        graph, g_out = _graph(applies)
-        graph.replay()
-        breakdown["graph_bitwise_equal"] = bool(torch.equal(g_out, out))
-        t_spread = _timed(graph.replay, inner, reps, device)
-        timing, run_once = "graph", graph.replay
+        # a call copies x in and y out (~5 us of the ~30 ms of 100 applies)
+        graph = graphs.Captured(applies, tree)
+
+        def run_once():
+            return graph(tree)
+
+        breakdown["graph_bitwise_equal"] = bool(torch.equal(run_once(), out))
+        t_spread = _timed(run_once, inner, reps, device)
+        timing = "graph"
     else:
         t_spread = t_eager
-        timing, run_once = "eager", applies
+        timing, run_once = "eager", eager
     t_apply = t_spread[0]
     breakdown["apply_spread_us"] = _spread_us(t_spread)
     breakdown["apply_eager_spread_us"] = _spread_us(t_eager)
@@ -462,6 +457,8 @@ def bench_solve(mx, rtol, device, others=None):
     mesh = prob["mesh"]
     nlevels = bench_nlevels(mesh)
     _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     slv = ABFSolver(mesh, prob["fes"], prob["coeff"], prob["bc_idx"],
                     prob["bc_vals"], device=device, dtype=torch.float32,
@@ -491,6 +488,9 @@ def bench_solve(mx, rtol, device, others=None):
         "solve_ndof": mesh.ndof,
         "solve_rtol": rtol,
         "solve_setup_seconds": round(t_setup, 2),
+        "solve_peak_mem_gib": (round(torch.cuda.max_memory_allocated(device)
+                                     / 2 ** 30, 3)
+                               if device.type == "cuda" else None),
         "solve_budget_note": ("outer it = u-block its x (V-cycle: 12 fine "
                               "applies -- 3 in the zero-guess 4-it "
                               "pre-smooth, 1 residual, 8 in the post-smooth "

@@ -29,7 +29,9 @@ from exsaddle_tpu_torch.kernels import _build
 
 class LaunchCount:
     """Device launches (`n`) and applies (`applies`) that a wrapper sent to
-    its kernels. Plain-version calls are not counted."""
+    its kernels. Plain-version calls are not counted. Inside a CUDA graph
+    capture the wrapper launches nothing; graphs.Captured takes its counts
+    back out and adds them on every replay."""
 
     def __init__(self):
         self.reset()

@@ -19,7 +19,11 @@ Loop control is host-synced: each GCR or FGMRES iteration brings its few
 scalars to the host once (one device synchronisation) and the Python loop
 decides. The small Givens/Hessenberg arithmetic runs on the host in the
 working dtype (numpy float32/float64 scalars), as the JAX package runs it
-on device in that dtype. Device-side control (CUDA graphs) is later work."""
+on device in that dtype. The preconditioners the loops call may be CUDA
+graph replays (graphs.Captured; the ABF solve's operator, V-cycle and
+p-block);
+cheb_smooth stays host-read-free for that. Device-side loop control is
+later work."""
 
 import numpy as np
 import scipy.linalg
@@ -198,7 +202,8 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False):
     """KSPSolve_Chebyshev three-term recurrence with norm type NONE
     (abf.opts:8-12 smoother: fixed `its` applications, nonzero initial
     guess). emin/emax: numpy scalars of the working dtype (the scalar
-    recurrence runs in that dtype).
+    recurrence runs in that dtype); the coefficients are host numbers, so
+    a CUDA graph capture bakes them in and the body reads nothing back.
 
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with

@@ -428,3 +428,70 @@ def test_u_fixed_vcycles_on_cuda_matches_cpu(cuda):
     assert (g["its"], g["reason"]) == (c["its"], c["reason"])
     assert c["reason"] == "CONVERGED_RTOL"
     assert np.abs(g["x"] - c["x"]).max() <= 1e-8 * np.abs(c["x"]).max()
+
+
+# graphed against eager=True solves, mx=8 pseudoice, 3 levels: the float64
+# direct solve, float32 inner solves with float64 refinement, and the
+# fieldsplit PC with 3 fixed V-cycles captured whole (float32 IR)
+GRAPH_CASES = {"f64_direct": dict(dtype=torch.float64),
+               "f32_ir": dict(dtype=torch.float32, ir=True),
+               "fixed3_f32_ir": dict(dtype=torch.float32, ir=True,
+                                     u_fixed_vcycles=3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_solve_equals_eager_on_cuda(cuda, case):
+    """The solver's captured bodies give the eager=True solve over the same
+    setup bit for bit (x, history, iterations, rounds), with the same K1
+    launches and applies."""
+    from exsaddle_tpu_torch import bench, graphs
+    from exsaddle_tpu_torch.abf import ABFSolver
+    kw = GRAPH_CASES[case]
+    ir = kw.get("ir", False)
+    p = bench._build_problem(8, with_rhs=True)
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, **kw)
+    e = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                             dtype=kw["dtype"], ir=ir, eager=True)
+    captured = [n for n, b in g.bodies().items()
+                if isinstance(b, graphs.Captured)]
+    assert captured == (["mult", "pc_apply"] if "u_fixed_vcycles" in kw
+                        else ["mult", "mg_pc", "p_solve"])
+    assert not any(isinstance(b, graphs.Captured)
+                   for b in e.bodies().values())
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    out = {}
+    for name, slv in (("graph", g), ("eager", e)):
+        a00.LAUNCHES.reset()
+        r = slv.solve_ir(F, rtol=1e-8) if ir else slv.solve(F)
+        out[name] = (r, a00.LAUNCHES.n, a00.LAUNCHES.applies,
+                     graphs.replays(slv.bodies()))
+    (rg, ng, ag, pg), (re_, ne, ae, pe) = out["graph"], out["eager"]
+    keys = ("rounds", "inner_its") if ir else ("its", "reason")
+    assert [rg[k] for k in keys] == [re_[k] for k in keys]
+    assert rg["history"] == re_["history"]
+    assert np.array_equal(rg["x"], re_["x"])
+    assert (ng, ag) == (ne, ae) and ag > 0
+    assert pg > 0 and pe == 0
+    if ir:
+        assert rg["converged"] and not rg["stalled"]
+
+
+@pytest.mark.gpu
+def test_capture_of_a_host_read_raises(cuda):
+    """A body that reads a device value on the host fails at capture, and
+    the sync debug mode is restored."""
+    from exsaddle_tpu_torch import graphs
+
+    def body(t):
+        return t * t.sum().item()
+
+    with pytest.raises(RuntimeError):
+        graphs.Captured(body, torch.ones(4, device=cuda))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    doubled = graphs.Captured(lambda t: 2 * t, torch.ones(4, device=cuda))
+    assert torch.equal(doubled(torch.arange(4.0, device=cuda)),
+                       2 * torch.arange(4.0, device=cuda))
+    with pytest.raises(ValueError):
+        doubled(torch.ones(5, device=cuda))
