@@ -3,8 +3,9 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # device, build, then profiled
                                        # mx=32 IR solves under the bench's
-                                       # tuned schedule, eager and graphed
-                                       # (PERF.md section 5)
+                                       # tuned schedule: eager, the host
+                                       # loop over captured bodies and the
+                                       # device loop (PERF.md section 5)
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -23,21 +24,40 @@ Phases, in order; any failure raises and the script exits nonzero:
               the raw A00 as an int32 CSR tensor, built here only), beside
               the bound (data-sheet peaks) and the kernel's share of it.
               The build phase prints every kernel's registers and spills.
+3b. ctl    -- the four Krylov control kernels (csrc/krylov_ctl.cu:
+              fgmres_start_ctl, fgmres_arnoldi_ctl, gcr_ctl, ir_ctl)
+              against their plain twins at the main path's sizes (restart
+              30, history 256; float32 and float64, the refinement's in
+              float64), on recorded states that reach every state branch:
+              bit for bit; each kernel's device us per launch (50
+              launches captured as one CUDA graph and replayed) beside its
+              twin's and the bound of one launch's bytes and operations.
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
 5. main    -- the driver on the flagship: model 11, size_x 0.1, mx=32,
               float32 inner solves with float64 iterative refinement to a
-              true relative residual of 1e-8, 4 MG levels, through the
-              solver's CUDA graphs (FGMRES's operator, the V-cycle and the
-              p-block captured at setup and replayed). The residual is recomputed with the
-              port's float64 operator, and the A00 kernel's launch count
-              must grow during the run. Then 3 graphed and 3 eager=True
-              solves over the same setup, alternated: bitwise equal x,
-              history, rounds (3) and inner iterations (34-38), the same K1
-              launches per solve; each kind's median wall and spread, ms
-              per outer iteration, K1 launches and applies, graph replays
-              and peak memory per solve.
+              true relative residual of 1e-8, 4 MG levels. Its solver runs
+              the device loop: the whole refinement one CUDA graph with
+              conditional nodes, captured at setup, one graph launch per
+              solve; K1 and every control kernel must have run (counted
+              from the device's loop-body counters). The residual is
+              recomputed with the port's float64 operator. Then over the
+              same setup the device loop, the host loop over captured
+              bodies (loop="host") and eager=True, 3 solves each,
+              alternated; one device-loop solve under
+              torch.cuda.set_sync_debug_mode("error"); one plain-driver
+              solve (loop="plain"). The device loop is bitwise the plain
+              driver (x, history, rounds, inner its, K1 and control
+              launches), the host loop bitwise eager=True, every kind at
+              3 rounds / 34-38 inner its and a true residual <= 1e-8;
+              each kind's median wall and spread, ms per outer
+              iteration, K1 launches and applies, control-kernel, graph
+              launches and replays, loop-body executions and peak memory
+              per solve. Then the witness of the float32 count gap
+              between the loops: the same flagship as a float64 direct
+              solve through the driver (device loop) and over its setup
+              with loop="host": equal iterations, reason and K1 counts.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -125,7 +145,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               float64 refinement to a true 1e-8) under the tuned schedule,
               with the abf.opts schedule and the tuned one with 3 fixed
               V-cycles in place of GCR (u_fixed_vcycles=3) alternated with
-              it; prints the bench's JSON line. The graph replay equals the
+              it, every schedule's solver on the device loop (one graph
+              launch per solve); prints the bench's JSON line. The graph
+              replay equals the
               eager loop bitwise, the scaled loop is stable, one eager loop
               makes 2 x 100 K1 launches; every schedule converges without
               stalling to a float64 residual <= 1e-8 recomputed with the
@@ -165,6 +187,7 @@ from exsaddle_tpu_torch.grid_ops import (GridSaddleOperator, gather_u_parity,
                                          split_u_parity)
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
+from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.krylov import KSP, KSPConfig
 from exsaddle_tpu_torch.matfree import (MatFreeSaddleOperator,
                                         ParityMatFreeOperator, mult_tree,
@@ -374,6 +397,313 @@ def phase_k1(device):
     return out
 
 
+# the Krylov control kernels: (name, the JAX code whose scalar tail each
+# replaces, what one launch does)
+CTL_KERNELS = (
+    ("fgmres_start_ctl", "exsaddle_tpu/treeops.py:338"),
+    ("fgmres_arnoldi_ctl", "exsaddle_tpu/treeops.py:369"),
+    ("gcr_ctl", "exsaddle_tpu/treeops.py:269"),
+    ("ir_ctl", "exsaddle_tpu/abf.py:1152"),
+)
+CTL_K, CTL_HIST, CTL_REPS = 30, 256, 50
+
+
+class _Ns:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def clone(self):
+        return _Ns(**{k: v.clone() if isinstance(v, torch.Tensor) else v
+                      for k, v in self.__dict__.items()})
+
+    def tensors(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, torch.Tensor)}
+
+
+def _fgmres_state(dtype, device, seed, it, itc, r0, par, max_it=10000,
+                  git=None, k=CTL_K):
+    """A recorded FGMRES control state at the main path's sizes (restart
+    30, history 256) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((k + 1, k))
+    H[:it + 1, :it] = np.triu(rng.standard_normal((it + 1, it)))
+    H[np.arange(it), np.arange(it)] += 2.0
+    g = np.zeros(k + 1)
+    g[:it + 1] = rng.standard_normal(it + 1)
+    if git is not None:
+        g[it] = git
+    ang = rng.random(k) * 2 * np.pi
+    cs, sn = np.cos(ang), np.sin(ang)
+    cs[it:], sn[it:] = 0, 0
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    return _Ns(k=k, hist_len=CTL_HIST, max_it=max_it, H=t(H), g=t(g),
+               cs=t(cs), sn=t(sn), y=t(np.zeros(k)),
+               hist=t(np.full(CTL_HIST, -1.0)), sc=t([r0, 0.0, 0.0]),
+               par=t(par), ints=torch.tensor([0, it, itc], dtype=torch.int32,
+                                             device=device),
+               ix=torch.tensor([it, it + 1], dtype=torch.int64,
+                               device=device), p0=0, c0=0)
+
+
+def _max_err(a, b):
+    """Largest |a - b| over the float state tensors (NaN where both are
+    NaN counts 0), and whether every tensor agrees bit for bit."""
+    err, same = 0.0, True
+    for name, x in a.tensors().items():
+        y = getattr(b, name)
+        if x.is_floating_point():
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            same &= torch.equal(nx, ny)
+            x, y = torch.where(nx, 0, x), torch.where(ny, 0, y)
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            same &= torch.equal(x.view(bits), y.view(bits))
+            err = max(err, float((x - y).abs().max()))
+        else:
+            same &= torch.equal(x, y)
+    return err, same
+
+
+def _events_ms(fns):
+    """ms per call of the calls in fns, back to back between two CUDA
+    events (after one warm-up call of the first)."""
+    fns[0]()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for fn in fns:
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / len(fns)
+
+
+def _graph_ms(fns, restore=None, reps=5):
+    """Device ms per call of the calls in fns, captured back to back as one
+    CUDA graph (as the main path runs them: inside a graph, with no host
+    issue between them) and replayed between two CUDA events; median over
+    reps replays, restore() (outside the timed region) before each."""
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    n0 = dict(krylov_ctl.LAUNCHES.n)
+    with torch.cuda.graph(g):
+        for fn in fns:
+            fn()
+    krylov_ctl.LAUNCHES.n.update(n0)
+    times = []
+    for _ in range(reps):
+        if restore is not None:
+            restore()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / len(fns))
+    return float(np.median(times))
+
+
+def _ctl_bound(nbytes, nops, dtype):
+    t_b, t_o = nbytes / PEAK_BYTES, nops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_b, t_o), ("operations" if t_o > t_b else "bytes")
+
+
+def phase_ctl(device):
+    """Each Krylov control kernel against its plain twin on states that
+    cover every branch, at the main path's sizes (FGMRES restart 30,
+    history 256, float32; the refinement in float64): bit for bit, then
+    the kernel's device ms per launch (50 launches captured as one CUDA
+    graph, as the main path runs them, and replayed) and the twin's
+    (issued from Python, CUDA events) beside the bound of one launch's
+    bytes and operations. No single PyTorch call computes what one of
+    them does (library_ms null)."""
+    from exsaddle_tpu_torch.graphs import Control
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    t = lambda v, dt=f32: torch.tensor(v, dtype=dt, device=device)  # noqa
+
+    def ctl():
+        return Control(device)
+
+    # fgmres_arnoldi_ctl: (it, itc, h scale, tt, r0, par, max_it, g[it])
+    branches = [(15, 15, 1.0, 0.7, 10.0, (1e-5, 1e-50, 1e4), 10000, None),
+                (4, 9, 1.0, 1e-9, 1.0, (1e-3, 1e-50, 1e4), 10000, None),
+                (3, 3, 1.0, 1e-12, 1.0, (1e-30, 1e-3, 1e4), 10000, None),
+                (2, 2, 1.0, 1e-31, 1.0, (1e-45, 1e-50, 1e4), 10000, 0.5),
+                (0, 0, 0.0, 0.0, 1.0, (1e-30, 1e-50, 1e4), 10000, None),
+                (1, 1, 1.0, 0.5, 1e-3, (1e-12, 1e-50, 1.0), 10000, None),
+                (2, 6, 1.0, 0.3, 100.0, (1e-12, 1e-50, 1e4), 7, None),
+                (29, 41, 1.0, 0.3, 100.0, (1e-12, 1e-50, 1e4), 10000, None)]
+    rng = np.random.default_rng(11)
+    results = {}
+    for dt in (f32, f64):
+        err, same = 0.0, True
+        for i, (it, itc, hs, tt, r0, par, max_it, git) in enumerate(
+                branches):
+            a = _fgmres_state(dt, device, i, it, itc, r0, par, max_it, git)
+            b = a.clone()
+            h = hs * rng.standard_normal(CTL_K + 1)
+            h[it + 1:] = 0
+            if i in (1, 2, 3):
+                h[it] = 3.0
+            h, ttt = t(h, dt), t(tt, dt)
+            c1, c2 = ctl(), ctl()
+            krylov_ctl.fgmres_arnoldi_ctl(a, h, ttt, c1)
+            krylov_ctl.fgmres_arnoldi_ctl_plain(b, h, ttt, c2)
+            e, sm = _max_err(a, b)
+            err, same = max(err, e), same and sm and torch.equal(
+                c1.pred, c2.pred) and torch.equal(c1.counts, c2.counts)
+        results[("fgmres_arnoldi_ctl", dt)] = (err, same)
+    it = 15
+    base = _fgmres_state(f32, device, 0, it, it, 10.0, (1e-5, 1e-50, 1e4))
+    h = t(np.where(np.arange(CTL_K + 1) <= it,
+                   rng.standard_normal(CTL_K + 1), 0.0))
+    tt = t(0.7)
+    states = [base.clone() for _ in range(CTL_REPS)]
+    c = ctl()
+
+    def restore():
+        for st in states:
+            for name, x in base.tensors().items():
+                getattr(st, name).copy_(x)
+    ms = _graph_ms([lambda s=s: krylov_ctl.fgmres_arnoldi_ctl(s, h, tt, c)
+                    for s in states], restore)
+    restore()
+    plain_ms = _events_ms([lambda s=s: krylov_ctl.fgmres_arnoldi_ctl_plain(
+        s, h, tt, c) for s in states[:5]])
+    # read: h[:it+1], tt, g[it], cs/sn[:it], r0, par; write: the H column,
+    # cs/sn[it], g[it:it+2], rnorm, hist[itc]; ints, ix, 4 predicates and
+    # 2 counters
+    nb = 4 * ((it + 1) + 1 + 1 + 2 * it + 1 + 3 + (CTL_K + 1) + 2 + 2 + 1
+              + 1) + 4 * 3 * 2 + 8 * 2 + 4 * 4 + 8 * 2
+    out["fgmres_arnoldi_ctl"] = (ms, plain_ms) + _ctl_bound(
+        nb, 6 * it + 16, f32)
+
+    # fgmres_start_ctl: modes 0 and 1 over beta / itc / par branches
+    for dt in (f32, f64):
+        err, same = 0.0, True
+        for i, (mode, beta, itc, par) in enumerate(
+                [(0, 1.0, 5, (1e-5, 1e-50, 1e4)),
+                 (1, 2.5, 0, (1e-5, 1e-50, 1e4)),
+                 (1, 0.0, 0, (1e-5, 1e-50, 1e4)),
+                 (1, 1e-7, 30, (1e-5, 1e-50, 1e4)),
+                 (1, 7.0, 30, (1e-5, 1e-50, 2.0)),
+                 (1, 1e-9, 12, (1e-30, 1e-6, 1e4))]):
+            a = _fgmres_state(dt, device, 20 + i, 4, itc, 3.0, par)
+            b = a.clone()
+            c1, c2 = ctl(), ctl()
+            bt = t([beta], dt)
+            krylov_ctl.fgmres_start_ctl(mode, a, bt, c1)
+            krylov_ctl.fgmres_start_ctl_plain(mode, b, bt, c2)
+            e, sm = _max_err(a, b)
+            err, same = max(err, e), same and sm and torch.equal(
+                c1.pred, c2.pred) and torch.equal(c1.counts, c2.counts)
+        results[("fgmres_start_ctl", dt)] = (err, same)
+    s0 = _fgmres_state(f32, device, 0, 4, 12, 3.0, (1e-5, 1e-50, 1e4))
+    beta = t([2.5])
+    ms = _graph_ms([lambda: krylov_ctl.fgmres_start_ctl(1, s0, beta, c)]
+                   * CTL_REPS)
+    plain_ms = _events_ms([lambda: krylov_ctl.fgmres_start_ctl_plain(
+        1, s0, beta, c)] * 5)
+    # read: beta, itc, r0, par; write: H, g, cs, sn (zeroed), sc, hist[itc]
+    nb = 4 * (1 + 1 + 3 + (CTL_K + 1) * CTL_K + (CTL_K + 1) + 2 * CTL_K + 3
+              + 1) + 4 * 3 * 2 + 8 * 2 + 4 * 4 + 8
+    out["fgmres_start_ctl"] = (ms, plain_ms) + _ctl_bound(nb, 4, f32)
+
+    # gcr_ctl: init (running, atol) and steps (nv wrap, rtol, max_it,
+    # alpha == 0)
+    seq = [(0, 1.0, 4.0)] + [(1, 1.0, r) for r in
+                              (2.0, 1.0, 0.5, 0.3, 0.2, 0.1)] + [
+        (0, 1.0, 4.0), (1, 0.0, 3.0), (0, 1.0, 1e-60), (0, 1.0, 5.0),
+        (1, 1.0, 0.01)]
+
+    def gcr_state(dt):
+        return _Ns(sc=t([0.0, 0.0, 0.0], dt), par=t([1e-2, 1e-50], dt),
+                   ints=torch.zeros(3, dtype=torch.int32, device=device),
+                   ix=torch.zeros(1, dtype=torch.int64, device=device),
+                   restart=3, max_it=6, p=0, c0=0)
+    for dt in (f32, f64):
+        a = gcr_state(dt)
+        b = a.clone()
+        c1, c2 = ctl(), ctl()
+        err, same = 0.0, True
+        for mode, alpha, rn in seq:
+            krylov_ctl.gcr_ctl(mode, a, t(alpha, dt), t(rn, dt), c1)
+            krylov_ctl.gcr_ctl_plain(mode, b, t(alpha, dt), t(rn, dt), c2)
+            e, sm = _max_err(a, b)
+            err, same = max(err, e), same and sm and torch.equal(
+                c1.pred, c2.pred) and torch.equal(c1.counts, c2.counts)
+        results[("gcr_ctl", dt)] = (err, same)
+    g = gcr_state(f32)
+    g.restart, g.max_it = 30, 10 ** 9
+    alpha, rn = t(1.0), t(0.5)
+    krylov_ctl.gcr_ctl(0, g, alpha, t(4.0), c)
+    ms = _graph_ms([lambda: krylov_ctl.gcr_ctl(1, g, alpha, rn, c)]
+                   * CTL_REPS)
+    plain_ms = _events_ms([lambda: krylov_ctl.gcr_ctl_plain(
+        1, g, alpha, rn, c)] * 5)
+    # read: alpha, rn, target, par, ints; write: rnorm, ints, ix, the
+    # predicate and a counter
+    out["gcr_ctl"] = (ms, plain_ms) + _ctl_bound(
+        4 * (2 + 1 + 2 + 1) + 4 * 3 * 2 + 8 + 4 + 8, 3, f32)
+
+    # ir_ctl (float64): init, accepted, rejected, non-contracting,
+    # converged rounds and the n_rounds bound
+    def ir_state():
+        return _Ns(sc=t([0.0, 0.0, 1e-8, 3.0], f64),
+                   ints=torch.zeros(5, dtype=torch.int32, device=device),
+                   hist=torch.zeros(11, dtype=f64, device=device), p=0, c0=0)
+    a, b = ir_state(), ir_state()
+    c1, c2 = ctl(), ctl()
+    fg = torch.zeros(3, dtype=torch.int32, device=device)
+    err, same = 0.0, True
+    for mode, rn, st in [(0, 2.0, 2), (1, 1e-4, 2), (1, 1e-6, -3),
+                         (0, 2.0, 2), (1, 1.0, 2), (1, 3.0, 2), (0, 2.0, 2),
+                         (1, 1.0, 2), (1, 1e-9, 2), (0, 2.0, 2), (1, 1.0, 2),
+                         (1, 0.5, 2), (1, 0.25, 5)]:
+        fg[0], fg[2] = st, 7
+        krylov_ctl.ir_ctl(mode, a, t(rn, f64), fg, c1)
+        krylov_ctl.ir_ctl_plain(mode, b, t(rn, f64), fg, c2)
+        e, sm = _max_err(a, b)
+        err, same = max(err, e), same and sm and torch.equal(
+            c1.pred, c2.pred) and torch.equal(c1.counts, c2.counts)
+    results[("ir_ctl", f64)] = (err, same)
+    w = ir_state()
+    w.sc[3] = 1e9
+    rn = t(1.0, f64)
+    krylov_ctl.ir_ctl(0, w, t(2.0, f64), fg, c)
+    ms = _graph_ms([lambda: krylov_ctl.ir_ctl(1, w, rn, fg, c)] * CTL_REPS)
+    plain_ms = _events_ms([lambda: krylov_ctl.ir_ctl_plain(1, w, rn, fg, c)]
+                          * 5)
+    # read: rn, the inner state and its, rnorm0, rnorm, rtol, n_rounds,
+    # ints; write: rnorm, hist[rounds], ints, the predicate, a counter
+    out["ir_ctl"] = (ms, plain_ms) + _ctl_bound(
+        8 * (1 + 4 + 1 + 1) + 4 * (2 + 5 + 5) + 4 + 8, 2, f64)
+    torch.cuda.synchronize()
+    for (name, dt), (err, same) in results.items():
+        log(f"[ctl] {name} {str(dt)[6:]}: max_abs_err {err:.3e} against "
+            f"its twin, bitwise {same}")
+        check(same, f"{name} {dt} is not bitwise its twin")
+    res = {}
+    for name, _ in CTL_KERNELS:
+        ms, plain_ms, bound_ms, bound_by = out[name]
+        err = max(e for (n, _), (e, _) in results.items() if n == name)
+        log(f"[ctl] {name}: kernel {1e3 * ms:.2f} us per launch, twin "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3e} ms ({bound_by}; one "
+            f"launch's bytes and operations)")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return res
+
+
 def phase_anchor():
     argv = tdriver.ABF_OPTS + ("-model 11 -size_x 0.1 -mx 6 "
                                "-saddle_ksp_converged_reason").split()
@@ -387,26 +717,41 @@ def phase_anchor():
           f"anchor initial residual {h0} != 0.00273569")
 
 
-# phase main's timed IR solves: graphed and eager=True over one setup, in
-# this order (each kind first and last in turn)
-MAIN_ORDER = ("graph", "eager", "eager", "graph", "graph", "eager")
+# phase main's timed IR solves over one setup, each kind first and last in
+# turn: the device loop (one graph launch per solve), the host loop over
+# captured bodies (loop="host") and eager=True (the host loop, every op
+# issued from Python)
+MAIN_ORDER = ("device", "host", "eager", "eager", "host", "device",
+              "device", "host", "eager")
 
 
 def _ir_solve(slv, F):
     """One IR solve to a true 1e-8 with its wall seconds, K1 launches and
-    applies, graph replays and peak device memory (allocated, reserved)."""
+    applies, control-kernel launches, graph launches and replays, and peak
+    device memory (allocated, reserved)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     a00.LAUNCHES.reset()
+    krylov_ctl.LAUNCHES.reset()
     n0 = graphs.replays(slv.bodies())
+    dev = slv._dev
+    g0 = dev.graph.launches if dev is not None and dev.graph else 0
     t0 = time.perf_counter()
     res = slv.solve_ir(F, rtol=1e-8)
     torch.cuda.synchronize()
-    return {"res": res, "wall": time.perf_counter() - t0,
-            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
-            "replays": graphs.replays(slv.bodies()) - n0,
-            "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "reserved": torch.cuda.max_memory_reserved() / 2 ** 30}
+    wall = time.perf_counter() - t0
+    out = {"res": res, "wall": wall,
+           "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
+           "ctl": dict(krylov_ctl.LAUNCHES.n),
+           "replays": graphs.replays(slv.bodies()) - n0,
+           "graph_launches": (dev.graph.launches - g0
+                              if dev is not None and dev.graph else 0),
+           "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "reserved": torch.cuda.max_memory_reserved() / 2 ** 30}
+    if dev is not None:
+        # executions of the loop bodies inside the solve, by counter slot
+        out["bodies"] = int(dev.ctl.counts.sum())
+    return out
 
 
 def _same_ir(a, b):
@@ -415,6 +760,9 @@ def _same_ir(a, b):
 
 
 def phase_main(card):
+    """The driver on the flagship (its solver runs the device loop), then
+    the three modes timed over one setup; returns the driver run's K1
+    (launches, applies) and control-kernel launches."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
@@ -422,21 +770,25 @@ def phase_main(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     a00.LAUNCHES.reset()
+    krylov_ctl.LAUNCHES.reset()
     r = tdriver.saddle_solve(Options.from_args(argv), 3, log=log)
     launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    ctl_launches = dict(krylov_ctl.LAUNCHES.n)
     res = r["res"]
     slv = r["solver"]
-    captured = {n: b for n, b in slv.bodies().items()
-                if isinstance(b, graphs.Captured)}
-    warm = sum(b.k1_launches for b in captured.values())
-    log(f"[main] A00 kernels during the driver run: {launches} device "
-        f"launches in {applies} applies ({warm} launches in the capture "
-        f"warm-ups); graph capture {slv.capture_seconds:.3f} s "
-        f"({', '.join(f'{n}: {b.k1_applies} K1 applies' for n, b in captured.items())})")
+    graph = slv._dev.graph if slv._dev is not None else None
+    log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
+        f"launches in {applies} applies, control kernels {ctl_launches} "
+        f"(capture warm-ups included); graph capture "
+        f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
+        f"captured pieces, {graph.launches if graph else 0} graph launches")
+    check(r["loop"] == "device" and graph is not None,
+          "the driver's solver does not run the device loop")
+    check(graph.launches == 1, f"the driver's solve made {graph.launches} "
+          f"graph launches, expected 1")
     check(launches > 0, "the main path never launched the A00 kernel")
-    check(sorted(captured) == ["mg_pc", "mult", "p_solve"]
-          and graphs.replays(captured) > 0, "the driver's solver did not "
-          "replay a captured operator, V-cycle and p-block")
+    check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
+          f"a control kernel never ran on the main path: {ctl_launches}")
     check(not res["stalled"], "iterative refinement stalled")
     check(res["converged"], "iterative refinement did not converge")
     check(np.all(np.isfinite(res["x"]))
@@ -445,60 +797,148 @@ def phase_main(card):
     # independent float64 true residual with the port's own operator
     op64, aux64 = slv.setup["op64"], tree_aux(slv.setup["op64"])
     F64 = slv.vec_to_tree(r["F"], dtype=torch.float64)
-    x64 = slv.vec_to_tree(res["x"], dtype=torch.float64)
-    rel = float(torch.linalg.norm(F64 - mult_tree(op64, aux64, x64))
-                / torch.linalg.norm(F64))
+
+    def true_rel(x):
+        x64 = slv.vec_to_tree(x, dtype=torch.float64)
+        return float(torch.linalg.norm(F64 - mult_tree(op64, aux64, x64))
+                     / torch.linalg.norm(F64))
+
+    rel = true_rel(res["x"])
     log(f"[main] true float64 relative residual {rel:.3e}")
     check(rel <= 1e-8, f"true relative residual {rel} > 1e-8")
 
-    # the driver's graphed solver against eager=True over the same setup
+    # the three modes over the same setup, and the plain driver (the device
+    # loop's steps from Python) that the graph is held against bitwise
     F = r["F"]
-    eager = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
-                                      device=slv.device, dtype=slv.dtype,
-                                      ir=True, eager=True)
-    runs = {"graph": [], "eager": []}
+    kw = dict(device=slv.device, dtype=slv.dtype, ir=True)
+    t0 = time.perf_counter()
+    solvers = {"device": slv,
+               "host": tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                                 loop="host", **kw),
+               "eager": tabf.ABFSolver.from_parts(slv.cfg, slv.data,
+                                                  slv.setup, eager=True,
+                                                  **kw)}
+    plain = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                      loop="plain", **kw)
+    log(f"[main] host-loop and eager solvers built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = {k: [] for k in solvers}
     for kind in MAIN_ORDER:
-        rec = _ir_solve(slv if kind == "graph" else eager, F)
+        rec = _ir_solve(solvers[kind], F)
         runs[kind].append(rec)
         check(rec["res"]["converged"] and not rec["res"]["stalled"],
               f"timed {kind} IR solve did not converge")
-    first = runs["graph"][0]["res"]
-    same = all(_same_ir(rec["res"], first) for kind in runs
-               for rec in runs[kind])
-    check(same, "graphed and eager IR solves differ (x, history, rounds or "
-          "inner its)")
-    its = first["inner_its"]
-    check(first["rounds"] == 3 and 34 <= its <= 38,
-          f"IR took {first['rounds']} rounds / {its} inner its, expected 3 / "
-          f"34-38")
-    rel = float(torch.linalg.norm(F64 - mult_tree(op64, aux64, slv.vec_to_tree(
-        first["x"], dtype=torch.float64))) / torch.linalg.norm(F64))
-    check(rel <= 1e-8, f"timed solve: true relative residual {rel} > 1e-8")
+    # no host read inside a device-loop solve: the whole call under the
+    # sync debug mode "error"
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded = slv.solve_ir(F, rtol=1e-8)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    pl = _ir_solve(plain, F)
+    first = {k: v[0]["res"] for k, v in runs.items()}
+    for kind, recs in runs.items():
+        check(all(_same_ir(q["res"], first[kind]) for q in recs),
+              f"{kind}: repeated solves differ")
+    check(_same_ir(guarded, first["device"]), "the solve under the sync "
+          "debug mode differs")
+    check(_same_ir(pl["res"], first["device"]), "the device-loop graph "
+          "and the plain driver differ (x, history, rounds or inner its)")
+    check(_same_ir(first["host"], first["eager"]), "the host loop over "
+          "captured bodies and eager=True differ")
+    d, h, e = runs["device"][0], runs["host"][0], runs["eager"][0]
+    check((d["launches"], d["applies"], d["ctl"])
+          == (pl["launches"], pl["applies"], pl["ctl"]),
+          f"K1 / control launches per solve: graph {d['launches']} / "
+          f"{d['applies']} / {d['ctl']}, plain driver {pl['launches']} / "
+          f"{pl['applies']} / {pl['ctl']}")
+    check((h["launches"], h["applies"]) == (e["launches"], e["applies"]),
+          f"K1 per solve: host loop {h['launches']} / {h['applies']}, eager "
+          f"{e['launches']} / {e['applies']}")
+    check(d["graph_launches"] == 1 and d["replays"] == 0,
+          f"device loop: {d['graph_launches']} graph launches per solve")
+    for kind, res_k in first.items():
+        its = res_k["inner_its"]
+        check(res_k["rounds"] == 3 and 34 <= its <= 38,
+              f"{kind}: IR took {res_k['rounds']} rounds / {its} inner its, "
+              f"expected 3 / 34-38")
+        rel = true_rel(res_k["x"])
+        check(rel <= 1e-8, f"{kind}: true relative residual {rel} > 1e-8")
+    fd, fh = first["device"], first["host"]
     log(f"[main] mx=32 ndof {r['mesh'].ndof}: setup "
         f"{r['seconds']['setup']:.2f} s (graph capture "
         f"{slv.capture_seconds:.3f} s), first solve "
-        f"{r['seconds']['solve']:.3f} s; graphed and eager=True solves "
-        f"bitwise equal (x, history, rounds {first['rounds']}, inner its "
-        f"{its}), true float64 relative residual {rel:.3e} ({card})")
-    for kind, recs in runs.items():
-        walls = [rec["wall"] for rec in recs]
+        f"{r['seconds']['solve']:.3f} s; device loop bitwise the plain "
+        f"driver (x, history, rounds {fd['rounds']}, inner its "
+        f"{fd['inner_its']}, K1 and control launches) and the same under "
+        f"the sync debug mode; host loop {fh['rounds']} rounds / "
+        f"{fh['inner_its']} inner its, bitwise eager=True; rounds equal "
+        f"{fd['rounds'] == fh['rounds']}, inner its equal "
+        f"{fd['inner_its'] == fh['inner_its']}; true float64 relative "
+        f"residual {true_rel(fd['x']):.3e} ({card})")
+    for kind, recs in list(runs.items()) + [("plain", [pl])]:
+        walls = [q["wall"] for q in recs]
         med = float(np.median(walls))
-        rec = recs[0]
-        check(all((q["launches"], q["applies"], q["replays"])
-                  == (rec["launches"], rec["applies"], rec["replays"])
-                  for q in recs), f"{kind}: launches or replays vary")
+        q = recs[0]
+        its = q["res"]["inner_its"]
+        extra = (f", {q['bodies']} loop-body executions inside the graph"
+                 if kind == "device" else "")
         log(f"[main] {kind}: median of {len(walls)} {med:.3f} s (spread "
-            f"{min(walls):.3f}-{max(walls):.3f}), "
-            f"{1e3 * med / its:.2f} ms/outer it, K1 {rec['launches']} "
-            f"launches in {rec['applies']} applies per solve, "
-            f"{rec['replays']} graph replays per solve, peak mem "
-            f"{max(q['peak'] for q in recs):.2f} GiB allocated, "
-            f"{max(q['reserved'] for q in recs):.2f} GiB reserved ({card})")
-    g, e = runs["graph"][0], runs["eager"][0]
-    check((g["launches"], g["applies"]) == (e["launches"], e["applies"]),
-          f"K1 per solve: graphed {g['launches']} / {g['applies']}, eager "
-          f"{e['launches']} / {e['applies']}")
-    return launches, applies
+            f"{min(walls):.3f}-{max(walls):.3f}), {1e3 * med / its:.2f} "
+            f"ms/outer it, {q['res']['rounds']} rounds / {its} inner its, "
+            f"K1 {q['launches']} launches in {q['applies']} applies per "
+            f"solve, control kernels {sum(q['ctl'].values())}, "
+            f"{q['graph_launches']} graph launches and {q['replays']} "
+            f"captured-body replays per solve{extra}, peak mem "
+            f"{max(x['peak'] for x in recs):.2f} GiB allocated, "
+            f"{max(x['reserved'] for x in recs):.2f} GiB reserved ({card})")
+    del solvers, plain, slv, r
+    _main_witness(card)
+    return launches, applies, ctl_launches
+
+
+def _main_witness(card):
+    """The flagship as a float64 direct solve: the driver's (device loop)
+    against loop="host" over its setup. The float32 IR solves above may
+    differ by an inner iteration between the loops, whose Gram-Schmidt
+    dots sum in another order (the device loop's over the whole masked
+    window); in float64 that rounding must not move the counts: equal
+    iterations, reason and K1 counts per solve (so equal u-block GCR
+    iterations), histories within 1e-10 of the initial residual (their
+    last entries are ~1e-5 of it, where float64 rounding amplified through
+    the GCR preconditioner may show at ~1e-8 of the entry)."""
+    argv = tdriver.ABF_OPTS + (
+        "-model 11 -size_x 0.1 -mx 32 -saddle_fieldsplit_u_pc_mg_levels 4 "
+        "-saddle_ksp_converged_reason").split()
+    r = tdriver.saddle_solve(Options.from_args(argv), 3, log=log)
+    slv = r["solver"]
+    check(r["loop"] == "device" and slv.dtype == torch.float64,
+          "witness: the driver's float64 solve is not on the device loop")
+    host = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                     device=slv.device, dtype=slv.dtype,
+                                     loop="host")
+    out = []
+    for s in (slv, host):
+        a00.LAUNCHES.reset()
+        res = s.solve(r["F"])
+        out.append((res, (a00.LAUNCHES.n, a00.LAUNCHES.applies)))
+    (d, kd), (h, kh) = out
+    hd, hh = np.asarray(d["history"]), np.asarray(h["history"])
+    same = hd.shape == hh.shape
+    rel0 = float(np.max(np.abs(hd - hh)) / hh[0]) if same else float("inf")
+    rel = float(np.max(np.abs(hd - hh) / hh)) if same else float("inf")
+    log(f"[main] witness, float64 direct solve (abf.opts, mx=32): device "
+        f"loop {d['reason']} in {d['its']} its, K1 {kd[0]} launches in "
+        f"{kd[1]} applies per solve; host loop {h['reason']} in {h['its']} "
+        f"its, K1 {kh[0]} / {kh[1]}; histories differ by {rel0:.3e} of the "
+        f"initial residual, {rel:.3e} of the entry at most ({card})")
+    check((d["its"], d["reason"]) == (h["its"], h["reason"]),
+          f"witness: float64 device loop {d['its']} its / {d['reason']}, "
+          f"host loop {h['its']} / {h['reason']}")
+    check(kd == kh, f"witness: K1 launches / applies per solve {kd} vs {kh}")
+    check(rel0 <= 1e-10, f"witness: histories differ by {rel0:.3e} of the "
+          f"initial residual")
 
 
 # (name, argv, iterations, first and last monitor values) of the JAX
@@ -1298,6 +1738,9 @@ def phase_bench(device, card):
             f"(recomputed), setup {extras['solve_setup_seconds']} s ({card})")
         check(extras[pre + "converged"] and not extras[pre + "stalled"],
               f"bench {pre[:-1]}: did not converge or stalled")
+        check(extras[pre + "loop"] == "device",
+              f"bench {pre[:-1]}: the solver ran the {extras[pre + 'loop']} "
+              f"loop")
         check(rel <= 1e-8, f"bench {pre[:-1]}: true residual {rel:.3e}")
         check(r0 <= rounds <= r1 and i0 <= its <= i1,
               f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
@@ -1349,9 +1792,11 @@ def phase_profile(card):
     time by K1-K7 (the rest: Krylov vector updates, the coarse matvec,
     casts; record_function ranges do not exist inside a graph replay), by
     kernel, the card's busy share of the unprofiled solve, kernel launches,
-    then the profiler's table. The graphed solve (the solver's default on
-    CUDA) over the same setup: its busy share, kernel and graph launches
-    and replays per solve."""
+    then the profiler's table. Then over the same setup the host loop over
+    captured bodies (loop="host") and the device loop (the
+    solver's default on CUDA: one graph launch per solve): each one's
+    busy share, kernel and graph launches from the host and replays per
+    solve."""
     from torch.profiler import ProfilerActivity, profile
     device = torch.device("cuda", 0)
     p = bench._build_problem(32, with_rhs=True)
@@ -1405,6 +1850,7 @@ def phase_profile(card):
                 buckets[q.name] = buckets.get(q.name, 0.0) + k.duration / 1e6
     buckets["rest"] = total - sum(buckets.values())
     launches, _ = _launches(ka)
+    applies_eager = a00.LAUNCHES.applies
     log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
         f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
         f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
@@ -1418,35 +1864,82 @@ def phase_profile(card):
             f"{e.count:7d} x  {e.key[:90]}")
     log(ka.table(sort_by="self_cuda_time_total", row_limit=25))
 
-    # the graphed solve: the same kernels, its fixed-work bodies replayed
-    gwall, gres = _timed_ir(slv, F)
-    check(_same_ir(gres, res), "profile: the graphed solve differs from the "
-          "eager one")
-    a00.LAUNCHES.reset()
-    n0 = graphs.replays(slv.bodies())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as gprof:
-        slv.solve_ir(F, rtol=1e-8)
-        torch.cuda.synchronize()
-    replays = graphs.replays(slv.bodies()) - n0
-    gka = gprof.key_averages()
-    gdev = [e for e in gka if e.device_type == torch.autograd.DeviceType.CUDA
-            and self_device_us(e) > 0]
-    gtotal = sum(self_device_us(e) for e in gdev) / 1e6
-    g_launch, g_graph = _launches(gka)
-    kernels = sum(e.count for e in gdev)
-    busy = (f"device time {gtotal:.3f} s over {kernels} kernels, busy "
-            f"{100 * gtotal / gwall:.1f}% of the unprofiled wall"
-            if gtotal > 0 else "device time not measured (the profiler "
-            "recorded no kernel)")
-    log(f"[profile] mx=32 IR solve, tuned schedule, graphed: unprofiled wall "
-        f"{gwall:.3f} s (eager {wall:.3f} s), {busy}; per solve "
-        f"{g_launch} kernel launches and {g_graph} graph launches from the "
-        f"host, {replays} graph replays, {a00.LAUNCHES.applies} K1 applies; "
-        f"graph capture {slv.capture_seconds:.3f} s ({card})")
-    for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
-        log(f"[profile] graphed {self_device_us(e) / 1e3:10.3f} ms "
-            f"{e.count:7d} x  {e.key[:80]}")
+    # the graphed solves: the same kernels, the host loop over captured
+    # bodies and the whole solve as one graph with conditional nodes
+    host = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                     device=device, dtype=torch.float32,
+                                     ir=True, loop="host")
+    e_applies = applies_eager
+    counts = {}
+    for name, gslv in (("host loop, captured bodies", host),
+                       ("device loop, one graph", slv)):
+        gwall, gres = _timed_ir(gslv, F)
+        check(gres["converged"], f"profile: the {name} solve did not "
+              f"converge")
+        check(gslv is not host or _same_ir(gres, res), "profile: the host "
+              "loop over captured bodies differs from the eager solve")
+        a00.LAUNCHES.reset()
+        n0 = graphs.replays(gslv.bodies())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as gprof:
+            gslv.solve_ir(F, rtol=1e-8)
+            torch.cuda.synchronize()
+        replays = graphs.replays(gslv.bodies()) - n0
+        applies = a00.LAUNCHES.applies
+        gka = gprof.key_averages()
+        gdev = [e for e in gka
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and self_device_us(e) > 0]
+        gtotal = sum(self_device_us(e) for e in gdev) / 1e6
+        g_launch, g_graph = _launches(gka)
+        kernels = sum(e.count for e in gdev)
+        busy = (f"device time {gtotal:.3f} s over {kernels} kernels, busy "
+                f"{100 * gtotal / gwall:.1f}% of the unprofiled wall"
+                if gtotal > 0 else "device time not measured (the profiler "
+                "recorded no kernel)")
+        if gslv.loop == "device":
+            # the profiler does not trace the kernels inside conditional
+            # bodies: the solve's device span from CUDA events instead
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            gslv.solve_ir(F, rtol=1e-8)
+            e1.record()
+            e1.synchronize()
+            w = time.perf_counter() - t0
+            span = e0.elapsed_time(e1) / 1e3
+            busy = (f"the profiler traced {kernels} kernels ({gtotal:.3f} "
+                    f"s; none inside the conditional bodies); device span "
+                    f"{span:.3f} s (CUDA events around the solve's stream "
+                    f"work, input and result copies included) = "
+                    f"{100 * span / w:.1f}% of that solve's wall {w:.3f} s")
+        log(f"[profile] mx=32 IR solve, tuned schedule, {name}: unprofiled "
+            f"wall {gwall:.3f} s (eager {wall:.3f} s), {gres['rounds']} "
+            f"rounds / {gres['inner_its']} inner its, {busy}; per solve "
+            f"{g_launch} kernel launches and {g_graph} graph launches from "
+            f"the host, {replays} captured-body replays, "
+            f"{applies} K1 applies; graph capture "
+            f"{gslv.capture_seconds:.3f} s ({card})")
+        for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
+            log(f"[profile] {name[:11]} {self_device_us(e) / 1e3:10.3f} ms "
+                f"{e.count:7d} x  {e.key[:80]}")
+        counts[gslv.loop] = (gres["rounds"], gres["inner_its"], applies)
+    # on this schedule the loops take the same rounds and FGMRES its; the
+    # K1 applies also follow the u-block GCR's its, which float32 rounding
+    # of the device loop's masked-window dots may move
+    check(counts["device"][:2] == counts["host"][:2]
+          == (res["rounds"], res["inner_its"]),
+          f"profile: (rounds, inner its, K1 applies) device loop "
+          f"{counts['device']}, host loop {counts['host']}, eager "
+          f"{(res['rounds'], res['inner_its'], e_applies)}")
+    check(counts["host"][2] == e_applies, f"profile: K1 applies host loop "
+          f"{counts['host'][2]}, eager {e_applies}")
+    log(f"[profile] tuned schedule: device loop, host loop and eager=True "
+        f"each {res['rounds']} rounds / {res['inner_its']} inner its; K1 "
+        f"applies per solve: device loop {counts['device'][2]}, host loop "
+        f"{counts['host'][2]}, eager {e_applies} ({card})")
 
 
 def main():
@@ -1464,8 +1957,9 @@ def main():
             "count": torch.cuda.device_count()}}))
         return 0
     k1 = phase_k1(device)
+    ctl = phase_ctl(device)
     phase_anchor()
-    launches, applies = phase_main(card)
+    launches, applies, ctl_launches = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -1501,7 +1995,11 @@ def main():
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_us": 1e3 * k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]}))
+        "library_ms": k1["library_ms"]}] + [{
+            "name": name, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/krylov_ctl.cu",
+            "replaces": replaces, "launches": ctl_launches[name],
+            **ctl[name]} for name, replaces in CTL_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,9 +17,11 @@ Multigrid structure (-saddle_fieldsplit_u_pc_mg_galerkin, abf.opts:13):
 
 Setup (build_abf) is host numpy, copied from the JAX package so both build
 the same numbers; its last step casts the solver data to tensors on the
-given device. On CUDA the solver then captures its fixed-work bodies as CUDA
-graphs (make_abf_solver), the port's counterpart of the JAX package's one
-jitted solve. Vectors are flat tensors in the parity-permuted dof order of
+given device. On CUDA the solver then captures the whole solve, its Krylov
+loops included, as one CUDA graph with conditional nodes
+(DeviceLoopSolver), the port's counterpart of the JAX package's one jitted
+solve; loop="host" keeps the loops on the host over captured fixed-work
+bodies (make_abf_solver). Vectors are flat tensors in the parity-permuted dof order of
 matfree.py; the "_tree" names of the JAX package are kept for the block
 applies so each counterpart is easy to find."""
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from exsaddle_tpu_torch import graphs, treeops
+from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
@@ -901,25 +904,12 @@ def _fieldsplit(op, aux, p_solve, u_solve):
     return pc_apply
 
 
-def make_abf_solver(cfg, data, eager=False):
-    """Return (solve, bodies) over `data`: solve(F, x0) -> (x, its, rnorm,
-    state, hist) on flat parity-layout vectors (matfree.to_tree gives their
-    grid views); bodies is {name: callable}, the bodies that solve runs:
-    mult (FGMRES's operator, the full saddle apply), mg_pc (one V-cycle on
-    a u vector), p_solve (the p-block's Chebyshev polynomial on a pressure
-    grid) and pc_apply (the fieldsplit PC on a saddle vector).
-
-    On a CUDA device, unless eager, the fixed-work bodies (no host read, no
-    data-dependent branch) are captured here once as CUDA graphs
-    (graphs.Captured) and replayed by every solve, as the JAX package jits
-    its solve once: mult, and mg_pc and p_solve or, with
-    cfg.u_fixed_vcycles > 0, the whole pc_apply; each graph has its own
-    memory pool, since they replay interleaved. The capture reads
-    data's tensors by address, so the caller keeps `data` alive and never
-    rebinds or writes its tensors while it solves. GCR and FGMRES read one
-    residual per iteration on the host and call the bodies. eager=True
-    launches every op from Python (the plain version the graphs are held
-    against); the CPU always does."""
+def _plain_bodies(cfg, data):
+    """The ABF solve's bodies as plain functions: fineA (A00 with the
+    Dirichlet terms), mg_pc (one V-cycle), p_solve (the p-block's
+    Chebyshev polynomial), mult (the full saddle apply) and, with
+    cfg.u_fixed_vcycles > 0, fixed_pc (the fieldsplit PC with fixed
+    V-cycles in place of GCR)."""
     op, aux = data["op"], data["aux"]
 
     def fineA(xu):
@@ -935,12 +925,11 @@ def make_abf_solver(cfg, data, eager=False):
             lambda pg: data["inv_diag_p"] * pg, p_emin, p_emax,
             cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True)
 
-    capture = op.Bs.device.type == "cuda" and not eager
+    def mult(t):
+        return mult_tree(op, aux, t)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
-
-    # --- u-block solve (abf.opts:5-6) -------------------------------------
+    bodies = {"fineA": fineA, "mg_pc": mg_pc, "p_solve": p_solve,
+              "mult": mult}
     if cfg.u_fixed_vcycles > 0:
         nfv = cfg.u_fixed_vcycles
 
@@ -950,7 +939,41 @@ def make_abf_solver(cfg, data, eager=False):
                 x = mg_pc(ru - fineA(x)) + x
             return x
 
-        pc_apply = _fieldsplit(op, aux, p_solve, fixed_vcycles)
+        bodies["fixed_pc"] = _fieldsplit(op, aux, p_solve, fixed_vcycles)
+    return bodies
+
+
+def make_abf_solver(cfg, data, eager=False):
+    """Return (solve, bodies) over `data`: solve(F, x0) -> (x, its, rnorm,
+    state, hist) on flat parity-layout vectors (matfree.to_tree gives their
+    grid views); bodies is {name: callable}, the bodies that solve runs:
+    mult (FGMRES's operator, the full saddle apply), mg_pc (one V-cycle on
+    a u vector), p_solve (the p-block's Chebyshev polynomial on a pressure
+    grid) and pc_apply (the fieldsplit PC on a saddle vector).
+
+    This is the host-loop solve (ABFSolver loop="host"): GCR and FGMRES
+    read one residual per iteration on the host and call the bodies. On a
+    CUDA device, unless eager, the fixed-work bodies (no host read, no
+    data-dependent branch) are captured here once as CUDA graphs
+    (graphs.Captured) and replayed by every solve: mult, and mg_pc and
+    p_solve or, with cfg.u_fixed_vcycles > 0, the whole pc_apply; each
+    graph has its own memory pool, since they replay interleaved. The
+    capture reads data's tensors by address, so the caller keeps `data`
+    alive and never rebinds or writes its tensors while it solves.
+    eager=True launches every op from Python (the plain version the graphs
+    are held against); the CPU always does."""
+    op, aux = data["op"], data["aux"]
+    b = _plain_bodies(cfg, data)
+    fineA, mg_pc, p_solve, mult = (b["fineA"], b["mg_pc"], b["p_solve"],
+                                   b["mult"])
+    capture = op.Bs.device.type == "cuda" and not eager
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
+
+    # --- u-block solve (abf.opts:5-6) -------------------------------------
+    if cfg.u_fixed_vcycles > 0:
+        pc_apply = b["fixed_pc"]
         if capture:
             pc_apply = graphs.Captured(pc_apply, zeros((op.ndof,)))
     else:
@@ -960,9 +983,6 @@ def make_abf_solver(cfg, data, eager=False):
         gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
                                rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
         pc_apply = _fieldsplit(op, aux, p_solve, lambda ru: gcr(ru)[0])
-
-    def mult(t):
-        return mult_tree(op, aux, t)
 
     if capture:
         mult = graphs.Captured(mult, zeros((op.ndof,)))
@@ -1018,20 +1038,278 @@ def make_ir_solver(inner, wdt, max_rounds=10):
     return solve
 
 
+class DeviceIR:
+    """The refinement loop's state (float64): F64 and the staged rtol and
+    n_rounds (`inp`), x64, r64, and the control state of
+    kernels/krylov_ctl.ir_ctl: sc [rnorm0, rnorm, rtol, n_rounds], ints
+    [rounds, inner_total, done, stalled, accept], hist (max_rounds + 1)."""
+
+    def __init__(self, ctl, n, device, max_rounds):
+        f64 = torch.float64
+        self.inp = torch.zeros(n + 2, dtype=f64, device=device)
+        self.F64 = self.inp[:n]
+        self.x64 = torch.zeros(n, dtype=f64, device=device)
+        self.r64 = torch.zeros(n, dtype=f64, device=device)
+        self.sc = torch.zeros(4, dtype=f64, device=device)
+        self.ints = torch.zeros(5, dtype=torch.int32, device=device)
+        self.hist = torch.zeros(max_rounds + 1, dtype=f64, device=device)
+        self.p = ctl.pred_slots(1)
+        self.c0 = ctl.count_slots(2)
+
+
+class DeviceLoopSolver:
+    """The ABF solve and its float64 iterative refinement with the loops on
+    the device (ABFSolver loop="device"): the counterpart of the JAX
+    package's make_abf_solver + make_ir_solver, whose GCR, FGMRES and
+    refinement loops are lax.while_loops (exsaddle_tpu/abf.py:1106-1171,
+    exsaddle_tpu/treeops.py:238-434).
+
+    The solve is written as graphs.Pieces and Loops over static device
+    tensors: treeops.DeviceFGMRES over the saddle apply, preconditioned by
+    the fieldsplit PC, whose u-block is a treeops.DeviceGCR loop over the
+    V-cycle (or, with cfg.u_fixed_vcycles, fixed V-cycles: one Piece);
+    with ir, a DeviceIR round around it: cast to the working dtype, the
+    inner solve, the float64 residual, accept/reject and history
+    (exsaddle_tpu/abf.py:1143-1163). The bodies are the host-loop solve's
+    (_plain_bodies).
+
+    ir_ops: (op64, aux64), the float64 residual operator (setup["op64"]),
+    for the refinement; None for a solver of the direct solve only.
+
+    graph=True (CUDA): the items become one graphs.ControlGraph, captured
+    here (with ir, a second one for the direct solve, which shares the
+    first's captured FGMRES loop); a solve is one staged input copy, one
+    graph launch under torch.cuda.set_sync_debug_mode("error") and one
+    copy of the packed result. graph=False: graphs.run_plain drives the
+    same items from Python, one host read per loop test (the CPU's path,
+    and the reference on the card). rtol and n_rounds are device scalars:
+    a new tolerance replays the same graph. Counts, histories and x come
+    back in one float64 buffer (`out`, the direct solve's `out_direct`)."""
+
+    def __init__(self, cfg, data, dtype, graph, ir_ops=None, max_rounds=10):
+        op, aux = data["op"], data["aux"]
+        self.device = op.Bs.device
+        ir = ir_ops is not None
+        self.dtype, self.ir = dtype, ir
+        self.max_rounds = max_rounds
+        n = op.ndof
+        self.n = n
+        self.ctl = ctl = graphs.Control(self.device)
+        b = _plain_bodies(cfg, data)
+        wz = lambda *shape: torch.zeros(shape, dtype=dtype,     # noqa: E731
+                                        device=self.device)
+        if cfg.u_fixed_vcycles > 0:
+            def pc_items(vin, zout):
+                return [graphs.Piece(lambda: zout.copy_(b["fixed_pc"](vin)),
+                                     "fieldsplit fixed V-cycles")]
+            self.gcr = None
+        else:
+            self.gcr = gcr = treeops.DeviceGCR(
+                ctl, b["fineA"], b["mg_pc"], op.nu, dtype, self.device,
+                restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
+                max_it=cfg.gcr_max_it)
+            yp = wz(*op.p_shape)
+
+            def pc_items(vin, zout):
+                # fieldsplit Schur UPPER (_fieldsplit), the u-block a loop
+                def p_block():
+                    yp.copy_(b["p_solve"](vin[op.nu:].view(op.p_shape)))
+                    gcr.start(vin[:op.nu] - mult_up_tree(op, aux, yp))
+
+                def assemble():
+                    zout[:op.nu].copy_(gcr.x)
+                    zout[op.nu:].copy_(yp.reshape(-1))
+                return [graphs.Piece(p_block, "p-block + gcr start"),
+                        gcr.loop(), graphs.Piece(assemble, "fieldsplit z")]
+        self.fg = fg = treeops.DeviceFGMRES(
+            ctl, b["mult"], pc_items, n, dtype, self.device,
+            restart=cfg.restart, rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
+            max_it=cfg.max_it, hist_len=cfg.hist_len)
+        nc = ctl.counts.numel()
+        fl = fg.loop()
+        # the direct solve (solve): its own input and result buffers over
+        # the one FGMRES loop
+        self.inp = torch.zeros(2 * n, dtype=dtype, device=self.device)
+        self.out_direct = torch.zeros(n + 3 + cfg.hist_len + nc,
+                                      dtype=torch.float64, device=self.device)
+        self.direct_items = [graphs.Piece(self._init, "fgmres init"), fl,
+                             graphs.Piece(self._pack, "fgmres result")]
+        self.state = None
+        if ir:
+            self.state = st = DeviceIR(ctl, n, self.device, max_rounds)
+            self.out = torch.zeros(n + 5 + max_rounds + 1 + nc,
+                                   dtype=torch.float64, device=self.device)
+            self.items = [graphs.Piece(self._ir_init, "ir init"),
+                          graphs.Loop("while", st.p, [
+                              graphs.Piece(self._ir_pre, "ir round start"),
+                              fl,
+                              graphs.Piece(self._ir_post, "ir round end")],
+                              count=st.c0 + 1),
+                          graphs.Piece(self._ir_pack, "ir result")]
+        else:
+            self.out, self.items = self.out_direct, self.direct_items
+        self.op64, self.aux64 = ir_ops if ir else (None, None)
+        self._pinned = {}
+        # graph: the solver's own solve (the refinement with ir);
+        # direct_graph: solve's, which with ir shares every captured piece
+        # of the FGMRES loop with graph and captures only its own ends
+        self.graph = self.direct_graph = None
+        self.capture_seconds = 0.0
+        if graph:
+            self.graph = graphs.ControlGraph(self.items, ctl)
+            self.direct_graph = (graphs.ControlGraph(
+                self.direct_items, ctl, share=self.graph) if ir
+                else self.graph)
+            self.capture_seconds = self.graph.capture_seconds + (
+                self.direct_graph.capture_seconds if ir else 0.0)
+
+    # --- pieces of the direct solve --------------------------------------
+    def _init(self):
+        self.ctl.counts.zero_()
+        n = self.n
+        self.fg.F.copy_(self.inp[:n])
+        self.fg.init(self.inp[n:])
+
+    def _pack(self):
+        n, fg, o = self.n, self.fg, self.out_direct
+        o[:n].copy_(fg.x)
+        o[n:n + 1].copy_(fg.ints[2])
+        o[n + 1:n + 2].copy_(fg.sc[1])
+        o[n + 2:n + 3].copy_(fg.ints[0])
+        o[n + 3:n + 3 + fg.hist_len].copy_(fg.hist)
+        o[n + 3 + fg.hist_len:].copy_(self.ctl.counts)
+
+    # --- pieces of the refinement ----------------------------------------
+    def _resid(self, x64):
+        r = self.state.F64 - mult_tree(self.op64, self.aux64, x64)
+        return r, treeops.tnorm(r)
+
+    def _ir_init(self):
+        st = self.state
+        self.ctl.counts.zero_()
+        st.sc[2:4].copy_(st.inp[self.n:])
+        st.x64.zero_()
+        r, rn0 = self._resid(st.x64)
+        st.r64.copy_(r)
+        krylov_ctl.ir_ctl(0, st, rn0, self.fg.ints, self.ctl)
+
+    def _ir_pre(self):
+        self.fg.F.copy_(self.state.r64.to(self.dtype))
+        self.fg.init()
+
+    def _ir_post(self):
+        st = self.state
+        x_try = st.x64 + self.fg.x.to(torch.float64)
+        r_try, rn_try = self._resid(x_try)
+        krylov_ctl.ir_ctl(1, st, rn_try, self.fg.ints, self.ctl)
+        accept = st.ints[4].bool()
+        st.x64.copy_(torch.where(accept, x_try, st.x64))
+        st.r64.copy_(torch.where(accept, r_try, st.r64))
+
+    def _ir_pack(self):
+        n, st, o = self.n, self.state, self.out
+        o[:n].copy_(st.x64)
+        o[n:n + 2].copy_(st.ints[:2])
+        o[n + 2:n + 3].copy_(st.sc[1])
+        o[n + 3:n + 4].copy_(st.sc[0])
+        o[n + 4:n + 5].copy_(st.ints[3])
+        m = self.max_rounds + 1
+        o[n + 5:n + 5 + m].copy_(st.hist)
+        o[n + 5 + m:].copy_(self.ctl.counts)
+
+    # --- a solve ----------------------------------------------------------
+    def _run(self, inp, host_inp, ir):
+        """Stage host_inp into inp, run the refinement's (ir) or the direct
+        solve's items, return their result buffer on the host (numpy
+        float64) and add what ran to the launch counts."""
+        items, out, graph = ((self.items, self.out, self.graph) if ir else
+                             (self.direct_items, self.out_direct,
+                              self.direct_graph))
+        if self.device.type == "cpu":
+            inp.copy_(torch.from_numpy(host_inp))
+            graphs.run_plain(items, self.ctl)
+            return out.numpy().copy()
+        if ir not in self._pinned:
+            self._pinned[ir] = (torch.empty(inp.shape, dtype=inp.dtype,
+                                            pin_memory=True),
+                                torch.empty(out.shape, dtype=out.dtype,
+                                            pin_memory=True))
+        pin_in, pin_out = self._pinned[ir]
+        pin_in.copy_(torch.from_numpy(host_inp))
+        done = torch.cuda.Event()
+        if graph is None:
+            inp.copy_(pin_in, non_blocking=True)
+            graphs.run_plain(items, self.ctl)
+            pin_out.copy_(out, non_blocking=True)
+            done.record()
+            done.synchronize()
+            return pin_out.numpy().copy()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inp.copy_(pin_in, non_blocking=True)
+            graph.launch()
+            pin_out.copy_(out, non_blocking=True)
+            done.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        done.synchronize()
+        res = pin_out.numpy().copy()
+        graph.account(res[-self.ctl.counts.numel():])
+        return res
+
+    def solve(self, F, x0):
+        """F, x0: numpy vectors in the solver's layout. Returns (x, its,
+        rnorm, state, hist, counts), x in the working dtype (numpy)."""
+        n, hl = self.n, self.fg.hist_len
+        npdt = treeops.NP_DTYPE[self.dtype]
+        out = self._run(self.inp, np.concatenate([F, x0]).astype(npdt),
+                        ir=False)
+        return (out[:n].astype(npdt), int(out[n]), npdt(out[n + 1]),
+                int(out[n + 2]), out[n + 3:n + 3 + hl].astype(npdt),
+                out[n + 3 + hl:].astype(np.int64))
+
+    def solve_ir(self, F64, rtol, n_rounds):
+        """F64: numpy float64 in the solver's layout. Returns (x64, rounds,
+        inner_total, rnorm, rnorm0, history, stalled, counts)."""
+        if n_rounds > self.max_rounds:
+            raise ValueError(f"n_rounds {n_rounds} > max_rounds "
+                             f"{self.max_rounds}")
+        n, m = self.n, self.max_rounds + 1
+        out = self._run(self.state.inp, np.concatenate(
+            [np.asarray(F64, np.float64), [rtol, n_rounds]]), ir=True)
+        hist = out[n + 5:n + 5 + m]
+        return (out[:n], int(out[n]), int(out[n + 1]), float(out[n + 2]),
+                float(out[n + 3]), [float(h) for h in hist if h >= 0.0],
+                bool(out[n + 4]), out[n + 5 + m:].astype(np.int64))
+
+
 class ABFSolver:
     """Host-facing wrapper: setup + solve + monitor history.
 
-    device is required: nothing here probes for a GPU. On a CUDA device the
-    solver captures its fixed-work bodies as CUDA graphs once, at
-    construction (setup stage "graph capture"; make_abf_solver), and every
-    solve replays them; eager=True launches every op from Python instead.
+    device is required: nothing here probes for a GPU. loop picks who
+    runs the Krylov loops:
+    - "device" (the default on CUDA unless eager): DeviceLoopSolver. On
+      CUDA the whole solve (with ir, the whole refinement) is one CUDA
+      graph with conditional nodes, captured once at construction (setup
+      stage "graph capture"); a solve is one graph launch and no host
+      read. On the CPU, which has no graphs, it runs as "plain".
+    - "plain": DeviceLoopSolver's steps driven from Python
+      (graphs.run_plain), one host read of a loop predicate per test: the
+      reference the graph is held against.
+    - "host" (the default on the CPU, and with eager=True): make_abf_solver;
+      GCR, FGMRES and the rounds read their residuals on the host; on CUDA
+      the fixed-work bodies are captured graphs (graphs.Captured) unless
+      eager=True launches every op from Python. eager applies to "host"
+      only.
     The graphs read the tensors of `data` by address: the solver holds
     `data` for its lifetime and never rebinds it, and solvers built
-    from_parts over one `data` each capture their own graphs."""
+    from_parts over one `data` each capture their own graphs. A failure to
+    build or launch the device loop raises; nothing falls back."""
 
     def __init__(self, mesh, fes, coeff_qp, bc_idx, bc_vals, *, device,
                  lame=False, dtype=torch.float64, nlevels=3, ir=False,
-                 eager=False, **cfg_kw):
+                 eager=False, loop=None, **cfg_kw):
         cfg, data, setup = build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals,
                                      device=device, lame=lame, dtype=dtype,
                                      nlevels=nlevels, cfg_kw=cfg_kw)
@@ -1042,25 +1320,45 @@ class ABFSolver:
                 op64 = setup["op64"]
                 if op64.Bs.device.type == "cuda":
                     op64.node_table
-        self._init(cfg, data, setup, dtype, device, ir, eager)
+        self._init(cfg, data, setup, dtype, device, ir, eager, loop)
 
     @classmethod
     def from_parts(cls, cfg, data, setup, *, device, dtype, ir=False,
-                   eager=False):
+                   eager=False, loop=None):
         """Solver over (cfg, data, setup) built elsewhere, e.g. by
         data_from_numpy; on CUDA it captures its graphs against these
         tensors."""
         self = cls.__new__(cls)
-        self._init(cfg, data, setup, dtype, device, ir, eager)
+        self._init(cfg, data, setup, dtype, device, ir, eager, loop)
         return self
 
-    def _init(self, cfg, data, setup, dtype, device, ir, eager):
+    def _init(self, cfg, data, setup, dtype, device, ir, eager, loop):
         self.cfg, self.data, self.setup = cfg, data, setup
         self.mesh = setup["mesh"]
         self.dtype = dtype
         self.device = torch.device(device)
         self.capture_seconds = 0.0
-        if self.device.type == "cuda" and not eager:
+        cuda = self.device.type == "cuda"
+        if loop is None:
+            loop = "device" if cuda and not eager else "host"
+        if loop not in ("device", "plain", "host"):
+            raise ValueError(f"loop {loop!r}: 'device', 'plain' or 'host'")
+        if eager and loop != "host":
+            raise ValueError(f"eager=True runs the host loop, not {loop!r}")
+        self.loop = loop
+        self._dev = None
+        self._solve_ir_fn = None
+        if loop != "host":
+            self._solve = None
+            self._bodies = {}
+            graph = cuda and loop == "device"
+            ir_ops = (setup["op64"], setup["aux64"]) if ir else None
+            with _stage("graph capture") if graph else \
+                    contextlib.nullcontext():
+                self._dev = DeviceLoopSolver(cfg, data, dtype, graph, ir_ops)
+            self.capture_seconds = self._dev.capture_seconds
+            return
+        if cuda and not eager:
             t0 = time.perf_counter()
             with _stage("graph capture"):
                 self._solve, self._bodies = make_abf_solver(cfg, data)
@@ -1095,6 +1393,17 @@ class ABFSolver:
     def solve(self, F_flat, x0_flat=None):
         """Solve A x = F. Returns dict with x (natural ordering), its,
         rnorm, reason, history (list of monitored residuals)."""
+        if self._dev is not None:
+            perm = self.setup["perm"]
+            F = np.asarray(F_flat)[perm]
+            x0 = (np.asarray(x0_flat)[perm] if x0_flat is not None
+                  else np.zeros_like(F))
+            x, its, rnorm, state, hist, _ = self._dev.solve(F, x0)
+            return {"x": x[self.setup["iperm"]], "its": its,
+                    "rnorm": float(rnorm),
+                    "reason": treeops.reason_name(state),
+                    "history": [float(h) for h in hist[: its + 1]
+                                if h >= 0.0]}
         Ft = self.vec_to_tree(F_flat)
         x0 = (self.vec_to_tree(x0_flat) if x0_flat is not None
               else torch.zeros_like(Ft))
@@ -1111,6 +1420,16 @@ class ABFSolver:
         Returns dict with x (natural ordering, float64), rounds, inner_its
         (total), rnorm (true float64 residual), rnorm0, history (true
         residual per accepted round), stalled, converged."""
+        if self._dev is not None:
+            if self._dev.state is None:
+                raise ValueError("construct with ir=True")
+            F64 = np.asarray(F_flat, np.float64)[self.setup["perm"]]
+            (x64, rounds, inner_total, rnorm, rnorm0, history, stalled,
+             _) = self._dev.solve_ir(F64, rtol, max_rounds)
+            return {"x": x64[self.setup["iperm"]], "rounds": rounds,
+                    "inner_its": inner_total, "rnorm": rnorm,
+                    "rnorm0": rnorm0, "history": history,
+                    "stalled": stalled, "converged": rnorm <= rtol * rnorm0}
         if self._solve_ir_fn is None:
             raise ValueError("construct with ir=True")
         F64 = self.vec_to_tree(F_flat, dtype=torch.float64)

@@ -20,9 +20,10 @@ BENCH_* environment variables; every function takes an explicit device.
    true relative residual of `rtol`, under the tuned schedule of
    bench_solver_kw; the abf.opts schedule (and any other given) solves
    over the same setup, alternated with it in one call. On a card every
-   schedule's solver replays its own CUDA graphs of the operator, the
-   V-cycle and the p-block (abf.make_abf_solver); solve_peak_mem_gib holds
-   them all.
+   schedule's solver is the ABFSolver default, loop="device": its whole
+   refinement is one CUDA graph with conditional nodes, launched once per
+   solve (abf.DeviceLoopSolver); solve_loop / solve_<name>_loop say which
+   loop ran, and solve_peak_mem_gib holds every solver's graph.
 
 main() prints exactly one JSON line {"metric", "value", "unit",
 "vs_baseline", "extras"}. On the CPU, which runs only when asked
@@ -438,6 +439,7 @@ def _solve_keys(prefix, times, res, slv, F):
         prefix + "seconds": round(t_solve, 3),
         prefix + "outer_its": res["inner_its"],
         prefix + "ir_rounds": res["rounds"],
+        prefix + "loop": slv.loop,
         prefix + "ms_per_outer_it": round(1e3 * t_solve
                                           / max(res["inner_its"], 1), 2),
     }

@@ -369,7 +369,9 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
     ordering, numpy), result (KSPResult; on the host route its x is the
     device tensor), mesh, levels, ksp, F (numpy), reason, its, rnorm and
     seconds {setup, solve}; the ABF route adds history, solver, res (the
-    ABF solver's own result dict) and mode ("direct", "ir" or "cart").
+    ABF solver's own result dict), mode ("direct", "ir" or "cart") and
+    loop (who ran the Krylov loops: "device" -- one CUDA graph with
+    conditional nodes, the default on CUDA -- or "host"; abf.ABFSolver).
 
     devices: the ABF route's devices, one per shard, repeats allowed
     (default_devices(-device) when None); with more than one the solve is
@@ -688,7 +690,7 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
                        "solve": stage_t["KSPSolve"]}}
     if use_abf:
         out.update(history=ksp.last["history"], solver=slv, res=ksp.last,
-                   mode=mode)
+                   mode=mode, loop=getattr(slv, "loop", "host"))
     return out
 
 

@@ -7,15 +7,28 @@ host and takes no branch on a device value: the V-cycle, the p-block's
 Chebyshev polynomial, the fieldsplit PC with fixed V-cycles (abf.py
 `make_abf_solver`). `Captured` records such a body once and replays it, so
 the host makes one graph launch where it launched every kernel of the body.
-The loops that read a residual (GCR, FGMRES, the refinement rounds) stay on
-the host and call the captured bodies.
+Under `loop="host"` the loops that read a residual (GCR, FGMRES, the
+refinement rounds) stay on the host and call the captured bodies.
 
-There is no CPU mode: the CPU runs the bodies eagerly, and `Captured`
-refuses CPU tensors."""
+`ControlGraph` takes the loops onto the card as well (`loop="device"`, the
+default on CUDA): the solve is written as Pieces (fixed-work stretches of
+the loop bodies) and Loops (WHILE / IF over a predicate that a Krylov
+control kernel writes, kernels/krylov_ctl.py), and the whole of it becomes
+one CUDA graph whose loops are conditional nodes (csrc/graph_ctl.cu), the
+counterpart of the JAX package's lax.while_loop. `run_plain` runs the same
+items from Python, one host read per loop test: the reference the graph is
+held against, and the CPU's path.
+
+There is no CPU mode for a graph: the CPU runs the bodies eagerly, and
+`Captured` and `ControlGraph` refuse CPU tensors."""
+
+import ctypes
+import os
+import time
 
 import torch
 
-from exsaddle_tpu_torch.kernels import a00
+from exsaddle_tpu_torch.kernels import _build, a00, krylov_ctl
 
 
 def _check_inputs(inputs, what):
@@ -103,3 +116,289 @@ class Captured:
 def replays(bodies):
     """Replays so far of the Captured among `bodies` ({name: callable})."""
     return sum(b.replays for b in bodies.values() if isinstance(b, Captured))
+
+
+# --- loops on the device: one graph with conditional nodes -----------------
+
+class Control:
+    """The loop control of one device-loop solve: `pred` (int32), each
+    loop's predicate as its control kernel last wrote it; `handles` (the
+    conditional nodes' handles, by predicate slot); `counts` (int64), the
+    executions of each loop body as its control kernel counts them.
+    Slots are handed out by pred_slots / count_slots at construction.
+    The control kernels set the handles only while `armed`, i.e. while
+    ControlGraph captures the pieces that launch them."""
+
+    def __init__(self, device, n_pred=16, n_count=32):
+        self.pred = torch.zeros(n_pred, dtype=torch.int32, device=device)
+        self.handles = torch.zeros(n_pred, dtype=torch.int64, device=device)
+        self.counts = torch.zeros(n_count, dtype=torch.int64, device=device)
+        self.armed = False
+        self._n_pred = self._n_count = 0
+
+    def pred_slots(self, n):
+        """The first of n new consecutive predicate slots."""
+        first = self._n_pred
+        self._n_pred += n
+        if self._n_pred > self.pred.numel():
+            raise ValueError("Control: out of predicate slots")
+        return first
+
+    def count_slots(self, n):
+        """The first of n new consecutive counter slots."""
+        first = self._n_count
+        self._n_count += n
+        if self._n_count > self.counts.numel():
+            raise ValueError("Control: out of counter slots")
+        return first
+
+    def handles_ptr(self):
+        return self.handles.data_ptr() if self.armed else 0
+
+    def read(self, slot):
+        """Predicate `slot` on the host: the plain driver's one read per
+        loop test."""
+        return bool(self.pred[slot])
+
+
+class Piece:
+    """A fixed-work stretch of a loop body: fn() reads and writes the
+    solver's static tensors and reads nothing back to the host."""
+
+    def __init__(self, fn, name, parts=None):
+        self.fn, self.name = fn, name
+        # the Pieces it joins (merged): ControlGraph captures a run once
+        self.parts = parts or (self,)
+
+
+class Loop:
+    """A WHILE ("while") or IF ("if") over `body` (Pieces and Loops),
+    guarded by predicate slot `pred`. count: the counter slot a control
+    kernel in the body adds one to per execution of the body (None where
+    the body holds no Piece of its own)."""
+
+    def __init__(self, kind, pred, body, count=None):
+        if kind not in ("while", "if"):
+            raise ValueError(f"Loop: kind {kind!r}")
+        self.kind, self.pred, self.body, self.count = kind, pred, body, count
+
+
+def merged(items):
+    """items with each run of consecutive Pieces joined into one Piece."""
+    out = []
+    for item in items:
+        if isinstance(item, Piece) and out and isinstance(out[-1], Piece):
+            out[-1] = Piece(_chain(out[-1].fn, item.fn),
+                            f"{out[-1].name} + {item.name}",
+                            out[-1].parts + item.parts)
+        else:
+            out.append(item)
+    return out
+
+
+def _chain(f, g):
+    def both():
+        f()
+        g()
+    return both
+
+
+def run_plain(items, ctl):
+    """The plain driver: items in order from Python, each loop test one
+    host read of its predicate (Control.read) and nothing else. This is
+    the reference ControlGraph is held against, and the CPU's path."""
+    for item in items:
+        if isinstance(item, Piece):
+            item.fn()
+        elif item.kind == "while":
+            while ctl.read(item.pred):
+                run_plain(item.body, ctl)
+        elif ctl.read(item.pred):
+            run_plain(item.body, ctl)
+
+
+_V = ctypes.c_void_p
+_SHIM = {"gc_versions": [_V, _V], "gc_graph_create": [_V],
+         "gc_handle_create": [_V, _V, ctypes.c_uint],
+         "gc_add_conditional": [_V, ctypes.c_ulonglong, ctypes.c_int, _V, _V],
+         "gc_add_child": [_V, _V, _V], "gc_add_edge": [_V, _V, _V],
+         "gc_instantiate": [_V, ctypes.c_int, _V], "gc_launch": [_V, _V],
+         "gc_exec_destroy": [_V], "gc_graph_destroy": [_V]}
+
+
+def _shim():
+    lib = _build.load()
+    for name, args in _SHIM.items():
+        f = getattr(lib, name)
+        f.argtypes = args
+        f.restype = ctypes.c_int
+    lib.gc_error_string.argtypes = [ctypes.c_int]
+    lib.gc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _counters():
+    """Every launch count a piece can move: K1's and each control
+    kernel's."""
+    return ((a00.LAUNCHES.n, a00.LAUNCHES.applies)
+            + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES))
+
+
+def _set_counters(vals):
+    a00.LAUNCHES.n, a00.LAUNCHES.applies = vals[:2]
+    for k, v in zip(krylov_ctl.NAMES, vals[2:]):
+        krylov_ctl.LAUNCHES.n[k] = v
+
+
+class ControlGraph:
+    """`items` (Pieces and Loops) as ONE instantiated CUDA graph: every
+    Loop a conditional node (WHILE or IF) whose handle the loop's control
+    kernel sets, every run of Pieces one captured child graph, chained in
+    order inside its loop's body graph. launch() runs a whole solve as one
+    cudaGraphLaunch; the loops test their predicates on the device.
+
+    Built in three passes: the conditional nodes top down (each handle
+    must exist before the pieces that set it are captured; its value
+    resets to 0 at each launch, and the control kernels set every handle
+    before its node runs); each piece run once eagerly on a side stream
+    (lazy state: cuBLAS, K1's node table) and then captured with
+    torch.cuda.CUDAGraph(keep_graph=True) under
+    torch.cuda.set_sync_debug_mode("error") in a private memory pool, its
+    raw graph added as a child-graph node; then the edges, and
+    instantiation. Any CUDA error raises: there is no fallback.
+
+    A piece's K1 and control-kernel launches are recorded at capture and
+    not counted; account(counts) adds them times the executions the
+    device counted (Control.counts, brought back with the result). The
+    capture keeps the pieces' tensors by address: the caller keeps them
+    alive and never rebinds them.
+
+    share: an earlier ControlGraph over the same Control; a run of Pieces
+    it captured is added here as the same child graph, not captured
+    again (a direct solve and a refinement over one FGMRES loop). Each
+    graph keeps its own handles and writes them into Control.handles at
+    launch, so graphs over one Control take turns, never run at once."""
+
+    def __init__(self, items, ctl, share=None):
+        self.ctl = ctl
+        dev = ctl.pred.device
+        if dev.type != "cuda":
+            raise ValueError(f"ControlGraph: CUDA only, got {dev}")
+        self._lib = _shim()
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+        if "cudaMallocAsync" in alloc:
+            raise RuntimeError("ControlGraph: the cudaMallocAsync allocator "
+                               "puts memory nodes into captured graphs, "
+                               "which a conditional body cannot hold")
+        self.device = dev
+        self.root = self._out("gc_graph_create")
+        handles = {}
+        chains = []     # (graph, [node or (piece, count)] in order)
+
+        def skeleton(graph, body, count):
+            chain = []
+            for item in merged(body):
+                if isinstance(item, Piece):
+                    chain.append((item, count))
+                    continue
+                h = ctypes.c_ulonglong()
+                self._call("gc_handle_create", _V(graph), ctypes.byref(h), 0)
+                handles[item.pred] = h.value
+                node, sub = _V(), _V()
+                self._call("gc_add_conditional", _V(graph), h.value,
+                           int(item.kind == "while"), ctypes.byref(node),
+                           ctypes.byref(sub))
+                chain.append(node.value)
+                skeleton(sub.value, item.body, item.count)
+            chains.append((graph, chain))
+
+        t0 = time.perf_counter()
+        skeleton(self.root, items, None)
+        hv = torch.zeros_like(ctl.handles, device="cpu")
+        for slot, h in handles.items():
+            hv[slot] = h
+        self.handles = hv.to(dev)
+        # (torch graph, counter deltas) by the Pieces a run joins
+        self.captured = dict(share.captured) if share is not None else {}
+        self.pieces = []    # (name, torch graph, count slot, counter deltas)
+        for graph, chain in chains:
+            for i, entry in enumerate(chain):
+                if isinstance(entry, tuple):
+                    piece, count = entry
+                    if piece.parts not in self.captured:
+                        self.captured[piece.parts] = self._capture(piece)
+                    g, deltas = self.captured[piece.parts]
+                    self.pieces.append((piece.name, g, count, deltas))
+                    node = _V()
+                    self._call("gc_add_child", _V(graph),
+                               _V(g.raw_cuda_graph()), ctypes.byref(node))
+                    chain[i] = node.value
+            for a, b in zip(chain, chain[1:]):
+                self._call("gc_add_edge", _V(graph), _V(a), _V(b))
+        self.exec = self._out("gc_instantiate", _V(self.root),
+                              dev.index or 0)
+        self.capture_seconds = time.perf_counter() - t0
+        self.launches = 0
+
+    def _call(self, name, *args):
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"ControlGraph: {name} failed: "
+                               f"{self._lib.gc_error_string(err).decode()} "
+                               f"({err})")
+
+    def _out(self, name, *args):
+        p = _V()
+        self._call(name, *args, ctypes.byref(p))
+        return p.value
+
+    def _capture(self, piece):
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                piece.fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            before = _counters()
+            mode = torch.cuda.get_sync_debug_mode()
+            self.ctl.armed = True
+            try:
+                with torch.cuda.graph(g):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        piece.fn()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+            finally:
+                self.ctl.armed = False
+                after = _counters()
+                _set_counters(before)
+        return g, tuple(b - a for a, b in zip(before, after))
+
+    def launch(self):
+        """One launch of the whole graph on the current stream, after its
+        handles (a device copy into Control.handles)."""
+        self.ctl.handles.copy_(self.handles)
+        self._call("gc_launch", _V(self.exec),
+                   _V(torch.cuda.current_stream(self.device).cuda_stream))
+        self.launches += 1
+
+    def account(self, counts):
+        """Add to the launch counts what the last launch ran: each piece's
+        captured launches times its executions (counts: Control.counts on
+        the host; a piece outside any loop ran once)."""
+        total = list(_counters())
+        for _, _, slot, deltas in self.pieces:
+            n = 1 if slot is None else int(counts[slot])
+            total = [t + n * d for t, d in zip(total, deltas)]
+        _set_counters(total)
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is None:
+            return
+        if getattr(self, "exec", None):
+            lib.gc_exec_destroy(_V(self.exec))
+        if getattr(self, "root", None):
+            lib.gc_graph_destroy(_V(self.root))

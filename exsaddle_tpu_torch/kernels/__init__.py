@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels of the port (sources in ../csrc/), each with a
 plain PyTorch version beside it and a launch count.
 
-  a00 -- K1, the fused velocity-block apply (replaces
-         exsaddle_tpu/pallas_apply.py:make_pallas_mult_u)
+  a00        -- K1, the fused velocity-block apply (replaces
+                exsaddle_tpu/pallas_apply.py:make_pallas_mult_u)
+  krylov_ctl -- the Krylov control kernels: the scalar tails of the GCR,
+                FGMRES and refinement loop bodies, run inside the solve's
+                CUDA graph (the JAX package compiles them into its
+                lax.while_loops)
 """

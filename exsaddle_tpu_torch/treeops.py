@@ -15,27 +15,34 @@ recurrence, right preconditioning with unpreconditioned norms,
 KSPConvergedDefault (rtol/abstol/dtol, DIVERGED_ITS at max_it), happy
 breakdown at min(|tt / g_it|, 1e-30), truncated GCR restart.
 
-Loop control is host-synced: each GCR or FGMRES iteration brings its few
-scalars to the host once (one device synchronisation) and the Python loop
-decides. The small Givens/Hessenberg arithmetic runs on the host in the
-working dtype (numpy float32/float64 scalars), as the JAX package runs it
-on device in that dtype. The preconditioners the loops call may be CUDA
-graph replays (graphs.Captured; the ABF solve's operator, V-cycle and
-p-block);
-cheb_smooth stays host-read-free for that. Device-side loop control is
-later work."""
+Two forms of the loops:
+
+- make_gcr / make_fgmres (host loop control): each GCR or FGMRES iteration
+  brings its few scalars to the host once (one device synchronisation)
+  and the Python loop decides. The small Givens/Hessenberg arithmetic runs
+  on the host in the working dtype (numpy float32/float64 scalars). The
+  preconditioners they call may be CUDA graph replays (graphs.Captured);
+  cheb_smooth stays host-read-free for that. The sharded solvers of
+  parallel/ and the ABF solve's loop="host" use them.
+- DeviceGCR / DeviceFGMRES (device loop control), the JAX formulation:
+  a fixed-shape state of device tensors, masked Gram-Schmidt over the
+  whole window (buf_dots/buf_comb, exsaddle_tpu/treeops.py:106-133), basis
+  writes at a device index, and step functions that end in a Krylov
+  control kernel (kernels/krylov_ctl.py) which updates the scalars and
+  writes the loop predicates. Their loops are graphs.Loop items: one CUDA
+  graph with conditional nodes on the card (graphs.ControlGraph), or
+  graphs.run_plain, which reads only the predicates."""
 
 import numpy as np
 import scipy.linalg
 import torch
 
+from exsaddle_tpu_torch.graphs import Loop, Piece, run_plain
+from exsaddle_tpu_torch.kernels import krylov_ctl
 # state codes (sign convention matches PETSc: >0 converged, <0 diverged)
-RUNNING = 0
-CONVERGED_RTOL = 2
-CONVERGED_ATOL = 3
-CONVERGED_HAPPY = 5
-DIVERGED_ITS = -3
-DIVERGED_DTOL = -4
+from exsaddle_tpu_torch.kernels.krylov_ctl import (  # noqa: F401
+    CONVERGED_ATOL, CONVERGED_HAPPY, CONVERGED_RTOL, DIVERGED_DTOL,
+    DIVERGED_ITS, RUNNING)
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -404,3 +411,171 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
         return x, itc, rnorm, state, hist
 
     return solve
+
+
+# --- device loop control ------------------------------------------------------
+
+def _zeros(device, dtype, *shape):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class DeviceGCR:
+    """GCR (make_gcr's semantics; the JAX make_gcr's while loop) over a
+    fixed-shape device state: x, r, the (restart, n) windows V and S, and
+    the control state of kernels/krylov_ctl.gcr_ctl. start(b) is a piece
+    (x = 0, r = b, ||b||, gcr_ctl mode 0); loop() the WHILE over step().
+    The step projects against the whole window with masked dots, writes
+    the new basis row at a device index and ends in gcr_ctl: nothing in it
+    is read on the host."""
+
+    def __init__(self, ctl, mult, pc_apply, n, dtype, device, restart=30,
+                 rtol=1e-2, atol=1e-50, max_it=200):
+        self.ctl, self.mult, self.pc_apply = ctl, mult, pc_apply
+        self.restart, self.max_it = restart, max_it
+        self.x = _zeros(device, dtype, n)
+        self.r = _zeros(device, dtype, n)
+        self.V = _zeros(device, dtype, restart, n)
+        self.S = _zeros(device, dtype, restart, n)
+        self.sc = _zeros(device, dtype, 3)
+        self.par = torch.tensor([rtol, atol], dtype=dtype, device=device)
+        self.ints = torch.zeros(3, dtype=torch.int32, device=device)
+        self.ix = torch.zeros(1, dtype=torch.int64, device=device)
+        self.ar = torch.arange(restart, device=device)
+        self.p = ctl.pred_slots(1)
+        self.c0 = ctl.count_slots(2)
+
+    def start(self, b):
+        self.x.zero_()
+        self.r.copy_(b)
+        rn0 = _norm(tdot, self.r)
+        krylov_ctl.gcr_ctl(0, self, rn0, rn0, self.ctl)
+
+    def step(self):
+        s = self.pc_apply(self.r)
+        v = self.mult(s)
+        mask = (self.ar < self.ints[1]).to(v.dtype)
+        beta = (self.V @ v) * mask
+        v = v - beta @ self.V
+        s = s - beta @ self.S
+        alpha = _norm(tdot, v)
+        inv = 1.0 / _safe(alpha)
+        v = inv * v
+        s = inv * s
+        self.V.index_copy_(0, self.ix, v[None])
+        self.S.index_copy_(0, self.ix, s[None])
+        gamma = tdot(self.r, v)
+        self.x += gamma * s
+        self.r += -gamma * v
+        rn = _norm(tdot, self.r)
+        krylov_ctl.gcr_ctl(1, self, alpha, rn, self.ctl)
+
+    def loop(self):
+        return Loop("while", self.p, [Piece(self.step, "gcr step")],
+                    count=self.c0 + 1)
+
+    def solve(self, b):
+        """The plain driver: x, its, rnorm as tensors (reads only the
+        loop predicate)."""
+        run_plain([Piece(lambda: self.start(b), "gcr start"), self.loop()],
+                  self.ctl)
+        return self.x.clone(), self.ints[2].clone(), self.sc[2].clone()
+
+
+class DeviceFGMRES:
+    """FGMRES (make_fgmres's semantics; the JAX make_fgmres's while loop)
+    over a fixed-shape device state: x, F, the bases V (k+1, n) and Z
+    (k, n), and the Hessenberg/Givens/history state of
+    kernels/krylov_ctl (H, g, cs, sn, y, hist, sc, par, ints, ix).
+
+    pc_items(vin, zout) gives the preconditioner as items (Pieces and
+    Loops) that compute zout from vin, two static vectors: one Piece for a
+    fixed-work preconditioner, a Piece, a nested GCR loop and a Piece for
+    the fieldsplit PC with GCR (abf.DeviceLoopSolver).
+
+    init(x0) is a piece (a new solve: x = x0 or 0, bases zeroed,
+    fgmres_start_ctl mode 0), loop() the WHILE whose body is IF(cycle
+    start) then IF(arnoldi) -- the JAX body's lax.cond -- with the
+    arnoldi body ending in IF(build_soln)."""
+
+    def __init__(self, ctl, mult, pc_items, n, dtype, device, restart=30,
+                 rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+                 hist_len=None):
+        k = restart
+        self.ctl, self.mult = ctl, mult
+        self.k, self.max_it = k, max_it
+        self.hist_len = max_it + 1 if hist_len is None else hist_len
+        z = lambda *shape: _zeros(device, dtype, *shape)   # noqa: E731
+        self.x, self.F, self.vin, self.zout = z(n), z(n), z(n), z(n)
+        self.V, self.Z = z(k + 1, n), z(k, n)
+        self.H, self.g, self.cs, self.sn, self.y = (z(k + 1, k), z(k + 1),
+                                                    z(k), z(k), z(k))
+        self.hist = z(self.hist_len)
+        self.sc = z(3)
+        self.par = torch.tensor([rtol, atol, dtol], dtype=dtype,
+                                device=device)
+        self.ints = torch.zeros(3, dtype=torch.int32, device=device)
+        self.ix = torch.zeros(2, dtype=torch.int64, device=device)
+        self.ar = torch.arange(k + 1, device=device)
+        self.p0 = ctl.pred_slots(4)
+        self.c0 = ctl.count_slots(4)
+        self.pc_items = pc_items(self.vin, self.zout)
+
+    def init(self, x0=None):
+        if x0 is None:
+            self.x.zero_()
+        else:
+            self.x.copy_(x0)
+        self.V.zero_()
+        self.Z.zero_()
+        krylov_ctl.fgmres_start_ctl(0, self, self.sc, self.ctl)
+
+    def cycle_start(self):
+        """True residual of the current iterate; V[0] = r / beta."""
+        r = self.F - self.mult(self.x)
+        beta = _norm(tdot, r)
+        krylov_ctl.fgmres_start_ctl(1, self, beta, self.ctl)
+        self.V.zero_()
+        self.V[0].copy_(self.sc[2] * r)
+
+    def arnoldi_pre(self):
+        self.vin.copy_(self.V.index_select(0, self.ix[0:1])[0])
+
+    def arnoldi_post(self):
+        z = self.zout
+        w = self.mult(z)
+        self.Z.index_copy_(0, self.ix[0:1], z[None])
+        mask = (self.ar <= self.ints[1]).to(w.dtype)
+        h = (self.V @ w) * mask
+        w = w - h @ self.V
+        tt = _norm(tdot, w)
+        self.V.index_copy_(0, self.ix[1:2], ((1.0 / _safe(tt)) * w)[None])
+        krylov_ctl.fgmres_arnoldi_ctl(self, h, tt, self.ctl)
+
+    def build_soln(self):
+        self.x += self.y @ self.Z
+
+    def loop(self):
+        p0, c0 = self.p0, self.c0
+        arnoldi = ([Piece(self.arnoldi_pre, "arnoldi V[it]")]
+                   + list(self.pc_items)
+                   + [Piece(self.arnoldi_post, "arnoldi"),
+                      Loop("if", p0 + 3, [Piece(self.build_soln,
+                                                "build_soln")],
+                           count=c0 + 3)])
+        return Loop("while", p0, [
+            Loop("if", p0 + 1, [Piece(self.cycle_start, "cycle start")],
+                 count=c0 + 1),
+            Loop("if", p0 + 2, arnoldi, count=c0 + 2)])
+
+    def result(self):
+        """(x, its, rnorm, state, hist) as device tensors (copies)."""
+        return (self.x.clone(), self.ints[2].clone(), self.sc[1].clone(),
+                self.ints[0].clone(), self.hist.clone())
+
+    def solve(self, F, x0=None):
+        """The plain driver over F (and x0): result() after the loop; it
+        reads only the loop predicates."""
+        self.F.copy_(F)
+        run_plain([Piece(lambda: self.init(x0), "fgmres init"),
+                   self.loop()], self.ctl)
+        return self.result()

@@ -451,9 +451,10 @@ def test_graphed_solve_equals_eager_on_cuda(cuda, case):
     ir = kw.get("ir", False)
     p = bench._build_problem(8, with_rhs=True)
     g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
-                  device=cuda, nlevels=3, **kw)
+                  device=cuda, nlevels=3, loop="host", **kw)
     e = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
                              dtype=kw["dtype"], ir=ir, eager=True)
+    assert (g.loop, e.loop) == ("host", "host")
     captured = [n for n, b in g.bodies().items()
                 if isinstance(b, graphs.Captured)]
     assert captured == (["mult", "pc_apply"] if "u_fixed_vcycles" in kw
@@ -495,3 +496,332 @@ def test_capture_of_a_host_read_raises(cuda):
                        2 * torch.arange(4.0, device=cuda))
     with pytest.raises(ValueError):
         doubled(torch.ones(5, device=cuda))
+
+
+# --- the device loop: Krylov control kernels and the conditional graph ------
+
+def _bits(t):
+    """A tensor's bit pattern (NaN-safe bitwise comparison)."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaN matching NaN (its payload is the hardware's)."""
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            return False
+        a, b = torch.where(na, 0, a), torch.where(nb, 0, b)
+    return torch.equal(_bits(a), _bits(b))
+
+
+class _Ns:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def clone(self):
+        return _Ns(**{k: v.clone() if isinstance(v, torch.Tensor) else v
+                      for k, v in self.__dict__.items()})
+
+
+def _fgmres_ctl_state(dtype, device, seed, it, itc, r0, par, max_it, k=30,
+                      hist_len=256, git=None):
+    """A recorded FGMRES control state at the main path's sizes (restart
+    30, hist_len 256) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((k + 1, k))
+    H[:it + 1, :it] = np.triu(rng.standard_normal((it + 1, it)))
+    H[np.arange(it), np.arange(it)] += 2.0
+    g = np.zeros(k + 1)
+    g[:it + 1] = rng.standard_normal(it + 1)
+    if git is not None:
+        g[it] = git
+    ang = rng.random(k) * 2 * np.pi
+    cs, sn = np.cos(ang), np.sin(ang)
+    cs[it:], sn[it:] = 0, 0
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    return _Ns(k=k, hist_len=hist_len, max_it=max_it, H=t(H), g=t(g),
+               cs=t(cs), sn=t(sn), y=t(rng.standard_normal(k)),
+               hist=t(np.full(hist_len, -1.0)),
+               sc=t([r0, rng.random(), rng.random()]), par=t(par),
+               ints=torch.tensor([0, it, itc], dtype=torch.int32,
+                                 device=device),
+               ix=torch.tensor([it, it + 1], dtype=torch.int64,
+                               device=device), p0=0, c0=0)
+
+
+def _ctl_pair(device):
+    from exsaddle_tpu_torch import graphs
+    return graphs.Control(device), graphs.Control(device)
+
+
+def _state_equal(a, b):
+    return all(_same_bits(getattr(a, n), getattr(b, n))
+               for n, v in a.__dict__.items() if isinstance(v, torch.Tensor))
+
+
+def _ctl_equal(c1, c2):
+    return torch.equal(c1.pred, c2.pred) and torch.equal(c1.counts, c2.counts)
+
+
+# (it, itc, h scale, tt, r0, (rtol, atol, dtol), max_it, g[it]) recorded
+# Arnoldi states covering every state branch: running, rtol, atol, happy
+# breakdown, delta == 0, dtol, max_it, a restart (it = k - 1)
+ARNOLDI_BRANCHES = {
+    "running": (3, 3, 1.0, 0.7, 10.0, (1e-5, 1e-50, 1e4), 10000, None),
+    "rtol": (4, 9, 1.0, 1e-9, 1.0, (1e-3, 1e-50, 1e4), 10000, None),
+    "atol": (3, 3, 1.0, 1e-12, 1.0, (1e-30, 1e-3, 1e4), 10000, None),
+    "happy": (2, 2, 1.0, 1e-31, 1.0, (1e-45, 1e-50, 1e4), 10000, 0.5),
+    "delta0": (0, 0, 0.0, 0.0, 1.0, (1e-30, 1e-50, 1e4), 10000, None),
+    "dtol": (1, 1, 1.0, 0.5, 1e-3, (1e-12, 1e-50, 1.0), 10000, None),
+    "max_it": (2, 6, 1.0, 0.3, 100.0, (1e-12, 1e-50, 1e4), 7, None),
+    "restart": (29, 41, 1.0, 0.3, 100.0, (1e-12, 1e-50, 1e4), 10000, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("branch", list(ARNOLDI_BRANCHES))
+def test_fgmres_arnoldi_ctl_bitwise_twin(cuda, branch, dtype):
+    from exsaddle_tpu_torch.kernels import krylov_ctl as kc
+    it, itc, hs, tt, r0, par, max_it, git = ARNOLDI_BRANCHES[branch]
+    a = _fgmres_ctl_state(dtype, cuda, len(branch), it, itc, r0, par,
+                          max_it, git=git)
+    b = a.clone()
+    rng = np.random.default_rng(7)
+    h = hs * rng.standard_normal(a.k + 1)
+    h[it + 1:] = 0
+    if branch in ("rtol", "atol", "happy"):
+        h[it] = 3.0
+    h = torch.as_tensor(h, dtype=dtype, device=cuda)
+    tt = torch.tensor(tt, dtype=dtype, device=cuda)
+    c1, c2 = _ctl_pair(cuda)
+    n0 = kc.LAUNCHES.n["fgmres_arnoldi_ctl"]
+    kc.fgmres_arnoldi_ctl(a, h, tt, c1)
+    kc.fgmres_arnoldi_ctl_plain(b, h, tt, c2)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES.n["fgmres_arnoldi_ctl"] == n0 + 1
+    assert _state_equal(a, b) and _ctl_equal(c1, c2)
+    if branch == "restart":
+        assert a.ints[1].item() == -1 and c1.pred[3].item() == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("mode,beta,itc,par", [
+    (0, 1.0, 5, (1e-5, 1e-50, 1e4)), (1, 2.5, 0, (1e-5, 1e-50, 1e4)),
+    (1, 0.0, 0, (1e-5, 1e-50, 1e4)), (1, 1e-7, 30, (1e-5, 1e-50, 1e4)),
+    (1, 7.0, 30, (1e-5, 1e-50, 2.0)), (1, 1e-9, 12, (1e-30, 1e-6, 1e4))],
+    ids=["init", "first", "zero", "rtol", "dtol", "atol"])
+def test_fgmres_start_ctl_bitwise_twin(cuda, mode, beta, itc, par, dtype):
+    from exsaddle_tpu_torch.kernels import krylov_ctl as kc
+    a = _fgmres_ctl_state(dtype, cuda, 3, 4, itc, 3.0, par, 10000)
+    b = a.clone()
+    beta = torch.tensor([beta], dtype=dtype, device=cuda)
+    c1, c2 = _ctl_pair(cuda)
+    kc.fgmres_start_ctl(mode, a, beta, c1)
+    kc.fgmres_start_ctl_plain(mode, b, beta, c2)
+    torch.cuda.synchronize()
+    assert _state_equal(a, b) and _ctl_equal(c1, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_gcr_ctl_bitwise_twin(cuda, dtype):
+    """Init (running, atol), steps through the nv wrap, rtol, max_it and
+    alpha == 0: kernel and twin step by step."""
+    from exsaddle_tpu_torch.kernels import krylov_ctl as kc
+    t = lambda v: torch.tensor(v, dtype=dtype, device=cuda)   # noqa: E731
+    a = _Ns(sc=t([0.0, 0.0, 0.0]), par=t([1e-2, 1e-50]),
+            ints=torch.zeros(3, dtype=torch.int32, device=cuda),
+            ix=torch.zeros(1, dtype=torch.int64, device=cuda), restart=3,
+            max_it=6, p=0, c0=0)
+    b = a.clone()
+    c1, c2 = _ctl_pair(cuda)
+    seq = [(0, 1.0, 4.0)] + [(1, 1.0, r) for r in
+                              (2.0, 1.0, 0.5, 0.3, 0.2, 0.1)] + [
+        (0, 1.0, 4.0), (1, 0.0, 3.0), (0, 1.0, 1e-60), (0, 1.0, 5.0),
+        (1, 1.0, 0.01)]
+    for mode, alpha, rn in seq:
+        kc.gcr_ctl(mode, a, t(alpha), t(rn), c1)
+        kc.gcr_ctl_plain(mode, b, t(alpha), t(rn), c2)
+        torch.cuda.synchronize()
+        assert _state_equal(a, b) and _ctl_equal(c1, c2), (mode, alpha, rn)
+
+
+@pytest.mark.gpu
+def test_ir_ctl_bitwise_twin(cuda):
+    """Init, accepted rounds, a rejected (diverged) round, a
+    non-contracting round, convergence and the n_rounds bound."""
+    from exsaddle_tpu_torch.kernels import krylov_ctl as kc
+    f64 = dict(dtype=torch.float64, device=cuda)
+    a = _Ns(sc=torch.tensor([0.0, 0.0, 1e-8, 3.0], **f64),
+            ints=torch.zeros(5, dtype=torch.int32, device=cuda),
+            hist=torch.zeros(11, **f64), p=0, c0=0)
+    b = a.clone()
+    c1, c2 = _ctl_pair(cuda)
+    fg = torch.zeros(3, dtype=torch.int32, device=cuda)
+    seq = [(0, 2.0, 2), (1, 1e-4, 2), (1, 1e-6, -3), (0, 2.0, 2),
+           (1, 1.0, 2), (1, 3.0, 2), (0, 2.0, 2), (1, 1.0, 2),
+           (1, 1e-9, 2), (0, 2.0, 2), (1, 1.0, 2), (1, 0.5, 2),
+           (1, 0.25, 5)]
+    for mode, rn, state in seq:
+        fg[0], fg[2] = state, 7
+        rn_t = torch.tensor(rn, **f64)
+        kc.ir_ctl(mode, a, rn_t, fg, c1)
+        kc.ir_ctl_plain(mode, b, rn_t, fg, c2)
+        torch.cuda.synchronize()
+        assert _state_equal(a, b) and _ctl_equal(c1, c2), (mode, rn, state)
+
+
+def _device_problem(mx=8):
+    from exsaddle_tpu_torch import bench
+    return bench._build_problem(mx, with_rhs=True)
+
+
+def _counted(fn):
+    """fn()'s result with the K1 (launches, applies) and control-kernel
+    launches it made."""
+    from exsaddle_tpu_torch.kernels import krylov_ctl as kc
+    a00.LAUNCHES.reset()
+    kc.LAUNCHES.reset()
+    r = fn()
+    return r, (a00.LAUNCHES.n, a00.LAUNCHES.applies), dict(kc.LAUNCHES.n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_device_loop_graph_equals_plain_driver_on_cuda(cuda, case):
+    """loop="device" on CUDA (one graph launch per solve) against the plain
+    driver over the same setup (loop="plain": the same steps from
+    Python): x, history and counts bit for bit, the same K1 and
+    control-kernel launches. Against loop="host" over the same setup: the
+    same iteration count and reason in float64; in float32 the same
+    rounds and inner iterations within 2 (the masked whole-window dots
+    round differently from the host loop's sliced ones: on an H100,
+    f32_ir 3 / 44 in both loops, fixed3_f32_ir 3 / 82 against 3 / 83)."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    kw = GRAPH_CASES[case]
+    ir = kw.get("ir", False)
+    p = _device_problem()
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, **kw)
+    assert g.loop == "device" and g._dev.graph is not None
+    plain = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                                 dtype=kw["dtype"], ir=ir, loop="plain")
+    host = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                                dtype=kw["dtype"], ir=ir, loop="host")
+    assert plain._dev.graph is None
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    run = (lambda s: s.solve_ir(F, rtol=1e-8)) if ir else \
+        (lambda s: s.solve(F))
+    n0 = g._dev.graph.launches
+    rg, kg, cg = _counted(lambda: run(g))
+    assert g._dev.graph.launches == n0 + 1
+    rp, kp, cp = _counted(lambda: run(plain))
+    rh, _, _ = _counted(lambda: run(host))
+    keys = ("rounds", "inner_its", "stalled") if ir else ("its", "reason")
+    assert [rg[k] for k in keys] == [rp[k] for k in keys]
+    assert rg["history"] == rp["history"]
+    assert np.array_equal(rg["x"], rp["x"])
+    assert kg == kp and kg[1] > 0
+    assert cg == cp and cg["fgmres_arnoldi_ctl"] > 0
+    if ir:
+        assert rg["converged"] and rg["rounds"] == rh["rounds"]
+        tol = 0 if kw["dtype"] == torch.float64 else 2
+        assert abs(rg["inner_its"] - rh["inner_its"]) <= tol
+    else:
+        assert (rg["its"], rg["reason"]) == (rh["its"], rh["reason"])
+
+
+@pytest.mark.gpu
+def test_device_loop_new_rtol_replays_without_recapture(cuda):
+    """A float32 IR solver: solves at rtol 1e-8, 1e-5, 1e-8 and, under
+    torch.cuda.set_sync_debug_mode("error") (any host read raises), 1e-8
+    again replay the one graph captured at construction; the first, third
+    and fourth agree bit for bit, the looser one stops no later."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    p = _device_problem()
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, dtype=torch.float32, ir=True)
+    graph = g._dev.graph
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    r1 = g.solve_ir(F, rtol=1e-8)
+    r2 = g.solve_ir(F, rtol=1e-5)
+    r3 = g.solve_ir(F, rtol=1e-8)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r4 = g.solve_ir(F, rtol=1e-8)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert g._dev.graph is graph and graph.launches == 4
+    assert r1["converged"] and r2["converged"]
+    assert r2["rnorm"] <= 1e-5 * r2["rnorm0"]
+    assert r2["rounds"] <= r1["rounds"]
+    for r in (r3, r4):
+        assert np.array_equal(r["x"], r1["x"])
+        assert r["history"] == r1["history"]
+        assert (r["rounds"], r["inner_its"]) == (r1["rounds"],
+                                                 r1["inner_its"])
+
+
+@pytest.mark.gpu
+def test_device_loop_direct_solve_of_ir_solver_on_cuda(cuda):
+    """An ir=True solver captures its direct solve's graph at construction,
+    over the refinement's captured FGMRES loop (the same child graphs, no
+    second capture): solve() is one launch of it, bit for bit the direct
+    solve of an ir=False solver over the same setup, and a refinement
+    after it gives the first refinement's bits."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    p = _device_problem()
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, dtype=torch.float32, ir=True)
+    dev = g._dev
+    direct = dev.direct_graph
+    assert direct is not None and direct is not dev.graph
+    own = {id(q[1]) for q in direct.pieces} - {id(q[1]) for q in
+                                               dev.graph.pieces}
+    assert len(own) == 2      # the direct solve's init and result pieces
+    solo = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                                dtype=torch.float32)
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    r1 = g.solve_ir(F, rtol=1e-8)
+    a, b = g.solve(F), solo.solve(F)
+    assert direct.launches == 1 and dev.graph.launches == 1
+    assert (a["its"], a["reason"]) == (b["its"], b["reason"])
+    assert np.array_equal(a["x"], b["x"]) and a["history"] == b["history"]
+    r2 = g.solve_ir(F, rtol=1e-8)
+    assert np.array_equal(r2["x"], r1["x"]) and r2["history"] == r1["history"]
+
+
+@pytest.mark.gpu
+def test_device_loop_build_failure_raises(cuda, monkeypatch):
+    """loop="device" on CUDA never falls back: a shim that fails to build
+    raises out of the constructor, and so does the cudaMallocAsync
+    allocator (its memory nodes cannot sit in a conditional body)."""
+    from exsaddle_tpu_torch import graphs
+    from exsaddle_tpu_torch.abf import ABFSolver
+    p = _device_problem(4)
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, loop="host")
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(graphs, "_shim", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                             dtype=torch.float64)
+    monkeypatch.undo()
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "backend:cudaMallocAsync")
+    with pytest.raises(RuntimeError, match="cudaMallocAsync"):
+        ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                             dtype=torch.float64)
