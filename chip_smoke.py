@@ -32,6 +32,21 @@ Phases, in order; any failure raises and the script exits nonzero:
               bit for bit; each kernel's device us per launch (50
               launches captured as one CUDA graph and replayed) beside its
               twin's and the bound of one launch's bytes and operations.
+3c. mg_kernels -- K4, the block stencil (csrc/stencil_apply.cu), on the
+              mx=32 flagship's own L-2 (33^3 nodes) and L-3 (17^3) stencils
+              and K6, the Chebyshev update (csrc/cheb_update.cu), at the
+              flagship's fine (823,875), L-2 (107,811) and p (35,937)
+              sizes with its Jacobi diagonals, in float32 and float64,
+              against their plain twins: K4 within 1e-5 / 1e-13 of
+              max sum |W||x| and bitwise repeatable, K6 bit for bit (both
+              entry points); device us per call of kernel and twin (50
+              calls captured as one CUDA graph and replayed) cold (the
+              inputs cycled through copies that move 3x the 50 MB L2
+              between two uses: the kernels line's ms) and hot (one
+              input), the kernel's issued from Python, K4's library
+              yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W); CUDA
+              events, cold and hot) and the HBM bound (bytes). Builds its
+              own mx=32 setup (~5 s).
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
@@ -41,23 +56,29 @@ Phases, in order; any failure raises and the script exits nonzero:
               the device loop: the whole refinement one CUDA graph with
               conditional nodes, captured at setup, one graph launch per
               solve; K1 and every control kernel must have run (counted
-              from the device's loop-body counters). The residual is
+              from the device's loop-body counters), and K4 and K6. The
+              residual is
               recomputed with the port's float64 operator. Then over the
               same setup the device loop, the host loop over captured
               bodies (loop="host") and eager=True, 3 solves each,
               alternated; one device-loop solve under
               torch.cuda.set_sync_debug_mode("error"); one plain-driver
               solve (loop="plain"). The device loop is bitwise the plain
-              driver (x, history, rounds, inner its, K1 and control
-              launches), the host loop bitwise eager=True, every kind at
+              driver (x, history, rounds, inner its, K1, K4, K6 and
+              control launches), the host loop bitwise eager=True and,
+              since it does the device loop's window arithmetic on CUDA,
+              bitwise the device loop (x, history, rounds, inner its);
+              every kind at
               3 rounds / 34-38 inner its and a true residual <= 1e-8;
               each kind's median wall and spread, ms per outer
               iteration, K1 launches and applies, control-kernel, graph
               launches and replays, loop-body executions and peak memory
-              per solve. Then the witness of the float32 count gap
-              between the loops: the same flagship as a float64 direct
+              per solve. Then the float64 witness: the same flagship as
+              a float64 direct
               solve through the driver (device loop) and over its setup
-              with loop="host": equal iterations, reason and K1 counts.
+              with loop="host": equal iterations, reason and K1 counts;
+              and over the same setup with K4 and K6 swapped for their
+              plain twins: the same reason and iterations, x within 1e-10.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -152,7 +173,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               makes 2 x 100 K1 launches; every schedule converges without
               stalling to a float64 residual <= 1e-8 recomputed with the
               port's float64 operator, in rounds and inner iterations
-              inside BENCH_BANDS.
+              inside BENCH_BANDS. Then the tuned schedule over a new setup
+              with K4 and with K4's plain twin swapped in: K4 gives the
+              bench's tuned counts, the twin the pre-K4 band
+              (BENCH_TWIN_BAND).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -187,7 +211,9 @@ from exsaddle_tpu_torch.grid_ops import (GridSaddleOperator, gather_u_parity,
                                          split_u_parity)
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
+from exsaddle_tpu_torch.kernels import cheb
 from exsaddle_tpu_torch.kernels import krylov_ctl
+from exsaddle_tpu_torch.kernels import stencil
 from exsaddle_tpu_torch.krylov import KSP, KSPConfig
 from exsaddle_tpu_torch.matfree import (MatFreeSaddleOperator,
                                         ParityMatFreeOperator, mult_tree,
@@ -490,11 +516,11 @@ def _graph_ms(fns, restore=None, reps=5):
     with torch.cuda.stream(side):
         fns[0]()
     torch.cuda.current_stream().wait_stream(side)
-    n0 = dict(krylov_ctl.LAUNCHES.n)
+    n0 = graphs._counters()
     with torch.cuda.graph(g):
         for fn in fns:
             fn()
-    krylov_ctl.LAUNCHES.n.update(n0)
+    graphs._set_counters(n0)
     times = []
     for _ in range(reps):
         if restore is not None:
@@ -704,6 +730,184 @@ def phase_ctl(device):
     return res
 
 
+# K4 against its twin, relative to max_k sum_{s,j} |W||x| (the kernel sums
+# slot by slot in the JAX package's order, the twin in torch's)
+K4_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+MG_REPS = 50
+
+
+# the card's L2 (50 MB on an H100): a cold timing cycles the inputs through
+# copies that move 3x this much between two uses of one copy
+L2_BYTES = 50e6
+
+
+def _cold_copies(tensors, nbytes):
+    """Copies of `tensors` (at least 2), so many that cycling through them
+    moves 3x the card's L2 between two uses of one copy (nbytes: what one
+    call moves): each call then reads its inputs from HBM."""
+    n = max(2, -(-int(3 * L2_BYTES) // int(nbytes)))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def _mg_times(kernel, plain, args, nbytes):
+    """Device ms per call of kernel(*args) and of its twin plain(*args),
+    each captured as one CUDA graph and replayed (as the main path runs
+    them): hot, MG_REPS calls on one input, which stays in the L2 when it
+    fits (as across one level's smoothing sweep, which applies one W back
+    to back); cold, at least MG_REPS calls cycling through _cold_copies
+    of args. Returns (hot, cold, copies): hot and cold (kernel, twin)."""
+    hot = tuple(_graph_ms([lambda f=f: f(*args)] * MG_REPS)
+                for f in (kernel, plain))
+    copies = _cold_copies(args, nbytes)
+    reps = -(-MG_REPS // len(copies))
+    cold = tuple(_graph_ms([lambda f=f, c=c: f(*c) for c in copies] * reps)
+                 for f in (kernel, plain))
+    return hot, cold, len(copies)
+
+
+def phase_mg_kernels(device, card):
+    """K4 (the block stencil, csrc/stencil_apply.cu) on the mx=32
+    flagship's own L-2 and L-3 stencils and K6 (the Chebyshev update,
+    csrc/cheb_update.cu) at its fine, L-2 and p sizes with its Jacobi
+    diagonals, in float32 and float64, against their plain twins: K4 within
+    K4_TOL and bitwise repeatable, K6 bit for bit. Device ms per call of
+    kernel and twin, cold and hot (_mg_times), the kernel's issued one by
+    one from Python (CUDA events; the ctypes wrapper's host time bounds
+    it), K4's library yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W),
+    int32 indices; CUDA events, cold and hot), the bound. Returns the
+    float32 L-2 K4 and fine-level K6 step numbers."""
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    p = bench._build_problem(32)
+    _, data, setup = tabf.build_abf(p["mesh"], p["fes"], p["coeff"],
+                                    p["bc_idx"], p["bc_vals"], device=device,
+                                    dtype=f64, nlevels=4)
+    log(f"[mg_kernels] mx=32 flagship ABF setup (4 levels, float64) "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(12)
+    res = {}
+    for k, lvl in ((2, "L-2"), (1, "L-3")):
+        Wn = setup["stencils_w"][k - 1]
+        grid, nd = Wn.shape[:3], Wn.shape[-1]
+        A = tabf.csr_from_stencil(Wn, grid, nd)
+        x64 = rng.standard_normal(grid + (nd,))
+        for dtype in (f32, f64):
+            W = data["stencils"][k - 1].to(dtype).contiguous()
+            x = torch.as_tensor(x64, dtype=dtype, device=device)
+            xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+            y = stencil.stencil_accum(W, xp)
+            yp = stencil.stencil_accum_plain(W, xp)
+            mag = float(stencil.stencil_accum_plain(W.abs(), xp.abs()).max())
+            err = float((y - yp).abs().max())
+            check(bool(torch.isfinite(y).all())
+                  and err <= K4_TOL[dtype] * mag,
+                  f"K4 {lvl} {dtype}: max_abs_err {err:.3e} > "
+                  f"{K4_TOL[dtype]:g} x {mag:.3e}")
+            check(torch.equal(stencil.stencil_accum(W, xp), y),
+                  f"K4 {lvl} {dtype}: repeated applies differ")
+            csr = torch.sparse_csr_tensor(
+                torch.as_tensor(A.indptr, dtype=torch.int32),
+                torch.as_tensor(A.indices, dtype=torch.int32),
+                torch.as_tensor(A.data, dtype=dtype), A.shape,
+                device=device)
+            xf = x.reshape(-1)
+            lib_err = float((csr @ xf - yp.reshape(-1)).abs().max())
+            check(lib_err <= 1e3 * K4_TOL[dtype] * mag,
+                  f"K4 {lvl} {dtype}: CSR yardstick off by {lib_err:.3e}")
+            size = W.element_size()
+            nbytes = size * (W.numel() + xp.numel() + y.numel())
+            (ms_hot, plain_hot), (ms, plain_ms), ncp = _mg_times(
+                stencil.stencil_accum, stencil.stencil_accum_plain, (W, xp),
+                nbytes)
+            eager_ms = _median_ms(lambda: stencil.stencil_accum(W, xp))
+            library_hot = _median_ms(lambda: csr @ xf)
+            csrs = _cold_copies((csr,), A.nnz * (size + 4))
+            library_ms = _events_ms([lambda c=c: c[0] @ xf for c in csrs]
+                                    * -(-MG_REPS // len(csrs)))
+            bound_ms, bound_by = _ctl_bound(nbytes, 2 * W.numel(), dtype)
+            log(f"[mg_kernels] K4 {lvl} {tuple(grid)} nd {nd} "
+                f"{str(dtype)[6:]}: max_abs_err {err:.3e} ({err / mag:.3e} "
+                f"of max sum |W||x|, tol {K4_TOL[dtype]:g}), bitwise "
+                f"repeatable; kernel per apply in a graph {1e3 * ms:.2f} us "
+                f"cold (inputs cycled through {ncp} copies), "
+                f"{1e3 * ms_hot:.2f} us hot (one input"
+                f"{', W stays in the 50 MB L2' if nbytes < L2_BYTES else ''})"
+                f", {1e3 * eager_ms:.2f} us issued from Python; twin "
+                f"{1e3 * plain_ms:.2f} / {1e3 * plain_hot:.2f} us cold / hot;"
+                f" library (CSR SpMV, {A.nnz} nnz) {1e3 * library_ms:.2f} / "
+                f"{1e3 * library_hot:.2f} us cold / hot; HBM bound "
+                f"{1e3 * bound_ms:.2f} us ({bound_by}: {nbytes / 1e6:.1f} "
+                f"MB), kernel at {100 * bound_ms / ms:.1f}% of it cold, "
+                f"{100 * bound_ms / ms_hot:.1f}% hot ({card})")
+            res[("K4", lvl, dtype)] = {
+                "max_abs_err": err, "ms": ms, "hot_ms": ms_hot,
+                "plain_ms": plain_ms, "plain_hot_ms": plain_hot,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_hot_ms": library_hot,
+                "cold_copies": ncp}
+            del csr, csrs, W, x, xp, y, yp
+    diags = {"fine": data["inv_diag_fine"],
+             "L-2": data["inv_diag_lvls"][-1], "p": data["inv_diag_p"]}
+    bounds = {"fine": data["bounds"][-1], "L-2": data["bounds"][-2],
+              "p": data["p_bounds"]}
+    for lvl, d64 in diags.items():
+        emin, emax = (float(b) for b in bounds[lvl])
+        for dtype in (f32, f64):
+            npdt = treeops.NP_DTYPE[dtype]
+            lo, hi = npdt(emin), npdt(emax)
+            # the smoother's scalars in the working dtype (its first step)
+            scale = lo.dtype.type(2.0) / (hi + lo)
+            alpha_ = 1.0 - scale * lo
+            mu, omegaprod = 1.0 / alpha_, 2.0 / alpha_
+            omega = float(omegaprod * mu / (2.0 * mu * mu - 1.0))
+            scale = float(scale)
+            d = d64.to(dtype).contiguous()
+            b, ap, pk, pkm1 = (torch.as_tensor(
+                rng.standard_normal(tuple(d.shape)), dtype=dtype,
+                device=device) for _ in range(4))
+            pairs = [(cheb.cheb_first(b, None, d, pk, scale),
+                      cheb.cheb_first_plain(b, None, d, pk, scale)),
+                     (cheb.cheb_first(b, ap, d, pk, scale),
+                      cheb.cheb_first_plain(b, ap, d, pk, scale)),
+                     (cheb.cheb_step(b, ap, d, pk, pkm1, scale, omega),
+                      cheb.cheb_step_plain(b, ap, d, pk, pkm1, scale,
+                                           omega))]
+            torch.cuda.synchronize()
+            bits = torch.int32 if dtype == f32 else torch.int64
+            same = all(torch.equal(a.view(bits), w.view(bits))
+                       for a, w in pairs)
+            err = max(float((a - w).abs().max()) for a, w in pairs)
+            check(same, f"K6 {lvl} {dtype} is not bitwise its twin "
+                  f"(max_abs_err {err:.3e})")
+            n = d.numel()
+            nbytes = 6 * n * d.element_size()
+            (ms_hot, plain_hot), (ms, plain_ms), ncp = _mg_times(
+                lambda *a: cheb.cheb_step(*a, scale, omega),
+                lambda *a: cheb.cheb_step_plain(*a, scale, omega),
+                (b, ap, d, pk, pkm1), nbytes)
+            eager_ms = _median_ms(
+                lambda: cheb.cheb_step(b, ap, d, pk, pkm1, scale, omega))
+            bound_ms, bound_by = _ctl_bound(nbytes, 7 * n, dtype)
+            log(f"[mg_kernels] K6 {lvl} ({n} values) {str(dtype)[6:]}: "
+                f"first (r = b and r = b - A x0) and step bitwise their "
+                f"twins; step per launch in a graph {1e3 * ms:.2f} us cold "
+                f"(inputs cycled through {ncp} copies), {1e3 * ms_hot:.2f} "
+                f"us hot (one input), {1e3 * eager_ms:.2f} us issued from "
+                f"Python; twin {1e3 * plain_ms:.2f} / {1e3 * plain_hot:.2f} "
+                f"us cold / hot; bound {1e3 * bound_ms:.2f} us ({bound_by}: "
+                f"{nbytes / 1e6:.2f} MB), kernel at "
+                f"{100 * bound_ms / ms:.1f}% of it cold, "
+                f"{100 * bound_ms / ms_hot:.1f}% hot ({card})")
+            res[("K6", lvl, dtype)] = {
+                "max_abs_err": err, "ms": ms, "hot_ms": ms_hot,
+                "plain_ms": plain_ms, "plain_hot_ms": plain_hot,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "cold_copies": ncp}
+    del data, setup, diags
+    torch.cuda.empty_cache()
+    return res[("K4", "L-2", f32)], res[("K6", "fine", f32)]
+
+
 def phase_anchor():
     argv = tdriver.ABF_OPTS + ("-model 11 -size_x 0.1 -mx 6 "
                                "-saddle_ksp_converged_reason").split()
@@ -725,14 +929,19 @@ MAIN_ORDER = ("device", "host", "eager", "eager", "host", "device",
               "device", "host", "eager")
 
 
+def _reset_launches():
+    """Every kernel's launch count to 0: K1, K4, K6, the control kernels."""
+    for k in (a00, stencil, cheb, krylov_ctl):
+        k.LAUNCHES.reset()
+
+
 def _ir_solve(slv, F):
     """One IR solve to a true 1e-8 with its wall seconds, K1 launches and
-    applies, control-kernel launches, graph launches and replays, and peak
-    device memory (allocated, reserved)."""
+    applies, K4 and K6 launches, control-kernel launches, graph launches
+    and replays, and peak device memory (allocated, reserved)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    a00.LAUNCHES.reset()
-    krylov_ctl.LAUNCHES.reset()
+    _reset_launches()
     n0 = graphs.replays(slv.bodies())
     dev = slv._dev
     g0 = dev.graph.launches if dev is not None and dev.graph else 0
@@ -742,6 +951,7 @@ def _ir_solve(slv, F):
     wall = time.perf_counter() - t0
     out = {"res": res, "wall": wall,
            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
+           "mg": (stencil.LAUNCHES.n, cheb.LAUNCHES.n),
            "ctl": dict(krylov_ctl.LAUNCHES.n),
            "replays": graphs.replays(slv.bodies()) - n0,
            "graph_launches": (dev.graph.launches - g0
@@ -762,23 +972,26 @@ def _same_ir(a, b):
 def phase_main(card):
     """The driver on the flagship (its solver runs the device loop), then
     the three modes timed over one setup; returns the driver run's K1
-    (launches, applies) and control-kernel launches."""
+    (launches, applies), K4 and K6 launches and control-kernel
+    launches."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
         "-saddle_ksp_converged_reason").split()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    a00.LAUNCHES.reset()
-    krylov_ctl.LAUNCHES.reset()
+    _reset_launches()
     r = tdriver.saddle_solve(Options.from_args(argv), 3, log=log)
     launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    mg_launches = {"stencil_accum": stencil.LAUNCHES.n,
+                   "cheb_update": cheb.LAUNCHES.n}
     ctl_launches = dict(krylov_ctl.LAUNCHES.n)
     res = r["res"]
     slv = r["solver"]
     graph = slv._dev.graph if slv._dev is not None else None
     log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
-        f"launches in {applies} applies, control kernels {ctl_launches} "
+        f"launches in {applies} applies, K4 / K6 {mg_launches}, control "
+        f"kernels {ctl_launches} "
         f"(capture warm-ups included); graph capture "
         f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
         f"captured pieces, {graph.launches if graph else 0} graph launches")
@@ -787,6 +1000,8 @@ def phase_main(card):
     check(graph.launches == 1, f"the driver's solve made {graph.launches} "
           f"graph launches, expected 1")
     check(launches > 0, "the main path never launched the A00 kernel")
+    check(all(n > 0 for n in mg_launches.values()),
+          f"K4 or K6 never ran on the main path: {mg_launches}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
     check(not res["stalled"], "iterative refinement stalled")
@@ -847,15 +1062,21 @@ def phase_main(card):
           "and the plain driver differ (x, history, rounds or inner its)")
     check(_same_ir(first["host"], first["eager"]), "the host loop over "
           "captured bodies and eager=True differ")
+    check(_same_ir(first["host"], first["device"]), "the host loop (the "
+          "device loop's window arithmetic on CUDA) and the device loop "
+          "differ (x, history, rounds or inner its)")
     d, h, e = runs["device"][0], runs["host"][0], runs["eager"][0]
-    check((d["launches"], d["applies"], d["ctl"])
-          == (pl["launches"], pl["applies"], pl["ctl"]),
-          f"K1 / control launches per solve: graph {d['launches']} / "
-          f"{d['applies']} / {d['ctl']}, plain driver {pl['launches']} / "
-          f"{pl['applies']} / {pl['ctl']}")
-    check((h["launches"], h["applies"]) == (e["launches"], e["applies"]),
-          f"K1 per solve: host loop {h['launches']} / {h['applies']}, eager "
-          f"{e['launches']} / {e['applies']}")
+    check((d["launches"], d["applies"], d["mg"], d["ctl"])
+          == (pl["launches"], pl["applies"], pl["mg"], pl["ctl"]),
+          f"K1 / K4, K6 / control launches per solve: graph "
+          f"{d['launches']} / {d['applies']} / {d['mg']} / {d['ctl']}, "
+          f"plain driver {pl['launches']} / {pl['applies']} / {pl['mg']} / "
+          f"{pl['ctl']}")
+    check((h["launches"], h["applies"], h["mg"])
+          == (e["launches"], e["applies"], e["mg"]),
+          f"K1, K4, K6 per solve: host loop {h['launches']} / "
+          f"{h['applies']} / {h['mg']}, eager {e['launches']} / "
+          f"{e['applies']} / {e['mg']}")
     check(d["graph_launches"] == 1 and d["replays"] == 0,
           f"device loop: {d['graph_launches']} graph launches per solve")
     for kind, res_k in first.items():
@@ -888,14 +1109,15 @@ def phase_main(card):
             f"{min(walls):.3f}-{max(walls):.3f}), {1e3 * med / its:.2f} "
             f"ms/outer it, {q['res']['rounds']} rounds / {its} inner its, "
             f"K1 {q['launches']} launches in {q['applies']} applies per "
-            f"solve, control kernels {sum(q['ctl'].values())}, "
+            f"solve, K4 / K6 {q['mg'][0]} / {q['mg'][1]} launches, control "
+            f"kernels {sum(q['ctl'].values())}, "
             f"{q['graph_launches']} graph launches and {q['replays']} "
             f"captured-body replays per solve{extra}, peak mem "
             f"{max(x['peak'] for x in recs):.2f} GiB allocated, "
             f"{max(x['reserved'] for x in recs):.2f} GiB reserved ({card})")
     del solvers, plain, slv, r
     _main_witness(card)
-    return launches, applies, ctl_launches
+    return launches, applies, mg_launches, ctl_launches
 
 
 def _main_witness(card):
@@ -907,7 +1129,11 @@ def _main_witness(card):
     iterations, reason and K1 counts per solve (so equal u-block GCR
     iterations), histories within 1e-10 of the initial residual (their
     last entries are ~1e-5 of it, where float64 rounding amplified through
-    the GCR preconditioner may show at ~1e-8 of the entry)."""
+    the GCR preconditioner may show at ~1e-8 of the entry). Then the
+    same direct solve over the same setup with K4 and K6 swapped for
+    their plain twins (device loop): K4 sums in another order than its
+    twin, yet in float64 the kernels must give the twins' reason and
+    iterations, with x within 1e-10 (norm-relative)."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -saddle_fieldsplit_u_pc_mg_levels 4 "
         "-saddle_ksp_converged_reason").split()
@@ -939,6 +1165,35 @@ def _main_witness(card):
     check(kd == kh, f"witness: K1 launches / applies per solve {kd} vs {kh}")
     check(rel0 <= 1e-10, f"witness: histories differ by {rel0:.3e} of the "
           f"initial residual")
+    swaps = [(tabf, "stencil_accum", stencil.stencil_accum_plain),
+             (cheb, "cheb_first", cheb.cheb_first_plain),
+             (cheb, "cheb_step", cheb.cheb_step_plain)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, fn in swaps:
+        setattr(mod, attr, fn)
+    try:
+        twins = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                          device=slv.device, dtype=slv.dtype)
+        _reset_launches()
+        t = twins.solve(r["F"])
+        mg = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    xrel = float(np.linalg.norm(d["x"] - t["x"]) / np.linalg.norm(t["x"]))
+    log(f"[main] witness, float64 direct solve with K4 and K6 against their "
+        f"twins swapped in ({twins.loop} loop): kernels {d['reason']} in "
+        f"{d['its']} its, twins {t['reason']} in {t['its']} its, x differs "
+        f"by {xrel:.3e} (norm-relative), twin run K4 / K6 launches {mg} "
+        f"({card})")
+    check(twins.loop == "device" and mg == (0, 0),
+          f"witness: the twins' solve ran loop {twins.loop}, K4 / K6 "
+          f"launches {mg}")
+    check((t["its"], t["reason"]) == (d["its"], d["reason"]),
+          f"witness: kernels {d['its']} its / {d['reason']}, twins "
+          f"{t['its']} / {t['reason']}")
+    check(xrel <= 1e-10, f"witness: x with the kernels differs from x with "
+          f"the twins by {xrel:.3e}")
 
 
 # (name, argv, iterations, first and last monitor values) of the JAX
@@ -1688,14 +1943,65 @@ def phase_cart_procs(card, ref):
 
 
 # the bench phase's schedules beside the tuned one, and the (rounds, inner
-# its) bands of each around the first card run's counts (tuned 4 / 37,
-# abf.opts 3 / 35, fixed3 4 / 72 on an H100; PERF.md section 6): inner its
-# +-20%, since float32 perturbations of 1e-7 move them by ~10%
+# its) bands of each around the first card run's counts of the code path
+# (abf.opts 3 / 35, fixed3 4 / 72 on an H100, PERF.md section 6; tuned
+# 3 / 27 since the K4 kernel): rounds +-1 and not below 3, inner its +-20%,
+# since float32 perturbations of 1e-7 move them by ~10%. The tuned band
+# before K4 (4 / 37 on an H100 with the plain stencil) holds the
+# tuned solve with K4's plain twin swapped in (_bench_twin_witness): the
+# evidence that K4's float32 summation order alone moved the tuned count.
 BENCH_OTHERS = {"abfopts": bench.ABFOPTS_KW, "fixed3": {"u_fixed_vcycles": 3}}
-BENCH_BANDS = {"solve_": ((3, 5), (30, 44)),
+BENCH_BANDS = {"solve_": ((3, 4), (22, 32)),
                "solve_abfopts_": ((3, 4), (28, 42)),
                "solve_fixed3_": ((3, 5), (58, 86))}
+BENCH_TWIN_BAND = ((3, 5), (30, 44))
 BENCH_INNER = 100
+
+
+def _bench_twin_witness(device, card, extras):
+    """The bench's tuned float32 IR solve at mx=32 over one new setup of
+    its own, with K4 and again with abf.stencil_accum swapped for K4's
+    plain twin (captured into the second solver's graph; K6, bitwise its
+    twin, stays): the K4 solve must give the bench's tuned rounds and
+    inner its (a code path's counts are deterministic), the twin solve
+    the pre-K4 band BENCH_TWIN_BAND, each converged to a true 1e-8."""
+    prob = bench._build_problem(32, with_rhs=True)
+    slv = tabf.ABFSolver(prob["mesh"], prob["fes"], prob["coeff"],
+                         prob["bc_idx"], prob["bc_vals"], device=device,
+                         dtype=torch.float32,
+                         nlevels=bench.bench_nlevels(prob["mesh"]), ir=True,
+                         **bench.bench_solver_kw())
+    F = prob["F_raw"] + slv.setup["rhs_diri"]
+    saved = tabf.stencil_accum
+    tabf.stencil_accum = stencil.stencil_accum_plain
+    try:
+        twin = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                         device=device, dtype=torch.float32,
+                                         ir=True)
+    finally:
+        tabf.stencil_accum = saved
+    out = {}
+    for name, s in (("K4", slv), ("twin", twin)):
+        rec = _ir_solve(s, F)
+        res = rec["res"]
+        out[name] = (res["rounds"], res["inner_its"], rec["mg"][0])
+        log(f"[bench] tuned solve with {name} ({s.loop} loop): "
+            f"{res['rounds']} rounds, {res['inner_its']} inner its, "
+            f"{rec['wall']:.3f} s, K4 launches {rec['mg'][0]}, true float64 "
+            f"relative residual {res['rnorm'] / res['rnorm0']:.3e} ({card})")
+        check(res["converged"] and not res["stalled"]
+              and res["rnorm"] <= 1e-8 * res["rnorm0"],
+              f"bench twin witness: the {name} solve did not converge")
+    (rk, ik, nk), (rt, it, nt) = out["K4"], out["twin"]
+    (r0, r1), (i0, i1) = BENCH_TWIN_BAND
+    check((rk, ik) == (extras["solve_ir_rounds"], extras["solve_outer_its"])
+          and nk > 0, f"bench twin witness: K4 {rk} / {ik} with {nk} K4 "
+          f"launches, the bench's tuned solve {extras['solve_ir_rounds']} / "
+          f"{extras['solve_outer_its']}")
+    check(nt == 0 and r0 <= rt <= r1 and i0 <= it <= i1,
+          f"bench twin witness: twin {rt} / {it} ({nt} K4 launches) "
+          f"outside the pre-K4 band {r0}-{r1} / {i0}-{i1}")
+    del slv, twin
 
 
 def phase_bench(device, card):
@@ -1745,6 +2051,7 @@ def phase_bench(device, card):
         check(r0 <= rounds <= r1 and i0 <= its <= i1,
               f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
               f"{r0}-{r1} / {i0}-{i1}")
+    _bench_twin_witness(device, card, extras)
     return launches, applies
 
 
@@ -1756,7 +2063,12 @@ def _ranged(name, fn):
 
 
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
-# counts (the innermost enclosing one; K1 by kernel name wherever it runs)
+# counts (the innermost enclosing one; the hand-written K1, K4 and K6 by
+# kernel name wherever they run)
+PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
+                   ("K4 stencil_apply", "stencil_accum_kernel"),
+                   ("K6 cheb_smooth", "cheb_first_kernel"),
+                   ("K6 cheb_smooth", "cheb_step_kernel"))
 PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K3 mp_apply", tabf, "mp_apply"),
                   ("K4 stencil_apply", tabf, "stencil_apply"),
@@ -1816,7 +2128,7 @@ def phase_profile(card):
              PROFILE_RANGES]
     for (name, mod, attr), (_, _, fn) in zip(PROFILE_RANGES, saved):
         setattr(mod, attr, _ranged(name, fn))
-    a00.LAUNCHES.reset()
+    _reset_launches()
     try:
         # built under the ranges: the Krylov loops bind their dots when
         # they are made
@@ -1837,11 +2149,15 @@ def phase_profile(card):
            and self_device_us(e) > 0 and e.key not in names]
     total = sum(self_device_us(e) for e in dev) / 1e6
     check(total > 0, "the profiler recorded no device time")
-    buckets = {"K1 a00_apply": sum(self_device_us(e) for e in dev
-                                   if "a00" in e.key) / 1e6}
+    # the hand-written kernels by name (a ctypes launch has no torch op
+    # above it to carry a range), the rest by their innermost range
+    buckets = {}
+    for b, tag in PROFILE_KERNELS:
+        buckets[b] = buckets.get(b, 0.0) + sum(
+            self_device_us(e) for e in dev if tag in e.key) / 1e6
     for e in prof.events():
         for k in e.kernels:
-            if "a00" in k.name:
+            if any(tag in k.name for _, tag in PROFILE_KERNELS):
                 continue
             q = e
             while q is not None and q.name not in names:
@@ -1851,11 +2167,13 @@ def phase_profile(card):
     buckets["rest"] = total - sum(buckets.values())
     launches, _ = _launches(ka)
     applies_eager = a00.LAUNCHES.applies
+    mg_eager = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
     log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
         f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
         f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
-        f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, kernel "
-        f"launches {launches} ({card})")
+        f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, K4 / "
+        f"K6 {mg_eager[0]} / {mg_eager[1]} launches, kernel launches "
+        f"{launches} ({card})")
     for name in sorted(buckets):
         log(f"[profile] {name:18s} {buckets[name]:8.3f} s "
             f"({100 * buckets[name] / total:5.1f}% of device time)")
@@ -1878,7 +2196,7 @@ def phase_profile(card):
               f"converge")
         check(gslv is not host or _same_ir(gres, res), "profile: the host "
               "loop over captured bodies differs from the eager solve")
-        a00.LAUNCHES.reset()
+        _reset_launches()
         n0 = graphs.replays(gslv.bodies())
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as gprof:
@@ -1886,6 +2204,7 @@ def phase_profile(card):
             torch.cuda.synchronize()
         replays = graphs.replays(gslv.bodies()) - n0
         applies = a00.LAUNCHES.applies
+        mg = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
         gka = gprof.key_averages()
         gdev = [e for e in gka
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1920,7 +2239,8 @@ def phase_profile(card):
             f"rounds / {gres['inner_its']} inner its, {busy}; per solve "
             f"{g_launch} kernel launches and {g_graph} graph launches from "
             f"the host, {replays} captured-body replays, "
-            f"{applies} K1 applies; graph capture "
+            f"{applies} K1 applies, K4 / K6 {mg[0]} / {mg[1]} launches; "
+            f"graph capture "
             f"{gslv.capture_seconds:.3f} s ({card})")
         for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
             log(f"[profile] {name[:11]} {self_device_us(e) / 1e3:10.3f} ms "
@@ -1958,8 +2278,11 @@ def main():
         return 0
     k1 = phase_k1(device)
     ctl = phase_ctl(device)
+    t_mg = time.perf_counter()
+    k4, k6 = phase_mg_kernels(device, card)
+    log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
     phase_anchor()
-    launches, applies, ctl_launches = phase_main(card)
+    launches, applies, mg_launches, ctl_launches = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -1999,7 +2322,15 @@ def main():
             "name": name, "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/krylov_ctl.cu",
             "replaces": replaces, "launches": ctl_launches[name],
-            **ctl[name]} for name, replaces in CTL_KERNELS]}))
+            **ctl[name]} for name, replaces in CTL_KERNELS] + [{
+            "name": "stencil_accum", "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/stencil_apply.cu",
+            "replaces": "exsaddle_tpu/abf.py:240",
+            "launches": mg_launches["stencil_accum"], **k4}, {
+            "name": "cheb_update", "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/cheb_update.cu",
+            "replaces": "exsaddle_tpu/treeops.py:167",
+            "launches": mg_launches["cheb_update"], **k6}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

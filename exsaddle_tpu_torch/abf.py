@@ -42,6 +42,7 @@ from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
 from exsaddle_tpu_torch.kernels.a00 import a00_apply
+from exsaddle_tpu_torch.kernels.stencil import stencil_accum, stencil_offsets
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator,
                                         factored_host, parity_permutation,
                                         mult_tree, tree_aux)
@@ -246,34 +247,10 @@ def stencil_from_csr(A_csr, grid_shape, nd):
     return W.reshape(grid_shape + (3 ** ndim, nd, nd))
 
 
-def _stencil_offsets(ndim):
-    """Neighbor offsets, x-fastest (off[0] is the x offset)."""
-    return [tuple(reversed(o))
-            for o in itertools.product(*[(-1, 0, 1)] * ndim)]
-
-
-def stencil_accum(W, xp):
-    """y = A x for a block stencil operator, with xp carrying one ghost
-    layer on each side of every spatial dim (zeros at domain boundaries).
-    W: (*grid_shape, 3^nd, nd, nd) -- the W form of the JAX package. The
-    3^nd shifted views are stacked and contracted with W as one elementwise
-    product and one sum over (slot, column). A batched (nd x nd) matmul per
-    slot ran as ~10^6 tiny cuBLAS gemvs on an H100 (~0.5 ms per mx=32 L-2
-    apply)."""
-    ndim = xp.ndim - 1
-    shape = tuple(W.shape[:ndim])
-    views = []
-    for off in _stencil_offsets(ndim):
-        idx = tuple(slice(1 + off[ndim - 1 - dim],
-                          1 + off[ndim - 1 - dim] + shape[dim])
-                    for dim in range(ndim))
-        views.append(xp[idx])
-    X = torch.stack(views, dim=ndim)                 # (*grid, 3^nd, nd)
-    return (W * X.unsqueeze(-2)).sum(dim=(ndim, ndim + 2))
-
-
 def stencil_apply(W, x):
-    """y = A x for a block stencil operator. x: (*grid_shape, nd)."""
+    """y = A x for a block stencil operator. x: (*grid_shape, nd). The
+    zero ghost layer is padded here; K4 (kernels/stencil.py
+    stencil_accum) reads it like any other ghost."""
     ndim = x.ndim - 1
     xp = torch.nn.functional.pad(x, (0, 0) + (1, 1) * ndim)
     return stencil_accum(W, xp)
@@ -539,7 +516,7 @@ def csr_from_stencil(W, grid_shape, nd):
         lin = lin // nn[d]
     valid = np.ones((nnod, ns), dtype=bool)
     cols_nb = np.zeros((nnod, ns), dtype=np.int64)
-    for s, off in enumerate(_stencil_offsets(ndim)):
+    for s, off in enumerate(stencil_offsets(ndim)):
         col = np.zeros(nnod, dtype=np.int64)
         mult = 1
         ok = np.ones(nnod, dtype=bool)
@@ -855,24 +832,25 @@ def _mg_pc(cfg, data, fineA):
     def coarse_solve(xg):
         return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
-    lvl_ops, lvl_pc = {}, {}
+    # each level's operator and Jacobi inverse diagonal (K6 takes it)
+    lvl_ops, lvl_diag = {}, {}
     for k in range(1, nlev):
         if k == nlev - 1:
             lvl_ops[k] = fineA
-            lvl_pc[k] = lambda t, d=data["inv_diag_fine"]: d * t
+            lvl_diag[k] = data["inv_diag_fine"]
         else:
             lvl_ops[k] = (lambda x, W=data["stencils"][k - 1]:
                           stencil_apply(W, x))
-            lvl_pc[k] = lambda t, d=data["inv_diag_lvls"][k - 1]: d * t
+            lvl_diag[k] = data["inv_diag_lvls"][k - 1]
 
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
 
     def smooth(k, b, x0v, pre=False):
         emin, emax = data["bounds"][k - 1]
         # pre-smooths start from zero: x0_zero skips the initial A x0
-        return treeops.cheb_smooth(lvl_ops[k], lvl_pc[k], emin, emax,
+        return treeops.cheb_smooth(lvl_ops[k], None, emin, emax,
                                    pre_its if pre else cfg.cheb_its,
-                                   b, x0v, x0_zero=pre)
+                                   b, x0v, x0_zero=pre, diag=lvl_diag[k])
 
     def vcycle(k, b):
         if k == 0:
@@ -921,9 +899,9 @@ def _plain_bodies(cfg, data):
     # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled -------
     def p_solve(bp):
         return treeops.cheb_smooth(
-            lambda pg: mp_apply(op, data["pscale"], pg),
-            lambda pg: data["inv_diag_p"] * pg, p_emin, p_emax,
-            cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True)
+            lambda pg: mp_apply(op, data["pscale"], pg), None, p_emin,
+            p_emax, cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True,
+            diag=data["inv_diag_p"])
 
     def mult(t):
         return mult_tree(op, aux, t)
@@ -943,7 +921,7 @@ def _plain_bodies(cfg, data):
     return bodies
 
 
-def make_abf_solver(cfg, data, eager=False):
+def make_abf_solver(cfg, data, eager=False, window=None):
     """Return (solve, bodies) over `data`: solve(F, x0) -> (x, its, rnorm,
     state, hist) on flat parity-layout vectors (matfree.to_tree gives their
     grid views); bodies is {name: callable}, the bodies that solve runs:
@@ -961,12 +939,20 @@ def make_abf_solver(cfg, data, eager=False):
     capture reads data's tensors by address, so the caller keeps `data`
     alive and never rebinds or writes its tensors while it solves.
     eager=True launches every op from Python (the plain version the graphs
-    are held against); the CPU always does."""
+    are held against); the CPU always does.
+
+    window: GCR's and FGMRES's window arithmetic (treeops.make_gcr); by
+    default True on CUDA, where the host loop then rounds as the device
+    loop (DeviceLoopSolver) does, bit for bit, and False on the CPU, whose
+    host loop keeps its pinned bits."""
     op, aux = data["op"], data["aux"]
     b = _plain_bodies(cfg, data)
     fineA, mg_pc, p_solve, mult = (b["fineA"], b["mg_pc"], b["p_solve"],
                                    b["mult"])
-    capture = op.Bs.device.type == "cuda" and not eager
+    cuda = op.Bs.device.type == "cuda"
+    capture = cuda and not eager
+    if window is None:
+        window = cuda
 
     def zeros(shape):
         return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
@@ -981,14 +967,16 @@ def make_abf_solver(cfg, data, eager=False):
             mg_pc = graphs.Captured(mg_pc, zeros((op.nu,)))
             p_solve = graphs.Captured(p_solve, zeros(op.p_shape))
         gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
-                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it)
+                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it,
+                               window=window)
         pc_apply = _fieldsplit(op, aux, p_solve, lambda ru: gcr(ru)[0])
 
     if capture:
         mult = graphs.Captured(mult, zeros((op.ndof,)))
     solve = treeops.make_fgmres(mult, pc_apply, restart=cfg.restart,
                                 rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
-                                max_it=cfg.max_it, hist_len=cfg.hist_len)
+                                max_it=cfg.max_it, hist_len=cfg.hist_len,
+                                window=window)
     return solve, {"mult": mult, "mg_pc": mg_pc, "p_solve": p_solve,
                    "pc_apply": pc_apply}
 
@@ -1300,8 +1288,9 @@ class ABFSolver:
     - "host" (the default on the CPU, and with eager=True): make_abf_solver;
       GCR, FGMRES and the rounds read their residuals on the host; on CUDA
       the fixed-work bodies are captured graphs (graphs.Captured) unless
-      eager=True launches every op from Python. eager applies to "host"
-      only.
+      eager=True launches every op from Python, and the Krylov arithmetic
+      is the device loop's (window=True), so "host" gives "device"'s bits.
+      eager applies to "host" only.
     The graphs read the tensors of `data` by address: the solver holds
     `data` for its lifetime and never rebinds it, and solvers built
     from_parts over one `data` each capture their own graphs. A failure to

@@ -28,7 +28,7 @@ import time
 
 import torch
 
-from exsaddle_tpu_torch.kernels import _build, a00, krylov_ctl
+from exsaddle_tpu_torch.kernels import _build, a00, cheb, krylov_ctl, stencil
 
 
 def _check_inputs(inputs, what):
@@ -57,10 +57,11 @@ class Captured:
 
     A call copies its arguments into the static inputs, replays, and returns
     a clone of the static output (the next replay overwrites it). Each
-    replay adds to a00.LAUNCHES the K1 launches and applies that the capture
-    recorded, since the graph launches them again; the capture itself
-    launches nothing and is not counted. `replays` counts the calls. A
-    capture or replay error raises; nothing falls back to eager launches."""
+    replay adds to the kernels' launch counts (K1's launches and applies,
+    K4's, K6's) what the capture recorded, since the graph launches them
+    again; the capture itself launches nothing and is not counted.
+    `replays` counts the calls. A capture or replay error raises; nothing
+    falls back to eager launches."""
 
     def __init__(self, fn, *inputs):
         if not inputs:
@@ -74,7 +75,7 @@ class Captured:
             with torch.cuda.stream(side):
                 fn(*self._static)
             torch.cuda.current_stream().wait_stream(side)
-            n0, a0 = a00.LAUNCHES.n, a00.LAUNCHES.applies
+            before = _counters()
             mode = torch.cuda.get_sync_debug_mode()
             try:
                 # inside the block: entering and leaving it synchronise
@@ -85,9 +86,9 @@ class Captured:
                     finally:
                         torch.cuda.set_sync_debug_mode(mode)
             finally:
-                self.k1_launches = a00.LAUNCHES.n - n0
-                self.k1_applies = a00.LAUNCHES.applies - a0
-                a00.LAUNCHES.n, a00.LAUNCHES.applies = n0, a0
+                self.deltas = tuple(b - a for a, b in zip(before,
+                                                          _counters()))
+                _set_counters(before)
         if not isinstance(out, torch.Tensor):
             raise TypeError(f"Captured: the body returned {type(out)}, not "
                             f"a tensor")
@@ -108,8 +109,7 @@ class Captured:
             s.copy_(x)
         self.graph.replay()
         self.replays += 1
-        a00.LAUNCHES.n += self.k1_launches
-        a00.LAUNCHES.applies += self.k1_applies
+        _set_counters([c + d for c, d in zip(_counters(), self.deltas)])
         return self._out.clone()
 
 
@@ -238,15 +238,17 @@ def _shim():
 
 
 def _counters():
-    """Every launch count a piece can move: K1's and each control
-    kernel's."""
-    return ((a00.LAUNCHES.n, a00.LAUNCHES.applies)
+    """Every launch count a body or piece can move: K1's launches and
+    applies, K4's, K6's and each control kernel's."""
+    return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
+             cheb.LAUNCHES.n)
             + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES))
 
 
 def _set_counters(vals):
-    a00.LAUNCHES.n, a00.LAUNCHES.applies = vals[:2]
-    for k, v in zip(krylov_ctl.NAMES, vals[2:]):
+    (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
+     cheb.LAUNCHES.n) = vals[:4]
+    for k, v in zip(krylov_ctl.NAMES, vals[4:]):
         krylov_ctl.LAUNCHES.n[k] = v
 
 
@@ -267,11 +269,11 @@ class ControlGraph:
     raw graph added as a child-graph node; then the edges, and
     instantiation. Any CUDA error raises: there is no fallback.
 
-    A piece's K1 and control-kernel launches are recorded at capture and
-    not counted; account(counts) adds them times the executions the
-    device counted (Control.counts, brought back with the result). The
-    capture keeps the pieces' tensors by address: the caller keeps them
-    alive and never rebinds them.
+    A piece's kernel launches (K1, K4, K6, control) are recorded at
+    capture and not counted; account(counts) adds them times the
+    executions the device counted (Control.counts, brought back with the
+    result). The capture keeps the pieces' tensors by address: the caller
+    keeps them alive and never rebinds them.
 
     share: an earlier ControlGraph over the same Control; a run of Pieces
     it captured is added here as the same child graph, not captured

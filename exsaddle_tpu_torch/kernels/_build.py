@@ -2,7 +2,8 @@
 
 Every `*.cu` file under exsaddle_tpu_torch/csrc/ is compiled by nvcc into ONE
 shared library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded with ctypes. The library is built at first use into
+seconds), loaded with ctypes: one nvcc per source, all started together,
+then one link. The library is built at first use into
 exsaddle_tpu_torch/_build/ (listed in .gitignore) under a name that carries
 the hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing here runs at import time: the CPU tests
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; -Xptxas -v
 # records registers, shared memory and spills of every kernel in build.log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -74,17 +75,32 @@ def build():
         return out, False, log
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    with open(log_path, "w") as fh:
-        fh.write(log)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in srcs:
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:
+            log += " ".join(cmd) + "\n" + proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp] + [obj for _, obj, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
+        with open(log_path, "w") as fh:
+            fh.write(log)
+        os.replace(tmp, out)
     return out, True, log
 
 
@@ -96,3 +112,24 @@ def load():
             path, _, _ = build()
             _lib = ctypes.CDLL(path)
         return _lib
+
+
+class Launches:
+    """Device launches (`n`) that a wrapper sent to its kernel; calls of
+    the plain version are not counted. Inside a CUDA graph capture the
+    wrapper records a launch that the graph repeats: graphs.Captured and
+    graphs.ControlGraph take the capture's launches back out and add them
+    per replay or per counted execution."""
+
+    def __init__(self):
+        self.n = 0
+
+    def reset(self):
+        self.n = 0
+
+
+def error_string(lib, err):
+    """The CUDA error name of a wrapper's nonzero return code."""
+    lib.a00_error_string.argtypes = [ctypes.c_int]
+    lib.a00_error_string.restype = ctypes.c_char_p
+    return f"{lib.a00_error_string(err).decode()} ({err})"

@@ -23,7 +23,9 @@ Two forms of the loops:
   on the host in the working dtype (numpy float32/float64 scalars). The
   preconditioners they call may be CUDA graph replays (graphs.Captured);
   cheb_smooth stays host-read-free for that. The sharded solvers of
-  parallel/ and the ABF solve's loop="host" use them.
+  parallel/ and the ABF solve's loop="host" use them; window=True (the ABF
+  host loop on CUDA) gives them the device loop's arithmetic, so the two
+  forms agree bit for bit.
 - DeviceGCR / DeviceFGMRES (device loop control), the JAX formulation:
   a fixed-shape state of device tensors, masked Gram-Schmidt over the
   whole window (buf_dots/buf_comb, exsaddle_tpu/treeops.py:106-133), basis
@@ -38,6 +40,7 @@ import scipy.linalg
 import torch
 
 from exsaddle_tpu_torch.graphs import Loop, Piece, run_plain
+from exsaddle_tpu_torch.kernels import cheb
 from exsaddle_tpu_torch.kernels import krylov_ctl
 # state codes (sign convention matches PETSc: >0 converged, <0 diverged)
 from exsaddle_tpu_torch.kernels.krylov_ctl import (  # noqa: F401
@@ -205,12 +208,19 @@ def _basis(t, k):
 
 # --- Chebyshev smoother ------------------------------------------------------
 
-def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False):
+def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
+                diag=None):
     """KSPSolve_Chebyshev three-term recurrence with norm type NONE
     (abf.opts:8-12 smoother: fixed `its` applications, nonzero initial
     guess). emin/emax: numpy scalars of the working dtype (the scalar
     recurrence runs in that dtype); the coefficients are host numbers, so
     a CUDA graph capture bakes them in and the body reads nothing back.
+
+    diag: the Jacobi preconditioner's inverse diagonal, a tensor of b's
+    shape, in place of pc_apply (pass None): each step's vector update
+    is then one kernels.cheb call (K6: one kernel pass on CUDA, bitwise
+    the ops of the callable path; those ops on the CPU). pc_apply stays
+    for the sharded layouts' ShardVecs.
 
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with
@@ -220,19 +230,32 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False):
     mu = 1.0 / alpha_
     omegaprod = 2.0 / alpha_
 
-    r = b if x0_zero else b - mult(x0)
-    p_k = float(scale) * pc_apply(r) + x0
+    if diag is None:
+        def first(ax0):
+            r = b if ax0 is None else b - ax0
+            return float(scale) * pc_apply(r) + x0
+
+        def step(ap, p_k, p_km1, omega):
+            z = pc_apply(b - ap)
+            # p_kp1 = omega (p_k + scale z - p_km1) + p_km1
+            t = float(scale) * z + p_k
+            return omega * (t - p_km1) + p_km1
+    else:
+        def first(ax0):
+            return cheb.cheb_first(b, ax0, diag, x0, float(scale))
+
+        def step(ap, p_k, p_km1, omega):
+            return cheb.cheb_step(b, ap, diag, p_k, p_km1, float(scale),
+                                  omega)
+
+    p_k = first(None if x0_zero else mult(x0))
     p_km1 = x0
     c_km1 = mu / mu
     c_k = mu * c_km1
     for _ in range(1, its):
         c_kp1 = 2.0 * mu * c_k - c_km1
         omega = float(omegaprod * c_k / c_kp1)
-        r = b - mult(p_k)
-        z = pc_apply(r)
-        # p_kp1 = omega (p_k + scale z - p_km1) + p_km1
-        t = float(scale) * z + p_k
-        p_kp1 = omega * (t - p_km1) + p_km1
+        p_kp1 = step(mult(p_k), p_k, p_km1, omega)
         p_km1, p_k, c_km1, c_k = p_k, p_kp1, c_k, c_kp1
     return p_k
 
@@ -240,10 +263,13 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False):
 # --- GCR ---------------------------------------------------------------------
 
 def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
-             max_it=200, dots=None):
+             max_it=200, dots=None, window=False):
     """KSPGCR: right-preconditioned, unpreconditioned norm, truncated
     restart (gcr.c semantics as in exsaddle_tpu/treeops.make_gcr).
     dots: optional (dot, bdots) pair from make_dots (sharded layouts).
+    window=True (plain tensors): project against the whole window with
+    the unused rows masked, as DeviceGCR does, so the two loops round
+    alike; False projects against the live rows only.
     Returns solve(b) -> (x, its, rnorm). Zero initial guess."""
     dot, bdots = dots if dots is not None else make_dots()
 
@@ -254,6 +280,7 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
         rnorm0 = npdt(first(_norm(dot, r)).item())
         V = _basis(b, restart)
         S = _basis(b, restart)
+        ar = torch.arange(restart, device=b.device) if window else None
         target = max(npdt(rtol) * rnorm0, npdt(atol))
         state = CONVERGED_ATOL if rnorm0 <= npdt(atol) else RUNNING
         nv = 0
@@ -262,7 +289,11 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
         while state == RUNNING:
             s = pc_apply(r)
             v = mult(s)
-            if nv > 0:
+            if window:
+                beta = bdots(V, v) * (ar < nv).to(v.dtype)
+                v = v - beta @ V
+                s = s - beta @ S
+            elif nv > 0:
                 beta = bdots(V[:nv], v)
                 v = v - beta @ V[:nv]
                 s = s - beta @ S[:nv]
@@ -295,11 +326,17 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
 # --- FGMRES ------------------------------------------------------------------
 
 def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
-                dtol=1e4, max_it=10000, hist_len=None, dots=None):
+                dtol=1e4, max_it=10000, hist_len=None, dots=None,
+                window=False):
     """KSPFGMRES: right preconditioning, classical Gram-Schmidt, Givens
     recurrence, unpreconditioned norm, KSPConvergedDefault, restarts with
     the solution built at each cycle end (BuildGmresSoln).
     dots: optional (dot, bdots) pair from make_dots (sharded layouts).
+    window=True (plain tensors): DeviceFGMRES's arithmetic -- dots against
+    the whole basis with the unused rows masked, the triangle solved in
+    krylov_ctl's order and the correction summed over the whole Z -- so
+    the host loop rounds as the device loop does; False works on the live
+    rows and solves the triangle with scipy.
 
     Returns solve(F, x0) -> (x, its, rnorm, state, hist); hist[i] is the
     residual at iteration i (the -ksp_monitor_short values), length
@@ -314,6 +351,7 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
         x = smap(torch.clone, x0)
         V = _basis(F, k + 1)
         Z = _basis(F, k)
+        ar = torch.arange(k + 1, device=F.device) if window else None
         H = np.zeros((k + 1, k), npdt)
         g = np.zeros(k + 1, npdt)
         cs = np.zeros(k, npdt)
@@ -343,6 +381,8 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
                 if itc == 0:
                     r0 = beta
                 safe = beta if beta != 0.0 else npdt(1)
+                if window:
+                    V.zero_()
                 V[0] = float(1.0 / safe) * r
                 H[:] = 0
                 g[:] = 0
@@ -358,8 +398,13 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
             z = pc_apply(V[it])
             w = mult(z)
             Z[it] = z
-            h_t = bdots(V[: it + 1], w)
-            w = w - h_t @ V[: it + 1]
+            if window:
+                h_t = bdots(V, w) * (ar <= it).to(w.dtype)
+                w = w - h_t @ V
+                h_t = h_t[: it + 1]
+            else:
+                h_t = bdots(V[: it + 1], w)
+                w = w - h_t @ V[: it + 1]
             tt_t = _norm(dot, w)
             V[it + 1] = (1.0 / smap(_safe, tt_t)) * w
             hv = torch.cat([first(h_t), first(tt_t).reshape(1)]).cpu().numpy()
@@ -402,11 +447,17 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
                 state = DIVERGED_ITS
             if state != RUNNING or it >= k:
                 # end of cycle: x += Z y with y from the rotated triangle
-                y = scipy.linalg.solve_triangular(H[:it, :it], g[:it],
-                                                  lower=False)
-                yt = smap(lambda f: torch.as_tensor(y.astype(npdt),
-                                                    device=f.device), F)
-                x = x + yt @ Z[:it]
+                if window:
+                    y = krylov_ctl._back_substitute(torch.from_numpy(H),
+                                                    torch.from_numpy(g),
+                                                    it, k)
+                    x = x + y.to(F.device) @ Z
+                else:
+                    y = scipy.linalg.solve_triangular(H[:it, :it], g[:it],
+                                                      lower=False)
+                    yt = smap(lambda f: torch.as_tensor(y.astype(npdt),
+                                                        device=f.device), F)
+                    x = x + yt @ Z[:it]
                 it = -1
         return x, itc, rnorm, state, hist
 

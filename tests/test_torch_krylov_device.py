@@ -8,6 +8,8 @@ runs as one graph.
 - each control twin against the numpy arithmetic of the host loop
   (treeops.make_fgmres / make_gcr, abf.make_ir_solver) on recorded states;
 - ABFSolver(loop="device") against the JAX ABFSolver at mx=4;
+- the host loop with the window arithmetic (make_abf_solver window=True,
+  the default on CUDA) bit for bit the device loop's steps;
 - the plain driver reads only the loop predicates.
 
 Every input is made from a numpy seed; each test states its tolerance."""
@@ -476,6 +478,49 @@ def test_device_loop_fixed_vcycles_matches_host_loop():
     assert (rd["reason"], rd["its"]) == (rh["reason"], rh["its"])
     assert _rel(rd["history"], rh["history"]) < 1e-12
     assert _rel(rd["x"], rh["x"]) < 1e-12
+
+
+def _ieee_sqrt(t):
+    """torch.sqrt correctly rounded on the CPU, as numpy's and CUDA's are
+    (this build's vectorised CPU sqrt is not: it returns
+    0.7183630846541311 for sqrt(0.5160455213937984), where the correctly
+    rounded root is 0.7183630846541312)."""
+    return torch.as_tensor(np.sqrt(t.detach().cpu().numpy()),
+                           device=t.device)
+
+
+@pytest.mark.parametrize("schedule", ["abfopts", "fixed3"])
+def test_window_host_loop_equals_device_loop(schedule, monkeypatch):
+    """float32 IR at mx=4, 3 levels: make_abf_solver(window=True) under
+    make_ir_solver (the host loop, reading its scalars on the host) against
+    DeviceLoopSolver's plain driver over one setup: x, history, rounds and
+    inner iterations bit for bit, under the GCR u-block (abf.opts) and
+    under 3 fixed V-cycles. torch.sqrt is made correctly rounded for the
+    test, since the host loop's Givens roots are numpy's and the control
+    twins' are torch's (CUDA's sqrt is correctly rounded, as are the
+    kernels' __fsqrt_rn and __dsqrt_rn). The sliced host loop (window=False,
+    the CPU's default) differs: here fixed3 takes 3 / 111 against the
+    device loop's 2 / 69 in one CPU run."""
+    monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
+    p = bench._build_problem(4, with_rhs=True)
+    kw = {"u_fixed_vcycles": 3} if schedule == "fixed3" else {}
+    slv = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                         p["bc_vals"], device="cpu", nlevels=3,
+                         dtype=torch.float32, ir=True, **kw)
+    op64, aux64 = slv.setup["op64"], slv.setup["aux64"]
+    F64 = slv.vec_to_tree(p["F_raw"] + slv.setup["rhs_diri"],
+                          dtype=torch.float64)
+    solve, _ = tabf.make_abf_solver(slv.cfg, slv.data, window=True)
+    x64, rounds, inner, _, _, hist, stalled = tabf.make_ir_solver(
+        solve, torch.float32)(op64, aux64, F64, 1e-8, 10)
+    dev = tabf.DeviceLoopSolver(slv.cfg, slv.data, torch.float32,
+                                graph=False, ir_ops=(op64, aux64))
+    xd, rd, innerd, _, _, histd, stalledd, _ = dev.solve_ir(
+        F64.numpy(), 1e-8, 10)
+    assert not stalled and not stalledd
+    assert (rounds, int(inner)) == (rd, innerd)
+    assert hist == histd
+    assert np.array_equal(x64.numpy(), xd)
 
 
 # --- the plain driver reads only the predicates -----------------------------
