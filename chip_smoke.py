@@ -5,7 +5,11 @@
                                        # mx=32 IR solves under the bench's
                                        # tuned schedule: eager, the host
                                        # loop over captured bodies and the
-                                       # device loop (PERF.md section 5)
+                                       # device loop; then phase cart's
+                                       # flagship and its single-device
+                                       # solve, each plain driver profiled
+                                       # beside the device loop's span
+                                       # (PERF.md section 5)
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -137,10 +141,19 @@ Phases, in order; any failure raises and the script exits nonzero:
               same iteration count and reason, the history to 1e-8 and x to
               1e-9 (norm-relative), the true residual recomputed with the float64
               parity operator; K1 launches 2 x 4 per sharded apply; setup /
-              solve seconds, ms per outer iteration, halo exchanges, K1
-              launches, peak memory. (A repeated flagship solve, bitwise
-              equal, ran here until phase cart_procs took its time; that
-              phase's one-process-setup leg repeats the solve bitwise.)
+              solve seconds, ms per outer iteration, halo exchanges, K1,
+              K4, K6 and control launches (each above 0), peak memory. The
+              driver's sharded solver runs the device loop (one CUDA graph
+              with conditional nodes per solve, CartABFSolver loop
+              "device"); over its setup the device loop, the plain driver
+              (loop "plain") and the host loop (loop "host") run alternated
+              with the single-device float64 solve: each device solve 1
+              graph launch under torch.cuda.set_sync_debug_mode("error")
+              and no count moved by the host, x, its and history bitwise
+              the plain driver's and the host loop's, K1, K4, K6, control
+              and halo counts per solve equal (the host loop runs no
+              control kernel), K6 above 0; the walls of each kind and the
+              graph launch's CUDA-event span with the card.
 12. cart_procs -- the same flagship in 2 processes x 2 shards on this card
               (torch.multiprocessing spawn, a gloo group on localhost with
               a 120 s timeout; device grid 1x2x2, host axis z), each rank
@@ -765,6 +778,16 @@ def _mg_times(kernel, plain, args, nbytes):
     return hot, cold, len(copies)
 
 
+def _cheb_scalars(emin, emax, npdt=np.float64):
+    """The Chebyshev smoother's first-step scale and omega in the working
+    numpy dtype, as treeops.cheb_smooth computes them."""
+    lo, hi = npdt(emin), npdt(emax)
+    scale = npdt(2.0) / (hi + lo)
+    alpha_ = 1.0 - scale * lo
+    mu, omegaprod = 1.0 / alpha_, 2.0 / alpha_
+    return float(scale), float(omegaprod * mu / (2.0 * mu * mu - 1.0))
+
+
 def phase_mg_kernels(device, card):
     """K4 (the block stencil, csrc/stencil_apply.cu) on the mx=32
     flagship's own L-2 and L-3 stencils and K6 (the Chebyshev update,
@@ -853,14 +876,7 @@ def phase_mg_kernels(device, card):
     for lvl, d64 in diags.items():
         emin, emax = (float(b) for b in bounds[lvl])
         for dtype in (f32, f64):
-            npdt = treeops.NP_DTYPE[dtype]
-            lo, hi = npdt(emin), npdt(emax)
-            # the smoother's scalars in the working dtype (its first step)
-            scale = lo.dtype.type(2.0) / (hi + lo)
-            alpha_ = 1.0 - scale * lo
-            mu, omegaprod = 1.0 / alpha_, 2.0 / alpha_
-            omega = float(omegaprod * mu / (2.0 * mu * mu - 1.0))
-            scale = float(scale)
+            scale, omega = _cheb_scalars(emin, emax, treeops.NP_DTYPE[dtype])
             d = d64.to(dtype).contiguous()
             b, ap, pk, pkm1 = (torch.as_tensor(
                 rng.standard_normal(tuple(d.shape)), dtype=dtype,
@@ -1708,21 +1724,25 @@ def phase_cart(device, card):
     check(r1["mode"] == "direct", f"cart: reference ran as {r1['mode']}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    a00.LAUNCHES.reset()
+    _reset_launches()
     lines = []
     r = tdriver.saddle_solve(Options.from_args(CART_ARGV), 3,
                              log=lines.append,
                              devices=[device] * CART_DEVICES)
-    launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    counts = _launch_counts()
+    launches, applies = counts["a00_apply"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     slv = r["solver"]
-    halos = slv.blocks.halo_exchanges
+    halos = r["res"]["halo_exchanges"]
     its, t_setup, t_solve = r["its"], r["seconds"]["setup"], \
         r["seconds"]["solve"]
     for ln in (lines[-3], lines[-2], lines[-1]):
         log(f"[cart] {ln}")
     check(r["mode"] == "cart" and slv.part.dev_shape == (1, 2, 2),
           f"cart: driver ran as {r['mode']}")
+    check(r["loop"] == "device" and slv.smesh.capturable
+          and slv._dev.graph is not None,
+          f"cart: the driver's sharded solve ran the {r['loop']} loop")
     check(r["reason"] == r1["reason"] == "CONVERGED_RTOL"
           and its == r1["its"],
           f"cart: {r['reason']} in {its} its, the single device "
@@ -1737,6 +1757,12 @@ def phase_cart(device, card):
     check(launches > 0 and launches == 2 * applies
           and applies % CART_DEVICES == 0,
           f"cart: {launches} K1 launches in {applies} applies")
+    check(counts["cheb_update"] > 0 and counts["stencil_accum"] > 0,
+          f"cart: K4 / K6 launches {counts['stencil_accum']} / "
+          f"{counts['cheb_update']} on the sharded path")
+    check(all(counts[k] > 0 for k in krylov_ctl.NAMES if k != "ir_ctl"),
+          f"cart: a control kernel never ran on the sharded path: "
+          f"{ {k: counts[k] for k in krylov_ctl.NAMES} }")
     # independent float64 true residual with the port's parity operator
     s1 = r1["solver"]
     op64, aux64 = s1.setup["op64"], tree_aux(s1.setup["op64"])
@@ -1753,16 +1779,21 @@ def phase_cart(device, card):
     check(a00.LAUNCHES.n - n0 == 2 * CART_DEVICES,
           "cart: K1 launches per sharded apply")
     log(f"[cart] mx=32 ndof {r['mesh'].ndof} over {CART_DEVICES} shards "
-        f"{slv.part.dev_shape} on one card: {its} its (single device "
-        f"{r1['its']}), history relative {hrel:.3e} (worst entry "
-        f"{hworst:.3e}), x relative {xrel:.3e}; "
-        f"setup {t_setup:.2f} s (single device "
-        f"{r1['seconds']['setup']:.2f} s), solve {t_solve:.3f} s (single "
-        f"device {r1['seconds']['solve']:.3f} s), "
-        f"{1e3 * t_solve / its:.1f} ms per outer it, {halos} halo "
+        f"{slv.part.dev_shape} on one card, loop {r['loop']}: {its} its "
+        f"(single device {r1['its']}), history relative {hrel:.3e} (worst "
+        f"entry {hworst:.3e}), x relative {xrel:.3e}; "
+        f"setup {t_setup:.2f} s with graph capture "
+        f"{slv.capture_seconds:.2f} s (single device "
+        f"{r1['seconds']['setup']:.2f} s), first solve {t_solve:.3f} s "
+        f"(single device {r1['seconds']['solve']:.3f} s), {halos} halo "
         f"exchanges, {launches} K1 launches in {applies} applies (single "
-        f"device {applies1} applies), peak mem "
-        f"{peak:.2f} GiB ({card})")
+        f"device {applies1} applies), K4 {counts['stencil_accum']}, K6 "
+        f"{counts['cheb_update']}, control "
+        f"{sum(counts[k] for k in krylov_ctl.NAMES)} launches (capture "
+        f"warm-ups included), peak mem {peak:.2f} GiB ({card})")
+    _cart_loops(slv, r1["solver"], r["F"], r, card)
+    _cart_kernels(slv)
+    _cart_k1(slv, r1["solver"], card)
 
     def true_residual(X):
         return float(torch.linalg.norm(F64 - mult_tree(
@@ -1770,7 +1801,243 @@ def phase_cart(device, card):
     ref = {"its": its, "reason": r["reason"], "history": h, "X": r["X"],
            "F": r["F"], "setup": t_setup, "solve": t_solve,
            "true_residual": true_residual}
-    return launches, applies, ref
+    return counts, ref
+
+
+# phase cart's loop kinds over the driver's sharded setup, and the
+# single-device float64 solve, alternated; the plain driver and the host
+# loop once each (7-9 s a solve on the H100, the rest under 1 s)
+CART_ORDER = ("device", "plain", "single", "host", "device", "single")
+
+
+def _launch_counts():
+    """Every kernel's launches so far by the kernels line's names; K1 as
+    (launches, applies)."""
+    return {"a00_apply": (a00.LAUNCHES.n, a00.LAUNCHES.applies),
+            "stencil_accum": stencil.LAUNCHES.n,
+            "cheb_update": cheb.LAUNCHES.n, **krylov_ctl.LAUNCHES.n}
+
+
+def _cart_solve(slv, F):
+    """One solve with its wall seconds, its launch counts, the device
+    loop's graph launches, host-moved counts and CUDA-event span of the
+    graph launch (a device-loop solve runs under sync debug "error")."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    graph = getattr(getattr(slv, "_dev", None), "graph", None)
+    out = {"graph_launches": 0, "span": None}
+    mode = torch.cuda.get_sync_debug_mode()
+    if graph is not None:
+        g0 = graph.launches
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        launch = graph.launch
+
+        def timed():
+            ev[0].record()
+            launch()
+            ev[1].record()
+        graph.launch = timed
+        torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        res = slv.solve(F)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        if graph is not None:
+            del graph.launch
+    torch.cuda.synchronize()
+    out.update(res=res, wall=time.perf_counter() - t0,
+               counts=_launch_counts(),
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if graph is not None:
+        out.update(graph_launches=graph.launches - g0,
+                   host_launches=getattr(slv._dev, "host_launches", None),
+                   span=ev[0].elapsed_time(ev[1]) / 1e3)
+    return out
+
+
+def _cart_loops(slv, single, F, r, card):
+    """The device loop (the driver's solver), the plain driver and the host
+    loop over the driver's sharded setup, beside the single-device float64
+    solve, alternated (CART_ORDER): the device loop one graph launch with no
+    kernel issued by the host, under sync debug "error"; x, its and history
+    bitwise the plain driver's and the host loop's, with equal K1, K4, K6,
+    control and halo counts per solve (the host loop: no control kernel);
+    each kind's wall with the card."""
+    solvers = {"device": slv, "plain": slv.with_loop("plain"),
+               "host": slv.with_loop("host"), "single": single}
+    runs = {k: [] for k in solvers}
+    for kind in CART_ORDER:
+        runs[kind].append(_cart_solve(solvers[kind], F))
+    first = {k: v[0] for k, v in runs.items()}
+    d = first["device"]
+    for kind, recs in runs.items():
+        q = recs[0]["res"]
+        same = all(p["res"]["its"] == q["its"]
+                   and p["res"]["history"] == q["history"]
+                   and np.array_equal(p["res"]["x"], q["x"]) for p in recs)
+        check(same, f"cart: repeated {kind} solves differ")
+        check(q["reason"] == "CONVERGED_RTOL" and q["its"] == r["its"],
+              f"cart: {kind} solve {q['reason']} in {q['its']} its")
+    for q in runs["device"]:
+        check(q["graph_launches"] == 1 and q["host_launches"] == 0,
+              f"cart: a device-loop solve made {q['graph_launches']} graph "
+              f"launches and moved {q['host_launches']} counts from the "
+              f"host")
+    check(np.array_equal(d["res"]["x"], r["X"]),
+          "cart: the device loop's solve differs from the driver's")
+    for kind in ("plain", "host"):
+        q = first[kind]
+        check(q["res"]["history"] == d["res"]["history"]
+              and np.array_equal(q["res"]["x"], d["res"]["x"]),
+              f"cart: the device loop and the {kind} loop differ (x "
+              f"relative {_rel(q['res']['x'], d['res']['x']):.3e})")
+        check(q["res"]["halo_exchanges"] == d["res"]["halo_exchanges"],
+              f"cart: halo exchanges per solve: device "
+              f"{d['res']['halo_exchanges']}, {kind} "
+              f"{q['res']['halo_exchanges']}")
+        keys = d["counts"] if kind == "plain" else (
+            "a00_apply", "stencil_accum", "cheb_update")
+        check(all(q["counts"][k] == d["counts"][k] for k in keys),
+              f"cart: launches per solve: device {d['counts']}, {kind} "
+              f"{q['counts']}")
+    check(d["counts"]["cheb_update"] > 0,
+          "cart: K6 never ran in a sharded solve")
+    c = d["counts"]
+    log(f"[cart] loops over one setup: device loop bitwise the plain "
+        f"driver and the host loop ({d['res']['its']} its, x, history), "
+        f"each device solve 1 graph launch under sync debug \"error\", 0 "
+        f"host-issued launches; per solve K1 {c['a00_apply'][0]} launches "
+        f"in {c['a00_apply'][1]} applies, K4 {c['stencil_accum']}, K6 "
+        f"{c['cheb_update']}, control "
+        f"{ {k: c[k] for k in krylov_ctl.NAMES} }, "
+        f"{d['res']['halo_exchanges']} halo exchanges ({card})")
+    for kind, recs in runs.items():
+        walls = [q["wall"] for q in recs]
+        its = recs[0]["res"]["its"]
+        spans = ", ".join(f"{q['span']:.4f}" for q in recs
+                          if q["span"] is not None)
+        span = f", graph launch span by CUDA events {spans} s" if spans \
+            else ""
+        wl = ", ".join(f"{w:.4f}" for w in walls)
+        log(f"[cart] {kind}: walls {wl} "
+            f"s (mean {np.mean(walls):.4f}), {1e3 * np.mean(walls) / its:.2f} "
+            f"ms/outer it, {its} its{span}, peak mem "
+            f"{max(q['peak'] for q in recs):.2f} GiB ({card})")
+
+
+def _cart_kernels(slv):
+    """K1, K4 and K6 on the sharded solve's own placed operands, each
+    wrapper against its plain twin on the same seeded inputs: K1 on each
+    shard's local box within TOL (phase K1's, relative to max |y|); K4 on
+    each shard's L-2 slab stencil with the ghosted operand lvl1A builds
+    (ghost_extend_axis) and on the replicated deep stencils with their
+    zero ghosts, within K4_TOL of max sum |W||x| (phase mg_kernels');
+    K6's first and step updates on each shard's fine, L-2 and p inverse
+    diagonals and the replicated levels', bit for bit. Float64, as the
+    cart path runs them."""
+    from exsaddle_tpu_torch.parallel.shard_mesh import ghost_extend_axis
+    f64 = torch.float64
+    dd, blk, smesh = slv.ddata, slv.blocks, slv.smesh
+    nd, nlev = blk.nd, slv.dcfg.base.nlevels
+    rng = np.random.default_rng(13)
+
+    def rand(t):
+        return torch.as_tensor(rng.standard_normal(tuple(t.shape)),
+                               dtype=t.dtype, device=t.device)
+
+    k1 = 0.0
+    for i, op in enumerate(blk.ops.parts):
+        x = torch.as_tensor(rng.standard_normal(op.nu), dtype=f64,
+                            device=op.Bs.device)
+        y, yp = a00.a00_apply(op, x), a00.a00_apply_plain(op, x)
+        rel = float((y - yp).abs().max() / yp.abs().max())
+        check(bool(torch.isfinite(y).all()) and rel <= TOL[f64],
+              f"cart: K1 on shard {i}'s box disagrees with its plain "
+              f"version (relative {rel:.3e})")
+        k1 = max(k1, rel)
+
+    xp = dd["inv_diag_l1"].map(rand)
+    for k in range(nd):
+        xp = ghost_extend_axis(smesh, xp, nd - 1 - k)
+    pad = (0, 0) + (1, 1) * nd
+    k4 = [(f"L-2 shard {i}", W, x)
+          for i, (W, x) in enumerate(zip(dd["W1"].parts, xp.parts))]
+    # the replicated deep levels: repl_vcycle(k) applies stencils[k - 1]
+    # to grids of inv_diag_repl[k - 1]'s shape
+    for dev, rep in dd["repl"].items():
+        for k, (W, d) in enumerate(zip(rep["stencils"],
+                                       rep["inv_diag_repl"])):
+            k4.append((f"L-{nlev - k - 1} on {dev}", W,
+                       torch.nn.functional.pad(rand(d), pad)))
+    k4_worst = 0.0
+    for name, W, x in k4:
+        y, yp = stencil.stencil_accum(W, x), stencil.stencil_accum_plain(W, x)
+        mag = float(stencil.stencil_accum_plain(W.abs(), x.abs()).max())
+        err = float((y - yp).abs().max())
+        check(bool(torch.isfinite(y).all()) and err <= K4_TOL[f64] * mag,
+              f"cart: K4 {name} max_abs_err {err:.3e} > {K4_TOL[f64]:g} x "
+              f"{mag:.3e}")
+        k4_worst = max(k4_worst, err / mag)
+
+    levels = [("fine", dd["inv_diag_fine"].parts, dd["bounds"][-1]),
+              ("L-2", dd["inv_diag_l1"].parts, dd["bounds"][nlev - 3]),
+              ("p", dd["inv_diag_p"].parts, dd["p_bounds"])]
+    for rep in dd["repl"].values():
+        levels += [(f"L-{nlev - k - 1}", [d], dd["bounds"][k])
+                   for k, d in enumerate(rep["inv_diag_repl"])]
+    k6 = 0
+    for name, diags, (emin, emax) in levels:
+        scale, omega = _cheb_scalars(emin, emax)
+        for i, d in enumerate(diags):
+            b, ap, pk, pkm1 = (rand(d) for _ in range(4))
+            pairs = [(cheb.cheb_first(b, None, d, pk, scale),
+                      cheb.cheb_first_plain(b, None, d, pk, scale)),
+                     (cheb.cheb_first(b, ap, d, pk, scale),
+                      cheb.cheb_first_plain(b, ap, d, pk, scale)),
+                     (cheb.cheb_step(b, ap, d, pk, pkm1, scale, omega),
+                      cheb.cheb_step_plain(b, ap, d, pk, pkm1, scale,
+                                           omega))]
+            same = all(torch.equal(a.view(torch.int64), w.view(torch.int64))
+                       for a, w in pairs)
+            err = max(float((a - w).abs().max()) for a, w in pairs)
+            check(same, f"cart: K6 {name} on part {i} is not bitwise its "
+                  f"twin (max_abs_err {err:.3e})")
+            k6 += len(pairs)
+    log(f"[cart] kernels on the sharded solve's own operands, float64: K1 "
+        f"on each of the {len(blk.ops.parts)} local boxes {slv.dcfg.mloc} "
+        f"within {k1:.3e} of max |y| (tol {TOL[f64]:g}); K4 on "
+        f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
+        f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}); K6 first "
+        f"and step on every part's fine, L-2 and p inverse diagonals and "
+        f"the replicated levels': {k6} updates bitwise their twins")
+
+
+def _cart_k1(slv, single, card):
+    """K1 per shard against K1 on the whole mesh, float64 as the cart path
+    runs it: one apply on every shard's local box, back to back inside a
+    CUDA graph (as the device loop issues them), against one apply of the
+    single-device operator; each with its bound."""
+    ops = slv.blocks.ops.parts
+    rng = np.random.default_rng(11)
+    xs = [torch.as_tensor(rng.standard_normal(o.nu), device=o.Bs.device)
+          for o in ops]
+    op1 = single.data["op"]
+    x1 = torch.as_tensor(rng.standard_normal(op1.nu), device=op1.Bs.device)
+    n = 20
+    shards_ms = _graph_ms([lambda: [a00.a00_apply(o, x)
+                                    for o, x in zip(ops, xs)]] * n)
+    one_ms = _graph_ms([lambda: a00.a00_apply(op1, x1)] * n)
+    b_shard, by_shard = k1_bound(ops[0], torch.float64)
+    b_one, by_one = k1_bound(op1, torch.float64)
+    log(f"[cart] K1 float64 per shard: one apply on each of the "
+        f"{len(ops)} local boxes {slv.dcfg.mloc} {1e3 * shards_ms:.2f} us "
+        f"({1e3 * shards_ms / len(ops):.2f} us per shard apply, bound "
+        f"{1e3 * b_shard:.2f} us by {by_shard}), one apply on the whole "
+        f"mesh {1e3 * one_ms:.2f} us (bound {1e3 * b_one:.2f} us by "
+        f"{by_one}): the shards' applies take {shards_ms / one_ms:.2f}x the "
+        f"single device's ({n} of each replayed in one CUDA graph; {card})")
 
 
 # phase cart_procs: processes x shards per process, all on this card; a
@@ -1816,7 +2083,7 @@ def _procs_child(rank, init_method, out_dir):
         peak = torch.cuda.max_memory_allocated(device)
         slv = r["solver"]
         traffic = dict(slv.smesh.traffic)
-        halos = slv.blocks.halo_exchanges
+        halos = r["res"]["halo_exchanges"]
         n0 = a00.LAUNCHES.n
         slv.blocks.saddle_mult(slv.shard_saddle(r["X"]))
         per_apply = a00.LAUNCHES.n - n0
@@ -2262,6 +2529,73 @@ def phase_profile(card):
         f"{counts['host'][2]}, eager {e_applies} ({card})")
 
 
+def _profiled(fn):
+    """fn() under torch.profiler: (kernels traced, their device seconds,
+    {kernel name: (count, device seconds)})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and self_device_us(e) > 0]
+    return (sum(e.count for e in dev),
+            sum(self_device_us(e) for e in dev) / 1e6,
+            {e.key: (e.count, self_device_us(e) / 1e6) for e in dev})
+
+
+def _span(fn):
+    """(wall seconds, CUDA-event span seconds) of fn()."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return time.perf_counter() - t0, e0.elapsed_time(e1) / 1e3
+
+
+def profile_cart(card):
+    """Phase cart's flagship (float64 direct, 4 shards on this card) and
+    its single-device solve: the plain driver of each profiled (the device
+    loop's kernels, issued from Python, which the profiler traces: their
+    count and device time), beside the device loop's CUDA-event span,
+    which the profiler cannot see into; the top kernels of the sharded
+    solve."""
+    single = tdriver.saddle_solve(Options.from_args(CART_ARGV), 3,
+                                  log=lambda *a: None,
+                                  devices=[torch.device("cuda", 0)])
+    r = tdriver.saddle_solve(Options.from_args(CART_ARGV), 3,
+                             log=lambda *a: None,
+                             devices=[torch.device("cuda", 0)] * CART_DEVICES)
+    check(r["loop"] == single["loop"] == "device",
+          f"profile: cart loop {r['loop']}, single {single['loop']}")
+    F = r["F"]
+    s1 = single["solver"]
+    kinds = {"cart": (r["solver"], r["solver"].with_loop("plain")),
+             "single": (s1, tabf.ABFSolver.from_parts(
+                 s1.cfg, s1.data, s1.setup, device=s1.device,
+                 dtype=s1.dtype, loop="plain"))}
+    for name, (dev, plain) in kinds.items():
+        dev.solve(F)
+        wall, span = _span(lambda: dev.solve(F))
+        pwall, _ = _span(lambda: plain.solve(F))
+        n, t, by = _profiled(lambda: plain.solve(F))
+        log(f"[profile] {name} mx=32 float64 direct solve: device loop wall "
+            f"{wall:.4f} s, CUDA-event span {span:.4f} s; its plain driver "
+            f"{pwall:.4f} s unprofiled, {n} kernels traced, {t:.4f} s of "
+            f"kernel time ({1e6 * t / n:.2f} us per kernel); the span "
+            f"exceeds the kernel time by {span - t:.4f} s "
+            f"({1e6 * (span - t) / n:.2f} us per kernel) ({card})")
+        if name == "cart":
+            for k, (c, sec) in sorted(by.items(), key=lambda kv: -kv[1][1])[
+                    :10]:
+                log(f"[profile] cart {1e3 * sec:9.3f} ms {c:7d} x  {k[:80]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2272,6 +2606,7 @@ def main():
     phase_build()
     if "--profile" in sys.argv[1:]:
         phase_profile(card)
+        profile_cart(card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2290,7 +2625,8 @@ def main():
     phase_outputs(device, card)
     phase_ex42(device, card)
     t_cart = time.perf_counter()
-    cart_launches, cart_applies, cart_ref = phase_cart(device, card)
+    cart_counts, cart_ref = phase_cart(device, card)
+    cart_launches, cart_applies = cart_counts["a00_apply"]
     log(f"[smoke] cart phase {time.perf_counter() - t_cart:.1f} s")
     torch.cuda.empty_cache()
     t_procs = time.perf_counter()
@@ -2322,15 +2658,18 @@ def main():
             "name": name, "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/krylov_ctl.cu",
             "replaces": replaces, "launches": ctl_launches[name],
+            "cart_launches": cart_counts[name],
             **ctl[name]} for name, replaces in CTL_KERNELS] + [{
             "name": "stencil_accum", "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/stencil_apply.cu",
             "replaces": "exsaddle_tpu/abf.py:240",
-            "launches": mg_launches["stencil_accum"], **k4}, {
+            "launches": mg_launches["stencil_accum"],
+            "cart_launches": cart_counts["stencil_accum"], **k4}, {
             "name": "cheb_update", "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/cheb_update.cu",
             "replaces": "exsaddle_tpu/treeops.py:167",
-            "launches": mg_launches["cheb_update"], **k6}]}))
+            "launches": mg_launches["cheb_update"],
+            "cart_launches": cart_counts["cheb_update"], **k6}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

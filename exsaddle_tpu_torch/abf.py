@@ -942,9 +942,9 @@ def make_abf_solver(cfg, data, eager=False, window=None):
     are held against); the CPU always does.
 
     window: GCR's and FGMRES's window arithmetic (treeops.make_gcr); by
-    default True on CUDA, where the host loop then rounds as the device
-    loop (DeviceLoopSolver) does, bit for bit, and False on the CPU, whose
-    host loop keeps its pinned bits."""
+    default treeops.host_window's rule: True on CUDA, where the host loop
+    then rounds as the device loop (DeviceLoopSolver) does, bit for bit,
+    and False on the CPU, whose host loop keeps its pinned bits."""
     op, aux = data["op"], data["aux"]
     b = _plain_bodies(cfg, data)
     fineA, mg_pc, p_solve, mult = (b["fineA"], b["mg_pc"], b["p_solve"],
@@ -952,7 +952,7 @@ def make_abf_solver(cfg, data, eager=False, window=None):
     cuda = op.Bs.device.type == "cuda"
     capture = cuda and not eager
     if window is None:
-        window = cuda
+        window = treeops.host_window(op.Bs.device)
 
     def zeros(shape):
         return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)

@@ -371,7 +371,9 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1, devices=None):
     seconds {setup, solve}; the ABF route adds history, solver, res (the
     ABF solver's own result dict), mode ("direct", "ir" or "cart") and
     loop (who ran the Krylov loops: "device" -- one CUDA graph with
-    conditional nodes, the default on CUDA -- or "host"; abf.ABFSolver).
+    conditional nodes, the default on CUDA, and for a sharded solve whose
+    shards all sit on one CUDA device in one process -- or "host";
+    abf.ABFSolver, parallel/cart_abf.CartABFSolver).
 
     devices: the ABF route's devices, one per shard, repeats allowed
     (default_devices(-device) when None); with more than one the solve is

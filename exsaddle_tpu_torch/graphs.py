@@ -237,19 +237,37 @@ def _shim():
     return lib
 
 
+# counters besides the kernels' that a body or piece moves (track)
+_TRACKED = []
+
+
+def track(counter):
+    """Count `counter` (an object with an int `n`, bumped by the Python code
+    whose work it counts) as the kernels' launches are counted: a capture
+    records what it moved and takes that back out, and each replay or
+    counted execution adds it again (e.g. the cartesian solve's halo
+    exchanges, parallel/cart_abf.py). Register at import, before any
+    capture."""
+    _TRACKED.append(counter)
+
+
 def _counters():
-    """Every launch count a body or piece can move: K1's launches and
-    applies, K4's, K6's and each control kernel's."""
+    """Every count a body or piece can move: K1's launches and applies,
+    K4's, K6's, each control kernel's, then the tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
-            + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES))
+            + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES)
+            + tuple(c.n for c in _TRACKED))
 
 
 def _set_counters(vals):
     (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
      cheb.LAUNCHES.n) = vals[:4]
-    for k, v in zip(krylov_ctl.NAMES, vals[4:]):
+    nk = len(krylov_ctl.NAMES)
+    for k, v in zip(krylov_ctl.NAMES, vals[4:4 + nk]):
         krylov_ctl.LAUNCHES.n[k] = v
+    for c, v in zip(_TRACKED, vals[4 + nk:]):
+        c.n = v
 
 
 class ControlGraph:

@@ -32,18 +32,20 @@ one after another, then the local pressure grid. Setup is host numpy and
 returns stacked arrays laid out as the JAX package's ddata (leading device
 axes, z-major); shard_data places this process's shards on its devices."""
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from exsaddle_tpu_torch import treeops
+from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
                                     mp_apply, mult_u_tree, mult_up_tree,
                                     prolong_grid, prolong_parity,
                                     restrict_grid, restrict_parity,
                                     stencil_accum, stencil_apply,
                                     stencil_from_csr, _esteig_bounds)
+from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
                                         tree_aux)
@@ -575,12 +577,20 @@ def shard_data(ddata, smesh, nstack):
 # the sharded solver
 # --------------------------------------------------------------------------
 
+# halo exchanges (halo_u / halo_p calls, each every axis of the grid): a
+# Python count, tracked by graphs so that a graph replay or a device-loop
+# execution adds the exchanges its capture made
+HALO_EXCHANGES = Launches()
+graphs.track(HALO_EXCHANGES)
+
+
 class CartBlocks:
     """The per-shard pieces of a sharded ABF solve on placed data `dd`:
     one ParityMatFreeOperator per shard over its local box (local nu, so
     K1's shape checks hold, kernels/a00.py; one node table per device),
     the keep/mask aux, the halos and the ownership weights. saddle_mult is
-    the sharded matfree.mult_tree (one K1 apply per shard)."""
+    the sharded matfree.mult_tree (one K1 apply per shard); each halo_u /
+    halo_p adds one to HALO_EXCHANGES."""
 
     def __init__(self, dcfg, smesh, dd):
         nd = len(dcfg.mloc)
@@ -628,7 +638,6 @@ class CartBlocks:
         self.dots_u = treeops.make_dots(weight=self.w_u, psum=smesh.psum)
         self.dots_sad = treeops.make_dots(weight=self.w_sad,
                                           psum=smesh.psum)
-        self.halo_exchanges = 0
 
     def halo_u(self, y):
         """Per-axis halo-add of K1's raw output: a class holds an interface
@@ -640,14 +649,14 @@ class CartBlocks:
         for d in range(self.nd):
             halo_add_axes(self.smesh, [c for p, c in enumerate(classes)
                                        if not (p >> d) & 1], d)
-        self.halo_exchanges += 1
+        HALO_EXCHANGES.n += 1
         return y
 
     def halo_p(self, g):
         """Per-axis halo-add of a pressure-shaped grid (trailing dims ok)."""
         for d in range(self.nd):
             halo_add_axis(self.smesh, g, d)
-        self.halo_exchanges += 1
+        HALO_EXCHANGES.n += 1
         return g
 
     def saddle_mult(self, t):
@@ -680,10 +689,14 @@ class CartBlocks:
                         for i, f in zip(self.smesh.shards, full.parts))
 
 
-def make_cart_abf_solver(dcfg, smesh):
-    """solve(dd, F, x0) -> (x, its, rnorm, state, hist) over `smesh`, with
-    dd from shard_data and F / x0 ShardVecs of flat local parity-layout
-    saddle vectors. The structure of the JAX package's shard_map body."""
+def _cart_bodies(dcfg, smesh, dd, blk):
+    """The sharded ABF solve's bodies over placed data `dd` and the blocks
+    `blk` (the structure of the JAX package's shard_map body): mg_pc (one
+    V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev polynomial
+    on pressure grids) and up (the A01 apply of a p ShardVec, halos
+    included). Every Chebyshev smoother takes its level's inverse diagonal
+    as diag=, so its update is K6 per shard (per distinct device on the
+    replicated levels)."""
     cfg = dcfg.base
     # zero-guess pre-smooths skip the initial A x0 apply (bit-identical)
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
@@ -692,108 +705,128 @@ def make_cart_abf_solver(dcfg, smesh):
     mloc = dcfg.mloc
     cls_loc = dcfg.cls_shapes_loc
     lvl1_glob = cfg.level_grids[-2]
+    ops, aux = blk.ops, blk.aux
+    repl = dd["repl"]
+
+    # L-2 Galerkin level: sharded block stencil; one ghost plane per
+    # axis (ghost_extend_axis zero-pads where the axis has one shard --
+    # exactly the domain-boundary padding)
+    W1 = dd["W1"]
+
+    def lvl1A(xg):
+        xp = xg
+        for k in range(nd):
+            xp = ghost_extend_axis(smesh, xp, nd - 1 - k)
+        return smap(stencil_accum, W1, xp)
+
+    def coarse_solve(xg):
+        cinv = repl[xg.device]["coarse_inv"]
+        return (cinv @ xg.reshape(-1)).reshape(xg.shape)
+
+    def repl_vcycle(k, b):
+        """Replicated V-cycle below the sharded levels (PCREDUNDANT),
+        on one device's copy."""
+        if k == 0:
+            return coarse_solve(b)
+        rep = repl[b.device]
+        W = rep["stencils"][k - 1]
+        A = lambda xg: stencil_apply(W, xg)
+        emin, emax = dd["bounds"][k - 1]
+        invd = rep["inv_diag_repl"][k - 1]
+        x = treeops.cheb_smooth(A, None, emin, emax, pre_its, b,
+                                torch.zeros_like(b), x0_zero=True,
+                                diag=invd)
+        r = b - A(x)
+        xc = repl_vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
+        x = x + prolong_grid(xc, cfg.level_grids[k])
+        return treeops.cheb_smooth(A, None, emin, emax, cfg.cheb_its, b, x,
+                                   diag=invd)
+
+    def coarse_correction(r_full):
+        r_rep = restrict_grid(r_full, cfg.level_grids[nlev - 3])
+        xc_rep = (coarse_solve(r_rep) if nlev == 3
+                  else repl_vcycle(nlev - 3, r_rep))
+        return prolong_grid(xc_rep, cfg.level_grids[nlev - 2])
+
+    emin1, emax1 = dd["bounds"][nlev - 2 - 1]
+
+    def smooth_l1(b, x0v, pre=False):
+        return treeops.cheb_smooth(lvl1A, None, emin1, emax1,
+                                   pre_its if pre else cfg.cheb_its,
+                                   b, x0v, x0_zero=pre,
+                                   diag=dd["inv_diag_l1"])
+
+    def vcycle_l1(b):
+        x = smooth_l1(b, smap(torch.zeros_like, b), pre=True)
+        r = b - lvl1A(x)
+        xc = blk.l1_from_replicated(smesh.per_device(
+            coarse_correction, blk.l1_to_replicated(r, lvl1_glob)))
+        x = x + xc
+        return smooth_l1(b, x)
+
+    eminf, emaxf = dd["bounds"][-1]
+
+    def smooth_fine(b, x0v, pre=False):
+        return treeops.cheb_smooth(blk.fine_mult, None, eminf, emaxf,
+                                   pre_its if pre else cfg.cheb_its,
+                                   b, x0v, x0_zero=pre,
+                                   diag=dd["inv_diag_fine"])
+
+    def mg_pc(r):
+        x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
+        rr = r - blk.fine_mult(x)
+        r1 = blk.halo_p(smap(lambda v: restrict_parity(v, cls_loc, mloc),
+                             blk.w_u * rr))
+        x1 = vcycle_l1(r1)
+        x = smap(lambda v: prolong_parity(v, cls_loc, mloc), x1) + x
+        return smooth_fine(r, x)
+
+    # Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled
+    p_emin, p_emax = dd["p_bounds"]
+
+    def p_solve(bp):
+        return treeops.cheb_smooth(
+            lambda pg: mp_apply(ops, dd["pscale"], pg, halo_p=blk.halo_p),
+            None, p_emin, p_emax, cfg.p_cheb_its, bp,
+            smap(torch.zeros_like, bp), x0_zero=True, diag=dd["inv_diag_p"])
+
+    def up(yp):
+        return mult_up_tree(ops, aux, yp, halo_u=blk.halo_u)
+
+    return {"mg_pc": mg_pc, "p_solve": p_solve, "up": up}
+
+
+def _split(ops, t):
+    """(u, p) views of a ShardVec of saddle vectors: each shard's velocity
+    head and its pressure tail as a grid."""
+    return (smap(lambda o, v: v[: o.nu], ops, t),
+            smap(lambda o, v: v[o.nu:].view(o.p_shape), ops, t))
+
+
+def make_cart_abf_solver(dcfg, smesh):
+    """solve(dd, F, x0) -> (x, its, rnorm, state, hist) over `smesh`, with
+    dd from shard_data and F / x0 ShardVecs of flat local parity-layout
+    saddle vectors: the host loop (treeops.make_gcr / make_fgmres, one host
+    read per iteration) over _cart_bodies, with the device loop's window
+    arithmetic on every device (treeops.host_window), so it gives
+    CartDeviceLoopSolver's bits (in one process and in a group)."""
+    cfg = dcfg.base
+    window = treeops.host_window(smesh.devices[0], sharded=True)
 
     def solver(dd, F, x0, blocks=None):
         blk = blocks if blocks is not None else CartBlocks(dcfg, smesh, dd)
-        ops, aux = blk.ops, blk.aux
-        repl = dd["repl"]
-
-        # L-2 Galerkin level: sharded block stencil; one ghost plane per
-        # axis (ghost_extend_axis zero-pads where the axis has one shard --
-        # exactly the domain-boundary padding)
-        W1 = dd["W1"]
-
-        def lvl1A(xg):
-            xp = xg
-            for k in range(nd):
-                xp = ghost_extend_axis(smesh, xp, nd - 1 - k)
-            return smap(stencil_accum, W1, xp)
-
-        def coarse_solve(xg):
-            cinv = repl[xg.device]["coarse_inv"]
-            return (cinv @ xg.reshape(-1)).reshape(xg.shape)
-
-        def repl_vcycle(k, b):
-            """Replicated V-cycle below the sharded levels (PCREDUNDANT),
-            on one device's copy."""
-            if k == 0:
-                return coarse_solve(b)
-            rep = repl[b.device]
-            W = rep["stencils"][k - 1]
-            A = lambda xg: stencil_apply(W, xg)
-            emin, emax = dd["bounds"][k - 1]
-            invd = rep["inv_diag_repl"][k - 1]
-            pc = lambda t: invd * t
-            x = treeops.cheb_smooth(A, pc, emin, emax, pre_its, b,
-                                    torch.zeros_like(b), x0_zero=True)
-            r = b - A(x)
-            xc = repl_vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
-            x = x + prolong_grid(xc, cfg.level_grids[k])
-            return treeops.cheb_smooth(A, pc, emin, emax, cfg.cheb_its,
-                                       b, x)
-
-        def coarse_correction(r_full):
-            r_rep = restrict_grid(r_full, cfg.level_grids[nlev - 3])
-            xc_rep = (coarse_solve(r_rep) if nlev == 3
-                      else repl_vcycle(nlev - 3, r_rep))
-            return prolong_grid(xc_rep, cfg.level_grids[nlev - 2])
-
-        emin1, emax1 = dd["bounds"][nlev - 2 - 1]
-        invd1 = dd["inv_diag_l1"]
-        pc1 = lambda t: invd1 * t
-
-        def smooth_l1(b, x0v, pre=False):
-            return treeops.cheb_smooth(lvl1A, pc1, emin1, emax1,
-                                       pre_its if pre else cfg.cheb_its,
-                                       b, x0v, x0_zero=pre)
-
-        def vcycle_l1(b):
-            x = smooth_l1(b, smap(torch.zeros_like, b), pre=True)
-            r = b - lvl1A(x)
-            xc = blk.l1_from_replicated(smesh.per_device(
-                coarse_correction, blk.l1_to_replicated(r, lvl1_glob)))
-            x = x + xc
-            return smooth_l1(b, x)
-
-        eminf, emaxf = dd["bounds"][-1]
-        invdf = dd["inv_diag_fine"]
-        pcf = lambda t: invdf * t
-
-        def smooth_fine(b, x0v, pre=False):
-            return treeops.cheb_smooth(blk.fine_mult, pcf, eminf, emaxf,
-                                       pre_its if pre else cfg.cheb_its,
-                                       b, x0v, x0_zero=pre)
-
-        def mg_pc(r):
-            x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
-            rr = r - blk.fine_mult(x)
-            r1 = blk.halo_p(smap(lambda v: restrict_parity(v, cls_loc, mloc),
-                                 blk.w_u * rr))
-            x1 = vcycle_l1(r1)
-            x = smap(lambda v: prolong_parity(v, cls_loc, mloc), x1) + x
-            return smooth_fine(r, x)
-
-        gcr = treeops.make_gcr(blk.fine_mult, mg_pc, restart=cfg.gcr_restart,
-                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it,
-                               dots=blk.dots_u)
-
-        # Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled
-        p_emin, p_emax = dd["p_bounds"]
-        inv_dp = dd["inv_diag_p"]
-
-        def p_solve(bp):
-            return treeops.cheb_smooth(
-                lambda pg: mp_apply(ops, dd["pscale"], pg, halo_p=blk.halo_p),
-                lambda pg: inv_dp * pg, p_emin, p_emax, cfg.p_cheb_its, bp,
-                smap(torch.zeros_like, bp), x0_zero=True)
+        ops = blk.ops
+        b = _cart_bodies(dcfg, smesh, dd, blk)
+        gcr = treeops.make_gcr(blk.fine_mult, b["mg_pc"],
+                               restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
+                               max_it=cfg.gcr_max_it, dots=blk.dots_u,
+                               window=window)
 
         # fieldsplit Schur UPPER (exSaddle.c:313-318)
         def pc_apply(t):
-            bu = smap(lambda o, v: v[: o.nu], ops, t)
-            bp = smap(lambda o, v: v[o.nu:].view(o.p_shape), ops, t)
-            yp = p_solve(bp)
-            ru = bu - mult_up_tree(ops, aux, yp, halo_u=blk.halo_u)
-            yu, _, _ = gcr(ru)
+            bu, bp = _split(ops, t)
+            yp = b["p_solve"](bp)
+            yu, _, _ = gcr(bu - b["up"](yp))
             return smap(lambda u, p: torch.cat([u, p.reshape(-1)]), yu, yp)
 
         fgmres = treeops.make_fgmres(blk.saddle_mult, pc_apply,
@@ -801,10 +834,157 @@ def make_cart_abf_solver(dcfg, smesh):
                                      atol=cfg.atol, dtol=cfg.dtol,
                                      max_it=cfg.max_it,
                                      hist_len=cfg.hist_len,
-                                     dots=blk.dots_sad)
+                                     dots=blk.dots_sad, window=window)
         return fgmres(F, x0)
 
     return solver
+
+
+class CartDeviceLoopSolver:
+    """The sharded ABF solve with its loops on the device (CartABFSolver
+    loop="device" / "plain"): the counterpart of the JAX package's
+    jit(shard_map(...)) whose GCR and FGMRES are lax.while_loops
+    (exsaddle_tpu/parallel/cart_abf.py, exsaddle_tpu/treeops.py), and the
+    sharded twin of abf.DeviceLoopSolver.
+
+    Every shard of this process on one device (smesh: world 1, one
+    distinct device): treeops.DeviceFGMRES over blk.saddle_mult, its
+    fieldsplit PC a Piece (the p-block and the GCR start), the
+    treeops.DeviceGCR loop over blk.fine_mult and the V-cycle, and a Piece
+    that assembles z; the vectors and bases are ShardVecs of static
+    per-shard buffers, the dots ownership-weighted and summed by the mesh's
+    psum, the control state single. The bodies are the host loop's
+    (_cart_bodies).
+
+    graph=True (CUDA, smesh.capturable): the items become one
+    graphs.ControlGraph, captured here; a solve is one staged input copy,
+    one graph launch under torch.cuda.set_sync_debug_mode("error") and one
+    copy of the packed result (every shard's x, its, rnorm, state, hist,
+    Control.counts). graph=False: graphs.run_plain drives the same items
+    from Python, one host read per loop test."""
+
+    def __init__(self, dcfg, smesh, dd, blk, graph):
+        if smesh.world != 1 or len(smesh.distinct) != 1:
+            raise ValueError("the sharded device loop needs every shard in "
+                             "this process on one device")
+        if graph and not smesh.capturable:
+            raise ValueError("graph=True needs a capturable ShardMesh "
+                             "(every shard on one CUDA device)")
+        cfg = dcfg.base
+        self.device = dev = smesh.distinct[0]
+        ops = blk.ops
+        nu, np_ = ops.parts[0].nu, ops.parts[0].np_
+        self.n = n = nu + np_
+        self.nloc = nloc = len(smesh.devices)
+        self.ctl = ctl = graphs.Control(dev)
+        b = _cart_bodies(dcfg, smesh, dd, blk)
+        devs = list(smesh.devices)
+        self.gcr = gcr = treeops.DeviceGCR(
+            ctl, blk.fine_mult, b["mg_pc"], nu, DTYPE, devs,
+            restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
+            max_it=cfg.gcr_max_it, dots=blk.dots_u)
+        yp = ShardVec(torch.zeros(o.p_shape, dtype=DTYPE, device=dev)
+                      for o in ops.parts)
+
+        def pc_items(vin, zout):
+            # fieldsplit Schur UPPER, the u-block a loop
+            def p_block():
+                vu, vp = _split(ops, vin)
+                yp.copy_(b["p_solve"](vp))
+                gcr.start(vu - b["up"](yp))
+
+            def assemble():
+                zu, zp = _split(ops, zout)
+                zu.copy_(gcr.x)
+                zp.copy_(yp)
+            return [graphs.Piece(p_block, "p-block + gcr start"),
+                    gcr.loop(), graphs.Piece(assemble, "fieldsplit z")]
+
+        self.fg = fg = treeops.DeviceFGMRES(
+            ctl, blk.saddle_mult, pc_items, n, DTYPE, devs,
+            restart=cfg.restart, rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
+            max_it=cfg.max_it, hist_len=cfg.hist_len, dots=blk.dots_sad)
+        # staged input: every shard's F, then every shard's x0
+        self.inp = torch.zeros(2 * nloc * n, dtype=DTYPE, device=dev)
+        parts = self.inp.view(2, nloc, n)
+        self._F, self._x0 = ShardVec(parts[0]), ShardVec(parts[1])
+        self.nc = nc = ctl.counts.numel()
+        self.out = torch.zeros(nloc * n + 3 + cfg.hist_len + nc,
+                               dtype=torch.float64, device=dev)
+        self.items = [graphs.Piece(self._init, "fgmres init"), fg.loop(),
+                      graphs.Piece(self._pack, "fgmres result")]
+        self.graph = None
+        self.capture_seconds = 0.0
+        self._pinned = None
+        self.host_launches = 0
+        if graph:
+            self.graph = graphs.ControlGraph(self.items, ctl)
+            self.capture_seconds = self.graph.capture_seconds
+
+    def _init(self):
+        self.ctl.counts.zero_()
+        self.fg.F.copy_(self._F)
+        self.fg.init(self._x0)
+
+    def _pack(self):
+        m, fg, o = self.nloc * self.n, self.fg, self.out
+        ShardVec(o[:m].view(self.nloc, self.n)).copy_(fg.x)
+        o[m:m + 1].copy_(fg.ints[2])
+        o[m + 1:m + 2].copy_(fg.sc[1])
+        o[m + 2:m + 3].copy_(fg.ints[0])
+        o[m + 3:m + 3 + fg.hist_len].copy_(fg.hist)
+        o[m + 3 + fg.hist_len:].copy_(self.ctl.counts)
+
+    def _run(self, host_inp):
+        """Stage host_inp, run the items, return the result buffer on the
+        host (numpy float64) and add what ran to the counts."""
+        if self.device.type == "cpu":
+            self.inp.copy_(torch.from_numpy(host_inp))
+            graphs.run_plain(self.items, self.ctl)
+            return self.out.numpy().copy()
+        if self._pinned is None:
+            self._pinned = (torch.empty(self.inp.shape, dtype=DTYPE,
+                                        pin_memory=True),
+                            torch.empty(self.out.shape, dtype=DTYPE,
+                                        pin_memory=True))
+        pin_in, pin_out = self._pinned
+        pin_in.copy_(torch.from_numpy(host_inp))
+        done = torch.cuda.Event()
+        if self.graph is None:
+            self.inp.copy_(pin_in, non_blocking=True)
+            graphs.run_plain(self.items, self.ctl)
+            pin_out.copy_(self.out, non_blocking=True)
+            done.record()
+            done.synchronize()
+            return pin_out.numpy().copy()
+        before = graphs._counters()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            self.inp.copy_(pin_in, non_blocking=True)
+            self.graph.launch()
+            pin_out.copy_(self.out, non_blocking=True)
+            done.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        done.synchronize()
+        # counts the host moved during the solve (a wrapper called outside
+        # the graph): 0 when the whole solve is the one launch
+        self.host_launches = sum(b - a for a, b in zip(before,
+                                                       graphs._counters()))
+        res = pin_out.numpy().copy()
+        self.graph.account(res[-self.nc:])
+        return res
+
+    def solve(self, F_parts, x0_parts):
+        """F_parts, x0_parts: per-shard numpy saddle vectors (this
+        process's shards). Returns (x parts, its, rnorm, state, hist,
+        counts)."""
+        m, hl = self.nloc * self.n, self.fg.hist_len
+        out = self._run(np.concatenate(list(F_parts) + list(x0_parts)))
+        return (list(out[:m].reshape(self.nloc, self.n)), int(out[m]),
+                np.float64(out[m + 1]), int(out[m + 2]),
+                out[m + 3:m + 3 + hl], out[m + 3 + hl:].astype(np.int64))
 
 
 def _result(x, its, rnorm, state, hist):
@@ -818,36 +998,83 @@ class CartABFSolver:
     setup, placement on `devices` (one per shard of this process, repeats
     allowed), the sharded solve. In a torch.distributed group of W
     processes each holds 1/W of the shards (CartPartition.device_mesh) and
-    every rank returns the full solution."""
+    every rank returns the full solution.
+
+    loop picks who runs the Krylov loops (as abf.ABFSolver's):
+    - "device" (the default when the ShardMesh is capturable: one process,
+      every shard on one CUDA device): CartDeviceLoopSolver, the whole
+      solve one CUDA graph with conditional nodes, captured at
+      construction; a solve is one graph launch and no host read. It
+      raises on the CPU and on a mesh that cannot be captured.
+    - "plain": CartDeviceLoopSolver's steps driven from Python
+      (graphs.run_plain), one host read of a loop predicate per test: the
+      reference the graph is held against, and its CPU form (one process,
+      one device).
+    - "host" (the default otherwise: on the CPU, and across processes,
+      whose halos and psums are staged through host memory over the group
+      and cannot be captured): make_cart_abf_solver, one host read per
+      iteration, with the device loop's window arithmetic, so it gives
+      "device"'s bits, in one process and in a group.
+    The graph reads the placed data by address: the solver holds it for
+    its lifetime and never rebinds it."""
 
     def __init__(self, part, ctx, bc_idx, bc_vals, devices, lame=False,
-                 nlevels=3, multihost=None, **cfg_kw):
+                 nlevels=3, multihost=None, loop=None, **cfg_kw):
         dcfg, ddata, setup = build_cart_abf(
             part, ctx, bc_idx, bc_vals, lame=lame, nlevels=nlevels,
             cfg_kw=cfg_kw, multihost=multihost)
-        self._init(part, dcfg, ddata, setup, devices)
+        self._init(part, dcfg, ddata, setup, devices, loop)
 
     @classmethod
-    def from_parts(cls, part, dcfg, ddata, setup, devices):
+    def from_parts(cls, part, dcfg, ddata, setup, devices, loop=None):
         """Solver over (dcfg, ddata, setup) built elsewhere -- e.g. the JAX
         package's CartABFSolver data brought to numpy (its dcfg through
         cart_config_from_dict), so a comparison isolates the solve."""
         self = cls.__new__(cls)
-        self._init(part, dcfg, ddata, setup, devices)
+        self._init(part, dcfg, ddata, setup, devices, loop)
         return self
 
-    def _init(self, part, dcfg, ddata, setup, devices):
+    def _init(self, part, dcfg, ddata, setup, devices, loop):
         self.part, self.mesh = part, part.mesh
         self.dcfg, self.setup = dcfg, setup
         self.smesh = part.device_mesh(devices)
         self.ddata = shard_data(ddata, self.smesh, self.mesh.ndim)
         self.blocks = CartBlocks(dcfg, self.smesh, self.ddata)
-        self._solve = make_cart_abf_solver(dcfg, self.smesh)
+        self._set_loop(loop)
+
+    def _set_loop(self, loop):
+        capturable = self.smesh.capturable
+        if loop is None:
+            loop = "device" if capturable else "host"
+        if loop not in ("device", "plain", "host"):
+            raise ValueError(f"loop {loop!r}: 'device', 'plain' or 'host'")
+        if loop == "device" and not capturable:
+            raise ValueError(
+                "loop='device' needs every shard in this process on one "
+                f"CUDA device (devices {list(self.smesh.devices)}, "
+                f"{self.smesh.world} processes)")
+        self.loop = loop
+        self.capture_seconds = 0.0
+        self._solve = self._dev = None
+        if loop == "host":
+            self._solve = make_cart_abf_solver(self.dcfg, self.smesh)
+        else:
+            self._dev = CartDeviceLoopSolver(self.dcfg, self.smesh,
+                                             self.ddata, self.blocks,
+                                             loop == "device")
+            self.capture_seconds = self._dev.capture_seconds
+
+    def with_loop(self, loop):
+        """A solver over this one's placed data and blocks (the same setup,
+        nothing placed again) whose Krylov loops run as `loop`."""
+        other = copy.copy(self)
+        other._set_loop(loop)
+        return other
 
     # --- vector conversions ------------------------------------------------
-    def shard_saddle(self, x_flat):
-        """Natural (ndof,) -> ShardVec of flat local parity-layout vectors
-        (this process's shards)."""
+    def _saddle_parts(self, x_flat):
+        """Natural (ndof,) -> every shard's flat local parity-layout
+        vector (numpy, stack order)."""
         mesh, part = self.mesh, self.part
         nd = mesh.ndim
         x = np.asarray(x_flat)
@@ -859,18 +1086,27 @@ class CartABFSolver:
             parts.append(np.concatenate(
                 [s.reshape(-1) for s in split_grid_parity(loc, nd)]
                 + [gp[part._grid_slices(box, 1, ())].reshape(-1)]))
-        return self.smesh.shard(parts)
+        return parts
+
+    def shard_saddle(self, x_flat):
+        """Natural (ndof,) -> ShardVec of flat local parity-layout vectors
+        (this process's shards)."""
+        return self.smesh.shard(self._saddle_parts(x_flat))
 
     def unshard_saddle(self, t):
         """ShardVec -> natural (ndof,) host vector, every process's shards
         gathered (so every rank returns the whole vector)."""
+        return self._unshard_parts([v.numpy() for v in
+                                    self.smesh.all_parts(t, "cpu")])
+
+    def _unshard_parts(self, parts):
+        """Every shard's flat local vector (numpy, stack order) -> natural
+        (ndof,) host vector."""
         mesh, part = self.mesh, self.part
         nd = mesh.ndim
         g = np.zeros(tuple(reversed(mesh.nn_u)) + (nd,))
         gp = np.zeros(tuple(reversed(mesh.nn_p)))
-        for box, v in zip(stack_boxes(part.dev_shape),
-                          self.smesh.all_parts(t, "cpu")):
-            v = v.numpy()
+        for box, v in zip(stack_boxes(part.dev_shape), parts):
             loc = np.zeros(tuple(reversed(part.nn_u_loc)) + (nd,), v.dtype)
             off = 0
             for p, s in enumerate(self.dcfg.cls_shapes_loc):
@@ -886,10 +1122,21 @@ class CartABFSolver:
 
     def solve(self, F_flat, x0_flat=None):
         """Solve A x = F (natural-ordering host vectors). Returns dict with
-        x, its, rnorm, state, reason, history."""
-        Ft = self.shard_saddle(F_flat)
-        x0 = (self.shard_saddle(x0_flat) if x0_flat is not None
-              else smap(torch.zeros_like, Ft))
-        x, its, rnorm, state, hist = self._solve(self.ddata, Ft, x0,
-                                                 blocks=self.blocks)
-        return _result(self.unshard_saddle(x), its, rnorm, state, hist)
+        x, its, rnorm, state, reason, history, loop and halo_exchanges
+        (the solve's halo exchanges)."""
+        h0 = HALO_EXCHANGES.n
+        if self._dev is not None:
+            Fp = self._saddle_parts(F_flat)
+            x0p = (self._saddle_parts(x0_flat) if x0_flat is not None
+                   else [np.zeros_like(f) for f in Fp])
+            x, its, rnorm, state, hist, _ = self._dev.solve(Fp, x0p)
+            res = _result(self._unshard_parts(x), its, rnorm, state, hist)
+        else:
+            Ft = self.shard_saddle(F_flat)
+            x0 = (self.shard_saddle(x0_flat) if x0_flat is not None
+                  else smap(torch.zeros_like, Ft))
+            x, its, rnorm, state, hist = self._solve(self.ddata, Ft, x0,
+                                                     blocks=self.blocks)
+            res = _result(self.unshard_saddle(x), its, rnorm, state, hist)
+        res.update(loop=self.loop, halo_exchanges=HALO_EXCHANGES.n - h0)
+        return res

@@ -25,9 +25,10 @@ JAX runtime):
     in global shard order on the first local device, then hands the total
     back to every local device.
 
-Nothing here reads a device value on the host within one process; across
-processes every exchanged plane and partial is staged through host memory
-(the group is gloo)."""
+Nothing here reads a device value on the host within one process (with
+every shard on one CUDA device the collectives can be captured in a CUDA
+graph: ShardMesh.capturable); across processes every exchanged plane and
+partial is staged through host memory (the group is gloo)."""
 
 import numpy as np
 import torch
@@ -83,6 +84,17 @@ class ShardMesh:
     @property
     def nd(self):
         return len(self.dev_shape)
+
+    @property
+    def capturable(self):
+        """True when one process holds every shard and all of them share
+        one CUDA device: every collective here (psum, all_parts, replicate,
+        exchange, halo_add_axes, ghost_extend_axis) is then device ops on
+        that device with no host read, so a CUDA graph can capture them.
+        Across processes the planes and partials are staged through host
+        memory over the group, which no graph holds."""
+        return (self.world == 1 and len(self.distinct) == 1
+                and self.distinct[0].type == "cuda")
 
     def is_local(self, i):
         return self.shards[0] <= i <= self.shards[-1]

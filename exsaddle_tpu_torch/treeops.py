@@ -23,9 +23,9 @@ Two forms of the loops:
   on the host in the working dtype (numpy float32/float64 scalars). The
   preconditioners they call may be CUDA graph replays (graphs.Captured);
   cheb_smooth stays host-read-free for that. The sharded solvers of
-  parallel/ and the ABF solve's loop="host" use them; window=True (the ABF
-  host loop on CUDA) gives them the device loop's arithmetic, so the two
-  forms agree bit for bit.
+  parallel/ and the ABF solve's loop="host" use them; window=True gives
+  them the device loop's arithmetic, so the two forms agree bit for bit.
+  host_window states where the solvers take it.
 - DeviceGCR / DeviceFGMRES (device loop control), the JAX formulation:
   a fixed-shape state of device tensors, masked Gram-Schmidt over the
   whole window (buf_dots/buf_comb, exsaddle_tpu/treeops.py:106-133), basis
@@ -33,7 +33,8 @@ Two forms of the loops:
   control kernel (kernels/krylov_ctl.py) which updates the scalars and
   writes the loop predicates. Their loops are graphs.Loop items: one CUDA
   graph with conditional nodes on the card (graphs.ControlGraph), or
-  graphs.run_plain, which reads only the predicates."""
+  graphs.run_plain, which reads only the predicates. In a sharded layout
+  the vectors and windows are ShardVecs and the control state is single."""
 
 import numpy as np
 import scipy.linalg
@@ -121,6 +122,27 @@ class ShardVec:
     def __setitem__(self, idx, value):
         for a, v in _zip_args((self, value)):
             a[idx] = v
+
+    # in place, shard by shard (the static buffers of the device loops)
+    def _each(self, name, *args):
+        for a in _zip_args((self,) + args):
+            getattr(a[0], name)(*a[1:])
+        return self
+
+    def zero_(self):
+        return self._each("zero_")
+
+    def copy_(self, src):
+        return self._each("copy_", src)
+
+    def add_(self, o):
+        return self._each("add_", o)
+
+    def index_copy_(self, dim, index, src):
+        return self._each("index_copy_", dim, index, src)
+
+    def index_select(self, dim, index):
+        return self.map(lambda a: a.index_select(dim, index))
 
     @property
     def dtype(self):
@@ -217,10 +239,10 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
     a CUDA graph capture bakes them in and the body reads nothing back.
 
     diag: the Jacobi preconditioner's inverse diagonal, a tensor of b's
-    shape, in place of pc_apply (pass None): each step's vector update
-    is then one kernels.cheb call (K6: one kernel pass on CUDA, bitwise
-    the ops of the callable path; those ops on the CPU). pc_apply stays
-    for the sharded layouts' ShardVecs.
+    shape (a ShardVec of the parts' shapes in a sharded layout), in place
+    of pc_apply (pass None): each step's vector update is then one
+    kernels.cheb call per shard (K6: one kernel pass on CUDA, bitwise the
+    ops of the callable path; those ops on the CPU).
 
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with
@@ -242,11 +264,13 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
             return omega * (t - p_km1) + p_km1
     else:
         def first(ax0):
-            return cheb.cheb_first(b, ax0, diag, x0, float(scale))
+            return smap(lambda b_, a, d, x: cheb.cheb_first(
+                b_, a, d, x, float(scale)), b, ax0, diag, x0)
 
         def step(ap, p_k, p_km1, omega):
-            return cheb.cheb_step(b, ap, diag, p_k, p_km1, float(scale),
-                                  omega)
+            return smap(lambda b_, a, d, p, q: cheb.cheb_step(
+                b_, a, d, p, q, float(scale), omega), b, ap, diag, p_k,
+                p_km1)
 
     p_k = first(None if x0_zero else mult(x0))
     p_km1 = x0
@@ -262,14 +286,26 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
 
 # --- GCR ---------------------------------------------------------------------
 
+def host_window(device, sharded=False):
+    """Whether a solver's host loop (make_gcr / make_fgmres) takes the
+    device loop's window arithmetic (window=True), so that it gives
+    DeviceGCR's / DeviceFGMRES's bits: on CUDA always, and in a sharded
+    layout on every device. Only the single-device CPU host loop keeps the
+    sliced form, whose bits test_cpu_ir_solve_bitwise_unchanged pins. The
+    sharded host loop has no such pin: its CPU tests and its gloo groups
+    are held bit for bit against the plain device-loop driver (one host
+    read per loop test), which exists on every device."""
+    return sharded or torch.device(device).type == "cuda"
+
+
 def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
              max_it=200, dots=None, window=False):
     """KSPGCR: right-preconditioned, unpreconditioned norm, truncated
     restart (gcr.c semantics as in exsaddle_tpu/treeops.make_gcr).
     dots: optional (dot, bdots) pair from make_dots (sharded layouts).
-    window=True (plain tensors): project against the whole window with
-    the unused rows masked, as DeviceGCR does, so the two loops round
-    alike; False projects against the live rows only.
+    window=True: project against the whole window with the unused rows
+    masked, as DeviceGCR does, so the two loops round alike (plain
+    tensors and ShardVecs); False projects against the live rows only.
     Returns solve(b) -> (x, its, rnorm). Zero initial guess."""
     dot, bdots = dots if dots is not None else make_dots()
 
@@ -280,7 +316,8 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
         rnorm0 = npdt(first(_norm(dot, r)).item())
         V = _basis(b, restart)
         S = _basis(b, restart)
-        ar = torch.arange(restart, device=b.device) if window else None
+        ar = torch.arange(restart, device=first(b).device) if window \
+            else None
         target = max(npdt(rtol) * rnorm0, npdt(atol))
         state = CONVERGED_ATOL if rnorm0 <= npdt(atol) else RUNNING
         nv = 0
@@ -332,11 +369,11 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
     recurrence, unpreconditioned norm, KSPConvergedDefault, restarts with
     the solution built at each cycle end (BuildGmresSoln).
     dots: optional (dot, bdots) pair from make_dots (sharded layouts).
-    window=True (plain tensors): DeviceFGMRES's arithmetic -- dots against
-    the whole basis with the unused rows masked, the triangle solved in
-    krylov_ctl's order and the correction summed over the whole Z -- so
-    the host loop rounds as the device loop does; False works on the live
-    rows and solves the triangle with scipy.
+    window=True: DeviceFGMRES's arithmetic (plain tensors and ShardVecs) --
+    dots against the whole basis with the unused rows masked, the
+    triangle solved in krylov_ctl's order and the correction summed over
+    the whole Z -- so the host loop rounds as the device loop does; False
+    works on the live rows and solves the triangle with scipy.
 
     Returns solve(F, x0) -> (x, its, rnorm, state, hist); hist[i] is the
     residual at iteration i (the -ksp_monitor_short values), length
@@ -351,7 +388,8 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
         x = smap(torch.clone, x0)
         V = _basis(F, k + 1)
         Z = _basis(F, k)
-        ar = torch.arange(k + 1, device=F.device) if window else None
+        ar = torch.arange(k + 1, device=first(F).device) if window \
+            else None
         H = np.zeros((k + 1, k), npdt)
         g = np.zeros(k + 1, npdt)
         cs = np.zeros(k, npdt)
@@ -451,7 +489,7 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
                     y = krylov_ctl._back_substitute(torch.from_numpy(H),
                                                     torch.from_numpy(g),
                                                     it, k)
-                    x = x + y.to(F.device) @ Z
+                    x = x + smap(lambda f: y.to(f.device), F) @ Z
                 else:
                     y = scipy.linalg.solve_triangular(H[:it, :it], g[:it],
                                                       lower=False)
@@ -470,6 +508,14 @@ def _zeros(device, dtype, *shape):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def _vec(device, dtype, *shape):
+    """A zero vector buffer: a tensor on `device`, or, where `device` is a
+    sequence of devices (one per shard), a ShardVec of one per shard."""
+    if isinstance(device, (list, tuple)):
+        return ShardVec(_zeros(d, dtype, *shape) for d in device)
+    return _zeros(device, dtype, *shape)
+
+
 class DeviceGCR:
     """GCR (make_gcr's semantics; the JAX make_gcr's while loop) over a
     fixed-shape device state: x, r, the (restart, n) windows V and S, and
@@ -477,48 +523,57 @@ class DeviceGCR:
     (x = 0, r = b, ||b||, gcr_ctl mode 0); loop() the WHILE over step().
     The step projects against the whole window with masked dots, writes
     the new basis row at a device index and ends in gcr_ctl: nothing in it
-    is read on the host."""
+    is read on the host.
+
+    device: the vectors' device, or one device per shard (the vectors are
+    then ShardVecs, each shard's window its own); the control state lives
+    on ctl's device, which every shard must share. dots: the (dot, bdots)
+    pair of make_dots; in a sharded layout its psum hands the control
+    kernel the replicated sum (first), and the window mask multiplies the
+    summed dots, as in the JAX body."""
 
     def __init__(self, ctl, mult, pc_apply, n, dtype, device, restart=30,
-                 rtol=1e-2, atol=1e-50, max_it=200):
+                 rtol=1e-2, atol=1e-50, max_it=200, dots=None):
         self.ctl, self.mult, self.pc_apply = ctl, mult, pc_apply
+        self.dot, self.bdots = dots if dots is not None else make_dots()
         self.restart, self.max_it = restart, max_it
-        self.x = _zeros(device, dtype, n)
-        self.r = _zeros(device, dtype, n)
-        self.V = _zeros(device, dtype, restart, n)
-        self.S = _zeros(device, dtype, restart, n)
-        self.sc = _zeros(device, dtype, 3)
-        self.par = torch.tensor([rtol, atol], dtype=dtype, device=device)
-        self.ints = torch.zeros(3, dtype=torch.int32, device=device)
-        self.ix = torch.zeros(1, dtype=torch.int64, device=device)
-        self.ar = torch.arange(restart, device=device)
+        cdev = ctl.pred.device
+        self.x = _vec(device, dtype, n)
+        self.r = _vec(device, dtype, n)
+        self.V = _vec(device, dtype, restart, n)
+        self.S = _vec(device, dtype, restart, n)
+        self.sc = _zeros(cdev, dtype, 3)
+        self.par = torch.tensor([rtol, atol], dtype=dtype, device=cdev)
+        self.ints = torch.zeros(3, dtype=torch.int32, device=cdev)
+        self.ix = torch.zeros(1, dtype=torch.int64, device=cdev)
+        self.ar = torch.arange(restart, device=cdev)
         self.p = ctl.pred_slots(1)
         self.c0 = ctl.count_slots(2)
 
     def start(self, b):
         self.x.zero_()
         self.r.copy_(b)
-        rn0 = _norm(tdot, self.r)
+        rn0 = first(_norm(self.dot, self.r))
         krylov_ctl.gcr_ctl(0, self, rn0, rn0, self.ctl)
 
     def step(self):
         s = self.pc_apply(self.r)
         v = self.mult(s)
         mask = (self.ar < self.ints[1]).to(v.dtype)
-        beta = (self.V @ v) * mask
+        beta = self.bdots(self.V, v) * mask
         v = v - beta @ self.V
         s = s - beta @ self.S
-        alpha = _norm(tdot, v)
-        inv = 1.0 / _safe(alpha)
+        alpha = _norm(self.dot, v)
+        inv = 1.0 / smap(_safe, alpha)
         v = inv * v
         s = inv * s
         self.V.index_copy_(0, self.ix, v[None])
         self.S.index_copy_(0, self.ix, s[None])
-        gamma = tdot(self.r, v)
-        self.x += gamma * s
-        self.r += -gamma * v
-        rn = _norm(tdot, self.r)
-        krylov_ctl.gcr_ctl(1, self, alpha, rn, self.ctl)
+        gamma = self.dot(self.r, v)
+        self.x.add_(gamma * s)
+        self.r.add_(-gamma * v)
+        rn = _norm(self.dot, self.r)
+        krylov_ctl.gcr_ctl(1, self, first(alpha), first(rn), self.ctl)
 
     def loop(self):
         return Loop("while", self.p, [Piece(self.step, "gcr step")],
@@ -529,7 +584,8 @@ class DeviceGCR:
         loop predicate)."""
         run_plain([Piece(lambda: self.start(b), "gcr start"), self.loop()],
                   self.ctl)
-        return self.x.clone(), self.ints[2].clone(), self.sc[2].clone()
+        return (smap(torch.clone, self.x), self.ints[2].clone(),
+                self.sc[2].clone())
 
 
 class DeviceFGMRES:
@@ -537,6 +593,8 @@ class DeviceFGMRES:
     over a fixed-shape device state: x, F, the bases V (k+1, n) and Z
     (k, n), and the Hessenberg/Givens/history state of
     kernels/krylov_ctl (H, g, cs, sn, y, hist, sc, par, ints, ix).
+    device and dots as in DeviceGCR: with one device per shard the vectors
+    and bases are ShardVecs and the control state stays single.
 
     pc_items(vin, zout) gives the preconditioner as items (Pieces and
     Loops) that compute zout from vin, two static vectors: one Piece for a
@@ -550,23 +608,26 @@ class DeviceFGMRES:
 
     def __init__(self, ctl, mult, pc_items, n, dtype, device, restart=30,
                  rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-                 hist_len=None):
+                 hist_len=None, dots=None):
         k = restart
         self.ctl, self.mult = ctl, mult
+        self.dot, self.bdots = dots if dots is not None else make_dots()
         self.k, self.max_it = k, max_it
         self.hist_len = max_it + 1 if hist_len is None else hist_len
-        z = lambda *shape: _zeros(device, dtype, *shape)   # noqa: E731
-        self.x, self.F, self.vin, self.zout = z(n), z(n), z(n), z(n)
-        self.V, self.Z = z(k + 1, n), z(k, n)
+        v = lambda *shape: _vec(device, dtype, *shape)      # noqa: E731
+        self.x, self.F, self.vin, self.zout = v(n), v(n), v(n), v(n)
+        self.V, self.Z = v(k + 1, n), v(k, n)
+        cdev = ctl.pred.device
+        z = lambda *shape: _zeros(cdev, dtype, *shape)      # noqa: E731
         self.H, self.g, self.cs, self.sn, self.y = (z(k + 1, k), z(k + 1),
                                                     z(k), z(k), z(k))
         self.hist = z(self.hist_len)
         self.sc = z(3)
         self.par = torch.tensor([rtol, atol, dtol], dtype=dtype,
-                                device=device)
-        self.ints = torch.zeros(3, dtype=torch.int32, device=device)
-        self.ix = torch.zeros(2, dtype=torch.int64, device=device)
-        self.ar = torch.arange(k + 1, device=device)
+                                device=cdev)
+        self.ints = torch.zeros(3, dtype=torch.int32, device=cdev)
+        self.ix = torch.zeros(2, dtype=torch.int64, device=cdev)
+        self.ar = torch.arange(k + 1, device=cdev)
         self.p0 = ctl.pred_slots(4)
         self.c0 = ctl.count_slots(4)
         self.pc_items = pc_items(self.vin, self.zout)
@@ -583,7 +644,7 @@ class DeviceFGMRES:
     def cycle_start(self):
         """True residual of the current iterate; V[0] = r / beta."""
         r = self.F - self.mult(self.x)
-        beta = _norm(tdot, r)
+        beta = first(_norm(self.dot, r))
         krylov_ctl.fgmres_start_ctl(1, self, beta, self.ctl)
         self.V.zero_()
         self.V[0].copy_(self.sc[2] * r)
@@ -596,14 +657,15 @@ class DeviceFGMRES:
         w = self.mult(z)
         self.Z.index_copy_(0, self.ix[0:1], z[None])
         mask = (self.ar <= self.ints[1]).to(w.dtype)
-        h = (self.V @ w) * mask
+        h = self.bdots(self.V, w) * mask
         w = w - h @ self.V
-        tt = _norm(tdot, w)
-        self.V.index_copy_(0, self.ix[1:2], ((1.0 / _safe(tt)) * w)[None])
-        krylov_ctl.fgmres_arnoldi_ctl(self, h, tt, self.ctl)
+        tt = _norm(self.dot, w)
+        self.V.index_copy_(0, self.ix[1:2],
+                           ((1.0 / smap(_safe, tt)) * w)[None])
+        krylov_ctl.fgmres_arnoldi_ctl(self, first(h), first(tt), self.ctl)
 
     def build_soln(self):
-        self.x += self.y @ self.Z
+        self.x.add_(self.y @ self.Z)
 
     def loop(self):
         p0, c0 = self.p0, self.c0
@@ -620,8 +682,8 @@ class DeviceFGMRES:
 
     def result(self):
         """(x, its, rnorm, state, hist) as device tensors (copies)."""
-        return (self.x.clone(), self.ints[2].clone(), self.sc[1].clone(),
-                self.ints[0].clone(), self.hist.clone())
+        return (smap(torch.clone, self.x), self.ints[2].clone(),
+                self.sc[1].clone(), self.ints[0].clone(), self.hist.clone())
 
     def solve(self, F, x0=None):
         """The plain driver over F (and x0): result() after the loop; it

@@ -347,6 +347,50 @@ def test_cart_solve_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_graphed_cart_solve_equals_plain_and_host_loops_on_cuda(cuda):
+    """The pseudoice at mx=8 over [cuda:0] * 4 (device grid 1x2x2): the
+    default loop is "device", a solve is one graph launch under
+    torch.cuda.set_sync_debug_mode("error") and the host launches no kernel
+    during it. Over the same placed setup the plain driver (loop="plain")
+    and the host loop (loop="host", the window arithmetic on CUDA) give
+    its, reason, history and x bit for bit; the K1, K4, K6 and control
+    launches and the halo exchanges per solve equal the plain driver's,
+    K6 above 0, and K1, K4 and K6 the host loop's."""
+    slv, prob = _cart_solver([cuda] * 4, mx=8)
+    assert slv.smesh.capturable and slv.loop == "device"
+    graph = slv._dev.graph
+    assert graph is not None
+    mesh, fes, coeff, bci, bcv = prob
+    f1, f2 = assemble_rhs(fes, coeff["Fu"], coeff["Fp"])
+    F = scatter_vector(mesh, f1, f2)
+    F[:mesh.nu][bci] = bcv
+    F = F + slv.setup["rhs_diri"]
+    n0 = graph.launches
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rg, kg, cg = _counted(lambda: slv.solve(F))
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert graph.launches == n0 + 1 and slv._dev.host_launches == 0
+    assert rg["loop"] == "device" and rg["reason"] == "CONVERGED_RTOL"
+    runs = {}
+    for loop in ("plain", "host"):
+        runs[loop] = _counted(lambda: slv.with_loop(loop).solve(F))
+    for loop, (r, k, c) in runs.items():
+        assert r["loop"] == loop
+        assert (r["its"], r["reason"]) == (rg["its"], rg["reason"]), loop
+        assert r["history"] == rg["history"], loop
+        assert np.array_equal(r["x"], rg["x"]), loop
+        assert r["halo_exchanges"] == rg["halo_exchanges"] > 0, loop
+        assert k == kg, loop
+    assert kg[0] > 0 and kg[2] > 0 and kg[3] > 0
+    assert cg == runs["plain"][2]
+    assert cg["gcr_ctl"] > 0 and cg["fgmres_arnoldi_ctl"] > 0
+    assert all(n == 0 for n in runs["host"][2].values())
+
+
+@pytest.mark.gpu
 def test_two_process_cart_solve_on_cuda(cuda, tmp_path):
     """Pseudoice at mx=16 in two gloo processes x 2 shards on cuda:0
     (device grid 1x2x2, host axis z) against the one-process 4-shard

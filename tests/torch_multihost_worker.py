@@ -176,7 +176,7 @@ def solve_result(slv, F):
     return {"x": r["x"], "its": r["its"], "state": r["state"],
             "reason": r["reason"], "history": np.array(r["history"]),
             "rnorm": r["rnorm"], "F": F, "shards": np.array(slv.smesh.shards),
-            "halos": slv.blocks.halo_exchanges,
+            "halos": r["halo_exchanges"],
             **{f"traffic_{k}": v for k, v in slv.smesh.traffic.items()}}
 
 
