@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. K1      -- the A00 kernel against its plain PyTorch version at the
               main path's shapes (mx=32 pseudoice, 3D) and on 2D SolCx at
               mx=my=64, in float32 and float64: agreement, bitwise-equal
-              repeated applies, 2 device launches per apply (torch.profiler);
-              each kernel's device time per launch (torch.profiler); median
+              repeated applies, 2 kernel launches per apply (the kernel
+              nodes of one apply captured as a CUDA graph); each kernel's
+              device time per launch (torch.profiler); median
               per-apply times (CUDA
               events over 20 back-to-back calls) of the kernel, the plain
               version and one library call for the same function (SpMV of
@@ -38,19 +39,25 @@ Phases, in order; any failure raises and the script exits nonzero:
               twin's and the bound of one launch's bytes and operations.
 3c. mg_kernels -- K4, the block stencil (csrc/stencil_apply.cu), on the
               mx=32 flagship's own L-2 (33^3 nodes) and L-3 (17^3) stencils
-              and K6, the Chebyshev update (csrc/cheb_update.cu), at the
-              flagship's fine (823,875), L-2 (107,811) and p (35,937)
-              sizes with its Jacobi diagonals, in float32 and float64,
-              against their plain twins: K4 within 1e-5 / 1e-13 of
-              max sum |W||x| and bitwise repeatable, K6 bit for bit (both
+              in the zero-boundary form and on a cart shard's L-2 slab
+              (17 x 17 x 33) in the padded form, and K6, the Chebyshev
+              update (csrc/cheb_update.cu), at the flagship's fine
+              (823,875), L-2 (107,811) and p (35,937) sizes with its
+              Jacobi diagonals, in float32 and float64, against their
+              plain twins: K4 within 1e-5 / 1e-13 of max sum |W||x|,
+              bitwise repeatable, its two forms bitwise equal, each fused
+              epilogue (residual, Chebyshev first step and step) bitwise
+              K4 followed by K6 or the subtraction; K6 bit for bit (both
               entry points); device us per call of kernel and twin (50
               calls captured as one CUDA graph and replayed) cold (the
               inputs cycled through copies that move 3x the 50 MB L2
               between two uses: the kernels line's ms) and hot (one
               input), the kernel's issued from Python, K4's library
               yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W); CUDA
-              events, cold and hot) and the HBM bound (bytes). Builds its
-              own mx=32 setup (~5 s).
+              events, cold and hot) and the HBM bound (bytes); the fused
+              entries against their twins and the fused Chebyshev step
+              against the K4 + K6 pair it replaces. Builds its own mx=32
+              setup (~5 s).
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
@@ -60,7 +67,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               the device loop: the whole refinement one CUDA graph with
               conditional nodes, captured at setup, one graph launch per
               solve; K1 and every control kernel must have run (counted
-              from the device's loop-body counters), and K4 and K6. The
+              from the device's loop-body counters), and K4, each of its
+              fused entries and K6, every K4 launch a fused one. The
               residual is
               recomputed with the port's float64 operator. Then over the
               same setup the device loop, the host loop over captured
@@ -81,8 +89,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               a float64 direct
               solve through the driver (device loop) and over its setup
               with loop="host": equal iterations, reason and K1 counts;
-              and over the same setup with K4 and K6 swapped for their
-              plain twins: the same reason and iterations, x within 1e-10.
+              and over the same setup with every K4 entry and K6 swapped
+              for its plain twin: the same reason and iterations, x
+              within 1e-10.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -142,7 +151,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               1e-9 (norm-relative), the true residual recomputed with the float64
               parity operator; K1 launches 2 x 4 per sharded apply; setup /
               solve seconds, ms per outer iteration, halo exchanges, K1,
-              K4, K6 and control launches (each above 0), peak memory. The
+              K4 (every one fused), K4's fused entries, K6 and control
+              launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
               "device"); over its setup the device loop, the plain driver
@@ -150,10 +160,12 @@ Phases, in order; any failure raises and the script exits nonzero:
               with the single-device float64 solve: each device solve 1
               graph launch under torch.cuda.set_sync_debug_mode("error")
               and no count moved by the host, x, its and history bitwise
-              the plain driver's and the host loop's, K1, K4, K6, control
-              and halo counts per solve equal (the host loop runs no
-              control kernel), K6 above 0; the walls of each kind and the
-              graph launch's CUDA-event span with the card.
+              the plain driver's and the host loop's, K1, K4, K4 fused,
+              K6, control and halo counts per solve equal (the host loop
+              runs no control kernel), K6 above 0; the walls of each kind
+              and the graph launch's CUDA-event span with the card. K1,
+              K4 (and its fused epilogues, bitwise K4 + K6) and K6 on the
+              sharded solver's own operands against their twins.
 12. cart_procs -- the same flagship in 2 processes x 2 shards on this card
               (torch.multiprocessing spawn, a gloo group on localhost with
               a 120 s timeout; device grid 1x2x2, host axis z), each rank
@@ -187,9 +199,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               stalling to a float64 residual <= 1e-8 recomputed with the
               port's float64 operator, in rounds and inner iterations
               inside BENCH_BANDS. Then the tuned schedule over a new setup
-              with K4 and with K4's plain twin swapped in: K4 gives the
-              bench's tuned counts, the twin the pre-K4 band
-              (BENCH_TWIN_BAND).
+              with K4 and with every K4 entry swapped for its plain twin:
+              K4 gives the bench's tuned counts with every stencil apply
+              fused, the twins the pre-K4 band (BENCH_TWIN_BAND) and no
+              K4 launch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -364,7 +377,10 @@ def raw_a00_csr(op):
 def _device_kernels(fn, calls=10):
     """{kernel name: (launches per call, mean device us per launch)} of the
     K1 kernels one call of fn launches, from torch.profiler; empty where
-    the profiler records no device activity."""
+    the profiler records no device activity. For the device times only:
+    the profiler has lost kernel records of a window on the H100 (19 of
+    20, and once all of them), so launch counts come from
+    graphs.kernels_per_call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -408,11 +424,12 @@ def phase_k1(device):
             lib_rel = float((csr @ x - y_p).abs().max() / y_p.abs().max())
             check(lib_rel <= 1e3 * TOL[dtype],
                   f"K1 {name} {dtype}: CSR yardstick off by {lib_rel:.3e}")
-            kern = _device_kernels(lambda: a00.a00_apply(op, x))
-            per_apply = sum(n for n, _ in kern.values())
+            per_apply = graphs.kernels_per_call(
+                lambda: a00.a00_apply(op, x))
             check(per_apply == a00.KERNELS_PER_APPLY,
-                  f"K1 {name} {dtype}: the profiler saw {per_apply} device "
-                  f"launches per apply")
+                  f"K1 {name} {dtype}: one apply captured as a CUDA graph "
+                  f"holds {per_apply} kernel launches")
+            kern = _device_kernels(lambda: a00.a00_apply(op, x))
             for kname, (n, us) in kern.items():
                 log(f"[K1] {name} {str(dtype)[6:]}: device {us:.2f} us per "
                     f"launch, {n:g} per apply: {kname[:110]}")
@@ -503,6 +520,14 @@ def _max_err(a, b):
     return err, same
 
 
+def _same_bits(a, b):
+    """a and b: one shape, one float dtype, the same bits."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(bits),
+                            b.contiguous().view(bits)))
+
+
 def _events_ms(fns):
     """ms per call of the calls in fns, back to back between two CUDA
     events (after one warm-up call of the first)."""
@@ -530,7 +555,7 @@ def _graph_ms(fns, restore=None, reps=5):
         fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     n0 = graphs._counters()
-    with torch.cuda.graph(g):
+    with graphs.collector_held(), torch.cuda.graph(g):
         for fn in fns:
             fn()
     graphs._set_counters(n0)
@@ -790,15 +815,22 @@ def _cheb_scalars(emin, emax, npdt=np.float64):
 
 def phase_mg_kernels(device, card):
     """K4 (the block stencil, csrc/stencil_apply.cu) on the mx=32
-    flagship's own L-2 and L-3 stencils and K6 (the Chebyshev update,
-    csrc/cheb_update.cu) at its fine, L-2 and p sizes with its Jacobi
-    diagonals, in float32 and float64, against their plain twins: K4 within
-    K4_TOL and bitwise repeatable, K6 bit for bit. Device ms per call of
-    kernel and twin, cold and hot (_mg_times), the kernel's issued one by
-    one from Python (CUDA events; the ctypes wrapper's host time bounds
-    it), K4's library yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W),
-    int32 indices; CUDA events, cold and hot), the bound. Returns the
-    float32 L-2 K4 and fine-level K6 step numbers."""
+    flagship's own L-2 and L-3 stencils (zero-boundary form, as the
+    single-device V-cycle applies them) and on one cart shard's L-2
+    stencil (the 17 x 17 x 33 slab of the 1x2x2 grid, padded form, as the
+    cart path applies it), and K6 (the Chebyshev update,
+    csrc/cheb_update.cu) at the fine, L-2 and p sizes with the flagship's
+    Jacobi diagonals, in float32 and float64, against their plain twins:
+    K4 within K4_TOL and bitwise repeatable, its two forms bitwise equal,
+    each fused epilogue bitwise K4 followed by K6 or the subtraction, K6
+    bit for bit its twin. Device ms per call of kernel and twin, cold and
+    hot (_mg_times), the kernel's issued one by one from Python (CUDA
+    events; the ctypes wrapper's host time bounds it), K4's library
+    yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W), int32 indices;
+    CUDA events, cold and hot), the bound; the fused Chebyshev step
+    against its twin and against the K4 + K6 pair it replaces (cold and
+    hot). Returns the float32 L-2 numbers of K4, of each fused entry and
+    of K6's fine-level step."""
     f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
     p = bench._build_problem(32)
@@ -809,16 +841,27 @@ def phase_mg_kernels(device, card):
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(12)
     res = {}
-    for k, lvl in ((2, "L-2"), (1, "L-3")):
-        Wn = setup["stencils_w"][k - 1]
+    W2, d2 = setup["stencils_w"][1], data["inv_diag_lvls"][1]
+    # (name, W, inverse diagonal, Chebyshev bounds, padded form)
+    cases = [("L-2", W2, d2, data["bounds"][1], False),
+             ("L-3", setup["stencils_w"][0], data["inv_diag_lvls"][0],
+              data["bounds"][0], False),
+             ("cart L-2 shard", np.ascontiguousarray(W2[:17, :17]),
+              d2[:17, :17], data["bounds"][1], True)]
+    for lvl, Wn, dl, (emin, emax), padded in cases:
         grid, nd = Wn.shape[:3], Wn.shape[-1]
         A = tabf.csr_from_stencil(Wn, grid, nd)
         x64 = rng.standard_normal(grid + (nd,))
+        form = "padded" if padded else "zero-boundary"
         for dtype in (f32, f64):
-            W = data["stencils"][k - 1].to(dtype).contiguous()
+            W = torch.as_tensor(Wn, dtype=dtype, device=device)
             x = torch.as_tensor(x64, dtype=dtype, device=device)
-            xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-            y = stencil.stencil_accum(W, xp)
+            xp = stencil._pad(x)
+            xin = xp if padded else x
+            apply = stencil.stencil_accum if padded else stencil.stencil_apply
+            twin = stencil.TWINS["stencil_accum" if padded
+                                 else "stencil_apply"]
+            y = apply(W, xin)
             yp = stencil.stencil_accum_plain(W, xp)
             mag = float(stencil.stencil_accum_plain(W.abs(), xp.abs()).max())
             err = float((y - yp).abs().max())
@@ -826,8 +869,37 @@ def phase_mg_kernels(device, card):
                   and err <= K4_TOL[dtype] * mag,
                   f"K4 {lvl} {dtype}: max_abs_err {err:.3e} > "
                   f"{K4_TOL[dtype]:g} x {mag:.3e}")
-            check(torch.equal(stencil.stencil_accum(W, xp), y),
+            check(torch.equal(apply(W, xin), y),
                   f"K4 {lvl} {dtype}: repeated applies differ")
+            check(_same_bits(stencil.stencil_accum(W, xp),
+                             stencil.stencil_apply(W, x)),
+                  f"K4 {lvl} {dtype}: the padded and zero-boundary forms "
+                  f"differ")
+            # each epilogue against K4 followed by K6 / the subtraction
+            scale, omega = _cheb_scalars(emin, emax, treeops.NP_DTYPE[dtype])
+            d = dl.to(dtype).contiguous()
+            b, q = (torch.as_tensor(rng.standard_normal(grid + (nd,)),
+                                    dtype=dtype, device=device)
+                    for _ in range(2))
+            fused = {
+                "residual": (lambda W, v, x, b, d, q: stencil.stencil_residual(
+                    W, v, b, padded=padded),
+                    lambda W, v, x, b, d, q: b - apply(W, v)),
+                "cheb_first": (lambda W, v, x, b, d, q:
+                               stencil.stencil_cheb_first(
+                                   W, v, b, d, scale, padded=padded),
+                               lambda W, v, x, b, d, q: cheb.cheb_first(
+                                   b, apply(W, v), d, x, scale)),
+                "cheb_step": (lambda W, v, x, b, d, q:
+                              stencil.stencil_cheb_step(
+                                  W, v, b, d, q, scale, omega, padded=padded),
+                              lambda W, v, x, b, d, q: cheb.cheb_step(
+                                  b, apply(W, v), d, x, q, scale, omega))}
+            args = (W, xin, x, b, d, q)
+            for e, (fn, pair) in fused.items():
+                check(_same_bits(fn(*args), pair(*args)),
+                      f"K4 {lvl} {dtype}: the fused {e} is not bitwise K4 "
+                      f"followed by {'the subtraction' if e == 'residual' else 'K6'}")
             csr = torch.sparse_csr_tensor(
                 torch.as_tensor(A.indptr, dtype=torch.int32),
                 torch.as_tensor(A.indices, dtype=torch.int32),
@@ -838,22 +910,23 @@ def phase_mg_kernels(device, card):
             check(lib_err <= 1e3 * K4_TOL[dtype] * mag,
                   f"K4 {lvl} {dtype}: CSR yardstick off by {lib_err:.3e}")
             size = W.element_size()
-            nbytes = size * (W.numel() + xp.numel() + y.numel())
+            nbytes = size * (W.numel() + xin.numel() + y.numel())
             (ms_hot, plain_hot), (ms, plain_ms), ncp = _mg_times(
-                stencil.stencil_accum, stencil.stencil_accum_plain, (W, xp),
-                nbytes)
-            eager_ms = _median_ms(lambda: stencil.stencil_accum(W, xp))
+                apply, twin, (W, xin), nbytes)
+            eager_ms = _median_ms(lambda: apply(W, xin))
             library_hot = _median_ms(lambda: csr @ xf)
             csrs = _cold_copies((csr,), A.nnz * (size + 4))
             library_ms = _events_ms([lambda c=c: c[0] @ xf for c in csrs]
                                     * -(-MG_REPS // len(csrs)))
             bound_ms, bound_by = _ctl_bound(nbytes, 2 * W.numel(), dtype)
             log(f"[mg_kernels] K4 {lvl} {tuple(grid)} nd {nd} "
-                f"{str(dtype)[6:]}: max_abs_err {err:.3e} ({err / mag:.3e} "
-                f"of max sum |W||x|, tol {K4_TOL[dtype]:g}), bitwise "
-                f"repeatable; kernel per apply in a graph {1e3 * ms:.2f} us "
-                f"cold (inputs cycled through {ncp} copies), "
-                f"{1e3 * ms_hot:.2f} us hot (one input"
+                f"{str(dtype)[6:]} ({form} form): max_abs_err {err:.3e} "
+                f"({err / mag:.3e} of max sum |W||x|, tol "
+                f"{K4_TOL[dtype]:g}), bitwise repeatable, padded and "
+                f"zero-boundary forms bitwise equal, every fused epilogue "
+                f"bitwise K4 + K6 / the subtraction; kernel per apply in a "
+                f"graph {1e3 * ms:.2f} us cold (inputs cycled through {ncp} "
+                f"copies), {1e3 * ms_hot:.2f} us hot (one input"
                 f"{', W stays in the 50 MB L2' if nbytes < L2_BYTES else ''})"
                 f", {1e3 * eager_ms:.2f} us issued from Python; twin "
                 f"{1e3 * plain_ms:.2f} / {1e3 * plain_hot:.2f} us cold / hot;"
@@ -868,7 +941,44 @@ def phase_mg_kernels(device, card):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "library_hot_ms": library_hot,
                 "cold_copies": ncp}
-            del csr, csrs, W, x, xp, y, yp
+            # the fused entries against their twins (the unfused torch ops)
+            # and, for the Chebyshev step, against the K4 + K6 pair
+            vec = size * x.numel()
+            for e in (stencil.EPILOGUES if (lvl, dtype) == ("L-2", f32)
+                      else ("cheb_step",)):
+                fn, pair = fused[e]
+                nvec = {"residual": 1, "cheb_first": 2, "cheb_step": 3}[e]
+                fbytes = nbytes + nvec * vec
+                twin_e = stencil.TWINS["stencil_" + e]
+                targs = {"residual": lambda W, v, x, b, d, q: twin_e(
+                    W, v, b, padded=padded),
+                    "cheb_first": lambda W, v, x, b, d, q: twin_e(
+                        W, v, b, d, scale, padded=padded),
+                    "cheb_step": lambda W, v, x, b, d, q: twin_e(
+                        W, v, b, d, q, scale, omega, padded=padded)}[e]
+                (f_hot, t_hot), (f_ms, t_ms), ncp = _mg_times(
+                    fn, targs, args, fbytes)
+                fb_ms, fb_by = _ctl_bound(fbytes, 2 * W.numel(), dtype)
+                line = (f"[mg_kernels] K4 fused {e} {lvl} {str(dtype)[6:]}: "
+                        f"{1e3 * f_ms:.2f} us cold, {1e3 * f_hot:.2f} us "
+                        f"hot per launch; twin {1e3 * t_ms:.2f} / "
+                        f"{1e3 * t_hot:.2f} us cold / hot; bound "
+                        f"{1e3 * fb_ms:.2f} us ({fb_by}: "
+                        f"{fbytes / 1e6:.1f} MB)")
+                rec = {"max_abs_err": 0.0, "ms": f_ms, "hot_ms": f_hot,
+                       "plain_ms": t_ms, "plain_hot_ms": t_hot,
+                       "bound_ms": fb_ms, "bound_by": fb_by,
+                       "library_ms": None, "cold_copies": ncp}
+                if e == "cheb_step":
+                    (_, p_hot), (_, p_ms), _ = _mg_times(fn, pair, args,
+                                                         fbytes)
+                    line += (f"; the K4 + K6 pair it replaces "
+                             f"{1e3 * p_ms:.2f} / {1e3 * p_hot:.2f} us cold "
+                             f"/ hot")
+                    rec.update(pair_ms=p_ms, pair_hot_ms=p_hot)
+                log(line + f" ({card})")
+                res[(e, lvl, dtype)] = rec
+            del csr, csrs, W, x, xp, xin, y, yp, b, d, q, args
     diags = {"fine": data["inv_diag_fine"],
              "L-2": data["inv_diag_lvls"][-1], "p": data["inv_diag_p"]}
     bounds = {"fine": data["bounds"][-1], "L-2": data["bounds"][-2],
@@ -921,7 +1031,9 @@ def phase_mg_kernels(device, card):
                 "library_ms": None, "cold_copies": ncp}
     del data, setup, diags
     torch.cuda.empty_cache()
-    return res[("K4", "L-2", f32)], res[("K6", "fine", f32)]
+    return (res[("K4", "L-2", f32)],
+            {e: res[(e, "L-2", f32)] for e in stencil.EPILOGUES},
+            res[("K6", "fine", f32)])
 
 
 def phase_anchor():
@@ -951,6 +1063,25 @@ def _reset_launches():
         k.LAUNCHES.reset()
 
 
+# K4's fused entries by the kernels line's names (each one launch of K4
+# whose store computes the op that followed the apply)
+FUSED = {e: "stencil_" + e for e in stencil.EPILOGUES}
+
+
+def _mg_counts():
+    """(K4 launches, K6 launches, then K4's fused launches by epilogue:
+    residual, cheb_first, cheb_step)."""
+    return (stencil.LAUNCHES.n, cheb.LAUNCHES.n) + tuple(
+        stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
+
+
+def _k4_twins():
+    """(module, name, plain twin) of every K4 entry the solvers call (the
+    zero-boundary apply, the padded apply, the fused residual and
+    Chebyshev updates)."""
+    return [(stencil, name, twin) for name, twin in stencil.TWINS.items()]
+
+
 def _ir_solve(slv, F):
     """One IR solve to a true 1e-8 with its wall seconds, K1 launches and
     applies, K4 and K6 launches, control-kernel launches, graph launches
@@ -967,7 +1098,7 @@ def _ir_solve(slv, F):
     wall = time.perf_counter() - t0
     out = {"res": res, "wall": wall,
            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
-           "mg": (stencil.LAUNCHES.n, cheb.LAUNCHES.n),
+           "mg": _mg_counts(),
            "ctl": dict(krylov_ctl.LAUNCHES.n),
            "replays": graphs.replays(slv.bodies()) - n0,
            "graph_launches": (dev.graph.launches - g0
@@ -1000,7 +1131,9 @@ def phase_main(card):
     r = tdriver.saddle_solve(Options.from_args(argv), 3, log=log)
     launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
     mg_launches = {"stencil_accum": stencil.LAUNCHES.n,
-                   "cheb_update": cheb.LAUNCHES.n}
+                   "cheb_update": cheb.LAUNCHES.n,
+                   **{FUSED[e]: stencil.LAUNCHES.fused[e]
+                      for e in stencil.EPILOGUES}}
     ctl_launches = dict(krylov_ctl.LAUNCHES.n)
     res = r["res"]
     slv = r["solver"]
@@ -1017,7 +1150,11 @@ def phase_main(card):
           f"graph launches, expected 1")
     check(launches > 0, "the main path never launched the A00 kernel")
     check(all(n > 0 for n in mg_launches.values()),
-          f"K4 or K6 never ran on the main path: {mg_launches}")
+          f"K4, a fused K4 entry or K6 never ran on the main path: "
+          f"{mg_launches}")
+    check(mg_launches["stencil_accum"] == sum(
+        mg_launches[FUSED[e]] for e in stencil.EPILOGUES),
+          f"an unfused K4 launch on the main path: {mg_launches}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
     check(not res["stalled"], "iterative refinement stalled")
@@ -1125,7 +1262,9 @@ def phase_main(card):
             f"{min(walls):.3f}-{max(walls):.3f}), {1e3 * med / its:.2f} "
             f"ms/outer it, {q['res']['rounds']} rounds / {its} inner its, "
             f"K1 {q['launches']} launches in {q['applies']} applies per "
-            f"solve, K4 / K6 {q['mg'][0]} / {q['mg'][1]} launches, control "
+            f"solve, K4 / K6 {q['mg'][0]} / {q['mg'][1]} launches (K4 fused "
+            f"residual / cheb_first / cheb_step {q['mg'][2]} / {q['mg'][3]} "
+            f"/ {q['mg'][4]}), control "
             f"kernels {sum(q['ctl'].values())}, "
             f"{q['graph_launches']} graph launches and {q['replays']} "
             f"captured-body replays per solve{extra}, peak mem "
@@ -1181,9 +1320,8 @@ def _main_witness(card):
     check(kd == kh, f"witness: K1 launches / applies per solve {kd} vs {kh}")
     check(rel0 <= 1e-10, f"witness: histories differ by {rel0:.3e} of the "
           f"initial residual")
-    swaps = [(tabf, "stencil_accum", stencil.stencil_accum_plain),
-             (cheb, "cheb_first", cheb.cheb_first_plain),
-             (cheb, "cheb_step", cheb.cheb_step_plain)]
+    swaps = _k4_twins() + [(cheb, "cheb_first", cheb.cheb_first_plain),
+                           (cheb, "cheb_step", cheb.cheb_step_plain)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     for mod, attr, fn in swaps:
         setattr(mod, attr, fn)
@@ -1192,17 +1330,17 @@ def _main_witness(card):
                                           device=slv.device, dtype=slv.dtype)
         _reset_launches()
         t = twins.solve(r["F"])
-        mg = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
+        mg = _mg_counts()
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     xrel = float(np.linalg.norm(d["x"] - t["x"]) / np.linalg.norm(t["x"]))
-    log(f"[main] witness, float64 direct solve with K4 and K6 against their "
-        f"twins swapped in ({twins.loop} loop): kernels {d['reason']} in "
+    log(f"[main] witness, float64 direct solve with every K4 entry and K6 "
+        f"swapped for its twin ({twins.loop} loop): kernels {d['reason']} in "
         f"{d['its']} its, twins {t['reason']} in {t['its']} its, x differs "
         f"by {xrel:.3e} (norm-relative), twin run K4 / K6 launches {mg} "
         f"({card})")
-    check(twins.loop == "device" and mg == (0, 0),
+    check(twins.loop == "device" and not any(mg),
           f"witness: the twins' solve ran loop {twins.loop}, K4 / K6 "
           f"launches {mg}")
     check((t["its"], t["reason"]) == (d["its"], d["reason"]),
@@ -1370,7 +1508,7 @@ def phase_compiled(device, card):
                 cycle(op, aux, inv, F, x0)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with graphs.collector_held(), torch.cuda.graph(graph):
                 xg, rg = cycle(op, aux, inv, F, x0)
             graph.replay()
             check(torch.equal(xg, x) and float(rg) == rn,
@@ -1757,9 +1895,15 @@ def phase_cart(device, card):
     check(launches > 0 and launches == 2 * applies
           and applies % CART_DEVICES == 0,
           f"cart: {launches} K1 launches in {applies} applies")
-    check(counts["cheb_update"] > 0 and counts["stencil_accum"] > 0,
-          f"cart: K4 / K6 launches {counts['stencil_accum']} / "
-          f"{counts['cheb_update']} on the sharded path")
+    check(counts["cheb_update"] > 0 and counts["stencil_accum"] > 0
+          and all(counts[k] > 0 for k in FUSED.values()),
+          f"cart: K4 / K6 / fused K4 launches {counts['stencil_accum']} / "
+          f"{counts['cheb_update']} / "
+          f"{ {k: counts[k] for k in FUSED.values()} } on the sharded path")
+    check(counts["stencil_accum"] == sum(counts[k] for k in FUSED.values()),
+          f"cart: an unfused K4 launch on the sharded path: K4 "
+          f"{counts['stencil_accum']}, fused "
+          f"{ {k: counts[k] for k in FUSED.values()} }")
     check(all(counts[k] > 0 for k in krylov_ctl.NAMES if k != "ir_ctl"),
           f"cart: a control kernel never ran on the sharded path: "
           f"{ {k: counts[k] for k in krylov_ctl.NAMES} }")
@@ -1787,7 +1931,8 @@ def phase_cart(device, card):
         f"{r1['seconds']['setup']:.2f} s), first solve {t_solve:.3f} s "
         f"(single device {r1['seconds']['solve']:.3f} s), {halos} halo "
         f"exchanges, {launches} K1 launches in {applies} applies (single "
-        f"device {applies1} applies), K4 {counts['stencil_accum']}, K6 "
+        f"device {applies1} applies), K4 {counts['stencil_accum']} (fused "
+        f"{ {k: counts[k] for k in FUSED.values()} }), K6 "
         f"{counts['cheb_update']}, control "
         f"{sum(counts[k] for k in krylov_ctl.NAMES)} launches (capture "
         f"warm-ups included), peak mem {peak:.2f} GiB ({card})")
@@ -1815,7 +1960,9 @@ def _launch_counts():
     (launches, applies)."""
     return {"a00_apply": (a00.LAUNCHES.n, a00.LAUNCHES.applies),
             "stencil_accum": stencil.LAUNCHES.n,
-            "cheb_update": cheb.LAUNCHES.n, **krylov_ctl.LAUNCHES.n}
+            "cheb_update": cheb.LAUNCHES.n,
+            **{FUSED[e]: stencil.LAUNCHES.fused[e]
+               for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n}
 
 
 def _cart_solve(slv, F):
@@ -1898,7 +2045,7 @@ def _cart_loops(slv, single, F, r, card):
               f"{d['res']['halo_exchanges']}, {kind} "
               f"{q['res']['halo_exchanges']}")
         keys = d["counts"] if kind == "plain" else (
-            "a00_apply", "stencil_accum", "cheb_update")
+            "a00_apply", "stencil_accum", "cheb_update", *FUSED.values())
         check(all(q["counts"][k] == d["counts"][k] for k in keys),
               f"cart: launches per solve: device {d['counts']}, {kind} "
               f"{q['counts']}")
@@ -1909,7 +2056,8 @@ def _cart_loops(slv, single, F, r, card):
         f"driver and the host loop ({d['res']['its']} its, x, history), "
         f"each device solve 1 graph launch under sync debug \"error\", 0 "
         f"host-issued launches; per solve K1 {c['a00_apply'][0]} launches "
-        f"in {c['a00_apply'][1]} applies, K4 {c['stencil_accum']}, K6 "
+        f"in {c['a00_apply'][1]} applies, K4 {c['stencil_accum']} (fused "
+        f"{ {k: c[k] for k in FUSED.values()} }), K6 "
         f"{c['cheb_update']}, control "
         f"{ {k: c[k] for k in krylov_ctl.NAMES} }, "
         f"{d['res']['halo_exchanges']} halo exchanges ({card})")
@@ -1971,7 +2119,7 @@ def _cart_kernels(slv):
                                        rep["inv_diag_repl"])):
             k4.append((f"L-{nlev - k - 1} on {dev}", W,
                        torch.nn.functional.pad(rand(d), pad)))
-    k4_worst = 0.0
+    k4_worst, nfused = 0.0, 0
     for name, W, x in k4:
         y, yp = stencil.stencil_accum(W, x), stencil.stencil_accum_plain(W, x)
         mag = float(stencil.stencil_accum_plain(W.abs(), x.abs()).max())
@@ -1980,6 +2128,25 @@ def _cart_kernels(slv):
               f"cart: K4 {name} max_abs_err {err:.3e} > {K4_TOL[f64]:g} x "
               f"{mag:.3e}")
         k4_worst = max(k4_worst, err / mag)
+        # the fused epilogues on these operands: padded on the shards (as
+        # their smoothers call them), zero-boundary on the replicated
+        # levels, each bitwise this K4 apply followed by K6 / the
+        # subtraction
+        shard = name.startswith("L-2 shard")
+        xc = x[1:-1, 1:-1, 1:-1].contiguous()
+        v = x if shard else xc
+        b, d, q = (rand(xc) for _ in range(3))
+        pairs = [(stencil.stencil_residual(W, v, b, padded=shard), b - y),
+                 (stencil.stencil_cheb_first(W, v, b, d, 0.37,
+                                             padded=shard),
+                  cheb.cheb_first(b, y, d, xc, 0.37)),
+                 (stencil.stencil_cheb_step(W, v, b, d, q, 0.37, 1.61,
+                                            padded=shard),
+                  cheb.cheb_step(b, y, d, xc, q, 0.37, 1.61))]
+        check(all(_same_bits(a, w) for a, w in pairs),
+              f"cart: a fused K4 epilogue on {name} is not bitwise K4 + K6 "
+              f"/ the subtraction")
+        nfused += len(pairs)
 
     levels = [("fine", dd["inv_diag_fine"].parts, dd["bounds"][-1]),
               ("L-2", dd["inv_diag_l1"].parts, dd["bounds"][nlev - 3]),
@@ -2009,7 +2176,8 @@ def _cart_kernels(slv):
         f"on each of the {len(blk.ops.parts)} local boxes {slv.dcfg.mloc} "
         f"within {k1:.3e} of max |y| (tol {TOL[f64]:g}); K4 on "
         f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
-        f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}); K6 first "
+        f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}), their "
+        f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K6 first "
         f"and step on every part's fine, L-2 and p inverse diagonals and "
         f"the replicated levels': {k6} updates bitwise their twins")
 
@@ -2227,11 +2395,14 @@ BENCH_INNER = 100
 
 def _bench_twin_witness(device, card, extras):
     """The bench's tuned float32 IR solve at mx=32 over one new setup of
-    its own, with K4 and again with abf.stencil_accum swapped for K4's
-    plain twin (captured into the second solver's graph; K6, bitwise its
-    twin, stays): the K4 solve must give the bench's tuned rounds and
-    inner its (a code path's counts are deterministic), the twin solve
-    the pre-K4 band BENCH_TWIN_BAND, each converged to a true 1e-8."""
+    its own, with K4 and again with every K4 entry swapped for its plain
+    twin (captured into the second solver's graph; the twins of the fused
+    entries apply the stencil, then compute K6's update or the residual
+    in torch ops, bitwise K6; K6 itself stays): the K4 solve must give
+    the bench's tuned rounds and inner its (a code path's counts are
+    deterministic) with every stencil apply fused, the twin solve the
+    pre-K4 band BENCH_TWIN_BAND and no K4 launch, each converged to a
+    true 1e-8."""
     prob = bench._build_problem(32, with_rhs=True)
     slv = tabf.ABFSolver(prob["mesh"], prob["fes"], prob["coeff"],
                          prob["bc_idx"], prob["bc_vals"], device=device,
@@ -2239,22 +2410,26 @@ def _bench_twin_witness(device, card, extras):
                          nlevels=bench.bench_nlevels(prob["mesh"]), ir=True,
                          **bench.bench_solver_kw())
     F = prob["F_raw"] + slv.setup["rhs_diri"]
-    saved = tabf.stencil_accum
-    tabf.stencil_accum = stencil.stencil_accum_plain
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in _k4_twins()]
+    for mod, attr, fn in _k4_twins():
+        setattr(mod, attr, fn)
     try:
         twin = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
                                          device=device, dtype=torch.float32,
                                          ir=True)
     finally:
-        tabf.stencil_accum = saved
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
     out = {}
     for name, s in (("K4", slv), ("twin", twin)):
         rec = _ir_solve(s, F)
         res = rec["res"]
-        out[name] = (res["rounds"], res["inner_its"], rec["mg"][0])
+        out[name] = (res["rounds"], res["inner_its"], rec["mg"])
         log(f"[bench] tuned solve with {name} ({s.loop} loop): "
             f"{res['rounds']} rounds, {res['inner_its']} inner its, "
-            f"{rec['wall']:.3f} s, K4 launches {rec['mg'][0]}, true float64 "
+            f"{rec['wall']:.3f} s, K4 / K6 launches {rec['mg'][0]} / "
+            f"{rec['mg'][1]} (K4 fused residual / cheb_first / cheb_step "
+            f"{rec['mg'][2]} / {rec['mg'][3]} / {rec['mg'][4]}), true float64 "
             f"relative residual {res['rnorm'] / res['rnorm0']:.3e} ({card})")
         check(res["converged"] and not res["stalled"]
               and res["rnorm"] <= 1e-8 * res["rnorm0"],
@@ -2262,11 +2437,12 @@ def _bench_twin_witness(device, card, extras):
     (rk, ik, nk), (rt, it, nt) = out["K4"], out["twin"]
     (r0, r1), (i0, i1) = BENCH_TWIN_BAND
     check((rk, ik) == (extras["solve_ir_rounds"], extras["solve_outer_its"])
-          and nk > 0, f"bench twin witness: K4 {rk} / {ik} with {nk} K4 "
-          f"launches, the bench's tuned solve {extras['solve_ir_rounds']} / "
-          f"{extras['solve_outer_its']}")
-    check(nt == 0 and r0 <= rt <= r1 and i0 <= it <= i1,
-          f"bench twin witness: twin {rt} / {it} ({nt} K4 launches) "
+          and nk[0] > 0 and nk[0] == sum(nk[2:]),
+          f"bench twin witness: K4 {rk} / {ik} with K4 / K6 / fused "
+          f"launches {nk}, the bench's tuned solve "
+          f"{extras['solve_ir_rounds']} / {extras['solve_outer_its']}")
+    check(nt[0] == 0 and r0 <= rt <= r1 and i0 <= it <= i1,
+          f"bench twin witness: twin {rt} / {it} ({nt[0]} K4 launches) "
           f"outside the pre-K4 band {r0}-{r1} / {i0}-{i1}")
     del slv, twin
 
@@ -2333,12 +2509,11 @@ def _ranged(name, fn):
 # counts (the innermost enclosing one; the hand-written K1, K4 and K6 by
 # kernel name wherever they run)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
-                   ("K4 stencil_apply", "stencil_accum_kernel"),
+                   ("K4 stencil_apply", "stencil_k4_kernel"),
                    ("K6 cheb_smooth", "cheb_first_kernel"),
                    ("K6 cheb_smooth", "cheb_step_kernel"))
 PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K3 mp_apply", tabf, "mp_apply"),
-                  ("K4 stencil_apply", tabf, "stencil_apply"),
                   ("K5 transfers", tabf, "prolong_parity"),
                   ("K5 transfers", tabf, "restrict_parity"),
                   ("K5 transfers", tabf, "prolong_grid"),
@@ -2433,14 +2608,21 @@ def phase_profile(card):
                 buckets[q.name] = buckets.get(q.name, 0.0) + k.duration / 1e6
     buckets["rest"] = total - sum(buckets.values())
     launches, _ = _launches(ka)
+    pads = sum(e.count for e in ka if e.key == "aten::constant_pad_nd")
     applies_eager = a00.LAUNCHES.applies
-    mg_eager = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
+    mg_eager = _mg_counts()
     log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
         f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
         f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
         f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, K4 / "
-        f"K6 {mg_eager[0]} / {mg_eager[1]} launches, kernel launches "
-        f"{launches} ({card})")
+        f"K6 {mg_eager[0]} / {mg_eager[1]} launches (K4 fused residual / "
+        f"cheb_first / cheb_step {mg_eager[2]} / {mg_eager[3]} / "
+        f"{mg_eager[4]}), {pads} F.pad calls, kernel launches {launches} "
+        f"({card})")
+    check(mg_eager[0] == sum(mg_eager[2:]) and pads == 0,
+          f"profile: K4 launches {mg_eager[0]}, fused {mg_eager[2:]}, F.pad "
+          f"calls {pads}: every stencil apply of the single-device solve "
+          f"is fused and pads nothing")
     for name in sorted(buckets):
         log(f"[profile] {name:18s} {buckets[name]:8.3f} s "
             f"({100 * buckets[name] / total:5.1f}% of device time)")
@@ -2471,7 +2653,7 @@ def phase_profile(card):
             torch.cuda.synchronize()
         replays = graphs.replays(gslv.bodies()) - n0
         applies = a00.LAUNCHES.applies
-        mg = (stencil.LAUNCHES.n, cheb.LAUNCHES.n)
+        mg = _mg_counts()
         gka = gprof.key_averages()
         gdev = [e for e in gka
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2506,7 +2688,9 @@ def phase_profile(card):
             f"rounds / {gres['inner_its']} inner its, {busy}; per solve "
             f"{g_launch} kernel launches and {g_graph} graph launches from "
             f"the host, {replays} captured-body replays, "
-            f"{applies} K1 applies, K4 / K6 {mg[0]} / {mg[1]} launches; "
+            f"{applies} K1 applies, K4 / K6 {mg[0]} / {mg[1]} launches (K4 "
+            f"fused residual / cheb_first / cheb_step {mg[2]} / {mg[3]} / "
+            f"{mg[4]}); "
             f"graph capture "
             f"{gslv.capture_seconds:.3f} s ({card})")
         for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
@@ -2614,7 +2798,7 @@ def main():
     k1 = phase_k1(device)
     ctl = phase_ctl(device)
     t_mg = time.perf_counter()
-    k4, k6 = phase_mg_kernels(device, card)
+    k4, fused, k6 = phase_mg_kernels(device, card)
     log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
     phase_anchor()
     launches, applies, mg_launches, ctl_launches = phase_main(card)
@@ -2664,7 +2848,14 @@ def main():
             "source": "exsaddle_tpu_torch/csrc/stencil_apply.cu",
             "replaces": "exsaddle_tpu/abf.py:240",
             "launches": mg_launches["stencil_accum"],
-            "cart_launches": cart_counts["stencil_accum"], **k4}, {
+            "cart_launches": cart_counts["stencil_accum"], **k4}] + [{
+            "name": FUSED[e], "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/stencil_apply.cu",
+            "replaces": ("exsaddle_tpu/abf.py:240" if e == "residual"
+                         else "exsaddle_tpu/treeops.py:167"),
+            "launches": mg_launches[FUSED[e]],
+            "cart_launches": cart_counts[FUSED[e]], **fused[e]}
+            for e in stencil.EPILOGUES] + [{
             "name": "cheb_update", "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/cheb_update.cu",
             "replaces": "exsaddle_tpu/treeops.py:167",

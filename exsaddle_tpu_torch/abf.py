@@ -42,7 +42,10 @@ from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
 from exsaddle_tpu_torch.kernels.a00 import a00_apply
-from exsaddle_tpu_torch.kernels.stencil import stencil_accum, stencil_offsets
+# stencil_accum and stencil_apply: K4's entries, this module's names for
+# the block stencil apply (as exsaddle_tpu/abf.py's)
+from exsaddle_tpu_torch.kernels.stencil import (  # noqa: F401
+    StencilOp, stencil_accum, stencil_apply, stencil_offsets)
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator,
                                         factored_host, parity_permutation,
                                         mult_tree, tree_aux)
@@ -245,15 +248,6 @@ def stencil_from_csr(A_csr, grid_shape, nd):
     W = np.zeros((nnod, 3 ** ndim, nd, nd))
     W[rows, slot] = data
     return W.reshape(grid_shape + (3 ** ndim, nd, nd))
-
-
-def stencil_apply(W, x):
-    """y = A x for a block stencil operator. x: (*grid_shape, nd). The
-    zero ghost layer is padded here; K4 (kernels/stencil.py
-    stencil_accum) reads it like any other ghost."""
-    ndim = x.ndim - 1
-    xp = torch.nn.functional.pad(x, (0, 0) + (1, 1) * ndim)
-    return stencil_accum(W, xp)
 
 
 # --------------------------------------------------------------------------
@@ -832,15 +826,15 @@ def _mg_pc(cfg, data, fineA):
     def coarse_solve(xg):
         return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
-    # each level's operator and Jacobi inverse diagonal (K6 takes it)
+    # each level's operator and Jacobi inverse diagonal (K6 takes it; on
+    # the stencil levels K4 computes the update in its store)
     lvl_ops, lvl_diag = {}, {}
     for k in range(1, nlev):
         if k == nlev - 1:
             lvl_ops[k] = fineA
             lvl_diag[k] = data["inv_diag_fine"]
         else:
-            lvl_ops[k] = (lambda x, W=data["stencils"][k - 1]:
-                          stencil_apply(W, x))
+            lvl_ops[k] = StencilOp(data["stencils"][k - 1])
             lvl_diag[k] = data["inv_diag_lvls"][k - 1]
 
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
@@ -856,11 +850,12 @@ def _mg_pc(cfg, data, fineA):
         if k == 0:
             return coarse_solve(b)
         x = smooth(k, b, torch.zeros_like(b), pre=True)
-        r = b - lvl_ops[k](x)
         if k == nlev - 1:
+            r = b - lvl_ops[k](x)
             xc = vcycle(k - 1, restrict_parity(r, cfg.cls_shapes, cfg.m_el))
             x = prolong_parity(xc, cfg.cls_shapes, cfg.m_el) + x
         else:
+            r = lvl_ops[k].residual(b, x)
             xc = vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
             x = x + prolong_grid(xc, cfg.level_grids[k])
         return smooth(k, b, x)

@@ -106,6 +106,26 @@ int gc_graph_destroy(void* graph) {
   return cudaGraphDestroy(static_cast<cudaGraph_t>(graph));
 }
 
+// The kernel nodes of a graph (torch's raw_cuda_graph of a capture):
+// the kernel launches the captured work makes.
+int gc_kernel_nodes(void* graph, unsigned long long* count) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return e;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n > 0 ? n : 1];
+  e = cudaGraphGetNodes(g, nodes, &n);
+  unsigned long long k = 0;
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    if (e == cudaSuccess && t == cudaGraphNodeTypeKernel) ++k;
+  }
+  delete[] nodes;
+  if (e == cudaSuccess) *count = k;
+  return e;
+}
+
 const char* gc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -22,7 +22,9 @@ held against, and the CPU's path.
 There is no CPU mode for a graph: the CPU runs the bodies eagerly, and
 `Captured` and `ControlGraph` refuse CPU tensors."""
 
+import contextlib
 import ctypes
+import gc
 import os
 import time
 
@@ -38,6 +40,23 @@ def _check_inputs(inputs, what):
             raise ValueError(f"{what}: CUDA tensors only, got {where}")
     if len({x.device for x in inputs}) > 1:
         raise ValueError(f"{what}: inputs on more than one device")
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Python's cyclic garbage collector held off while a CUDA graph is
+    captured. torch.cuda.graph no longer collects before a capture, so a
+    collection could start inside one and finalize a dead graph
+    (cudaGraphExecDestroy, the frees of its private pool), which
+    invalidates the capture in progress. Dead cycles wait for the next
+    collection outside a capture."""
+    held = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if held:
+            gc.enable()
 
 
 class Captured:
@@ -79,7 +98,7 @@ class Captured:
             mode = torch.cuda.get_sync_debug_mode()
             try:
                 # inside the block: entering and leaving it synchronise
-                with torch.cuda.graph(self.graph):
+                with collector_held(), torch.cuda.graph(self.graph):
                     torch.cuda.set_sync_debug_mode("error")
                     try:
                         out = fn(*self._static)
@@ -223,7 +242,8 @@ _SHIM = {"gc_versions": [_V, _V], "gc_graph_create": [_V],
          "gc_add_conditional": [_V, ctypes.c_ulonglong, ctypes.c_int, _V, _V],
          "gc_add_child": [_V, _V, _V], "gc_add_edge": [_V, _V, _V],
          "gc_instantiate": [_V, ctypes.c_int, _V], "gc_launch": [_V, _V],
-         "gc_exec_destroy": [_V], "gc_graph_destroy": [_V]}
+         "gc_exec_destroy": [_V], "gc_graph_destroy": [_V],
+         "gc_kernel_nodes": [_V, _V]}
 
 
 def _shim():
@@ -235,6 +255,28 @@ def _shim():
     lib.gc_error_string.argtypes = [ctypes.c_int]
     lib.gc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernels_per_call(fn):
+    """The kernel launches one call of fn makes on CUDA: the kernel nodes
+    of the graph one call is captured into (after a warm-up call). The
+    counts fn's wrappers keep are left as they were."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    before = _counters()
+    try:
+        with collector_held(), torch.cuda.graph(g):
+            fn()
+    finally:
+        _set_counters(before)
+    lib = _shim()
+    n = ctypes.c_ulonglong()
+    err = lib.gc_kernel_nodes(_V(g.raw_cuda_graph()), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"gc_kernel_nodes failed: "
+                           f"{lib.gc_error_string(err).decode()} ({err})")
+    return n.value
 
 
 # counters besides the kernels' that a body or piece moves (track)
@@ -253,9 +295,11 @@ def track(counter):
 
 def _counters():
     """Every count a body or piece can move: K1's launches and applies,
-    K4's, K6's, each control kernel's, then the tracked counters."""
+    K4's, K6's, K4's by fused epilogue, each control kernel's, then the
+    tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
+            + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
             + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES)
             + tuple(c.n for c in _TRACKED))
 
@@ -263,10 +307,12 @@ def _counters():
 def _set_counters(vals):
     (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
      cheb.LAUNCHES.n) = vals[:4]
-    nk = len(krylov_ctl.NAMES)
-    for k, v in zip(krylov_ctl.NAMES, vals[4:4 + nk]):
+    ne, nk = len(stencil.EPILOGUES), len(krylov_ctl.NAMES)
+    for e, v in zip(stencil.EPILOGUES, vals[4:4 + ne]):
+        stencil.LAUNCHES.fused[e] = v
+    for k, v in zip(krylov_ctl.NAMES, vals[4 + ne:4 + ne + nk]):
         krylov_ctl.LAUNCHES.n[k] = v
-    for c, v in zip(_TRACKED, vals[4 + nk:]):
+    for c, v in zip(_TRACKED, vals[4 + ne + nk:]):
         c.n = v
 
 
@@ -384,7 +430,7 @@ class ControlGraph:
             mode = torch.cuda.get_sync_debug_mode()
             self.ctl.armed = True
             try:
-                with torch.cuda.graph(g):
+                with collector_held(), torch.cuda.graph(g):
                     torch.cuda.set_sync_debug_mode("error")
                     try:
                         piece.fn()

@@ -5,7 +5,8 @@ plain PyTorch version beside it and a launch count.
                 exsaddle_tpu/pallas_apply.py:make_pallas_mult_u)
   stencil    -- K4, the 3^ndim-point block stencil apply of the deep MG
                 levels (replaces exsaddle_tpu/abf.py:stencil_accum, an XLA
-                fusion on the TPU)
+                fusion on the TPU), with the levels' Chebyshev update and
+                residual as its epilogues
   cheb       -- K6, the Chebyshev smoother's vector update with a Jacobi
                 preconditioner, one pass per step (replaces the loop body
                 of exsaddle_tpu/treeops.py:cheb_smooth, an XLA fusion)

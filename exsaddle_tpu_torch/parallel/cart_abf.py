@@ -43,8 +43,8 @@ from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
                                     mp_apply, mult_u_tree, mult_up_tree,
                                     prolong_grid, prolong_parity,
                                     restrict_grid, restrict_parity,
-                                    stencil_accum, stencil_apply,
                                     stencil_from_csr, _esteig_bounds)
+from exsaddle_tpu_torch.kernels import stencil
 from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
@@ -689,14 +689,49 @@ class CartBlocks:
                         for i, f in zip(self.smesh.shards, full.parts))
 
 
+class _ShardedStencil:
+    """The sharded L-2 block stencil as the smoothers and the V-cycle take
+    it (kernels.stencil.StencilOp's interface on ShardVecs): each call
+    extends x by one ghost plane per axis (ghost_extend_axis: the
+    neighbours' planes, zeros at the domain's edges), then runs the
+    kernel's padded form on every shard, the fused residual and Chebyshev
+    updates included."""
+
+    def __init__(self, smesh, W, nd):
+        self.smesh, self.W, self.nd = smesh, W, nd
+
+    def _ghosted(self, x):
+        for k in range(self.nd):
+            x = ghost_extend_axis(self.smesh, x, self.nd - 1 - k)
+        return x
+
+    def __call__(self, x):
+        return smap(stencil.stencil_accum, self.W, self._ghosted(x))
+
+    def residual(self, b, x):
+        return smap(lambda W, xp, b_: stencil.stencil_residual(
+            W, xp, b_, padded=True), self.W, self._ghosted(x), b)
+
+    def cheb_first(self, b, x0, d, scale):
+        return smap(lambda W, xp, b_, d_: stencil.stencil_cheb_first(
+            W, xp, b_, d_, scale, padded=True), self.W, self._ghosted(x0),
+            b, d)
+
+    def cheb_step(self, b, p_k, p_km1, d, scale, omega):
+        return smap(lambda W, xp, b_, d_, q: stencil.stencil_cheb_step(
+            W, xp, b_, d_, q, scale, omega, padded=True), self.W,
+            self._ghosted(p_k), b, d, p_km1)
+
+
 def _cart_bodies(dcfg, smesh, dd, blk):
     """The sharded ABF solve's bodies over placed data `dd` and the blocks
     `blk` (the structure of the JAX package's shard_map body): mg_pc (one
     V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev polynomial
     on pressure grids) and up (the A01 apply of a p ShardVec, halos
     included). Every Chebyshev smoother takes its level's inverse diagonal
-    as diag=, so its update is K6 per shard (per distinct device on the
-    replicated levels)."""
+    as diag=, so its update is K6 per shard on the fine and p levels and,
+    on the stencil levels (L-2 per shard, the replicated levels per
+    distinct device), computed in K4's store, as is their residual."""
     cfg = dcfg.base
     # zero-guess pre-smooths skip the initial A x0 apply (bit-identical)
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
@@ -711,13 +746,7 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     # L-2 Galerkin level: sharded block stencil; one ghost plane per
     # axis (ghost_extend_axis zero-pads where the axis has one shard --
     # exactly the domain-boundary padding)
-    W1 = dd["W1"]
-
-    def lvl1A(xg):
-        xp = xg
-        for k in range(nd):
-            xp = ghost_extend_axis(smesh, xp, nd - 1 - k)
-        return smap(stencil_accum, W1, xp)
+    lvl1A = _ShardedStencil(smesh, dd["W1"], nd)
 
     def coarse_solve(xg):
         cinv = repl[xg.device]["coarse_inv"]
@@ -729,14 +758,13 @@ def _cart_bodies(dcfg, smesh, dd, blk):
         if k == 0:
             return coarse_solve(b)
         rep = repl[b.device]
-        W = rep["stencils"][k - 1]
-        A = lambda xg: stencil_apply(W, xg)
+        A = stencil.StencilOp(rep["stencils"][k - 1])
         emin, emax = dd["bounds"][k - 1]
         invd = rep["inv_diag_repl"][k - 1]
         x = treeops.cheb_smooth(A, None, emin, emax, pre_its, b,
                                 torch.zeros_like(b), x0_zero=True,
                                 diag=invd)
-        r = b - A(x)
+        r = A.residual(b, x)
         xc = repl_vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
         x = x + prolong_grid(xc, cfg.level_grids[k])
         return treeops.cheb_smooth(A, None, emin, emax, cfg.cheb_its, b, x,
@@ -758,7 +786,7 @@ def _cart_bodies(dcfg, smesh, dd, blk):
 
     def vcycle_l1(b):
         x = smooth_l1(b, smap(torch.zeros_like, b), pre=True)
-        r = b - lvl1A(x)
+        r = lvl1A.residual(b, x)
         xc = blk.l1_from_replicated(smesh.per_device(
             coarse_correction, blk.l1_to_replicated(r, lvl1_glob)))
         x = x + xc

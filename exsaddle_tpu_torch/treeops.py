@@ -244,6 +244,12 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
     kernels.cheb call per shard (K6: one kernel pass on CUDA, bitwise the
     ops of the callable path; those ops on the CPU).
 
+    With diag given and `mult` a stencil operator object (one carrying
+    cheb_first and cheb_step: kernels.stencil.StencilOp, the cart path's
+    L-2 operator), each apply and its update are one call of mult's fused
+    form (K4 with K6's update in its store, bitwise the separate calls);
+    a zero-guess first step, which applies nothing, stays K6.
+
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with
     one fewer operator application)."""
@@ -253,33 +259,43 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
     omegaprod = 2.0 / alpha_
 
     if diag is None:
-        def first(ax0):
-            r = b if ax0 is None else b - ax0
+        def first(x0):
+            r = b if x0_zero else b - mult(x0)
             return float(scale) * pc_apply(r) + x0
 
-        def step(ap, p_k, p_km1, omega):
-            z = pc_apply(b - ap)
+        def step(p_k, p_km1, omega):
+            z = pc_apply(b - mult(p_k))
             # p_kp1 = omega (p_k + scale z - p_km1) + p_km1
             t = float(scale) * z + p_k
             return omega * (t - p_km1) + p_km1
+    elif hasattr(mult, "cheb_step"):
+        def first(x0):
+            if x0_zero:
+                return smap(lambda b_, d, x: cheb.cheb_first(
+                    b_, None, d, x, float(scale)), b, diag, x0)
+            return mult.cheb_first(b, x0, diag, float(scale))
+
+        def step(p_k, p_km1, omega):
+            return mult.cheb_step(b, p_k, p_km1, diag, float(scale), omega)
     else:
-        def first(ax0):
+        def first(x0):
+            ax0 = None if x0_zero else mult(x0)
             return smap(lambda b_, a, d, x: cheb.cheb_first(
                 b_, a, d, x, float(scale)), b, ax0, diag, x0)
 
-        def step(ap, p_k, p_km1, omega):
+        def step(p_k, p_km1, omega):
             return smap(lambda b_, a, d, p, q: cheb.cheb_step(
-                b_, a, d, p, q, float(scale), omega), b, ap, diag, p_k,
-                p_km1)
+                b_, a, d, p, q, float(scale), omega), b, mult(p_k), diag,
+                p_k, p_km1)
 
-    p_k = first(None if x0_zero else mult(x0))
+    p_k = first(x0)
     p_km1 = x0
     c_km1 = mu / mu
     c_k = mu * c_km1
     for _ in range(1, its):
         c_kp1 = 2.0 * mu * c_k - c_km1
         omega = float(omegaprod * c_k / c_kp1)
-        p_kp1 = step(mult(p_k), p_k, p_km1, omega)
+        p_kp1 = step(p_k, p_km1, omega)
         p_km1, p_k, c_km1, c_k = p_k, p_kp1, c_k, c_kp1
     return p_k
 

@@ -11,9 +11,10 @@ as one CUDA graph:
   window=True) on the same ShardVecs, and the plain cart solve bit for bit
   the host loop (make_cart_abf_solver, the window arithmetic), with a
   correctly rounded sqrt as on the card;
-- the plain driver's per-solve halo exchanges and K6 calls (every
-  Chebyshev smoother of the cart path takes its inverse diagonal), each
-  K6 call on operands the kernel accepts;
+- the plain driver's per-solve halo exchanges, K6 calls and fused K4
+  calls (every Chebyshev smoother of the cart path takes its inverse
+  diagonal; the L-2 level's updates and residual are K4's epilogues),
+  each call on operands the kernel accepts;
 - the loop option's defaults and refusals.
 
 Every input is made from a numpy seed; each test states its tolerance."""
@@ -28,7 +29,7 @@ from exsaddle_tpu.parallel.cart import CartPartition as JCartPartition
 from exsaddle_tpu.parallel.cart_abf import CartABFSolver as JCartABFSolver
 
 from exsaddle_tpu_torch import graphs, treeops
-from exsaddle_tpu_torch.kernels import cheb
+from exsaddle_tpu_torch.kernels import cheb, stencil
 from exsaddle_tpu_torch.parallel.cart import CartPartition
 from exsaddle_tpu_torch.parallel.cart_abf import (CartABFSolver,
                                                   build_cart_abf)
@@ -97,13 +98,16 @@ def test_plain_loop_equals_host_loop(sinker, monkeypatch):
 
 
 def test_plain_loop_counts(sinker, monkeypatch):
-    """One plain solve's halo exchanges and K6 calls against what its loop
-    counters say ran: per GCR step a V-cycle over the fine and L-2 levels
-    on every shard (pre_its + cheb_its Chebyshev updates on each) and its
-    fine apply, per Arnoldi step a saddle apply, the p-block (p_cheb_its
-    updates) and an A01 apply, per cycle start a saddle apply. Each K6
-    call gets operands of b's shape, dtype and device, contiguous, as
-    the kernel requires. The host loop makes the same halo exchanges."""
+    """One plain solve's halo exchanges, K6 calls and fused K4 calls
+    against what its loop counters say ran: per GCR step a V-cycle over
+    the fine and L-2 levels on every shard (pre_its + cheb_its Chebyshev
+    updates on each: K6 on the fine level; on L-2 K4's fused updates and
+    residual, only the zero-guess first update K6) and its fine apply, per
+    Arnoldi step a saddle apply, the p-block (p_cheb_its updates) and an
+    A01 apply, per cycle start a saddle apply. Each K6 call gets operands
+    of b's shape, dtype and device, contiguous, and each fused K4 call
+    operands that K4's launch checks accept, as the kernels require. The
+    host loop makes the same halo exchanges."""
     solver, F = sinker
     calls = []
 
@@ -117,8 +121,21 @@ def test_plain_loop_counts(sinker, monkeypatch):
             return fn(b, a, d, *rest)
         return f
 
+    def checked_k4(name, vecs):
+        fn = getattr(stencil, name)
+
+        def f(W, x, *rest, padded=False):
+            stencil._check(W, x, padded, **dict(zip(vecs, rest)))
+            calls.append(name)
+            return fn(W, x, *rest, padded=padded)
+        return f
+
     monkeypatch.setattr(cheb, "cheb_first", checked(cheb.cheb_first))
     monkeypatch.setattr(cheb, "cheb_step", checked(cheb.cheb_step))
+    for name, vecs in (("stencil_residual", ("b",)),
+                       ("stencil_cheb_first", ("b", "d")),
+                       ("stencil_cheb_step", ("b", "d", "p_km1"))):
+        monkeypatch.setattr(stencil, name, checked_k4(name, vecs))
     slv = solver("plain")
     r = slv.solve(F)
     dev, cfg = slv._dev, slv.dcfg.base
@@ -129,10 +146,17 @@ def test_plain_loop_counts(sinker, monkeypatch):
     assert arnoldi == r["its"] > 0 and steps >= arnoldi and starts == 1
     pre = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
     nshards = len(slv.smesh.devices)
-    assert len(calls) == nshards * (steps * 2 * (pre + cfg.cheb_its)
+    # a first update per smoother: four per V-cycle (the L-2 post-smooth's
+    # fused), one per p-block
+    assert calls.count("cheb_first") == nshards * (3 * steps + arnoldi)
+    assert calls.count("cheb_step") == nshards * (
+        steps * (pre + cfg.cheb_its - 2) + arnoldi * (cfg.p_cheb_its - 1))
+    assert calls.count("stencil_cheb_first") == nshards * steps
+    assert calls.count("stencil_cheb_step") == nshards * steps * (
+        pre + cfg.cheb_its - 2)
+    assert calls.count("stencil_residual") == nshards * steps
+    assert len(calls) == nshards * (steps * (2 * (pre + cfg.cheb_its) + 1)
                                     + arnoldi * cfg.p_cheb_its)
-    # a first update per smoother: four per V-cycle, one per p-block
-    assert calls.count("cheb_first") == nshards * (4 * steps + arnoldi)
     # halos: mg_pc's fine applies (pre_its - 1 from a zero guess, the
     # residual, cheb_its) and the restricted residual's, GCR's apply; the
     # saddle apply (u and p), the p-block's Mp applies (p_cheb_its - 1),

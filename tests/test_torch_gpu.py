@@ -730,9 +730,11 @@ def _device_problem(mx=8):
 
 
 def _kernel_counts():
-    """(K1 launches, K1 applies, K4 launches, K6 launches) so far."""
+    """(K1 launches, K1 applies, K4 launches, K6 launches, then K4's fused
+    launches by epilogue) so far."""
     return (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
-            cheb.LAUNCHES.n)
+            cheb.LAUNCHES.n) + tuple(stencil.LAUNCHES.fused[e]
+                                     for e in stencil.EPILOGUES)
 
 
 def _reset_kernel_counts():
@@ -918,10 +920,16 @@ def _stencil_inputs(ndim, nd, grid, dtype, device, seed, offset=0):
                               for c in K4_CASES])
 def test_stencil_kernel_within_tolerance(cuda, case, dtype, offset):
     """K4 against its plain twin within K4_TOL, one launch per call,
-    bitwise repeatable."""
+    bitwise repeatable; a W that is not 16-byte aligned (its tiles arrive
+    by bulk copies) is refused before a launch."""
     ndim, nd, grid = case
     W, xp = _stencil_inputs(ndim, nd, grid, dtype, cuda, 31, offset)
     n0 = stencil.LAUNCHES.n
+    if offset:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            stencil.stencil_accum(W, xp)
+        assert stencil.LAUNCHES.n == n0
+        return
     y = stencil.stencil_accum(W, xp)
     assert stencil.LAUNCHES.n == n0 + 1
     want = stencil.stencil_accum_plain(W, xp)
@@ -930,6 +938,112 @@ def test_stencil_kernel_within_tolerance(cuda, case, dtype, offset):
     assert y.shape == want.shape == grid + (nd,)
     assert float((y - want).abs().max()) <= K4_TOL[dtype] * mag
     assert torch.equal(stencil.stencil_accum(W, xp), y)
+
+
+@pytest.mark.gpu
+def test_kernels_per_call_counts_a_captures_kernel_nodes(cuda):
+    """graphs.kernels_per_call (phase K1's launch count): one K1 apply
+    captures 2 kernel nodes, one fused K4 step 1; the wrappers' launch
+    counts are left as they were."""
+    from exsaddle_tpu_torch import graphs
+    op = _operator(CASES[1], torch.float32, cuda)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(op.nu),
+                        dtype=torch.float32, device=cuda)
+    W, xp = _stencil_inputs(3, 3, (5, 7, 9), torch.float32, cuda, 6)
+    v = xp[1:-1, 1:-1, 1:-1].contiguous()
+    n0 = _kernel_counts()
+    assert graphs.kernels_per_call(lambda: a00.a00_apply(op, x)) == 2
+    n1 = _kernel_counts()
+    assert graphs.kernels_per_call(lambda: stencil.stencil_cheb_step(
+        W, v, v, v, v, 0.5, 1.2)) == 1
+    n2 = _kernel_counts()
+    # the warm-up call of each counts, the capture does not
+    assert (n1[0] - n0[0], n2[2] - n1[2]) == (2, 1)
+
+
+# K4's fused epilogues: the flagship's L-2 and L-3 grids, a cart shard's
+# L-2 slab (1x2x2 device grid) and a node count no tile divides
+FUSED_GRIDS = [(33, 33, 33), (17, 17, 17), (17, 17, 33), (5, 7, 9)]
+
+
+def _fused_outputs(W, xp, b, d, q, padded, scale=0.37, omega=1.61):
+    """{epilogue: (fused entry's output, K4's apply followed by K6 / the
+    subtraction)} on xp (padded) or its interior (zero boundary)."""
+    ndim = xp.ndim - 1
+    x = xp[(slice(1, -1),) * ndim].contiguous()
+    v = xp if padded else x
+    y = stencil.stencil_accum(W, xp) if padded else stencil.stencil_apply(
+        W, x)
+    return {"none": (y, stencil.stencil_accum(W, stencil._pad(x))
+                     if not padded else y),
+            "residual": (stencil.stencil_residual(W, v, b, padded=padded),
+                         b - y),
+            "cheb_first": (stencil.stencil_cheb_first(W, v, b, d, scale,
+                                                      padded=padded),
+                           cheb.cheb_first(b, y, d, x, scale)),
+            "cheb_step": (stencil.stencil_cheb_step(W, v, b, d, q, scale,
+                                                    omega, padded=padded),
+                          cheb.cheb_step(b, y, d, x, q, scale, omega))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded", [False, True],
+                         ids=["zero_boundary", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", FUSED_GRIDS,
+                         ids=["x".join(map(str, g)) for g in FUSED_GRIDS])
+def test_stencil_epilogues_bitwise_k4_then_k6(cuda, grid, dtype, padded):
+    """Every fused epilogue bit for bit K4's apply followed by K6 (or the
+    subtraction), zero ghosts in both forms (the zero-boundary form also
+    bitwise the padded one); one K4 launch per call, each counted under
+    its epilogue, no K6 launch."""
+    W, xp = _stencil_inputs(3, 3, grid, dtype, cuda, 41)
+    xp = stencil._pad(xp[1:-1, 1:-1, 1:-1])
+    rng = np.random.default_rng(42)
+    b, d, q = (torch.as_tensor(rng.standard_normal(grid + (3,)), dtype=dtype,
+                               device=cuda) for _ in range(3))
+    n0, f0, c0 = (stencil.LAUNCHES.n, dict(stencil.LAUNCHES.fused),
+                  cheb.LAUNCHES.n)
+    out = _fused_outputs(W, xp, b, d, q, padded)
+    # the fused calls: one launch each; the reference applies: 2 (zero
+    # boundary: both forms) or 1 (padded) K4 launches and 2 K6 launches
+    assert stencil.LAUNCHES.n - n0 == 3 + (2 if not padded else 1)
+    assert {e: stencil.LAUNCHES.fused[e] - f0[e]
+            for e in stencil.EPILOGUES} == dict.fromkeys(stencil.EPILOGUES,
+                                                         1)
+    assert cheb.LAUNCHES.n - c0 == 2
+    torch.cuda.synchronize()
+    for e, (got, want) in out.items():
+        assert _same_bits(got, want), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", K4_CASES[:4],
+                         ids=["x".join(map(str, c[2])) + f"_nd{c[1]}"
+                              for c in K4_CASES[:4]])
+def test_stencil_dispatch_cases_fused_within_tolerance(cuda, case, dtype):
+    """All four (ndim, nd) cases, ragged node counts: the zero-boundary
+    apply bitwise the padded one and within K4_TOL of the twin, each
+    epilogue bitwise the apply followed by K6 / the subtraction, in both
+    forms."""
+    ndim, nd, grid = case
+    W, xp = _stencil_inputs(ndim, nd, grid, dtype, cuda, 43)
+    xp = stencil._pad(xp[(slice(1, -1),) * ndim])
+    rng = np.random.default_rng(44)
+    b, d, q = (torch.as_tensor(rng.standard_normal(grid + (nd,)),
+                               dtype=dtype, device=cuda) for _ in range(3))
+    want = stencil.stencil_accum_plain(W, xp)
+    mag = float(stencil.stencil_accum_plain(W.abs(), xp.abs()).max())
+    for padded in (False, True):
+        out = _fused_outputs(W, xp, b, d, q, padded)
+        torch.cuda.synchronize()
+        y = out["none"][0]
+        assert float((y - want).abs().max()) <= K4_TOL[dtype] * mag
+        for e, (got, ref) in out.items():
+            assert _same_bits(got, ref), (padded, e)
 
 
 def _cheb_vectors(n, dtype, device, seed):

@@ -91,6 +91,27 @@ def test_captured_refuses_what_it_cannot_capture(inputs):
         graphs.Captured(lambda *a: a[0] * 2, *inputs)
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_held_during_a_capture(enabled):
+    """graphs.collector_held keeps Python's cyclic collector off for its
+    block (a collection inside a capture could finalize a dead graph and
+    invalidate the capture) and restores the collector's state after it,
+    also when the block raises."""
+    import gc
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graphs.collector_held():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError):
+            with graphs.collector_held():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_cpu_solver_captures_nothing(solvers):
     slv, fixed = solvers
     for s in (slv, fixed):

@@ -196,10 +196,14 @@ def solver():
 
 
 def test_abf_bodies_go_through_the_kernel_wrappers(solver, monkeypatch):
-    """The V-cycle smooths every level through kernels.cheb (the Jacobi
-    diagonals passed as diag) and applies its stencil level through K4's
-    wrapper; the p-block's polynomial goes through kernels.cheb too."""
-    calls = {"cheb_first": 0, "cheb_step": 0, "stencil_accum": 0}
+    """The V-cycle smooths every level with the Jacobi diagonals passed as
+    diag: the fine level through kernels.cheb, the stencil level through
+    K4's fused entries (each Chebyshev step one stencil_cheb_* call, its
+    residual one stencil_residual call; only the zero-guess first step,
+    which applies nothing, through kernels.cheb); the p-block's polynomial
+    goes through kernels.cheb."""
+    k4 = tuple(stencil.TWINS)
+    calls = dict.fromkeys(("cheb_first", "cheb_step") + k4, 0)
 
     def counted(name, fn):
         def wrapped(*a, **k):
@@ -209,24 +213,28 @@ def test_abf_bodies_go_through_the_kernel_wrappers(solver, monkeypatch):
 
     for name in ("cheb_first", "cheb_step"):
         monkeypatch.setattr(cheb, name, counted(name, getattr(cheb, name)))
-    monkeypatch.setattr(tabf, "stencil_accum",
-                        counted("stencil_accum", tabf.stencil_accum))
+    for name in k4:
+        monkeypatch.setattr(stencil, name,
+                            counted(name, getattr(stencil, name)))
     cfg = solver.cfg
     op = solver.data["op"]
     rng = np.random.default_rng(4)
     solver.bodies()["mg_pc"](torch.as_tensor(rng.standard_normal(op.nu)))
     # a pre- and a post-smooth on each of the 2 smoothed levels; the
     # stencil level applies W once per Chebyshev step and once for its
-    # residual
+    # residual, every apply fused
     pre = cfg.cheb_pre_its or cfg.cheb_its
-    assert calls["cheb_first"] == 4
-    assert calls["cheb_step"] == 2 * (pre - 1 + cfg.cheb_its - 1)
-    assert calls["stencil_accum"] == (pre - 1) + 1 + cfg.cheb_its
+    assert calls == {"cheb_first": 3,
+                     "cheb_step": pre - 1 + cfg.cheb_its - 1,
+                     "stencil_accum": 0, "stencil_apply": 0,
+                     "stencil_residual": 1, "stencil_cheb_first": 1,
+                     "stencil_cheb_step": pre - 1 + cfg.cheb_its - 1}
+    assert sum(calls[k] for k in k4) == (pre - 1) + 1 + cfg.cheb_its
     calls.update(dict.fromkeys(calls, 0))
     solver.bodies()["p_solve"](torch.as_tensor(
         rng.standard_normal(op.p_shape)))
-    assert calls == {"cheb_first": 1, "cheb_step": cfg.p_cheb_its - 1,
-                     "stencil_accum": 0}
+    assert calls == {**dict.fromkeys(calls, 0), "cheb_first": 1,
+                     "cheb_step": cfg.p_cheb_its - 1}
 
 
 # --- the build: one nvcc per source, started together, then one link --------
