@@ -56,8 +56,18 @@ Phases, in order; any failure raises and the script exits nonzero:
               yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W); CUDA
               events, cold and hot) and the HBM bound (bytes); the fused
               entries against their twins and the fused Chebyshev step
-              against the K4 + K6 pair it replaces. Builds its own mx=32
-              setup (~5 s).
+              against the K4 + K6 pair it replaces. Then K5, the MG transfers
+              (csrc/transfer.cu), at the flagship's own shapes: the
+              parity pair fine <-> L-2, the grid pair L-2 <-> L-3 and
+              L-3 <-> coarse, and the parity pair on one cart shard's box
+              of the 1x2x2 grid, in float32 and float64: every entry and
+              fused form (prolongation + add, restriction of b - y) bit
+              for bit its twin; kernel and twin timed cold and hot as K4;
+              the grid pair's library yardstick (F.conv3d /
+              F.conv_transpose3d with the [0.5, 1, 0.5] tensor-product
+              weights, stride 2, groups nd, TF32 off) against the twin to
+              TOL and timed likewise; the bound (bytes). Builds its own
+              mx=32 setup (~5 s).
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
@@ -68,30 +78,32 @@ Phases, in order; any failure raises and the script exits nonzero:
               conditional nodes, captured at setup, one graph launch per
               solve; K1 and every control kernel must have run (counted
               from the device's loop-body counters), and K4, each of its
-              fused entries and K6, every K4 launch a fused one. The
-              residual is
+              fused entries and K6, every K4 launch a fused one, and every
+              K5 kernel and fused form. The residual is
               recomputed with the port's float64 operator. Then over the
               same setup the device loop, the host loop over captured
               bodies (loop="host") and eager=True, 3 solves each,
               alternated; one device-loop solve under
               torch.cuda.set_sync_debug_mode("error"); one plain-driver
               solve (loop="plain"). The device loop is bitwise the plain
-              driver (x, history, rounds, inner its, K1, K4, K6 and
+              driver (x, history, rounds, inner its, K1, K4, K5, K6 and
               control launches), the host loop bitwise eager=True and,
               since it does the device loop's window arithmetic on CUDA,
               bitwise the device loop (x, history, rounds, inner its);
               every kind at
               3 rounds / 34-38 inner its and a true residual <= 1e-8;
               each kind's median wall and spread, ms per outer
-              iteration, K1 launches and applies, control-kernel, graph
+              iteration, K1 launches and applies, K5 launches (exactly
+              2 (levels - 1) per V-cycle: the fused residual restriction,
+              the prolongations with their add), control-kernel, graph
               launches and replays, loop-body executions and peak memory
               per solve. Then the float64 witness: the same flagship as
               a float64 direct
               solve through the driver (device loop) and over its setup
               with loop="host": equal iterations, reason and K1 counts;
-              and over the same setup with every K4 entry and K6 swapped
-              for its plain twin: the same reason and iterations, x
-              within 1e-10.
+              and over the same setup with every K4 and K5 entry and K6
+              swapped for its plain twin: the same reason and
+              iterations, x within 1e-10.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -151,8 +163,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               1e-9 (norm-relative), the true residual recomputed with the float64
               parity operator; K1 launches 2 x 4 per sharded apply; setup /
               solve seconds, ms per outer iteration, halo exchanges, K1,
-              K4 (every one fused), K4's fused entries, K6 and control
-              launches (each above 0), peak memory. The
+              K4 (every one fused), K4's fused entries, K5 (every
+              kernel; the parity pair per shard, the prolongation with
+              its add; 2 x shards + 2 (levels - 2) per V-cycle), K6 and
+              control launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
               "device"); over its setup the device loop, the plain driver
@@ -161,8 +175,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               graph launch under torch.cuda.set_sync_debug_mode("error")
               and no count moved by the host, x, its and history bitwise
               the plain driver's and the host loop's, K1, K4, K4 fused,
-              K6, control and halo counts per solve equal (the host loop
-              runs no control kernel), K6 above 0; the walls of each kind
+              K5, K6, control and halo counts per solve equal (the host
+              loop runs no control kernel), K6 above 0; the walls of each
+              kind
               and the graph launch's CUDA-event span with the card. K1,
               K4 (and its fused epilogues, bitwise K4 + K6) and K6 on the
               sharded solver's own operands against their twins.
@@ -198,11 +213,12 @@ Phases, in order; any failure raises and the script exits nonzero:
               makes 2 x 100 K1 launches; every schedule converges without
               stalling to a float64 residual <= 1e-8 recomputed with the
               port's float64 operator, in rounds and inner iterations
-              inside BENCH_BANDS. Then the tuned schedule over a new setup
+              inside BENCH_BANDS; every K5 kernel and fused form ran.
+              Then the tuned schedule over a new setup
               with K4 and with every K4 entry swapped for its plain twin:
               K4 gives the bench's tuned counts with every stencil apply
-              fused, the twins the pre-K4 band (BENCH_TWIN_BAND) and no
-              K4 launch.
+              fused and 2 (levels - 1) K5 launches per V-cycle, the twins
+              the pre-K4 band (BENCH_TWIN_BAND) and no K4 launch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -240,6 +256,7 @@ from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.kernels import cheb
 from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.kernels import stencil
+from exsaddle_tpu_torch.kernels import transfer
 from exsaddle_tpu_torch.krylov import KSP, KSPConfig
 from exsaddle_tpu_torch.matfree import (MatFreeSaddleOperator,
                                         ParityMatFreeOperator, mult_tree,
@@ -813,6 +830,212 @@ def _cheb_scalars(emin, emax, npdt=np.float64):
     return float(scale), float(omegaprod * mu / (2.0 * mu * mu - 1.0))
 
 
+# K5's forms: (kernel, form) as the kernels line names them; a kernel's
+# launches count every form of it
+K5_KERNELS = {"prolong_parity": ("prolong_parity", "prolong_parity_add"),
+              "restrict_parity": ("restrict_parity",
+                                  "restrict_parity_residual"),
+              "prolong_grid": ("prolong_grid", "prolong_grid_add"),
+              "restrict_grid": ("restrict_grid",)}
+K5_FUSED = ("prolong_parity_add", "restrict_parity_residual",
+            "prolong_grid_add")
+# the JAX functions each K5 kernel replaces
+K5_REPLACES = {"prolong_parity": "exsaddle_tpu/abf.py:110",
+               "restrict_parity": "exsaddle_tpu/abf.py:132",
+               "prolong_grid": "exsaddle_tpu/abf.py:150",
+               "restrict_grid": "exsaddle_tpu/abf.py:171"}
+
+
+def _k5_counts():
+    """K5's launches so far: each kernel's (every form) and each fused
+    form's, by the kernels line's names."""
+    by = transfer.LAUNCHES.by
+    out = {k: sum(by[f] for f in forms) for k, forms in K5_KERNELS.items()}
+    out.update({f: by[f] for f in K5_FUSED})
+    return out
+
+
+def _k5_per_vcycle(k5, residuals, nlev):
+    """K5 launches per V-cycle of a single-device solve: the V-cycles are
+    its fused stencil residuals (one per stencil level, nlev - 2 of them)."""
+    vcycles = residuals / (nlev - 2)
+    return sum(k5[k] for k in K5_KERNELS) / vcycles, vcycles
+
+
+def _grid_ops(shape, nd, prolong):
+    """The twin's operations of a grid transfer (axis by axis): a
+    prolongation's odd slot 2 (add, scale), a restriction's odd fine value
+    3 (scale, an add into each of its two coarse neighbours)."""
+    shape, ops = list(shape), 0
+    for a in range(len(shape)):
+        rest = int(np.prod(shape[:a] + shape[a + 1:])) * nd
+        if prolong:
+            ops += 2 * (shape[a] - 1) * rest
+            shape[a] = 2 * shape[a] - 1
+        else:
+            nc = (shape[a] + 1) // 2
+            ops += 3 * (nc - 1) * rest
+            shape[a] = nc
+    return ops
+
+
+def _k5_yardstick(kind, grid, nd, dtype):
+    """(the library call, its argument) for a grid transfer: F.conv3d
+    (restriction) or F.conv_transpose3d (prolongation) with the 3x3x3
+    tensor-product weights [0.5, 1, 0.5], stride 2, padding 1, groups nd,
+    on the grid permuted to (1, nd, z, y, x); and its output brought back
+    to (z, y, x, nd). A yardstick only: the port never calls it."""
+    F = torch.nn.functional
+    w1 = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=grid.device)
+    w = (w1[:, None, None] * w1[None, :, None] * w1[None, None, :])
+    w = w.expand(nd, 1, 3, 3, 3).contiguous()
+    arg = grid.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    if kind == "prolong_grid":
+        def lib(a):
+            return F.conv_transpose3d(a, w, stride=2, padding=1, groups=nd)
+    else:
+        def lib(a):
+            return F.conv3d(a, w, stride=2, padding=1, groups=nd)
+    return lib, arg, lambda y: y[0].permute(1, 2, 3, 0)
+
+
+def _k5_kernels(cfg, device, card, rng):
+    """K5 (csrc/transfer.cu) at the mx=32 flagship's own shapes: the
+    parity pair between the fine level and L-2, the grid pair between L-2
+    and L-3 and between L-3 and the coarse grid, and the parity pair on
+    one cart shard's local box of the 1x2x2 grid, in float32 and float64:
+    every entry and fused form bit for bit its twin; device ms per call of
+    kernel and twin, cold and hot (_mg_times); the grid pair's library
+    yardstick (cuDNN convolutions, TF32 off) against the twin to TOL and
+    timed likewise; the bound (bytes: each input read once, the output
+    written once). Returns the records by (form, case, dtype)."""
+    from exsaddle_tpu_torch.parallel.cart_abf import _local_cls_shapes
+    f32, f64 = torch.float32, torch.float64
+    nd = cfg.ndim
+    mloc = tuple(m // s for m, s in zip(cfg.m_el, (1, 2, 2)))
+    grids = cfg.level_grids                  # coarse -> finer, reversed
+    cases = [("fine <-> L-2", "parity", cfg.cls_shapes, cfg.m_el),
+             ("cart shard", "parity", _local_cls_shapes(mloc, nd), mloc),
+             ("L-2 <-> L-3", "grid", grids[1], grids[2]),
+             ("L-3 <-> coarse", "grid", grids[0], grids[1])]
+    res = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for case, kind, a, b in cases:
+            for dtype in (f32, f64):
+                size = torch.empty((), dtype=dtype).element_size()
+                t = lambda v: torch.as_tensor(  # noqa: E731
+                    v, dtype=dtype, device=device)
+                if kind == "parity":
+                    cls, m_el = a, b
+                    cshape = tuple(m + 1 for m in reversed(m_el))
+                    n = sum(int(np.prod(c)) for c in cls) * nd
+                    xc = t(rng.standard_normal(cshape + (nd,)))
+                    x, bb, y = (t(rng.standard_normal(n)) for _ in range(3))
+                    nc = xc.numel()
+                    terms = sum(int(np.prod(c)) * nd * 2 ** bin(p).count("1")
+                                for p, c in enumerate(cls))
+                    forms = {
+                        "prolong_parity": (
+                            lambda v: transfer.prolong_parity(v, cls, m_el),
+                            lambda v: transfer.prolong_parity_plain(
+                                v, cls, m_el), (xc,), nc + n, 2 * terms),
+                        "prolong_parity_add": (
+                            lambda v, q: transfer.prolong_parity(
+                                v, cls, m_el, add=q),
+                            lambda v, q: transfer.prolong_parity_plain(
+                                v, cls, m_el) + q, (xc, x), nc + 2 * n,
+                            2 * terms + n),
+                        "restrict_parity": (
+                            lambda v: transfer.restrict_parity(v, cls, m_el),
+                            lambda v: transfer.restrict_parity_plain(
+                                v, cls, m_el), (bb,), n + nc, 2 * terms),
+                        "restrict_parity_residual": (
+                            lambda v, q: transfer.restrict_parity_residual(
+                                v, q, cls, m_el),
+                            lambda v, q: transfer.restrict_parity_plain(
+                                v - q, cls, m_el), (bb, y), 2 * n + nc,
+                            2 * terms + n)}
+                    shapes = f"{cshape} <-> {n} values"
+                else:
+                    coarse, fine = a, b
+                    xc = t(rng.standard_normal(coarse + (nd,)))
+                    xf, x = (t(rng.standard_normal(fine + (nd,)))
+                             for _ in range(2))
+                    nc, nf = xc.numel(), xf.numel()
+                    pops = _grid_ops(coarse, nd, True)
+                    forms = {
+                        "prolong_grid": (
+                            lambda v: transfer.prolong_grid(v, fine),
+                            lambda v: transfer.prolong_grid_plain(v, fine),
+                            (xc,), nc + nf, pops),
+                        "prolong_grid_add": (
+                            lambda v, q: transfer.prolong_grid(v, fine,
+                                                               add=q),
+                            lambda v, q: q + transfer.prolong_grid_plain(
+                                v, fine), (xc, x), nc + 2 * nf, pops + nf),
+                        "restrict_grid": (
+                            lambda v: transfer.restrict_grid(v, coarse),
+                            lambda v: transfer.restrict_grid_plain(
+                                v, coarse), (xf,), nf + nc,
+                            _grid_ops(fine, nd, False))}
+                    shapes = f"{fine} <-> {coarse} nodes x {nd}"
+                for form, (kern, twin, args, nval, nops) in forms.items():
+                    got, want = kern(*args), twin(*args)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    check(_same_bits(got, want),
+                          f"K5 {form} {case} {dtype}: not bitwise its twin "
+                          f"(max_abs_err {err:.3e})")
+                    nbytes = size * nval
+                    (ms_hot, plain_hot), (ms, plain_ms), ncp = _mg_times(
+                        kern, twin, args, nbytes)
+                    bound_ms, bound_by = _ctl_bound(nbytes, nops, dtype)
+                    rec = {"max_abs_err": err, "ms": ms, "hot_ms": ms_hot,
+                           "plain_ms": plain_ms, "plain_hot_ms": plain_hot,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": None, "cold_copies": ncp}
+                    lib_line = ("library null (no PyTorch call computes "
+                                + ("the parity layout)" if kind == "parity"
+                                   else "the fused form)"))
+                    if form in ("prolong_grid", "restrict_grid"):
+                        lib, larg, back = _k5_yardstick(form, args[0], nd,
+                                                        dtype)
+                        lib_err = float((back(lib(larg)) - want).abs().max())
+                        mag = float(want.abs().max())
+                        check(lib_err <= TOL[dtype] * mag,
+                              f"K5 {form} {case} {dtype}: the convolution "
+                              f"yardstick is off by {lib_err:.3e}")
+                        lib_hot = _graph_ms([lambda: lib(larg)] * MG_REPS)
+                        lcp = _cold_copies((larg,), nbytes)
+                        lib_ms = _graph_ms(
+                            [lambda c=c: lib(c[0]) for c in lcp]
+                            * -(-MG_REPS // len(lcp)))
+                        rec.update(library_ms=lib_ms, library_hot_ms=lib_hot,
+                                   library_err=lib_err)
+                        call = ("F.conv_transpose3d" if form ==
+                                "prolong_grid" else "F.conv3d")
+                        lib_line = (f"library ({call}, "
+                                    f"groups {nd}, off by {lib_err:.3e} of "
+                                    f"max {mag:.3e}) {1e3 * lib_ms:.2f} / "
+                                    f"{1e3 * lib_hot:.2f} us cold / hot")
+                    log(f"[mg_kernels] K5 {form} {case} {shapes} "
+                        f"{str(dtype)[6:]}: bitwise its twin; per launch in "
+                        f"a graph {1e3 * ms:.2f} us cold (inputs cycled "
+                        f"through {ncp} copies), {1e3 * ms_hot:.2f} us hot; "
+                        f"twin {1e3 * plain_ms:.2f} / {1e3 * plain_hot:.2f} "
+                        f"us cold / hot; {lib_line}; bound "
+                        f"{1e3 * bound_ms:.3f} us ({bound_by}: "
+                        f"{nbytes / 1e6:.2f} MB), kernel at "
+                        f"{100 * bound_ms / ms:.1f}% of it cold, "
+                        f"{100 * bound_ms / ms_hot:.1f}% hot ({card})")
+                    res[(form, case, dtype)] = rec
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return res
+
+
 def phase_mg_kernels(device, card):
     """K4 (the block stencil, csrc/stencil_apply.cu) on the mx=32
     flagship's own L-2 and L-3 stencils (zero-boundary form, as the
@@ -829,14 +1052,15 @@ def phase_mg_kernels(device, card):
     yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W), int32 indices;
     CUDA events, cold and hot), the bound; the fused Chebyshev step
     against its twin and against the K4 + K6 pair it replaces (cold and
-    hot). Returns the float32 L-2 numbers of K4, of each fused entry and
-    of K6's fine-level step."""
+    hot). Then K5 (_k5_kernels). Returns the float32 L-2 numbers of K4,
+    of each fused entry and of K6's fine-level step, and K5's by form at
+    the single-device path's shapes."""
     f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
     p = bench._build_problem(32)
-    _, data, setup = tabf.build_abf(p["mesh"], p["fes"], p["coeff"],
-                                    p["bc_idx"], p["bc_vals"], device=device,
-                                    dtype=f64, nlevels=4)
+    cfg, data, setup = tabf.build_abf(p["mesh"], p["fes"], p["coeff"],
+                                      p["bc_idx"], p["bc_vals"],
+                                      device=device, dtype=f64, nlevels=4)
     log(f"[mg_kernels] mx=32 flagship ABF setup (4 levels, float64) "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(12)
@@ -1030,10 +1254,17 @@ def phase_mg_kernels(device, card):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "cold_copies": ncp}
     del data, setup, diags
+    k5 = _k5_kernels(cfg, device, card, rng)
     torch.cuda.empty_cache()
+    # the kernels line's K5 entries: each form at the single-device main
+    # path's float32 shape (the parity pair fine <-> L-2, the grid pair
+    # L-2 <-> L-3)
+    k5_case = {f: "fine <-> L-2" if "parity" in f else "L-2 <-> L-3"
+               for f in transfer.FORMS}
     return (res[("K4", "L-2", f32)],
             {e: res[(e, "L-2", f32)] for e in stencil.EPILOGUES},
-            res[("K6", "fine", f32)])
+            res[("K6", "fine", f32)],
+            {f: k5[(f, k5_case[f], f32)] for f in transfer.FORMS})
 
 
 def phase_anchor():
@@ -1058,8 +1289,9 @@ MAIN_ORDER = ("device", "host", "eager", "eager", "host", "device",
 
 
 def _reset_launches():
-    """Every kernel's launch count to 0: K1, K4, K6, the control kernels."""
-    for k in (a00, stencil, cheb, krylov_ctl):
+    """Every kernel's launch count to 0: K1, K4, K5, K6, the control
+    kernels."""
+    for k in (a00, stencil, transfer, cheb, krylov_ctl):
         k.LAUNCHES.reset()
 
 
@@ -1084,8 +1316,8 @@ def _k4_twins():
 
 def _ir_solve(slv, F):
     """One IR solve to a true 1e-8 with its wall seconds, K1 launches and
-    applies, K4 and K6 launches, control-kernel launches, graph launches
-    and replays, and peak device memory (allocated, reserved)."""
+    applies, K4, K5 and K6 launches, control-kernel launches, graph
+    launches and replays, and peak device memory (allocated, reserved)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1098,7 +1330,7 @@ def _ir_solve(slv, F):
     wall = time.perf_counter() - t0
     out = {"res": res, "wall": wall,
            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
-           "mg": _mg_counts(),
+           "mg": _mg_counts(), "k5": _k5_counts(),
            "ctl": dict(krylov_ctl.LAUNCHES.n),
            "replays": graphs.replays(slv.bodies()) - n0,
            "graph_launches": (dev.graph.launches - g0
@@ -1119,8 +1351,8 @@ def _same_ir(a, b):
 def phase_main(card):
     """The driver on the flagship (its solver runs the device loop), then
     the three modes timed over one setup; returns the driver run's K1
-    (launches, applies), K4 and K6 launches and control-kernel
-    launches."""
+    (launches, applies), K4 and K6 launches, control-kernel launches and
+    K5 launches."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
@@ -1135,12 +1367,13 @@ def phase_main(card):
                    **{FUSED[e]: stencil.LAUNCHES.fused[e]
                       for e in stencil.EPILOGUES}}
     ctl_launches = dict(krylov_ctl.LAUNCHES.n)
+    k5_launches = _k5_counts()
     res = r["res"]
     slv = r["solver"]
     graph = slv._dev.graph if slv._dev is not None else None
     log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
-        f"launches in {applies} applies, K4 / K6 {mg_launches}, control "
-        f"kernels {ctl_launches} "
+        f"launches in {applies} applies, K4 / K6 {mg_launches}, K5 "
+        f"{k5_launches}, control kernels {ctl_launches} "
         f"(capture warm-ups included); graph capture "
         f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
         f"captured pieces, {graph.launches if graph else 0} graph launches")
@@ -1155,6 +1388,9 @@ def phase_main(card):
     check(mg_launches["stencil_accum"] == sum(
         mg_launches[FUSED[e]] for e in stencil.EPILOGUES),
           f"an unfused K4 launch on the main path: {mg_launches}")
+    check(all(n > 0 for n in k5_launches.values()),
+          f"a K5 kernel or fused form never ran on the main path: "
+          f"{k5_launches}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
     check(not res["stalled"], "iterative refinement stalled")
@@ -1219,17 +1455,22 @@ def phase_main(card):
           "device loop's window arithmetic on CUDA) and the device loop "
           "differ (x, history, rounds or inner its)")
     d, h, e = runs["device"][0], runs["host"][0], runs["eager"][0]
-    check((d["launches"], d["applies"], d["mg"], d["ctl"])
-          == (pl["launches"], pl["applies"], pl["mg"], pl["ctl"]),
-          f"K1 / K4, K6 / control launches per solve: graph "
-          f"{d['launches']} / {d['applies']} / {d['mg']} / {d['ctl']}, "
-          f"plain driver {pl['launches']} / {pl['applies']} / {pl['mg']} / "
-          f"{pl['ctl']}")
-    check((h["launches"], h["applies"], h["mg"])
-          == (e["launches"], e["applies"], e["mg"]),
-          f"K1, K4, K6 per solve: host loop {h['launches']} / "
-          f"{h['applies']} / {h['mg']}, eager {e['launches']} / "
-          f"{e['applies']} / {e['mg']}")
+    check((d["launches"], d["applies"], d["mg"], d["k5"], d["ctl"])
+          == (pl["launches"], pl["applies"], pl["mg"], pl["k5"], pl["ctl"]),
+          f"K1 / K4, K6 / K5 / control launches per solve: graph "
+          f"{d['launches']} / {d['applies']} / {d['mg']} / {d['k5']} / "
+          f"{d['ctl']}, plain driver {pl['launches']} / {pl['applies']} / "
+          f"{pl['mg']} / {pl['k5']} / {pl['ctl']}")
+    check((h["launches"], h["applies"], h["mg"], h["k5"])
+          == (e["launches"], e["applies"], e["mg"], e["k5"]),
+          f"K1, K4, K6, K5 per solve: host loop {h['launches']} / "
+          f"{h['applies']} / {h['mg']} / {h['k5']}, eager {e['launches']} "
+          f"/ {e['applies']} / {e['mg']} / {e['k5']}")
+    nlev = slv.cfg.nlevels
+    per_vc, vcycles = _k5_per_vcycle(d["k5"], d["mg"][2], nlev)
+    check(per_vc == 2 * (nlev - 1),
+          f"K5: {per_vc} launches per V-cycle ({vcycles} V-cycles), "
+          f"expected {2 * (nlev - 1)}")
     check(d["graph_launches"] == 1 and d["replays"] == 0,
           f"device loop: {d['graph_launches']} graph launches per solve")
     for kind, res_k in first.items():
@@ -1264,7 +1505,9 @@ def phase_main(card):
             f"K1 {q['launches']} launches in {q['applies']} applies per "
             f"solve, K4 / K6 {q['mg'][0]} / {q['mg'][1]} launches (K4 fused "
             f"residual / cheb_first / cheb_step {q['mg'][2]} / {q['mg'][3]} "
-            f"/ {q['mg'][4]}), control "
+            f"/ {q['mg'][4]}), K5 {sum(q['k5'][k] for k in K5_KERNELS)} "
+            f"launches ({_k5_per_vcycle(q['k5'], q['mg'][2], nlev)[0]:g} "
+            f"per V-cycle: {q['k5']}), control "
             f"kernels {sum(q['ctl'].values())}, "
             f"{q['graph_launches']} graph launches and {q['replays']} "
             f"captured-body replays per solve{extra}, peak mem "
@@ -1272,7 +1515,7 @@ def phase_main(card):
             f"{max(x['reserved'] for x in recs):.2f} GiB reserved ({card})")
     del solvers, plain, slv, r
     _main_witness(card)
-    return launches, applies, mg_launches, ctl_launches
+    return launches, applies, mg_launches, ctl_launches, k5_launches
 
 
 def _main_witness(card):
@@ -1285,7 +1528,7 @@ def _main_witness(card):
     iterations), histories within 1e-10 of the initial residual (their
     last entries are ~1e-5 of it, where float64 rounding amplified through
     the GCR preconditioner may show at ~1e-8 of the entry). Then the
-    same direct solve over the same setup with K4 and K6 swapped for
+    same direct solve over the same setup with K4, K5 and K6 swapped for
     their plain twins (device loop): K4 sums in another order than its
     twin, yet in float64 the kernels must give the twins' reason and
     iterations, with x within 1e-10 (norm-relative)."""
@@ -1321,7 +1564,8 @@ def _main_witness(card):
     check(rel0 <= 1e-10, f"witness: histories differ by {rel0:.3e} of the "
           f"initial residual")
     swaps = _k4_twins() + [(cheb, "cheb_first", cheb.cheb_first_plain),
-                           (cheb, "cheb_step", cheb.cheb_step_plain)]
+                           (cheb, "cheb_step", cheb.cheb_step_plain)] + [
+        (transfer, name, twin) for name, twin in transfer.TWINS.items()]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     for mod, attr, fn in swaps:
         setattr(mod, attr, fn)
@@ -1330,18 +1574,18 @@ def _main_witness(card):
                                           device=slv.device, dtype=slv.dtype)
         _reset_launches()
         t = twins.solve(r["F"])
-        mg = _mg_counts()
+        mg = _mg_counts() + (transfer.LAUNCHES.n,)
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     xrel = float(np.linalg.norm(d["x"] - t["x"]) / np.linalg.norm(t["x"]))
-    log(f"[main] witness, float64 direct solve with every K4 entry and K6 "
-        f"swapped for its twin ({twins.loop} loop): kernels {d['reason']} in "
-        f"{d['its']} its, twins {t['reason']} in {t['its']} its, x differs "
-        f"by {xrel:.3e} (norm-relative), twin run K4 / K6 launches {mg} "
-        f"({card})")
+    log(f"[main] witness, float64 direct solve with every K4 and K5 entry "
+        f"and K6 swapped for its twin ({twins.loop} loop): kernels "
+        f"{d['reason']} in {d['its']} its, twins {t['reason']} in "
+        f"{t['its']} its, x differs by {xrel:.3e} (norm-relative), twin "
+        f"run K4 / K6 / K5 launches {mg} ({card})")
     check(twins.loop == "device" and not any(mg),
-          f"witness: the twins' solve ran loop {twins.loop}, K4 / K6 "
+          f"witness: the twins' solve ran loop {twins.loop}, K4 / K6 / K5 "
           f"launches {mg}")
     check((t["its"], t["reason"]) == (d["its"], d["reason"]),
           f"witness: kernels {d['its']} its / {d['reason']}, twins "
@@ -1907,6 +2151,13 @@ def phase_cart(device, card):
     check(all(counts[k] > 0 for k in krylov_ctl.NAMES if k != "ir_ctl"),
           f"cart: a control kernel never ran on the sharded path: "
           f"{ {k: counts[k] for k in krylov_ctl.NAMES} }")
+    check(all(counts[k] > 0 for k in K5_KERNELS)
+          and counts["prolong_parity_add"] == counts["prolong_parity"]
+          and counts["restrict_parity_residual"] == 0,
+          f"cart: K5 launches on the sharded path "
+          f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }: each "
+          f"kernel must run, every parity prolongation with its add, the "
+          f"parity restriction unfused")
     # independent float64 true residual with the port's parity operator
     s1 = r1["solver"]
     op64, aux64 = s1.setup["op64"], tree_aux(s1.setup["op64"])
@@ -1933,7 +2184,8 @@ def phase_cart(device, card):
         f"exchanges, {launches} K1 launches in {applies} applies (single "
         f"device {applies1} applies), K4 {counts['stencil_accum']} (fused "
         f"{ {k: counts[k] for k in FUSED.values()} }), K6 "
-        f"{counts['cheb_update']}, control "
+        f"{counts['cheb_update']}, K5 "
+        f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }, control "
         f"{sum(counts[k] for k in krylov_ctl.NAMES)} launches (capture "
         f"warm-ups included), peak mem {peak:.2f} GiB ({card})")
     _cart_loops(slv, r1["solver"], r["F"], r, card)
@@ -1962,7 +2214,8 @@ def _launch_counts():
             "stencil_accum": stencil.LAUNCHES.n,
             "cheb_update": cheb.LAUNCHES.n,
             **{FUSED[e]: stencil.LAUNCHES.fused[e]
-               for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n}
+               for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n,
+            **_k5_counts()}
 
 
 def _cart_solve(slv, F):
@@ -2045,20 +2298,31 @@ def _cart_loops(slv, single, F, r, card):
               f"{d['res']['halo_exchanges']}, {kind} "
               f"{q['res']['halo_exchanges']}")
         keys = d["counts"] if kind == "plain" else (
-            "a00_apply", "stencil_accum", "cheb_update", *FUSED.values())
+            "a00_apply", "stencil_accum", "cheb_update", *FUSED.values(),
+            *K5_KERNELS, *K5_FUSED)
         check(all(q["counts"][k] == d["counts"][k] for k in keys),
               f"cart: launches per solve: device {d['counts']}, {kind} "
               f"{q['counts']}")
     check(d["counts"]["cheb_update"] > 0,
           "cart: K6 never ran in a sharded solve")
     c = d["counts"]
+    # a cart V-cycle's fused residuals: the L-2 level on every shard and
+    # each replicated stencil level once
+    nlev = slv.dcfg.base.nlevels
+    shards = len(slv.blocks.ops.parts)
+    vcycles = c["stencil_residual"] / (shards + nlev - 3)
+    k5 = sum(c[k] for k in K5_KERNELS)
+    check(k5 == (2 * shards + 2 * (nlev - 2)) * vcycles,
+          f"cart: {k5} K5 launches in {vcycles} V-cycles, expected "
+          f"{2 * shards + 2 * (nlev - 2)} per V-cycle")
     log(f"[cart] loops over one setup: device loop bitwise the plain "
         f"driver and the host loop ({d['res']['its']} its, x, history), "
         f"each device solve 1 graph launch under sync debug \"error\", 0 "
         f"host-issued launches; per solve K1 {c['a00_apply'][0]} launches "
         f"in {c['a00_apply'][1]} applies, K4 {c['stencil_accum']} (fused "
         f"{ {k: c[k] for k in FUSED.values()} }), K6 "
-        f"{c['cheb_update']}, control "
+        f"{c['cheb_update']}, K5 {k5} ({k5 / vcycles:g} per V-cycle: "
+        f"{ {k: c[k] for k in (*K5_KERNELS, *K5_FUSED)} }), control "
         f"{ {k: c[k] for k in krylov_ctl.NAMES} }, "
         f"{d['res']['halo_exchanges']} halo exchanges ({card})")
     for kind, recs in runs.items():
@@ -2421,10 +2685,21 @@ def _bench_twin_witness(device, card, extras):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     out = {}
+    nlev = slv.cfg.nlevels
     for name, s in (("K4", slv), ("twin", twin)):
         rec = _ir_solve(s, F)
         res = rec["res"]
         out[name] = (res["rounds"], res["inner_its"], rec["mg"])
+        if name == "K4":
+            # the twin solve has no fused residual to count V-cycles by
+            per_vc, vcycles = _k5_per_vcycle(rec["k5"], rec["mg"][2], nlev)
+            log(f"[bench] tuned solve: K5 "
+                f"{sum(rec['k5'][k] for k in K5_KERNELS)} launches in "
+                f"{vcycles:g} V-cycles, {per_vc:g} per V-cycle "
+                f"({rec['k5']}) ({card})")
+            check(per_vc == 2 * (nlev - 1),
+                  f"bench: {per_vc} K5 launches per V-cycle of the tuned "
+                  f"solve, expected {2 * (nlev - 1)}")
         log(f"[bench] tuned solve with {name} ({s.loop} loop): "
             f"{res['rounds']} rounds, {res['inner_its']} inner its, "
             f"{rec['wall']:.3f} s, K4 / K6 launches {rec['mg'][0]} / "
@@ -2449,14 +2724,17 @@ def _bench_twin_witness(device, card, extras):
 
 def phase_bench(device, card):
     """The port's bench at mx=32 (apply and solve legs); prints its JSON
-    line and returns the K1 (launches, applies) of the phase."""
+    line and returns the K1 (launches, applies) and the K5 launches of
+    the bench's run."""
     torch.cuda.synchronize()
     a00.LAUNCHES.reset()
+    transfer.LAUNCHES.reset()
     t0 = time.perf_counter()
     extras = bench.bench_apply(32, BENCH_INNER, 5, device)
     t_apply = time.perf_counter() - t0
     extras.update(bench.bench_solve(32, 1e-8, device, others=BENCH_OTHERS))
     launches, applies = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    k5 = _k5_counts()
     log(json.dumps(bench.result_line(extras, 32, 1e-8, device)))
     kb = extras["kernel_breakdown"]
     roof, cal = kb["roofline"], kb["device_calibration"]
@@ -2494,8 +2772,11 @@ def phase_bench(device, card):
         check(r0 <= rounds <= r1 and i0 <= its <= i1,
               f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
               f"{r0}-{r1} / {i0}-{i1}")
+    check(all(n > 0 for n in k5.values()),
+          f"bench: a K5 kernel or fused form never ran: {k5}")
+    log(f"[bench] K5 launches over the bench's solves: {k5} ({card})")
     _bench_twin_witness(device, card, extras)
-    return launches, applies
+    return launches, applies, k5
 
 
 def _ranged(name, fn):
@@ -2506,18 +2787,18 @@ def _ranged(name, fn):
 
 
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
-# counts (the innermost enclosing one; the hand-written K1, K4 and K6 by
-# kernel name wherever they run)
+# counts (the innermost enclosing one; the hand-written K1, K4, K5 and K6
+# by kernel name wherever they run)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),
+                   ("K5 transfers", "prolong_parity_kernel"),
+                   ("K5 transfers", "restrict_parity_kernel"),
+                   ("K5 transfers", "prolong_grid_kernel"),
+                   ("K5 transfers", "restrict_grid_kernel"),
                    ("K6 cheb_smooth", "cheb_first_kernel"),
                    ("K6 cheb_smooth", "cheb_step_kernel"))
 PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K3 mp_apply", tabf, "mp_apply"),
-                  ("K5 transfers", tabf, "prolong_parity"),
-                  ("K5 transfers", tabf, "restrict_parity"),
-                  ("K5 transfers", tabf, "prolong_grid"),
-                  ("K5 transfers", tabf, "restrict_grid"),
                   ("K6 cheb_smooth", treeops, "cheb_smooth"),
                   ("K7 dots", treeops, "tdot"),
                   ("K7 dots", treeops, "_bdots"))
@@ -2611,14 +2892,15 @@ def phase_profile(card):
     pads = sum(e.count for e in ka if e.key == "aten::constant_pad_nd")
     applies_eager = a00.LAUNCHES.applies
     mg_eager = _mg_counts()
+    k5_eager = sum(_k5_counts()[k] for k in K5_KERNELS)
     log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
         f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
         f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
         f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, K4 / "
         f"K6 {mg_eager[0]} / {mg_eager[1]} launches (K4 fused residual / "
         f"cheb_first / cheb_step {mg_eager[2]} / {mg_eager[3]} / "
-        f"{mg_eager[4]}), {pads} F.pad calls, kernel launches {launches} "
-        f"({card})")
+        f"{mg_eager[4]}), K5 {k5_eager} launches, {pads} F.pad calls, "
+        f"kernel launches {launches} ({card})")
     check(mg_eager[0] == sum(mg_eager[2:]) and pads == 0,
           f"profile: K4 launches {mg_eager[0]}, fused {mg_eager[2:]}, F.pad "
           f"calls {pads}: every stencil apply of the single-device solve "
@@ -2654,6 +2936,7 @@ def phase_profile(card):
         replays = graphs.replays(gslv.bodies()) - n0
         applies = a00.LAUNCHES.applies
         mg = _mg_counts()
+        k5 = sum(_k5_counts()[k] for k in K5_KERNELS)
         gka = gprof.key_averages()
         gdev = [e for e in gka
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2690,7 +2973,7 @@ def phase_profile(card):
             f"the host, {replays} captured-body replays, "
             f"{applies} K1 applies, K4 / K6 {mg[0]} / {mg[1]} launches (K4 "
             f"fused residual / cheb_first / cheb_step {mg[2]} / {mg[3]} / "
-            f"{mg[4]}); "
+            f"{mg[4]}), K5 {k5} launches; "
             f"graph capture "
             f"{gslv.capture_seconds:.3f} s ({card})")
         for e in sorted(gdev, key=self_device_us, reverse=True)[:8]:
@@ -2798,10 +3081,11 @@ def main():
     k1 = phase_k1(device)
     ctl = phase_ctl(device)
     t_mg = time.perf_counter()
-    k4, fused, k6 = phase_mg_kernels(device, card)
+    k4, fused, k6, k5 = phase_mg_kernels(device, card)
     log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
     phase_anchor()
-    launches, applies, mg_launches, ctl_launches = phase_main(card)
+    launches, applies, mg_launches, ctl_launches, k5_launches = \
+        phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -2818,7 +3102,7 @@ def main():
     del cart_ref
     log(f"[smoke] cart_procs phase {time.perf_counter() - t_procs:.1f} s")
     t_bench = time.perf_counter()
-    bench_launches, bench_applies = phase_bench(device, card)
+    bench_launches, bench_applies, bench_k5 = phase_bench(device, card)
     log(f"[smoke] bench phase {time.perf_counter() - t_bench:.1f} s")
     log(f"[smoke] compiled, outputs, ex42, cart, cart_procs and bench "
         f"phases "
@@ -2860,7 +3144,16 @@ def main():
             "source": "exsaddle_tpu_torch/csrc/cheb_update.cu",
             "replaces": "exsaddle_tpu/treeops.py:167",
             "launches": mg_launches["cheb_update"],
-            "cart_launches": cart_counts["cheb_update"], **k6}]}))
+            "cart_launches": cart_counts["cheb_update"], **k6}] + [{
+            "name": name, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/transfer.cu",
+            "replaces": K5_REPLACES[kernel],
+            "launches": k5_launches[name],
+            "cart_launches": cart_counts[name],
+            "bench_launches": bench_k5[name], **k5[name]}
+            for kernel, forms in K5_KERNELS.items()
+            for name in (kernel,) + tuple(f for f in forms
+                                          if f in K5_FUSED)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

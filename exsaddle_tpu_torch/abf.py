@@ -26,7 +26,6 @@ matfree.py; the "_tree" names of the JAX package are kept for the block
 applies so each counterpart is easy to find."""
 
 import contextlib
-import itertools
 import os
 import sys
 import threading
@@ -46,6 +45,12 @@ from exsaddle_tpu_torch.kernels.a00 import a00_apply
 # the block stencil apply (as exsaddle_tpu/abf.py's)
 from exsaddle_tpu_torch.kernels.stencil import (  # noqa: F401
     StencilOp, stencil_accum, stencil_apply, stencil_offsets)
+# the MG transfers: K5's entries under exsaddle_tpu/abf.py's names; the
+# V-cycles call them through the module (transfer.<entry>), so a caller
+# may swap them for their twins
+from exsaddle_tpu_torch.kernels import transfer
+from exsaddle_tpu_torch.kernels.transfer import (  # noqa: F401
+    prolong_grid, prolong_parity, restrict_grid, restrict_parity)
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator,
                                         factored_host, parity_permutation,
                                         mult_tree, tree_aux)
@@ -113,97 +118,6 @@ def mp_apply(op, pscale, pg, halo_p=None):
     pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)]."""
     yp = smap(_mp_local, op, pscale, pg)
     return yp if halo_p is None else halo_p(yp)
-
-
-# --------------------------------------------------------------------------
-# MG transfers
-# --------------------------------------------------------------------------
-
-def _class_bits(p, nd):
-    return [(p >> a) & 1 for a in range(nd)]
-
-
-def prolong_parity(xc, cls_shapes, m_el):
-    """Multilinear interpolation coarse grid -> fine parity layout.
-
-    xc: (*rev(m+1 per axis), nd). Coarse nodes coincide with fine parity
-    class 0; a fine node with parity bits b averages its 2^{popcount(b)}
-    coarse neighbors -- every term a unit-stride slice. Returns a flat
-    parity-permuted u vector."""
-    nd = len(m_el)
-    subs = []
-    for p, shp in enumerate(cls_shapes):
-        bits = _class_bits(p, nd)
-        w = 0.5 ** sum(bits)
-        acc = None
-        for deltas in itertools.product(*[range(b + 1) for b in bits]):
-            idx = tuple(
-                slice(deltas[nd - 1 - dim], deltas[nd - 1 - dim]
-                      + shp[dim]) for dim in range(nd)) + (slice(None),)
-            piece = xc[idx]
-            acc = piece if acc is None else acc + piece
-        subs.append((w * acc).reshape(-1))
-    return torch.cat(subs)
-
-
-def restrict_parity(xu, cls_shapes, m_el):
-    """Transpose of prolong_parity: flat fine u vector -> coarse grid."""
-    nd = len(m_el)
-    cshape = tuple(m_el[nd - 1 - dim] + 1 for dim in range(nd))
-    out = torch.zeros(cshape + (nd,), dtype=xu.dtype, device=xu.device)
-    off = 0
-    for p, shp in enumerate(cls_shapes):
-        n = int(np.prod(shp)) * nd
-        sub = xu[off:off + n].view(tuple(shp) + (nd,))
-        off += n
-        bits = _class_bits(p, nd)
-        w = 0.5 ** sum(bits)
-        for deltas in itertools.product(*[range(b + 1) for b in bits]):
-            idx = tuple(slice(deltas[nd - 1 - dim],
-                              deltas[nd - 1 - dim] + shp[dim])
-                        for dim in range(nd))
-            out[idx] += w * sub
-    return out
-
-
-def prolong_grid(xc, fine_shape):
-    """Separable multilinear interpolation between plain node grids
-    (spatial dims leading, dof trailing). fine_shape: spatial shape of the
-    output. Matches precond_mg.Prolongation for (M+1)/2-coarsened grids."""
-    x = xc
-    for dim in range(len(fine_shape)):
-        x = _prolong_axis(x, dim, fine_shape[dim])
-    return x
-
-
-def _prolong_axis(x, axis, nf):
-    x = torch.movedim(x, axis, 0)
-    a = x                                     # even fine slots
-    b = 0.5 * (x[:-1] + x[1:])                # odd fine slots
-    inter = torch.stack([a[:-1], b], dim=1).reshape((-1,) + x.shape[1:])
-    out = torch.cat([inter, a[-1:]], dim=0)
-    if out.shape[0] != nf:
-        raise ValueError(f"prolong_grid: {out.shape[0]} != {nf} nodes")
-    return torch.movedim(out, 0, axis)
-
-
-def restrict_grid(rf, coarse_shape):
-    """Transpose of prolong_grid."""
-    x = rf
-    for dim in range(len(coarse_shape)):
-        x = _restrict_axis(x, dim, coarse_shape[dim])
-    return x
-
-
-def _restrict_axis(x, axis, nc):
-    x = torch.movedim(x, axis, 0)
-    r = x[::2].clone()
-    odd = 0.5 * x[1::2]
-    r[:-1] += odd
-    r[1:] += odd
-    if r.shape[0] != nc:
-        raise ValueError(f"restrict_grid: {r.shape[0]} != {nc} nodes")
-    return torch.movedim(r, 0, axis).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -851,13 +765,14 @@ def _mg_pc(cfg, data, fineA):
             return coarse_solve(b)
         x = smooth(k, b, torch.zeros_like(b), pre=True)
         if k == nlev - 1:
-            r = b - lvl_ops[k](x)
-            xc = vcycle(k - 1, restrict_parity(r, cfg.cls_shapes, cfg.m_el))
-            x = prolong_parity(xc, cfg.cls_shapes, cfg.m_el) + x
+            xc = vcycle(k - 1, transfer.restrict_parity_residual(
+                b, lvl_ops[k](x), cfg.cls_shapes, cfg.m_el))
+            x = transfer.prolong_parity(xc, cfg.cls_shapes, cfg.m_el, add=x)
         else:
             r = lvl_ops[k].residual(b, x)
-            xc = vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
-            x = x + prolong_grid(xc, cfg.level_grids[k])
+            xc = vcycle(k - 1, transfer.restrict_grid(
+                r, cfg.level_grids[k - 1]))
+            x = transfer.prolong_grid(xc, cfg.level_grids[k], add=x)
         return smooth(k, b, x)
 
     return lambda r: vcycle(nlev - 1, r)

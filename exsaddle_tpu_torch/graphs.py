@@ -30,7 +30,8 @@ import time
 
 import torch
 
-from exsaddle_tpu_torch.kernels import _build, a00, cheb, krylov_ctl, stencil
+from exsaddle_tpu_torch.kernels import (_build, a00, cheb, krylov_ctl,
+                                       stencil, transfer)
 
 
 def _check_inputs(inputs, what):
@@ -295,24 +296,29 @@ def track(counter):
 
 def _counters():
     """Every count a body or piece can move: K1's launches and applies,
-    K4's, K6's, K4's by fused epilogue, each control kernel's, then the
-    tracked counters."""
+    K4's, K6's, K4's by fused epilogue, each control kernel's, K5's and
+    K5's by form, then the tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
             + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
             + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES)
+            + (transfer.LAUNCHES.n,)
+            + tuple(transfer.LAUNCHES.by[f] for f in transfer.FORMS)
             + tuple(c.n for c in _TRACKED))
 
 
 def _set_counters(vals):
     (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
      cheb.LAUNCHES.n) = vals[:4]
-    ne, nk = len(stencil.EPILOGUES), len(krylov_ctl.NAMES)
-    for e, v in zip(stencil.EPILOGUES, vals[4:4 + ne]):
-        stencil.LAUNCHES.fused[e] = v
-    for k, v in zip(krylov_ctl.NAMES, vals[4 + ne:4 + ne + nk]):
-        krylov_ctl.LAUNCHES.n[k] = v
-    for c, v in zip(_TRACKED, vals[4 + ne + nk:]):
+    vals = list(vals[4:])
+    for e in stencil.EPILOGUES:
+        stencil.LAUNCHES.fused[e] = vals.pop(0)
+    for k in krylov_ctl.NAMES:
+        krylov_ctl.LAUNCHES.n[k] = vals.pop(0)
+    transfer.LAUNCHES.n = vals.pop(0)
+    for f in transfer.FORMS:
+        transfer.LAUNCHES.by[f] = vals.pop(0)
+    for c, v in zip(_TRACKED, vals):
         c.n = v
 
 
@@ -333,7 +339,7 @@ class ControlGraph:
     raw graph added as a child-graph node; then the edges, and
     instantiation. Any CUDA error raises: there is no fallback.
 
-    A piece's kernel launches (K1, K4, K6, control) are recorded at
+    A piece's kernel launches (K1, K4, K5, K6, control) are recorded at
     capture and not counted; account(counts) adds them times the
     executions the device counted (Control.counts, brought back with the
     result). The capture keeps the pieces' tensors by address: the caller

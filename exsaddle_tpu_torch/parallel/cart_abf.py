@@ -41,10 +41,8 @@ import torch
 from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
                                     mp_apply, mult_u_tree, mult_up_tree,
-                                    prolong_grid, prolong_parity,
-                                    restrict_grid, restrict_parity,
                                     stencil_from_csr, _esteig_bounds)
-from exsaddle_tpu_torch.kernels import stencil
+from exsaddle_tpu_torch.kernels import stencil, transfer
 from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
@@ -731,7 +729,10 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     included). Every Chebyshev smoother takes its level's inverse diagonal
     as diag=, so its update is K6 per shard on the fine and p levels and,
     on the stencil levels (L-2 per shard, the replicated levels per
-    distinct device), computed in K4's store, as is their residual."""
+    distinct device), computed in K4's store, as is their residual. The
+    transfers are K5's entries: the parity pair per shard (the
+    prolongation adding the correction in its store), the grid pair on
+    the replicated levels."""
     cfg = dcfg.base
     # zero-guess pre-smooths skip the initial A x0 apply (bit-identical)
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
@@ -765,16 +766,17 @@ def _cart_bodies(dcfg, smesh, dd, blk):
                                 torch.zeros_like(b), x0_zero=True,
                                 diag=invd)
         r = A.residual(b, x)
-        xc = repl_vcycle(k - 1, restrict_grid(r, cfg.level_grids[k - 1]))
-        x = x + prolong_grid(xc, cfg.level_grids[k])
+        xc = repl_vcycle(k - 1, transfer.restrict_grid(
+            r, cfg.level_grids[k - 1]))
+        x = transfer.prolong_grid(xc, cfg.level_grids[k], add=x)
         return treeops.cheb_smooth(A, None, emin, emax, cfg.cheb_its, b, x,
                                    diag=invd)
 
     def coarse_correction(r_full):
-        r_rep = restrict_grid(r_full, cfg.level_grids[nlev - 3])
+        r_rep = transfer.restrict_grid(r_full, cfg.level_grids[nlev - 3])
         xc_rep = (coarse_solve(r_rep) if nlev == 3
                   else repl_vcycle(nlev - 3, r_rep))
-        return prolong_grid(xc_rep, cfg.level_grids[nlev - 2])
+        return transfer.prolong_grid(xc_rep, cfg.level_grids[nlev - 2])
 
     emin1, emax1 = dd["bounds"][nlev - 2 - 1]
 
@@ -803,10 +805,12 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     def mg_pc(r):
         x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
         rr = r - blk.fine_mult(x)
-        r1 = blk.halo_p(smap(lambda v: restrict_parity(v, cls_loc, mloc),
-                             blk.w_u * rr))
+        r1 = blk.halo_p(smap(
+            lambda v: transfer.restrict_parity(v, cls_loc, mloc),
+            blk.w_u * rr))
         x1 = vcycle_l1(r1)
-        x = smap(lambda v: prolong_parity(v, cls_loc, mloc), x1) + x
+        x = smap(lambda v, a: transfer.prolong_parity(v, cls_loc, mloc,
+                                                      add=a), x1, x)
         return smooth_fine(r, x)
 
     # Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled

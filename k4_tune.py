@@ -33,7 +33,7 @@ exits 1 if any output differs.
 --cart-walls N times N device-loop solves of the mx=32 cart flagship (4
 shards on this card, chip_smoke.py's CART_ARGV through saddle_solve) with
 chip_smoke.py's _cart_solve and prints one JSON line: walls, graph spans,
-iterations, K4 and K6 launches per solve. Run from the root of another
+iterations, K4, K6 and K5 launches per solve. Run from the root of another
 checkout (a copy of this file there), it times that checkout's code, so
 two commits compare in one call. Needs a CUDA card and nvcc."""
 
@@ -295,7 +295,9 @@ def cart_walls(device, n, card):
                     "its": [q["res"]["its"] for q in recs],
                     "loop": r["loop"],
                     "K4": recs[0]["counts"]["stencil_accum"],
-                    "K6": recs[0]["counts"]["cheb_update"], "card": card}))
+                    "K6": recs[0]["counts"]["cheb_update"],
+                    "K5": sum(recs[0]["counts"][k] for k in cs.K5_KERNELS),
+                    "card": card}))
 
 
 def main():

@@ -20,7 +20,7 @@ from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import matfree as tmf
 from exsaddle_tpu_torch import models as tmodels
 from exsaddle_tpu_torch.assembly import FESpace, assemble_rhs, scatter_vector
-from exsaddle_tpu_torch.kernels import a00, cheb, stencil
+from exsaddle_tpu_torch.kernels import a00, cheb, stencil, transfer
 from exsaddle_tpu_torch.mesh import SaddleMesh
 from exsaddle_tpu_torch.options import Options
 from exsaddle_tpu_torch.precond import PCLU
@@ -353,9 +353,10 @@ def test_graphed_cart_solve_equals_plain_and_host_loops_on_cuda(cuda):
     torch.cuda.set_sync_debug_mode("error") and the host launches no kernel
     during it. Over the same placed setup the plain driver (loop="plain")
     and the host loop (loop="host", the window arithmetic on CUDA) give
-    its, reason, history and x bit for bit; the K1, K4, K6 and control
-    launches and the halo exchanges per solve equal the plain driver's,
-    K6 above 0, and K1, K4 and K6 the host loop's."""
+    its, reason, history and x bit for bit; the K1, K4, K5, K6 and
+    control launches and the halo exchanges per solve equal the plain
+    driver's, K5 and K6 above 0, and K1, K4, K5 and K6 the host
+    loop's."""
     slv, prob = _cart_solver([cuda] * 4, mx=8)
     assert slv.smesh.capturable and slv.loop == "device"
     graph = slv._dev.graph
@@ -384,7 +385,7 @@ def test_graphed_cart_solve_equals_plain_and_host_loops_on_cuda(cuda):
         assert np.array_equal(r["x"], rg["x"]), loop
         assert r["halo_exchanges"] == rg["halo_exchanges"] > 0, loop
         assert k == kg, loop
-    assert kg[0] > 0 and kg[2] > 0 and kg[3] > 0
+    assert kg[0] > 0 and kg[2] > 0 and kg[3] > 0 and kg[K5] > 0
     assert cg == runs["plain"][2]
     assert cg["gcr_ctl"] > 0 and cg["fgmres_arnoldi_ctl"] > 0
     assert all(n == 0 for n in runs["host"][2].values())
@@ -517,6 +518,7 @@ def test_graphed_solve_equals_eager_on_cuda(cuda, case):
     assert rg["history"] == re_["history"]
     assert np.array_equal(rg["x"], re_["x"])
     assert kg == ke and kg[1] > 0 and kg[2] > 0 and kg[3] > 0
+    assert kg[K5] > 0
     assert pg > 0 and pe == 0
     if ir:
         assert rg["converged"] and not rg["stalled"]
@@ -731,14 +733,21 @@ def _device_problem(mx=8):
 
 def _kernel_counts():
     """(K1 launches, K1 applies, K4 launches, K6 launches, then K4's fused
-    launches by epilogue) so far."""
-    return (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
-            cheb.LAUNCHES.n) + tuple(stencil.LAUNCHES.fused[e]
-                                     for e in stencil.EPILOGUES)
+    launches by epilogue, K5's launches (index K5), then K5's by form) so
+    far."""
+    return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
+             cheb.LAUNCHES.n)
+            + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
+            + (transfer.LAUNCHES.n,)
+            + tuple(transfer.LAUNCHES.by[f] for f in transfer.FORMS))
+
+
+# _kernel_counts()'s index of K5's launches
+K5 = 4 + len(stencil.EPILOGUES)
 
 
 def _reset_kernel_counts():
-    for k in (a00, stencil, cheb):
+    for k in (a00, stencil, cheb, transfer):
         k.LAUNCHES.reset()
 
 
@@ -790,6 +799,7 @@ def test_device_loop_graph_equals_plain_driver_on_cuda(cuda, case):
     assert rg["history"] == rp["history"]
     assert np.array_equal(rg["x"], rp["x"])
     assert kg == kp and kg[1] > 0 and kg[2] > 0 and kg[3] > 0
+    assert kg[K5] > 0
     assert cg == cp and cg["fgmres_arnoldi_ctl"] > 0
     if ir:
         assert rg["converged"]
@@ -1154,3 +1164,161 @@ def test_mg_kernels_capture_with_launches_counted(cuda):
         k = _kernel_counts()
         assert (k[2] - k1[2], k[3] - k1[3]) == (2 * (i + 1), 2 * (i + 1))
 
+
+
+# --- K5, the MG transfers ------------------------------------------------
+
+def _flagship_classes(m_el):
+    from exsaddle_tpu_torch.matfree import _parity_classes
+    return tuple(tuple(s) for s in
+                 _parity_classes(tuple(2 * m + 1 for m in m_el))[1])
+
+
+def _shard_classes(mloc):
+    from exsaddle_tpu_torch.parallel.cart_abf import _local_cls_shapes
+    return _local_cls_shapes(mloc, len(mloc))
+
+
+# (m_el, class shapes) of the parity pair: the mx=32 flagship's fine <-> L-2
+# level, a cart shard's local box of its 1x2x2 grid (32 x 16 x 16
+# elements), and small 2D and 3D meshes
+K5_PARITY = {"flagship": ((32, 32, 32), _flagship_classes((32, 32, 32))),
+             "cart_shard": ((32, 16, 16), _shard_classes((32, 16, 16))),
+             "2d": ((5, 4), _flagship_classes((5, 4))),
+             "3d_odd": ((3, 4, 2), _flagship_classes((3, 4, 2)))}
+# (coarse grid, dofs per node) of the grid pair: the flagship's L-3 <-> L-2
+# and coarse <-> L-3, and small grids of every (ndim, nd)
+K5_GRID = {"L-3_L-2": ((17, 17, 17), 3), "coarse_L-3": ((9, 9, 9), 3),
+           "2d_nd2": ((4, 7), 2), "2d_nd3": ((5, 3), 3),
+           "3d_nd2": ((3, 4, 5), 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(K5_PARITY))
+def test_parity_transfer_kernels_bitwise_twins(cuda, case, dtype):
+    """prolong_parity (and its add form), restrict_parity (and its
+    residual form) against their twins on the card, bit for bit, one
+    launch each."""
+    m_el, cls = K5_PARITY[case]
+    nd = len(m_el)
+    n = sum(int(np.prod(c)) for c in cls) * nd
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa
+    xc = t(rng.standard_normal(tuple(m + 1 for m in reversed(m_el))
+                               + (nd,)))
+    x, b, y = (t(rng.standard_normal(n)) for _ in range(3))
+    _reset_kernel_counts()
+    pairs = [(transfer.prolong_parity(xc, cls, m_el),
+              transfer.prolong_parity_plain(xc, cls, m_el)),
+             (transfer.prolong_parity(xc, cls, m_el, add=x),
+              transfer.prolong_parity_plain(xc, cls, m_el) + x),
+             (transfer.restrict_parity(b, cls, m_el),
+              transfer.restrict_parity_plain(b, cls, m_el)),
+             (transfer.restrict_parity_residual(b, y, cls, m_el),
+              transfer.restrict_parity_plain(b - y, cls, m_el))]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert _same_bits(got, want), (case, i, float(
+            (got - want).abs().max()))
+    assert transfer.LAUNCHES.n == 4
+    assert transfer.LAUNCHES.by == {**dict.fromkeys(transfer.FORMS, 0),
+                                    "prolong_parity": 1,
+                                    "prolong_parity_add": 1,
+                                    "restrict_parity": 1,
+                                    "restrict_parity_residual": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(K5_GRID))
+def test_grid_transfer_kernels_bitwise_twins(cuda, case, dtype):
+    """prolong_grid (and its add form) and restrict_grid against their
+    twins on the card, bit for bit, one launch each."""
+    coarse, nd = K5_GRID[case]
+    fine = tuple(2 * c - 1 for c in coarse)
+    rng = np.random.default_rng(22)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa
+    xc = t(rng.standard_normal(coarse + (nd,)))
+    xf, x = (t(rng.standard_normal(fine + (nd,))) for _ in range(2))
+    _reset_kernel_counts()
+    pairs = [(transfer.prolong_grid(xc, fine),
+              transfer.prolong_grid_plain(xc, fine)),
+             (transfer.prolong_grid(xc, fine, add=x),
+              x + transfer.prolong_grid_plain(xc, fine)),
+             (transfer.restrict_grid(xf, coarse),
+              transfer.restrict_grid_plain(xf, coarse))]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert _same_bits(got, want), (case, i, float(
+            (got - want).abs().max()))
+    assert transfer.LAUNCHES.n == 3
+    assert transfer.LAUNCHES.by == {**dict.fromkeys(transfer.FORMS, 0),
+                                    "prolong_grid": 1, "prolong_grid_add": 1,
+                                    "restrict_grid": 1}
+
+
+@pytest.mark.gpu
+def test_transfer_kernels_refuse_bad_input(cuda):
+    """Non-contiguous inputs, mismatched shapes, dtypes or devices raise
+    before a launch."""
+    m_el, cls = K5_PARITY["3d_odd"]
+    n = sum(int(np.prod(c)) for c in cls) * 3
+    xc = torch.rand((3, 5, 4, 3), device=cuda)
+    x = torch.rand(n, device=cuda)
+    _reset_kernel_counts()
+    with pytest.raises(ValueError, match="not contiguous"):
+        transfer.prolong_parity(xc.transpose(0, 1).contiguous()
+                                .transpose(0, 1), cls, m_el)
+    with pytest.raises(ValueError, match="not contiguous"):
+        transfer.restrict_parity(torch.rand(2 * n, device=cuda)[::2], cls,
+                                 m_el)
+    with pytest.raises(ValueError):
+        transfer.prolong_parity(xc, cls, m_el, add=x.double())
+    with pytest.raises(ValueError):
+        transfer.restrict_parity_residual(x, x.cpu(), cls, m_el)
+    with pytest.raises(ValueError, match="has shape"):
+        transfer.restrict_parity(x[:-1].contiguous(), cls, m_el)
+    with pytest.raises(TypeError):
+        transfer.restrict_parity(x.half(), cls, m_el)
+    g = torch.rand((5, 7, 9, 3), device=cuda)
+    with pytest.raises(ValueError, match="has shape"):
+        transfer.restrict_grid(g, (3, 4, 4))
+    with pytest.raises(ValueError, match="2 n - 1"):
+        transfer.prolong_grid(g, (10, 13, 17))
+    with pytest.raises(ValueError, match="dofs per node"):
+        transfer.restrict_grid(torch.rand((5, 7, 9, 4), device=cuda),
+                               (3, 4, 5))
+    assert transfer.LAUNCHES.n == 0
+
+
+@pytest.mark.gpu
+def test_transfer_kernels_capture_with_launches_counted(cuda):
+    """A V-cycle-shaped body of K5 calls captures into a CUDA graph under
+    the sync debug mode "error"; each replay gives the eager bits and
+    adds its captured launches to the counts."""
+    from exsaddle_tpu_torch import graphs
+    m_el = (4, 2, 4)                         # odd coarse node counts
+    cls = _flagship_classes(m_el)
+    rng = np.random.default_rng(23)
+    n = sum(int(np.prod(c)) for c in cls) * 3
+    y = torch.as_tensor(rng.standard_normal(n), device=cuda)
+    coarse = tuple(m + 1 for m in reversed(m_el))
+
+    def body(b):
+        r = transfer.restrict_parity_residual(b, y, cls, m_el)
+        c = transfer.restrict_grid(r, tuple((s + 1) // 2 for s in coarse))
+        r = transfer.prolong_grid(c, coarse, add=r)
+        return transfer.prolong_parity(r, cls, m_el, add=b)
+
+    b = torch.as_tensor(rng.standard_normal(n), device=cuda)
+    want = body(b)
+    _reset_kernel_counts()
+    g = graphs.Captured(body, b)
+    assert transfer.LAUNCHES.n == 4          # the warm-up run's
+    for i in range(2):
+        assert torch.equal(g(b), want)
+        assert transfer.LAUNCHES.n == 4 * (i + 2)
+    assert transfer.LAUNCHES.by["restrict_parity_residual"] == 3
