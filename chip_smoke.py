@@ -61,8 +61,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               parity pair fine <-> L-2, the grid pair L-2 <-> L-3 and
               L-3 <-> coarse, and the parity pair on one cart shard's box
               of the 1x2x2 grid, in float32 and float64: every entry and
-              fused form (prolongation + add, restriction of b - y) bit
-              for bit its twin; kernel and twin timed cold and hot as K4;
+              fused form (prolongation + add, restriction of b - y and of
+              the cart V-cycle's w * (b - y)) bit for bit its twin;
+              kernel and twin timed cold and hot as K4;
               the grid pair's library yardstick (F.conv3d /
               F.conv_transpose3d with the [0.5, 1, 0.5] tensor-product
               weights, stride 2, groups nd, TF32 off) against the twin to
@@ -79,7 +80,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               solve; K1 and every control kernel must have run (counted
               from the device's loop-body counters), and K4, each of its
               fused entries and K6, every K4 launch a fused one, and every
-              K5 kernel and fused form. The residual is
+              K5 kernel and fused form but the cart path's weighted
+              residual restriction (never run here). The residual is
               recomputed with the port's float64 operator. Then over the
               same setup the device loop, the host loop over captured
               bodies (loop="host") and eager=True, 3 solves each,
@@ -165,7 +167,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               solve seconds, ms per outer iteration, halo exchanges, K1,
               K4 (every one fused), K4's fused entries, K5 (every
               kernel; the parity pair per shard, the prolongation with
-              its add; 2 x shards + 2 (levels - 2) per V-cycle), K6 and
+              its add, the restriction of the ownership-weighted residual
+              w * (r - A x), shards per V-cycle, no unfused one;
+              2 x shards + 2 (levels - 2) per V-cycle), K6 and
               control launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
@@ -178,9 +182,13 @@ Phases, in order; any failure raises and the script exits nonzero:
               K5, K6, control and halo counts per solve equal (the host
               loop runs no control kernel), K6 above 0; the walls of each
               kind
-              and the graph launch's CUDA-event span with the card. K1,
-              K4 (and its fused epilogues, bitwise K4 + K6) and K6 on the
-              sharded solver's own operands against their twins.
+              and the graph launch's CUDA-event span with the card; then
+              a device-loop solve with every K5 entry swapped for its
+              twin, x and history bitwise the kernels' solve. K1,
+              K4 (and its fused epilogues, bitwise K4 + K6), K5's weighted
+              residual restriction (on each shard's own weights, bitwise)
+              and K6 on the sharded solver's own operands against their
+              twins.
 12. cart_procs -- the same flagship in 2 processes x 2 shards on this card
               (torch.multiprocessing spawn, a gloo group on localhost with
               a 120 s timeout; device grid 1x2x2, host axis z), each rank
@@ -213,7 +221,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               makes 2 x 100 K1 launches; every schedule converges without
               stalling to a float64 residual <= 1e-8 recomputed with the
               port's float64 operator, in rounds and inner iterations
-              inside BENCH_BANDS; every K5 kernel and fused form ran.
+              inside BENCH_BANDS; every K5 kernel and fused form of the
+              single-device path ran.
               Then the tuned schedule over a new setup
               with K4 and with every K4 entry swapped for its plain twin:
               K4 gives the bench's tuned counts with every stencil apply
@@ -834,11 +843,15 @@ def _cheb_scalars(emin, emax, npdt=np.float64):
 # launches count every form of it
 K5_KERNELS = {"prolong_parity": ("prolong_parity", "prolong_parity_add"),
               "restrict_parity": ("restrict_parity",
-                                  "restrict_parity_residual"),
+                                  "restrict_parity_residual",
+                                  "restrict_parity_weighted_residual"),
               "prolong_grid": ("prolong_grid", "prolong_grid_add"),
               "restrict_grid": ("restrict_grid",)}
 K5_FUSED = ("prolong_parity_add", "restrict_parity_residual",
-            "prolong_grid_add")
+            "restrict_parity_weighted_residual", "prolong_grid_add")
+# the fused form only the cart V-cycle runs (its ownership-weighted
+# residual); the single-device path runs every other form
+K5_CART = ("restrict_parity_weighted_residual",)
 # the JAX functions each K5 kernel replaces
 K5_REPLACES = {"prolong_parity": "exsaddle_tpu/abf.py:110",
                "restrict_parity": "exsaddle_tpu/abf.py:132",
@@ -933,6 +946,8 @@ def _k5_kernels(cfg, device, card, rng):
                     n = sum(int(np.prod(c)) for c in cls) * nd
                     xc = t(rng.standard_normal(cshape + (nd,)))
                     x, bb, y = (t(rng.standard_normal(n)) for _ in range(3))
+                    # ownership weights as the cart path holds them
+                    wt = t(0.5 ** rng.integers(0, 4, n))
                     nc = xc.numel()
                     terms = sum(int(np.prod(c)) * nd * 2 ** bin(p).count("1")
                                 for p, c in enumerate(cls))
@@ -956,7 +971,14 @@ def _k5_kernels(cfg, device, card, rng):
                                 v, q, cls, m_el),
                             lambda v, q: transfer.restrict_parity_plain(
                                 v - q, cls, m_el), (bb, y), 2 * n + nc,
-                            2 * terms + n)}
+                            2 * terms + n),
+                        "restrict_parity_weighted_residual": (
+                            lambda v, q, u:
+                            transfer.restrict_parity_weighted_residual(
+                                v, q, u, cls, m_el),
+                            lambda v, q, u: transfer.restrict_parity_plain(
+                                u * (v - q), cls, m_el), (bb, y, wt),
+                            3 * n + nc, 2 * terms + 2 * n)}
                     shapes = f"{cshape} <-> {n} values"
                 else:
                     coarse, fine = a, b
@@ -1258,13 +1280,14 @@ def phase_mg_kernels(device, card):
     torch.cuda.empty_cache()
     # the kernels line's K5 entries: each form at the single-device main
     # path's float32 shape (the parity pair fine <-> L-2, the grid pair
-    # L-2 <-> L-3)
-    k5_case = {f: "fine <-> L-2" if "parity" in f else "L-2 <-> L-3"
+    # L-2 <-> L-3), the cart path's own form at its float64 shard
+    k5_case = {f: ("cart shard", f64) if f in K5_CART else
+               ("fine <-> L-2" if "parity" in f else "L-2 <-> L-3", f32)
                for f in transfer.FORMS}
     return (res[("K4", "L-2", f32)],
             {e: res[(e, "L-2", f32)] for e in stencil.EPILOGUES},
             res[("K6", "fine", f32)],
-            {f: k5[(f, k5_case[f], f32)] for f in transfer.FORMS})
+            {f: k5[(f, *k5_case[f])] for f in transfer.FORMS})
 
 
 def phase_anchor():
@@ -1388,9 +1411,10 @@ def phase_main(card):
     check(mg_launches["stencil_accum"] == sum(
         mg_launches[FUSED[e]] for e in stencil.EPILOGUES),
           f"an unfused K4 launch on the main path: {mg_launches}")
-    check(all(n > 0 for n in k5_launches.values()),
-          f"a K5 kernel or fused form never ran on the main path: "
-          f"{k5_launches}")
+    check(all(n > 0 for k, n in k5_launches.items() if k not in K5_CART)
+          and not any(k5_launches[k] for k in K5_CART),
+          f"a K5 kernel or fused form never ran on the main path, or the "
+          f"cart path's form ran there: {k5_launches}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
     check(not res["stalled"], "iterative refinement stalled")
@@ -2153,11 +2177,12 @@ def phase_cart(device, card):
           f"{ {k: counts[k] for k in krylov_ctl.NAMES} }")
     check(all(counts[k] > 0 for k in K5_KERNELS)
           and counts["prolong_parity_add"] == counts["prolong_parity"]
-          and counts["restrict_parity_residual"] == 0,
+          and counts["restrict_parity_weighted_residual"]
+          == counts["restrict_parity"],
           f"cart: K5 launches on the sharded path "
           f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }: each "
-          f"kernel must run, every parity prolongation with its add, the "
-          f"parity restriction unfused")
+          f"kernel must run, every parity prolongation with its add, every "
+          f"parity restriction in the weighted residual form")
     # independent float64 true residual with the port's parity operator
     s1 = r1["solver"]
     op64, aux64 = s1.setup["op64"], tree_aux(s1.setup["op64"])
@@ -2264,7 +2289,8 @@ def _cart_loops(slv, single, F, r, card):
     kernel issued by the host, under sync debug "error"; x, its and history
     bitwise the plain driver's and the host loop's, with equal K1, K4, K6,
     control and halo counts per solve (the host loop: no control kernel);
-    each kind's wall with the card."""
+    each kind's wall with the card. Then the witness: the device loop with
+    every K5 entry swapped for its twin, bitwise the kernels' solve."""
     solvers = {"device": slv, "plain": slv.with_loop("plain"),
                "host": slv.with_loop("host"), "single": single}
     runs = {k: [] for k in solvers}
@@ -2315,6 +2341,30 @@ def _cart_loops(slv, single, F, r, card):
     check(k5 == (2 * shards + 2 * (nlev - 2)) * vcycles,
           f"cart: {k5} K5 launches in {vcycles} V-cycles, expected "
           f"{2 * shards + 2 * (nlev - 2)} per V-cycle")
+    wres = c["restrict_parity_weighted_residual"]
+    check(wres == shards * vcycles and c["restrict_parity"] == wres,
+          f"cart: {wres} weighted residual restrictions of "
+          f"{c['restrict_parity']} in {vcycles} V-cycles, expected "
+          f"{shards} per V-cycle and no unfused one")
+    # the witness: the device loop over the same setup with every K5 entry
+    # swapped for its twin gives the kernels' bits (K5 is bitwise its twins)
+    saved = {name: getattr(transfer, name) for name in transfer.TWINS}
+    for name, twin in transfer.TWINS.items():
+        setattr(transfer, name, twin)
+    try:
+        tw = _cart_solve(slv.with_loop("device"), F)
+    finally:
+        for name, fn in saved.items():
+            setattr(transfer, name, fn)
+    tk5 = sum(tw["counts"][k] for k in K5_KERNELS)
+    check(tw["res"]["history"] == d["res"]["history"]
+          and np.array_equal(tw["res"]["x"], d["res"]["x"]) and tk5 == 0,
+          f"cart: with K5's twins the device loop differs from the kernels' "
+          f"(x relative {_rel(tw['res']['x'], d['res']['x']):.3e}) or ran "
+          f"{tk5} K5 launches")
+    log(f"[cart] witness: the device loop with every K5 entry swapped for "
+        f"its twin, {tw['res']['its']} its, 0 K5 launches, x and history "
+        f"bitwise the kernels' solve; wall {tw['wall']:.4f} s ({card})")
     log(f"[cart] loops over one setup: device loop bitwise the plain "
         f"driver and the host loop ({d['res']['its']} its, x, history), "
         f"each device solve 1 graph launch under sync debug \"error\", 0 "
@@ -2340,8 +2390,9 @@ def _cart_loops(slv, single, F, r, card):
 
 
 def _cart_kernels(slv):
-    """K1, K4 and K6 on the sharded solve's own placed operands, each
-    wrapper against its plain twin on the same seeded inputs: K1 on each
+    """K1, K4, K5's weighted residual restriction and K6 on the sharded
+    solve's own placed operands, each wrapper against its plain twin on
+    the same seeded inputs: K1 on each
     shard's local box within TOL (phase K1's, relative to max |y|); K4 on
     each shard's L-2 slab stencil with the ghosted operand lvl1A builds
     (ghost_extend_axis) and on the replicated deep stencils with their
@@ -2418,6 +2469,17 @@ def _cart_kernels(slv):
     for rep in dd["repl"].values():
         levels += [(f"L-{nlev - k - 1}", [d], dd["bounds"][k])
                    for k, d in enumerate(rep["inv_diag_repl"])]
+    # K5's weighted residual restriction on each shard's own ownership
+    # weights and local parity layout
+    mloc, cls_loc = slv.dcfg.mloc, slv.dcfg.cls_shapes_loc
+    for i, w in enumerate(blk.w_u.parts):
+        b, y = rand(w), rand(w)
+        check(_same_bits(
+            transfer.restrict_parity_weighted_residual(b, y, w, cls_loc,
+                                                       mloc),
+            transfer.restrict_parity_plain(w * (b - y), cls_loc, mloc)),
+            f"cart: K5's weighted residual restriction on shard {i} is not "
+            f"bitwise its twin")
     k6 = 0
     for name, diags, (emin, emax) in levels:
         scale, omega = _cheb_scalars(emin, emax)
@@ -2441,7 +2503,9 @@ def _cart_kernels(slv):
         f"within {k1:.3e} of max |y| (tol {TOL[f64]:g}); K4 on "
         f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
         f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}), their "
-        f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K6 first "
+        f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K5's "
+        f"weighted residual restriction on every shard's own weights "
+        f"bitwise its twin; K6 first "
         f"and step on every part's fine, L-2 and p inverse diagonals and "
         f"the replicated levels': {k6} updates bitwise their twins")
 
@@ -2772,7 +2836,7 @@ def phase_bench(device, card):
         check(r0 <= rounds <= r1 and i0 <= its <= i1,
               f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
               f"{r0}-{r1} / {i0}-{i1}")
-    check(all(n > 0 for n in k5.values()),
+    check(all(n > 0 for k, n in k5.items() if k not in K5_CART),
           f"bench: a K5 kernel or fused form never ran: {k5}")
     log(f"[bench] K5 launches over the bench's solves: {k5} ({card})")
     _bench_twin_witness(device, card, extras)
@@ -2792,6 +2856,7 @@ def _ranged(name, fn):
 PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),
                    ("K5 transfers", "prolong_parity_kernel"),
+                   ("K5 transfers", "prolong_parity_staged_kernel"),
                    ("K5 transfers", "restrict_parity_kernel"),
                    ("K5 transfers", "prolong_grid_kernel"),
                    ("K5 transfers", "restrict_grid_kernel"),
@@ -3148,7 +3213,9 @@ def main():
             "name": name, "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/transfer.cu",
             "replaces": K5_REPLACES[kernel],
-            "launches": k5_launches[name],
+            # the cart path's own form: its launches in phase cart's run
+            "launches": (cart_counts if name in K5_CART
+                         else k5_launches)[name],
             "cart_launches": cart_counts[name],
             "bench_launches": bench_k5[name], **k5[name]}
             for kernel, forms in K5_KERNELS.items()

@@ -4,7 +4,10 @@
 //                       layout (its 2^ndim class sub-grids one after
 //                       another); fused: + x in the store
 //     restrict_parity   its transpose, fine parity layout -> coarse grid;
-//                       fused: restricts b - y, formed in the loads
+//                       fused: restricts b - y (the residual form) or
+//                       w * (b - y) (the weighted residual form, the cart
+//                       V-cycle's ownership-weighted residual), formed in
+//                       the loads
 //     prolong_grid      separable multilinear interpolation between node
 //                       grids (spatial dims leading, dof trailing), every
 //                       axis in one pass; fused: + x in the store
@@ -27,14 +30,24 @@
 // Design: a gather, one thread per output value, threads along the fastest
 // axis (x, the dof trailing), so neighbouring threads touch neighbouring
 // class or grid entries; no atomics, so the result is deterministic. Index
-// arithmetic is 32-bit (every array holds < 2^31 values): a thread's
-// coordinate decode is a few integer divides, and 64-bit ones, which the
-// card emulates, made the first version integer-bound (12 us per fine
-// transfer against a 1.1-2.1 us byte bound on an H100). Each
-// output evaluates the twin's arithmetic in the twin's order with
-// explicitly rounded intrinsics (__fadd_rn, __fmul_rn, __fsub_rn and the
-// __d* forms; nvcc contracts nothing into an FMA), so every kernel is
-// bitwise its twin and cannot move an iteration count:
+// arithmetic is 32-bit (every array holds < 2^31 values). The parity pair
+// runs row by row (below): a block's class and rows come from its block
+// index, a thread's value from its thread index, so no thread decodes a
+// coordinate with runtime divides (a per-value class search and decode
+// made the first version integer-bound), and every term is a compile-time
+// entry of a table, so each thread issues all of its loads (<= 8 coarse
+// reads, <= 27 fine ones, each of them two or three in the fused forms)
+// before the first add. On grids with two blocks per SM or more the
+// prolongation stages its coarse rows in shared memory and a block writes
+// every class's rows of its plane (each coarse value leaves L2 about once
+// per block); a cart shard's box keeps a block per class as well. Staging
+// the restriction's fine rows the same way (cp.async, double-buffered by
+// class), or taking its dx = 1 terms from lane - ND by shuffle, measured
+// slower on an H100 (PERF.md). Each output evaluates the twin's
+// arithmetic in the twin's order with explicitly rounded intrinsics
+// (__fadd_rn, __fmul_rn, __fsub_rn and the __d* forms; nvcc contracts
+// nothing into an FMA), so every kernel is bitwise its twin and cannot
+// move an iteration count:
 //   - prolong_parity sums a class's 2^popcount(bits) coarse reads in
 //     itertools.product order, then scales by w = 0.5^popcount (exact);
 //   - restrict_parity starts from 0 (the twin's zeros, so the sign of a
@@ -47,7 +60,8 @@
 //     recomputed per output, not shared: a few redundant reads, no
 //     intermediate grid in memory.
 // The fused add is one more __fadd_rn in the store (IEEE addition is
-// commutative, so p + x and x + p give the same bits).
+// commutative, so p + x and x + p give the same bits); the residual forms
+// are one __fsub_rn (and one __fmul_rn by the weight) per loaded term.
 
 #include <cuda_runtime.h>
 
@@ -80,9 +94,31 @@ struct Grid {
 // Values per array stay below 2^31 (the launchers refuse more).
 constexpr long long MAX_VALUES = 1LL << 31;
 
-template <int NDIM>
-__device__ __forceinline__ int class_bit(int p, int dim) {
-  return (p >> (NDIM - 1 - dim)) & 1;
+__host__ __device__ constexpr int class_bit(int ndim, int p, int dim) {
+  return (p >> (ndim - 1 - dim)) & 1;
+}
+
+__host__ __device__ constexpr int popcount_class(int ndim, int p) {
+  int pc = 0;
+  for (int dim = 0; dim < ndim; ++dim) pc += class_bit(ndim, p, dim);
+  return pc;
+}
+
+// The delta along dim of term t of class p's
+// itertools.product(*[range(b + 1) for b in bits]) (bits x-first, the
+// last factor fastest): the set bits of t go to the set parity bits from
+// dim 0 (the last spatial factor) upwards.
+__host__ __device__ constexpr int class_delta(int ndim, int p, int t,
+                                              int dim) {
+  for (int d = 0; d < ndim; ++d) {
+    if (class_bit(ndim, p, d)) {
+      if (d == dim) return t & 1;
+      t >>= 1;
+    } else if (d == dim) {
+      return 0;
+    }
+  }
+  return 0;
 }
 
 // The weight 0.5^popcount of a class with pc parity bits set (exact).
@@ -91,104 +127,281 @@ __device__ __forceinline__ T class_weight(int pc) {
   return pc == 0 ? T(1) : pc == 1 ? T(0.5) : pc == 2 ? T(0.25) : T(0.125);
 }
 
-// Term t of class p's itertools.product(*[range(b + 1) for b in bits])
-// (bits x-first, the last factor fastest): the set bits of t go to the
-// set parity bits from dim 0 (the last spatial factor) upwards.
-template <int NDIM>
-__device__ __forceinline__ void class_delta(int p, int t, int (&delta)[NDIM]) {
-#pragma unroll
-  for (int dim = 0; dim < NDIM; ++dim) {
-    if (class_bit<NDIM>(p, dim)) {
-      delta[dim] = t & 1;
-      t >>= 1;
-    } else {
-      delta[dim] = 0;
-    }
+// The parity pair, row by row. A block takes a few consecutive rows of one
+// class (prolong_parity: blockIdx.z is the class, blockIdx.y the z plane,
+// blockIdx.x the group of y rows) or of the coarse grid (restrict_parity:
+// blockIdx.y the z plane, blockIdx.x the group of y rows); its threads run
+// along each row's x * ND values (threadIdx.x) and its rows (threadIdx.y),
+// so a warp may span two rows, which lie next to each other in memory. A
+// class row and the coarse row it reads (or a coarse row and the class
+// rows it reads) line up value for value, shifted by dx * ND: no thread
+// decodes a coordinate or divides.
+constexpr int ROW_THREADS = 320;
+
+// The compile-time table of the restriction's terms: term i is class
+// term_class(i)'s term term_index(i), the classes in order, each class's
+// terms in product order (the twin's order of in-place adds).
+__host__ __device__ constexpr int nterms(int ndim) {
+  return ndim == 3 ? 27 : 9;
+}
+
+__host__ __device__ constexpr int term_class(int ndim, int i) {
+  int p = 0;
+  while (i >= (1 << popcount_class(ndim, p))) {
+    i -= 1 << popcount_class(ndim, p);
+    ++p;
+  }
+  return p;
+}
+
+__host__ __device__ constexpr int term_index(int ndim, int i) {
+  int p = 0;
+  while (i >= (1 << popcount_class(ndim, p))) {
+    i -= 1 << popcount_class(ndim, p);
+    ++p;
+  }
+  return i;
+}
+
+template <int NDIM, int I>
+struct Term {
+  static constexpr int p = term_class(NDIM, I);
+  static constexpr int pc = popcount_class(NDIM, p);
+  static constexpr int t = term_index(NDIM, I);
+  static constexpr int dz = NDIM == 3 ? class_delta(NDIM, p, t, 0) : 0;
+  static constexpr int dy = class_delta(NDIM, p, t, NDIM - 2);
+  static constexpr int dx = class_delta(NDIM, p, t, NDIM - 1);
+};
+
+// What the restriction sums: b, b - y (the residual form), or w * (b - y)
+// (the weighted residual form), formed as it is loaded.
+enum { PLAIN = 0, RESIDUAL = 1, WEIGHTED = 2 };
+
+template <typename T, int MODE>
+__device__ __forceinline__ T term_value(const T* __restrict__ b,
+                                        const T* __restrict__ y,
+                                        const T* __restrict__ w, int k) {
+  if constexpr (MODE == PLAIN) {
+    return b[k];
+  } else if constexpr (MODE == RESIDUAL) {
+    return sub(b[k], y[k]);
+  } else {
+    return mul(w[k], sub(b[k], y[k]));
   }
 }
 
-template <int NDIM>
-__device__ __forceinline__ int popcount_class(int p) {
-  int pc = 0;
+// Term I onwards of the coarse value j of row (z, yy): load every term,
+// an out-of-range one from index 0 (a valid address; the sum skips it), so
+// no load waits on a branch and all of them are in flight before the sum.
+// Its class's fine row is (z - dz, yy - dy), its value in that row
+// j - dx * ND.
+template <typename T, int NDIM, int ND, int MODE, int I = 0>
+__device__ __forceinline__ void restrict_loads(
+    const T* __restrict__ b, const T* __restrict__ y,
+    const T* __restrict__ w, const Parity& P, int z, int yy, int j,
+    T (&v)[nterms(NDIM)], bool (&ok)[nterms(NDIM)]) {
+  if constexpr (I < nterms(NDIM)) {
+    using Q = Term<NDIM, I>;
+    const int shy = P.shp[Q::p][NDIM - 2];
+    const int lx = P.shp[Q::p][NDIM - 1] * ND;
+    const int fz = z - Q::dz, fy = yy - Q::dy, jx = j - Q::dx * ND;
+    bool in = fy >= 0 && fy < shy && jx >= 0 && jx < lx;
+    int frow = fy;
+    if constexpr (NDIM == 3) {
+      in = in && fz >= 0 && fz < P.shp[Q::p][0];
+      frow = fz * shy + fy;
+    }
+    ok[I] = in;
+    v[I] = term_value<T, MODE>(b, y, w,
+                               in ? (int)P.off[Q::p] + frow * lx + jx : 0);
+    restrict_loads<T, NDIM, ND, MODE, I + 1>(b, y, w, P, z, yy, j, v, ok);
+  }
+}
+
+// The ordered sum from +0: acc + w_p * v for every in-range term in table
+// order. An out-of-range term is skipped, not added as a zero: the twin
+// never adds it, and +0 + (-0) would turn a -0 sum into +0.
+template <typename T, int NDIM, int I = 0>
+__device__ __forceinline__ T restrict_sum(T acc, const T (&v)[nterms(NDIM)],
+                                          const bool (&ok)[nterms(NDIM)]) {
+  if constexpr (I < nterms(NDIM)) {
+    if (ok[I]) acc = add(acc, mul(class_weight<T>(Term<NDIM, I>::pc), v[I]));
+    return restrict_sum<T, NDIM, I + 1>(acc, v, ok);
+  } else {
+    return acc;
+  }
+}
+
+template <typename T, int NDIM, int ND, int MODE>
+__global__ void __launch_bounds__(ROW_THREADS)
+restrict_parity_kernel(const T* __restrict__ b, const T* __restrict__ y,
+                       const T* __restrict__ w, T* __restrict__ out,
+                       Parity P) {
+  const int cy = P.cshape[NDIM - 2];
+  const int yy = blockIdx.x * blockDim.y + threadIdx.y;
+  if (yy >= cy) return;
+  const int z = NDIM == 3 ? (int)blockIdx.y : 0;
+  const int L = P.cshape[NDIM - 1] * ND;
+  T* __restrict__ row = out + (z * cy + yy) * L;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    T v[nterms(NDIM)];
+    bool ok[nterms(NDIM)];
+    restrict_loads<T, NDIM, ND, MODE>(b, y, w, P, z, yy, j, v, ok);
+    row[j] = restrict_sum<T, NDIM>(T(0), v, ok);
+  }
+}
+
+// Class PC's rows: each value loads its 2^popcount coarse reads, then sums
+// them in product order, scales by the exact weight and adds x.
+template <typename T, int NDIM, int ND, bool ADD, int PC>
+__device__ __forceinline__ void prolong_rows(const T* __restrict__ xc,
+                                             const T* __restrict__ xadd,
+                                             T* __restrict__ out,
+                                             const Parity& P) {
+  constexpr int pc = popcount_class(NDIM, PC);
+  const int shy = P.shp[PC][NDIM - 2];
+  const int yy = blockIdx.x * blockDim.y + threadIdx.y;
+  const int z = NDIM == 3 ? (int)blockIdx.y : 0;
+  if (yy >= shy || (NDIM == 3 && z >= P.shp[PC][0])) return;
+  const int L = P.shp[PC][NDIM - 1] * ND;
+  const int cy = P.cshape[NDIM - 2], cl = P.cshape[NDIM - 1] * ND;
+  const int orow = (int)P.off[PC] + (z * shy + yy) * L;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    T v[1 << pc];
 #pragma unroll
-  for (int dim = 0; dim < NDIM; ++dim) pc += class_bit<NDIM>(p, dim);
-  return pc;
+    for (int t = 0; t < (1 << pc); ++t) {
+      const int dz = NDIM == 3 ? class_delta(NDIM, PC, t, 0) : 0;
+      const int dy = class_delta(NDIM, PC, t, NDIM - 2);
+      const int dx = class_delta(NDIM, PC, t, NDIM - 1);
+      v[t] = xc[((z + dz) * cy + yy + dy) * cl + dx * ND + j];
+    }
+    const T a = ADD ? xadd[orow + j] : T(0);
+    T acc = v[0];
+#pragma unroll
+    for (int t = 1; t < (1 << pc); ++t) acc = add(acc, v[t]);
+    T r = mul(class_weight<T>(pc), acc);
+    if (ADD) r = add(r, a);
+    out[orow + j] = r;
+  }
+}
+
+template <typename T, int NDIM, int ND, bool ADD, int PC = 0>
+__device__ __forceinline__ void prolong_class(int p, const T* __restrict__ xc,
+                                              const T* __restrict__ xadd,
+                                              T* __restrict__ out,
+                                              const Parity& P) {
+  if constexpr (PC < (1 << NDIM)) {
+    if (p == PC)
+      prolong_rows<T, NDIM, ND, ADD, PC>(xc, xadd, out, P);
+    else
+      prolong_class<T, NDIM, ND, ADD, PC + 1>(p, xc, xadd, out, P);
+  }
 }
 
 template <typename T, int NDIM, int ND, bool ADD>
-__global__ void prolong_parity_kernel(const T* __restrict__ xc,
-                                      const T* __restrict__ xadd,
-                                      T* __restrict__ out, Parity P,
-                                      unsigned n) {
-  const unsigned i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  int p = 0;
-  while (p + 1 < (1 << NDIM) && i >= P.off[p + 1]) ++p;
-  const unsigned e = i - P.off[p];
-  const unsigned d = e % ND;
-  unsigned node = e / ND;
-  unsigned f[NDIM];
-#pragma unroll
-  for (int dim = NDIM - 1; dim >= 0; --dim) {
-    const unsigned s = P.shp[p][dim];
-    f[dim] = node % s;
-    node /= s;
-  }
-  const int pc = popcount_class<NDIM>(p);
-  T acc = T(0);
-  for (int t = 0; t < (1 << pc); ++t) {
-    int delta[NDIM];
-    class_delta<NDIM>(p, t, delta);
-    unsigned lin = 0;
-#pragma unroll
-    for (int dim = 0; dim < NDIM; ++dim)
-      lin = lin * P.cshape[dim] + f[dim] + delta[dim];
-    const T v = xc[lin * ND + d];
-    acc = t == 0 ? v : add(acc, v);
-  }
-  T y = mul(class_weight<T>(pc), acc);
-  if (ADD) y = add(y, xadd[i]);
-  out[i] = y;
+__global__ void __launch_bounds__(ROW_THREADS)
+prolong_parity_kernel(const T* __restrict__ xc, const T* __restrict__ xadd,
+                      T* __restrict__ out, Parity P) {
+  prolong_class<T, NDIM, ND, ADD>(blockIdx.z, xc, xadd, out, P);
 }
 
-template <typename T, int NDIM, int ND, bool RES>
-__global__ void restrict_parity_kernel(const T* __restrict__ b,
-                                       const T* __restrict__ y,
-                                       T* __restrict__ out, Parity P,
-                                       unsigned n) {
-  const unsigned i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const unsigned d = i % ND;
-  unsigned node = i / ND;
-  int c[NDIM];
-#pragma unroll
-  for (int dim = NDIM - 1; dim >= 0; --dim) {
-    const unsigned s = P.cshape[dim];
-    c[dim] = (int)(node % s);
-    node /= s;
+// The prolongation staged through shared memory, for grids with blocks
+// enough to fill the card: a block owns one z plane and blockDim.y y rows
+// of every class. It stages the 2 x (rows + 1) coarse rows they read
+// (plain loads, one __syncthreads), loads its x values of every class (the
+// add form), then writes its value of every class in turn, its terms read
+// from shared memory. Each coarse value leaves L2 about once per block,
+// not once per class value that reads it.
+
+// Class PC's output index of value j in row (z, y0 + threadIdx.y), or -1.
+template <int NDIM, int ND, int PC>
+__device__ __forceinline__ int staged_index(const Parity& P, int z, int y0,
+                                            int j) {
+  const int shy = P.shp[PC][NDIM - 2];
+  const int yy = y0 + threadIdx.y;
+  const int L = P.shp[PC][NDIM - 1] * ND;
+  if (yy >= shy || j >= L || (NDIM == 3 && z >= P.shp[PC][0])) return -1;
+  return (int)P.off[PC] + (z * shy + yy) * L + j;
+}
+
+template <typename T, int NDIM, int ND, int PC = 0>
+__device__ __forceinline__ void staged_adds(const T* __restrict__ xadd,
+                                            const Parity& P, int z, int y0,
+                                            int j, T (&a)[1 << NDIM]) {
+  if constexpr (PC < (1 << NDIM)) {
+    const int o = staged_index<NDIM, ND, PC>(P, z, y0, j);
+    a[PC] = xadd[o >= 0 ? o : 0];
+    staged_adds<T, NDIM, ND, PC + 1>(xadd, P, z, y0, j, a);
   }
-  T acc = T(0);
-  for (int p = 0; p < (1 << NDIM); ++p) {
-    const int pc = popcount_class<NDIM>(p);
-    const T w = class_weight<T>(pc);
-    for (int t = 0; t < (1 << pc); ++t) {
-      int delta[NDIM];
-      class_delta<NDIM>(p, t, delta);
-      unsigned lin = 0;
-      bool in = true;
+}
+
+template <typename T, int NDIM, int ND, bool ADD, int PC = 0>
+__device__ __forceinline__ void staged_classes(T* __restrict__ out,
+                                               const Parity& P, const T* s,
+                                               int z, int y0, int j, int cl,
+                                               const T (&a)[1 << NDIM]) {
+  if constexpr (PC < (1 << NDIM)) {
+    constexpr int pc = popcount_class(NDIM, PC);
+    const int rows = blockDim.y + 1;
+    const int o = staged_index<NDIM, ND, PC>(P, z, y0, j);
+    if (o >= 0) {
+      T v[1 << pc];
 #pragma unroll
-      for (int dim = 0; dim < NDIM; ++dim) {
-        const int fd = c[dim] - delta[dim];
-        in = in && fd >= 0 && fd < P.shp[p][dim];
-        lin = lin * P.shp[p][dim] + fd;
+      for (int t = 0; t < (1 << pc); ++t) {
+        const int dz = NDIM == 3 ? class_delta(NDIM, PC, t, 0) : 0;
+        const int dy = class_delta(NDIM, PC, t, NDIM - 2);
+        const int dx = class_delta(NDIM, PC, t, NDIM - 1);
+        v[t] = s[(dz * rows + threadIdx.y + dy) * cl + dx * ND + j];
       }
-      if (!in) continue;
-      const unsigned k = P.off[p] + lin * ND + d;
-      const T v = RES ? sub(b[k], y[k]) : b[k];
-      acc = add(acc, mul(w, v));
+      T acc = v[0];
+#pragma unroll
+      for (int t = 1; t < (1 << pc); ++t) acc = add(acc, v[t]);
+      T r = mul(class_weight<T>(pc), acc);
+      if (ADD) r = add(r, a[PC]);
+      out[o] = r;
     }
+    staged_classes<T, NDIM, ND, ADD, PC + 1>(out, P, s, z, y0, j, cl, a);
   }
-  out[i] = acc;
+}
+
+template <typename T, int NDIM, int ND, bool ADD>
+__global__ void __launch_bounds__(ROW_THREADS)
+prolong_parity_staged_kernel(const T* __restrict__ xc,
+                             const T* __restrict__ xadd,
+                             T* __restrict__ out, Parity P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int cz = NDIM == 3 ? P.cshape[0] : 1, cy = P.cshape[NDIM - 2];
+  const int cl = P.cshape[NDIM - 1] * ND;
+  const int z = NDIM == 3 ? (int)blockIdx.y : 0;
+  const int y0 = blockIdx.x * blockDim.y;
+  const int rows = blockDim.y + 1;
+  // stage row r is plane z + r / rows, row y0 + r % rows: 2 x rows of
+  // them in 3D, at most 4 per thread row; each thread loads its values of
+  // every row it stages, then stores them
+  const int nrow = (NDIM == 3 ? 2 : 1) * rows;
+  for (int j = threadIdx.x; j < cl; j += blockDim.x) {
+    T tmp[4];
+    bool ok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = threadIdx.y + k * blockDim.y;
+      const int q = r >= rows ? 1 : 0;
+      const int zz = z + q, yy = y0 + r - q * rows;
+      ok[k] = r < nrow && zz < cz && yy < cy;
+      tmp[k] = xc[ok[k] ? (zz * cy + yy) * cl + j : 0];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (ok[k]) s[(threadIdx.y + k * blockDim.y) * cl + j] = tmp[k];
+  }
+  __syncthreads();
+  // cl >= every class's row length
+  for (int j = threadIdx.x; j < cl; j += blockDim.x) {
+    T a[1 << NDIM];
+    if (ADD) staged_adds<T, NDIM, ND>(xadd, P, z, y0, j, a);
+    staged_classes<T, NDIM, ND, ADD>(out, P, s, z, y0, j, cl, a);
+  }
 }
 
 // prolong_grid's value at c after axes 0..A (fine along dims 0..A, coarse
@@ -330,6 +543,22 @@ long long grid_layout(const int* nc, int ndim, int nd, Grid* g,
   return fine_out ? fine : coarse;
 }
 
+// The row launch of a parity kernel: rows of len values (the longest row),
+// ny rows per plane, nz planes, nclass classes. Threads along a row up to
+// ROW_THREADS (a longer row loops), then as many rows per block as fit.
+struct RowLaunch {
+  dim3 grid, block;
+  bool ok;
+};
+
+RowLaunch row_launch(int len, int ny, int nz, int nclass) {
+  const int tx = len < ROW_THREADS ? len : ROW_THREADS;
+  int rows = ROW_THREADS / tx;
+  if (rows > ny) rows = ny;
+  return {dim3((ny + rows - 1) / rows, nz, nclass), dim3(tx, rows),
+          nz <= 65535};
+}
+
 // Calls F::template run<NDIM, ND>() for the runtime (ndim, nd).
 template <typename F>
 int dispatch(int ndim, int nd, F f) {
@@ -340,22 +569,65 @@ int dispatch(int ndim, int nd, F f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The current device's SM count, or 0 where it cannot be read (the
+// prolongation then takes its unstaged form).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
 template <typename T>
 struct ProlongParity {
   const T* xc;
   const T* xadd;
   T* out;
   Parity P;
-  unsigned n;
   cudaStream_t s;
+
+  template <bool ADD, int NDIM, int ND>
+  int staged(const RowLaunch& l, int cl) const {
+    const int smem = (int)sizeof(T) * (NDIM == 3 ? 2 : 1) *
+                     ((int)l.block.y + 1) * cl;
+    auto kernel = prolong_parity_staged_kernel<T, NDIM, ND, ADD>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<l.grid, l.block, smem, s>>>(xc, xadd, out, P);
+    return (int)cudaGetLastError();
+  }
+
+  // The staged form where its blocks (one per plane and group of rows, all
+  // classes) are at least two per SM; else one block per class as well,
+  // for more blocks in flight (a cart shard's box).
   template <int NDIM, int ND>
   int run() const {
+    int len = 0, ny = 0, nz = 1;
+    for (int p = 0; p < (1 << NDIM); ++p) {
+      if (P.shp[p][NDIM - 1] * ND > len) len = P.shp[p][NDIM - 1] * ND;
+      if (P.shp[p][NDIM - 2] > ny) ny = P.shp[p][NDIM - 2];
+      if (NDIM == 3 && P.shp[p][0] > nz) nz = P.shp[p][0];
+    }
+    const int cl = P.cshape[NDIM - 1] * ND;
+    const RowLaunch st = row_launch(cl, ny, nz, 1);
+    const int sms = sm_count();
+    if (st.ok && sms > 0 && (long long)st.grid.x * st.grid.y >= 2LL * sms &&
+        (long long)sizeof(T) * 2 * (st.block.y + 1) * cl <= 200 * 1024)
+      return xadd != nullptr ? staged<true, NDIM, ND>(st, cl)
+                             : staged<false, NDIM, ND>(st, cl);
+    const RowLaunch l = row_launch(len, ny, nz, 1 << NDIM);
+    if (!l.ok) return (int)cudaErrorInvalidValue;
     if (xadd != nullptr)
       prolong_parity_kernel<T, NDIM, ND, true>
-          <<<blocks(n), THREADS, 0, s>>>(xc, xadd, out, P, n);
+          <<<l.grid, l.block, 0, s>>>(xc, xadd, out, P);
     else
       prolong_parity_kernel<T, NDIM, ND, false>
-          <<<blocks(n), THREADS, 0, s>>>(xc, xadd, out, P, n);
+          <<<l.grid, l.block, 0, s>>>(xc, xadd, out, P);
     return (int)cudaGetLastError();
   }
 };
@@ -364,18 +636,25 @@ template <typename T>
 struct RestrictParity {
   const T* b;
   const T* y;
+  const T* w;
   T* out;
   Parity P;
-  unsigned n;
   cudaStream_t s;
   template <int NDIM, int ND>
   int run() const {
-    if (y != nullptr)
-      restrict_parity_kernel<T, NDIM, ND, true>
-          <<<blocks(n), THREADS, 0, s>>>(b, y, out, P, n);
+    const RowLaunch l = row_launch(P.cshape[NDIM - 1] * ND,
+                                   P.cshape[NDIM - 2],
+                                   NDIM == 3 ? P.cshape[0] : 1, 1);
+    if (!l.ok) return (int)cudaErrorInvalidValue;
+    if (w != nullptr)
+      restrict_parity_kernel<T, NDIM, ND, WEIGHTED>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
+    else if (y != nullptr)
+      restrict_parity_kernel<T, NDIM, ND, RESIDUAL>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
     else
-      restrict_parity_kernel<T, NDIM, ND, false>
-          <<<blocks(n), THREADS, 0, s>>>(b, y, out, P, n);
+      restrict_parity_kernel<T, NDIM, ND, PLAIN>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
     return (int)cudaGetLastError();
   }
 };
@@ -420,26 +699,23 @@ int prolong_parity(const void* xc, const void* xadd, void* out,
                    const int* shapes, int ndim, int nd, void* stream) {
   if (!supported(ndim, nd)) return (int)cudaErrorInvalidValue;
   Parity P = {};
-  const long long n = parity_layout(shapes, ndim, nd, &P);
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (parity_layout(shapes, ndim, nd, &P) <= 0)
+    return (int)cudaErrorInvalidValue;
   return dispatch(ndim, nd, ProlongParity<T>{
       static_cast<const T*>(xc), static_cast<const T*>(xadd),
-      static_cast<T*>(out), P, (unsigned)n,
-      static_cast<cudaStream_t>(stream)});
+      static_cast<T*>(out), P, static_cast<cudaStream_t>(stream)});
 }
 
 template <typename T>
-int restrict_parity(const void* b, const void* y, void* out,
+int restrict_parity(const void* b, const void* y, const void* w, void* out,
                     const int* shapes, int ndim, int nd, void* stream) {
   if (!supported(ndim, nd)) return (int)cudaErrorInvalidValue;
   Parity P = {};
   if (parity_layout(shapes, ndim, nd, &P) <= 0)
     return (int)cudaErrorInvalidValue;
-  long long n = nd;
-  for (int dim = 0; dim < ndim; ++dim) n *= P.cshape[dim];
   return dispatch(ndim, nd, RestrictParity<T>{
       static_cast<const T*>(b), static_cast<const T*>(y),
-      static_cast<T*>(out), P, (unsigned)n,
+      static_cast<const T*>(w), static_cast<T*>(out), P,
       static_cast<cudaStream_t>(stream)});
 }
 
@@ -493,13 +769,32 @@ extern "C" int k5_prolong_parity_f64(const void* xc, const void* xadd,
 extern "C" int k5_restrict_parity_f32(const void* b, const void* y,
                                       void* out, const int* shapes, int ndim,
                                       int nd, void* stream) {
-  return restrict_parity<float>(b, y, out, shapes, ndim, nd, stream);
+  return restrict_parity<float>(b, y, nullptr, out, shapes, ndim, nd,
+                                stream);
 }
 
 extern "C" int k5_restrict_parity_f64(const void* b, const void* y,
                                       void* out, const int* shapes, int ndim,
                                       int nd, void* stream) {
-  return restrict_parity<double>(b, y, out, shapes, ndim, nd, stream);
+  return restrict_parity<double>(b, y, nullptr, out, shapes, ndim, nd,
+                                 stream);
+}
+
+// restrict_parity of w * (b - y); no pointer may be null.
+extern "C" int k5_restrict_parity_weighted_residual_f32(
+    const void* b, const void* y, const void* w, void* out,
+    const int* shapes, int ndim, int nd, void* stream) {
+  if (b == nullptr || y == nullptr || w == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_parity<float>(b, y, w, out, shapes, ndim, nd, stream);
+}
+
+extern "C" int k5_restrict_parity_weighted_residual_f64(
+    const void* b, const void* y, const void* w, void* out,
+    const int* shapes, int ndim, int nd, void* stream) {
+  if (b == nullptr || y == nullptr || w == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_parity<double>(b, y, w, out, shapes, ndim, nd, stream);
 }
 
 extern "C" int k5_prolong_grid_f32(const void* xc, const void* xadd,

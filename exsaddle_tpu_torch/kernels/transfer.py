@@ -8,6 +8,9 @@ Hopper, one launch per transfer.
         its transpose: flat fine u vector -> coarse node grid
     restrict_parity_residual(b, y, cls_shapes, m_el)
         restrict_parity(b - y, ...), b - y formed in the kernel's loads
+    restrict_parity_weighted_residual(b, y, w, cls_shapes, m_el)
+        restrict_parity(w * (b - y), ...), formed in the kernel's loads
+        (the cart V-cycle's ownership-weighted residual)
     prolong_grid(xc, fine_shape, add=None)
         separable multilinear interpolation between node grids (spatial
         dims leading, dof trailing) (+ add)
@@ -25,7 +28,7 @@ the slices, cats and in-place adds the solvers issued before the kernel;
 any other device raises. Kernel and twin are bitwise equal: the kernel
 evaluates the twin's operations in the twin's order with explicitly
 rounded intrinsics, and the fused forms are the twin followed by the add
-or preceded by the subtraction."""
+or preceded by the subtraction (and the weighting)."""
 
 import ctypes
 import itertools
@@ -37,8 +40,8 @@ from exsaddle_tpu_torch.kernels import _build
 
 # the launch forms, by the name the kernels line and the counters use
 FORMS = ("prolong_parity", "prolong_parity_add", "restrict_parity",
-         "restrict_parity_residual", "prolong_grid", "prolong_grid_add",
-         "restrict_grid")
+         "restrict_parity_residual", "restrict_parity_weighted_residual",
+         "prolong_grid", "prolong_grid_add", "restrict_grid")
 
 _V = ctypes.c_void_p
 _bound = False
@@ -115,6 +118,11 @@ def restrict_parity_plain(xu, cls_shapes, m_el):
 def restrict_parity_residual_plain(b, y, cls_shapes, m_el):
     """restrict_parity of the residual b - y."""
     return restrict_parity_plain(b - y, cls_shapes, m_el)
+
+
+def restrict_parity_weighted_residual_plain(b, y, w, cls_shapes, m_el):
+    """restrict_parity of the weighted residual w * (b - y)."""
+    return restrict_parity_plain(w * (b - y), cls_shapes, m_el)
 
 
 def prolong_grid_plain(xc, fine_shape, add=None):
@@ -235,6 +243,9 @@ def _fn(kind, dtype):
             f = getattr(lib, "k5_restrict_grid" + sfx)
             f.argtypes = [_V] * 3 + [ctypes.c_int] * 2 + [_V]
             f.restype = ctypes.c_int
+            f = getattr(lib, "k5_restrict_parity_weighted_residual" + sfx)
+            f.argtypes = [_V] * 5 + [ctypes.c_int] * 2 + [_V]
+            f.restype = ctypes.c_int
         _bound = True
     return lib, getattr(lib, f"k5_{kind}_"
                         + ("f32" if dtype == torch.float32 else "f64"))
@@ -278,13 +289,14 @@ def prolong_parity(xc, cls_shapes, m_el, add=None):
                    [_ptr(xc), _ptr(add)], table, ndim, nd)
 
 
-def _restrict_parity(form, b, y, cls_shapes, m_el):
+def _restrict_parity(form, b, y, cls_shapes, m_el, w=None):
     ndim = nd = len(m_el)
     _dims(form, ndim, nd)
     cshape, n, table = parity_layout(cls_shapes, m_el, nd)
-    _check(form, b, (n,), y=((n,), y))
-    return _launch(form, "restrict_parity", b, cshape + (nd,),
-                   [_ptr(b), _ptr(y)], table, ndim, nd)
+    _check(form, b, (n,), y=((n,), y), w=((n,), w))
+    ptrs = [_ptr(b), _ptr(y)] + ([] if w is None else [_ptr(w)])
+    return _launch(form, "restrict_parity" if w is None else form, b,
+                   cshape + (nd,), ptrs, table, ndim, nd)
 
 
 def restrict_parity(xu, cls_shapes, m_el):
@@ -302,6 +314,19 @@ def restrict_parity_residual(b, y, cls_shapes, m_el):
     if not _device(name, b):
         return restrict_parity_residual_plain(b, y, cls_shapes, m_el)
     return _restrict_parity(name, b, y, cls_shapes, m_el)
+
+
+def restrict_parity_weighted_residual(b, y, w, cls_shapes, m_el):
+    """restrict_parity(w * (b - y), ...): the cart V-cycle's
+    ownership-weighted fine residual restricted, w * (b - y) formed in the
+    kernel's loads."""
+    name = "restrict_parity_weighted_residual"
+    if not _device(name, b):
+        return restrict_parity_weighted_residual_plain(b, y, w, cls_shapes,
+                                                       m_el)
+    if y is None or w is None:
+        raise ValueError(f"{name}: y and w are required")
+    return _restrict_parity(name, b, y, cls_shapes, m_el, w=w)
 
 
 def _grid_dims(name, x, shape):
@@ -349,5 +374,7 @@ def restrict_grid(rf, coarse_shape):
 TWINS = {"prolong_parity": prolong_parity_plain,
          "restrict_parity": restrict_parity_plain,
          "restrict_parity_residual": restrict_parity_residual_plain,
+         "restrict_parity_weighted_residual":
+             restrict_parity_weighted_residual_plain,
          "prolong_grid": prolong_grid_plain,
          "restrict_grid": restrict_grid_plain}

@@ -804,10 +804,11 @@ def _cart_bodies(dcfg, smesh, dd, blk):
 
     def mg_pc(r):
         x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
-        rr = r - blk.fine_mult(x)
+        # the ownership-weighted residual w_u * (r - A x), formed in K5's
+        # loads
         r1 = blk.halo_p(smap(
-            lambda v: transfer.restrict_parity(v, cls_loc, mloc),
-            blk.w_u * rr))
+            lambda b, y, w: transfer.restrict_parity_weighted_residual(
+                b, y, w, cls_loc, mloc), r, blk.fine_mult(x), blk.w_u))
         x1 = vcycle_l1(r1)
         x = smap(lambda v, a: transfer.prolong_parity(v, cls_loc, mloc,
                                                       add=a), x1, x)

@@ -1181,11 +1181,13 @@ def _shard_classes(mloc):
 
 # (m_el, class shapes) of the parity pair: the mx=32 flagship's fine <-> L-2
 # level, a cart shard's local box of its 1x2x2 grid (32 x 16 x 16
-# elements), and small 2D and 3D meshes
+# elements), small 2D and 3D meshes, and a ragged 3D mesh whose rows no
+# block of rows divides
 K5_PARITY = {"flagship": ((32, 32, 32), _flagship_classes((32, 32, 32))),
              "cart_shard": ((32, 16, 16), _shard_classes((32, 16, 16))),
              "2d": ((5, 4), _flagship_classes((5, 4))),
-             "3d_odd": ((3, 4, 2), _flagship_classes((3, 4, 2)))}
+             "3d_odd": ((3, 4, 2), _flagship_classes((3, 4, 2))),
+             "ragged": ((7, 5, 9), _flagship_classes((7, 5, 9)))}
 # (coarse grid, dofs per node) of the grid pair: the flagship's L-3 <-> L-2
 # and coarse <-> L-3, and small grids of every (ndim, nd)
 K5_GRID = {"L-3_L-2": ((17, 17, 17), 3), "coarse_L-3": ((9, 9, 9), 3),
@@ -1199,8 +1201,9 @@ K5_GRID = {"L-3_L-2": ((17, 17, 17), 3), "coarse_L-3": ((9, 9, 9), 3),
 @pytest.mark.parametrize("case", list(K5_PARITY))
 def test_parity_transfer_kernels_bitwise_twins(cuda, case, dtype):
     """prolong_parity (and its add form), restrict_parity (and its
-    residual form) against their twins on the card, bit for bit, one
-    launch each."""
+    residual and weighted residual forms) against their twins on the card,
+    bit for bit, one launch each; the restrictions on inputs with signed
+    zeros in b - y and the weights of the cart V-cycle (powers of 1/2)."""
     m_el, cls = K5_PARITY[case]
     nd = len(m_el)
     n = sum(int(np.prod(c)) for c in cls) * nd
@@ -1209,6 +1212,9 @@ def test_parity_transfer_kernels_bitwise_twins(cuda, case, dtype):
     xc = t(rng.standard_normal(tuple(m + 1 for m in reversed(m_el))
                                + (nd,)))
     x, b, y = (t(rng.standard_normal(n)) for _ in range(3))
+    b[::7], y[::11], b[::11], y[::13], b[::13] = (
+        y[::7], 0.0, 0.0, 0.0, -0.0)
+    w = t(0.5 ** rng.integers(0, 4, n))
     _reset_kernel_counts()
     pairs = [(transfer.prolong_parity(xc, cls, m_el),
               transfer.prolong_parity_plain(xc, cls, m_el)),
@@ -1217,17 +1223,21 @@ def test_parity_transfer_kernels_bitwise_twins(cuda, case, dtype):
              (transfer.restrict_parity(b, cls, m_el),
               transfer.restrict_parity_plain(b, cls, m_el)),
              (transfer.restrict_parity_residual(b, y, cls, m_el),
-              transfer.restrict_parity_plain(b - y, cls, m_el))]
+              transfer.restrict_parity_plain(b - y, cls, m_el)),
+             (transfer.restrict_parity_weighted_residual(b, y, w, cls,
+                                                         m_el),
+              transfer.restrict_parity_plain(w * (b - y), cls, m_el))]
     torch.cuda.synchronize()
     for i, (got, want) in enumerate(pairs):
         assert _same_bits(got, want), (case, i, float(
             (got - want).abs().max()))
-    assert transfer.LAUNCHES.n == 4
+    assert transfer.LAUNCHES.n == 5
     assert transfer.LAUNCHES.by == {**dict.fromkeys(transfer.FORMS, 0),
                                     "prolong_parity": 1,
                                     "prolong_parity_add": 1,
                                     "restrict_parity": 1,
-                                    "restrict_parity_residual": 1}
+                                    "restrict_parity_residual": 1,
+                                    "restrict_parity_weighted_residual": 1}
 
 
 @pytest.mark.gpu
@@ -1283,6 +1293,15 @@ def test_transfer_kernels_refuse_bad_input(cuda):
         transfer.restrict_parity(x[:-1].contiguous(), cls, m_el)
     with pytest.raises(TypeError):
         transfer.restrict_parity(x.half(), cls, m_el)
+    wres = transfer.restrict_parity_weighted_residual
+    with pytest.raises(ValueError, match="w has shape"):
+        wres(x, x, x[:-1].contiguous(), cls, m_el)
+    with pytest.raises(ValueError, match="w is torch.float64"):
+        wres(x, x, x.double(), cls, m_el)
+    with pytest.raises(ValueError, match="w is torch.float32 on cpu"):
+        wres(x, x, x.cpu(), cls, m_el)
+    with pytest.raises(ValueError, match="y and w are required"):
+        wres(x, x, None, cls, m_el)
     g = torch.rand((5, 7, 9, 3), device=cuda)
     with pytest.raises(ValueError, match="has shape"):
         transfer.restrict_grid(g, (3, 4, 4))

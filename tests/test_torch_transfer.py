@@ -6,11 +6,13 @@ entry runs its plain twin:
   for bit, restrictions to 1e-12 relative in float64 (XLA may sum the
   padded terms in another order);
 - each fused twin bit for bit the unfused twin followed by the add, or
-  preceded by the subtraction;
+  preceded by the subtraction (and the weighting: the cart V-cycle's
+  w * (b - y), against JAX's restriction of it as well);
 - the entries on CPU tensors are the twins and count no launch;
 - the launch checks refuse what the kernel cannot take;
 - the single-device V-cycle and the cart V-cycle call each K5 entry, the
-  fused ones where the V-cycle adds the correction or forms the residual;
+  fused ones where the V-cycle adds the correction or forms the residual
+  (the cart V-cycle its weighted residual);
 - the port's V-cycle (ABFSolver's mg_pc body) against the JAX package's.
 
 The kernels themselves run on the card (tests/test_torch_gpu.py). Inputs
@@ -85,6 +87,13 @@ def _parity_inputs(m_el, cls, dtype=torch.float64, seed=6):
     return t(xc), t(xf), t(b), t(y)
 
 
+def _weights(n, dtype, seed=9):
+    """Ownership weights as the cart V-cycle's w_u holds them: 1, 1/2, 1/4,
+    1/8 (a node on 1, 2, 4 or 8 shards' boxes), drawn per value."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(0.5 ** rng.integers(0, 4, n), dtype=dtype)
+
+
 @pytest.mark.parametrize("case", list(PARITY_CASES))
 def test_parity_twins_match_jax(case):
     m_el, cls = PARITY_CASES[case]
@@ -140,6 +149,32 @@ def test_fused_parity_twins_are_the_unfused_ops(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(PARITY_CASES))
+def test_weighted_residual_twin_is_the_unfused_ops(case, dtype):
+    """The weighted residual form's twin is restrict_parity_plain(w * (b -
+    y)) bit for bit (the cart V-cycle's ops before it: the subtraction,
+    then the ownership weights); in float64 it is JAX's restriction of
+    the weighted residual (exsaddle_tpu/parallel/cart_abf.py's mg_pc) to
+    TOL64."""
+    m_el, cls = PARITY_CASES[case]
+    nd = len(m_el)
+    _, _, b, y = _parity_inputs(m_el, cls, dtype)
+    w = _weights(b.numel(), dtype)
+    got = transfer.restrict_parity_weighted_residual_plain(b, y, w, cls,
+                                                           m_el)
+    assert _same(got, transfer.restrict_parity_plain(w * (b - y), cls,
+                                                     m_el))
+    assert _same(got, transfer.restrict_parity_plain((b - y) * w, cls,
+                                                     m_el))
+    if dtype == torch.float64:
+        jb, jy, jw = (jmf.split_u_parity(jnp.asarray(v.numpy()), cls, nd)
+                      for v in (b, y, w))
+        want = jabf.restrict_parity([ws * s for ws, s in zip(
+            jw, jtreeops.tsub(jb, jy))], cls, m_el)
+        assert _rel(got.numpy(), want) < TOL64
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 @pytest.mark.parametrize("ndim,nd", [(2, 2), (2, 3), (3, 2), (3, 3)])
 def test_fused_grid_twin_is_the_unfused_ops(ndim, nd, dtype):
     _, fine, xc, _, x = _grid_inputs(ndim, nd, dtype)
@@ -158,6 +193,7 @@ def test_entries_on_cpu_are_the_twins(dtype):
                                     transfer.restrict_grid)
     m_el, cls = PARITY_CASES["cart_shard"]
     xc, x, b, y = _parity_inputs(m_el, cls, dtype)
+    w = _weights(b.numel(), dtype)
     _, fine, gc, gf, gx = _grid_inputs(3, 3, dtype)
     coarse = GRID_COARSE[3]
     transfer.LAUNCHES.reset()
@@ -169,6 +205,9 @@ def test_entries_on_cpu_are_the_twins(dtype):
               transfer.restrict_parity_plain(b, cls, m_el)),
              (transfer.restrict_parity_residual(b, y, cls, m_el),
               transfer.restrict_parity_residual_plain(b, y, cls, m_el)),
+             (transfer.restrict_parity_weighted_residual(b, y, w, cls, m_el),
+              transfer.restrict_parity_weighted_residual_plain(
+                  b, y, w, cls, m_el)),
              (transfer.prolong_grid(gc, fine),
               transfer.prolong_grid_plain(gc, fine)),
              (transfer.prolong_grid(gc, fine, add=gx),
@@ -224,11 +263,34 @@ def test_checks_refuse_what_the_kernel_cannot_take():
                  lambda: transfer.restrict_parity(b.to(meta), cls, m_el),
                  lambda: transfer.restrict_parity_residual(
                      b.to(meta), y.to(meta), cls, m_el),
+                 lambda: transfer.restrict_parity_weighted_residual(
+                     b.to(meta), y.to(meta), y.to(meta), cls, m_el),
                  lambda: transfer.prolong_grid(gc.to(meta), fine),
                  lambda: transfer.restrict_grid(gf.to(meta),
                                                 GRID_COARSE[3])):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_checks_refuse_a_bad_weight():
+    """The weighted residual form's checks, on CPU tensors: a w of another
+    shape, dtype or device than b, or not contiguous, raises."""
+    m_el, cls = PARITY_CASES["3d"]
+    _, _, b, y = _parity_inputs(m_el, cls)
+    _, n, _ = transfer.parity_layout(cls, m_el, 3)
+    w = _weights(n, torch.float64)
+    name = "restrict_parity_weighted_residual"
+    transfer._check(name, b, (n,), y=((n,), y), w=((n,), w))
+    with pytest.raises(ValueError, match="w has shape"):
+        transfer._check(name, b, (n,), y=((n,), y), w=((n,), w[:-1]))
+    with pytest.raises(ValueError, match="w is torch.float32"):
+        transfer._check(name, b, (n,), y=((n,), y), w=((n,), w.float()))
+    with pytest.raises(ValueError, match="w is torch.float64 on meta"):
+        transfer._check(name, b, (n,), y=((n,), y),
+                        w=((n,), w.to("meta")))
+    with pytest.raises(ValueError, match="not contiguous"):
+        transfer._check(name, b, (n,), y=((n,), y),
+                        w=((n,), torch.stack([w, w], 1)[:, 0]))
 
 
 def _count_entries(monkeypatch):
@@ -267,7 +329,9 @@ def test_single_device_vcycle_goes_through_k5(monkeypatch):
 
 def test_cart_vcycle_goes_through_k5(monkeypatch):
     """A cart V-cycle over 1x2x2 shards with 4 levels: the parity pair on
-    every shard (the prolongation adding the correction), and on the
+    every shard (the restriction of the ownership-weighted residual
+    w_u * (r - A x) fused, none unfused; the prolongation adding the
+    correction), and on the
     replicated levels the grid pair (once per distinct device): the L-2
     grid to L-3 and back (no add: the correction goes back to the shards
     first), L-3 to the coarse grid and back with the add."""
@@ -282,7 +346,7 @@ def test_cart_vcycle_goes_through_k5(monkeypatch):
     _cart_bodies(slv.dcfg, slv.smesh, slv.ddata, slv.blocks)["mg_pc"](r)
     shards = 4
     assert calls == {**dict.fromkeys(transfer.FORMS, 0),
-                     "restrict_parity": shards,
+                     "restrict_parity_weighted_residual": shards,
                      "prolong_parity_add": shards,
                      "restrict_grid": 2, "prolong_grid": 1,
                      "prolong_grid_add": 1}
