@@ -62,7 +62,11 @@ Phases, in order; any failure raises and the script exits nonzero:
               L-3 <-> coarse, and the parity pair on one cart shard's box
               of the 1x2x2 grid, in float32 and float64: every entry and
               fused form (prolongation + add, restriction of b - y and of
-              the cart V-cycle's w * (b - y)) bit for bit its twin;
+              the cart V-cycle's w * (b - y), the grid restriction with
+              the next level's first Chebyshev step in its store:
+              restrict_grid_cheb_first, with L-3's own diagonal and bounds
+              at L-2 -> L-3, also against the restrict_grid + K6
+              cheb_first pair it replaces) bit for bit its twin;
               kernel and twin timed cold and hot as K4;
               the grid pair's library yardstick (F.conv3d /
               F.conv_transpose3d with the [0.5, 1, 0.5] tensor-product
@@ -97,7 +101,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               each kind's median wall and spread, ms per outer
               iteration, K1 launches and applies, K5 launches (exactly
               2 (levels - 1) per V-cycle: the fused residual restriction,
-              the prolongations with their add), control-kernel, graph
+              the prolongations with their add, levels - 3 grid
+              restrictions into a smoothed level as
+              restrict_grid_cheb_first, one into the coarse solve plain),
+              K6 launches per V-cycle, control-kernel, graph
               launches and replays, loop-body executions and peak memory
               per solve. Then the float64 witness: the same flagship as
               a float64 direct
@@ -169,7 +176,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               kernel; the parity pair per shard, the prolongation with
               its add, the restriction of the ownership-weighted residual
               w * (r - A x), shards per V-cycle, no unfused one;
-              2 x shards + 2 (levels - 2) per V-cycle), K6 and
+              2 x shards + 2 (levels - 2) per V-cycle, of them levels - 3
+              grid restrictions into a smoothed replicated level as
+              restrict_grid_cheb_first), K6 and
               control launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
@@ -222,7 +231,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               stalling to a float64 residual <= 1e-8 recomputed with the
               port's float64 operator, in rounds and inner iterations
               inside BENCH_BANDS; every K5 kernel and fused form of the
-              single-device path ran.
+              single-device path ran, the tuned solve's grid restrictions
+              levels - 3 per V-cycle fused with the next level's first
+              Chebyshev step and one plain (its K6 launches logged).
               Then the tuned schedule over a new setup
               with K4 and with every K4 entry swapped for its plain twin:
               K4 gives the bench's tuned counts with every stencil apply
@@ -846,9 +857,10 @@ K5_KERNELS = {"prolong_parity": ("prolong_parity", "prolong_parity_add"),
                                   "restrict_parity_residual",
                                   "restrict_parity_weighted_residual"),
               "prolong_grid": ("prolong_grid", "prolong_grid_add"),
-              "restrict_grid": ("restrict_grid",)}
+              "restrict_grid": ("restrict_grid", "restrict_grid_cheb_first")}
 K5_FUSED = ("prolong_parity_add", "restrict_parity_residual",
-            "restrict_parity_weighted_residual", "prolong_grid_add")
+            "restrict_parity_weighted_residual", "prolong_grid_add",
+            "restrict_grid_cheb_first")
 # the fused form only the cart V-cycle runs (its ownership-weighted
 # residual); the single-device path runs every other form
 K5_CART = ("restrict_parity_weighted_residual",)
@@ -873,6 +885,23 @@ def _k5_per_vcycle(k5, residuals, nlev):
     its fused stencil residuals (one per stencil level, nlev - 2 of them)."""
     vcycles = residuals / (nlev - 2)
     return sum(k5[k] for k in K5_KERNELS) / vcycles, vcycles
+
+
+def _check_k5_cheb_first(k5, vcycles, nlev, k6, where):
+    """A V-cycle's grid restrictions into a smoothed level (nlev - 3 of
+    them) are each restrict_grid_cheb_first, which computes that level's
+    first pre-smoothing step in its store (one K6 launch fewer each), and
+    the one into the coarse solve the plain form; logs K6's launches."""
+    fused = k5["restrict_grid_cheb_first"]
+    check(fused == (nlev - 3) * vcycles
+          and k5["restrict_grid"] == (nlev - 2) * vcycles,
+          f"{where}: {fused} restrict_grid_cheb_first of "
+          f"{k5['restrict_grid']} grid restrictions in {vcycles:g} "
+          f"V-cycles, expected {nlev - 3} and {nlev - 2} per V-cycle")
+    log(f"[{where.split()[0]}] {where}: K6 {k6} launches, "
+        f"{k6 / vcycles:.2f} per V-cycle; restrict_grid_cheb_first {fused} "
+        f"({fused / vcycles:g} per V-cycle), each the K6 launch of a "
+        f"zero-guess first step that is no longer made")
 
 
 def _grid_ops(shape, nd, prolong):
@@ -912,7 +941,12 @@ def _k5_yardstick(kind, grid, nd, dtype):
     return lib, arg, lambda y: y[0].permute(1, 2, 3, 0)
 
 
-def _k5_kernels(cfg, device, card, rng):
+def _outputs(y):
+    """A K5 entry's outputs as a tuple (the fused restriction's two)."""
+    return y if isinstance(y, tuple) else (y,)
+
+
+def _k5_kernels(cfg, device, card, rng, l3):
     """K5 (csrc/transfer.cu) at the mx=32 flagship's own shapes: the
     parity pair between the fine level and L-2, the grid pair between L-2
     and L-3 and between L-3 and the coarse grid, and the parity pair on
@@ -920,8 +954,12 @@ def _k5_kernels(cfg, device, card, rng):
     every entry and fused form bit for bit its twin; device ms per call of
     kernel and twin, cold and hot (_mg_times); the grid pair's library
     yardstick (cuDNN convolutions, TF32 off) against the twin to TOL and
-    timed likewise; the bound (bytes: each input read once, the output
-    written once). Returns the records by (form, case, dtype)."""
+    timed likewise; the bound (bytes: each input read once, each output
+    written once). restrict_grid_cheb_first runs at L-2 -> L-3 only, the
+    one shape the V-cycles give it, with L-3's own inverse diagonal and
+    Chebyshev bounds l3 = (d, (emin, emax)), and is also timed against the
+    pair it replaces (restrict_grid, then K6's cheb_first). Returns the
+    records by (form, case, dtype)."""
     from exsaddle_tpu_torch.parallel.cart_abf import _local_cls_shapes
     f32, f64 = torch.float32, torch.float64
     nd = cfg.ndim
@@ -1002,14 +1040,36 @@ def _k5_kernels(cfg, device, card, rng):
                             lambda v: transfer.restrict_grid_plain(
                                 v, coarse), (xf,), nf + nc,
                             _grid_ops(fine, nd, False))}
+                    if coarse == tuple(l3[0].shape[:-1]):
+                        # the V-cycles' restriction into L-3: reads rf and
+                        # d, writes b and p1; the first step's 3 operations
+                        # per value beside the restriction's
+                        npdt = np.float32 if dtype == f32 else np.float64
+                        dg = t(l3[0])
+                        scale = float(treeops.cheb_scale(*map(npdt, l3[1])))
+
+                        def pair(v, dd, coarse=coarse, scale=scale):
+                            bc = transfer.restrict_grid(v, coarse)
+                            return bc, cheb.cheb_first(
+                                bc, None, dd, torch.zeros_like(bc), scale)
+                        forms["restrict_grid_cheb_first"] = (
+                            lambda v, dd: transfer.restrict_grid_cheb_first(
+                                v, coarse, dd, scale),
+                            lambda v, dd:
+                            transfer.restrict_grid_cheb_first_plain(
+                                v, coarse, dd, scale), (xf, dg),
+                            nf + 3 * nc,
+                            _grid_ops(fine, nd, False) + 3 * nc)
                     shapes = f"{fine} <-> {coarse} nodes x {nd}"
                 for form, (kern, twin, args, nval, nops) in forms.items():
-                    got, want = kern(*args), twin(*args)
+                    got, want = _outputs(kern(*args)), _outputs(twin(*args))
                     torch.cuda.synchronize()
-                    err = float((got - want).abs().max())
-                    check(_same_bits(got, want),
+                    err = max(float((g - w).abs().max())
+                              for g, w in zip(got, want))
+                    check(all(_same_bits(g, w) for g, w in zip(got, want)),
                           f"K5 {form} {case} {dtype}: not bitwise its twin "
                           f"(max_abs_err {err:.3e})")
+                    want = want[0]
                     nbytes = size * nval
                     (ms_hot, plain_hot), (ms, plain_ms), ncp = _mg_times(
                         kern, twin, args, nbytes)
@@ -1042,6 +1102,19 @@ def _k5_kernels(cfg, device, card, rng):
                                     f"groups {nd}, off by {lib_err:.3e} of "
                                     f"max {mag:.3e}) {1e3 * lib_ms:.2f} / "
                                     f"{1e3 * lib_hot:.2f} us cold / hot")
+                    if form == "restrict_grid_cheb_first":
+                        g, q = _outputs(pair(*args)), _outputs(kern(*args))
+                        torch.cuda.synchronize()
+                        check(all(_same_bits(u, v) for u, v in zip(g, q)),
+                              f"K5 {form} {case} {dtype}: not bitwise "
+                              f"restrict_grid followed by K6's cheb_first")
+                        (p_hot, _), (p_cold, _), _ = _mg_times(
+                            pair, pair, args, nbytes)
+                        rec.update(pair_ms=p_cold, pair_hot_ms=p_hot)
+                        lib_line += (f"; the restrict_grid + K6 cheb_first "
+                                     f"pair it replaces (bitwise) "
+                                     f"{1e3 * p_cold:.2f} / "
+                                     f"{1e3 * p_hot:.2f} us cold / hot")
                     log(f"[mg_kernels] K5 {form} {case} {shapes} "
                         f"{str(dtype)[6:]}: bitwise its twin; per launch in "
                         f"a graph {1e3 * ms:.2f} us cold (inputs cycled "
@@ -1275,8 +1348,10 @@ def phase_mg_kernels(device, card):
                 "plain_ms": plain_ms, "plain_hot_ms": plain_hot,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "cold_copies": ncp}
+    l3 = (data["inv_diag_lvls"][0].double().cpu().numpy(),
+          tuple(float(b) for b in data["bounds"][0]))
     del data, setup, diags
-    k5 = _k5_kernels(cfg, device, card, rng)
+    k5 = _k5_kernels(cfg, device, card, rng, l3)
     torch.cuda.empty_cache()
     # the kernels line's K5 entries: each form at the single-device main
     # path's float32 shape (the parity pair fine <-> L-2, the grid pair
@@ -1495,6 +1570,8 @@ def phase_main(card):
     check(per_vc == 2 * (nlev - 1),
           f"K5: {per_vc} launches per V-cycle ({vcycles} V-cycles), "
           f"expected {2 * (nlev - 1)}")
+    _check_k5_cheb_first(d["k5"], vcycles, nlev, d["mg"][1],
+                         "main device-loop IR solve")
     check(d["graph_launches"] == 1 and d["replays"] == 0,
           f"device loop: {d['graph_launches']} graph launches per solve")
     for kind, res_k in first.items():
@@ -2341,6 +2418,8 @@ def _cart_loops(slv, single, F, r, card):
     check(k5 == (2 * shards + 2 * (nlev - 2)) * vcycles,
           f"cart: {k5} K5 launches in {vcycles} V-cycles, expected "
           f"{2 * shards + 2 * (nlev - 2)} per V-cycle")
+    _check_k5_cheb_first(c, vcycles, nlev, c["cheb_update"],
+                         "cart device-loop solve")
     wres = c["restrict_parity_weighted_residual"]
     check(wres == shards * vcycles and c["restrict_parity"] == wres,
           f"cart: {wres} weighted residual restrictions of "
@@ -2764,6 +2843,8 @@ def _bench_twin_witness(device, card, extras):
             check(per_vc == 2 * (nlev - 1),
                   f"bench: {per_vc} K5 launches per V-cycle of the tuned "
                   f"solve, expected {2 * (nlev - 1)}")
+            _check_k5_cheb_first(rec["k5"], vcycles, nlev, rec["mg"][1],
+                                 "bench tuned solve")
         log(f"[bench] tuned solve with {name} ({s.loop} loop): "
             f"{res['rounds']} rounds, {res['inner_its']} inner its, "
             f"{rec['wall']:.3f} s, K4 / K6 launches {rec['mg'][0]} / "
@@ -2852,7 +2933,8 @@ def _ranged(name, fn):
 
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
 # counts (the innermost enclosing one; the hand-written K1, K4, K5 and K6
-# by kernel name wherever they run)
+# by kernel name wherever they run; restrict_grid_kernel covers both of its
+# forms, the restriction and restrict_grid_cheb_first)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),
                    ("K5 transfers", "prolong_parity_kernel"),

@@ -753,25 +753,35 @@ def _mg_pc(cfg, data, fineA):
 
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
 
-    def smooth(k, b, x0v, pre=False):
+    def smooth(k, b, x0v, pre=False, p1=None):
         emin, emax = data["bounds"][k - 1]
         # pre-smooths start from zero: x0_zero skips the initial A x0
         return treeops.cheb_smooth(lvl_ops[k], None, emin, emax,
                                    pre_its if pre else cfg.cheb_its,
-                                   b, x0v, x0_zero=pre, diag=lvl_diag[k])
+                                   b, x0v, x0_zero=pre, diag=lvl_diag[k],
+                                   p1=p1)
 
-    def vcycle(k, b):
+    def restrict(k, r):
+        """Stencil level k's residual r on level k - 1's grid, and, where
+        level k - 1 is smoothed, its first pre-smoothing iterate from the
+        same K5 launch (else None)."""
+        if k == 1:
+            return transfer.restrict_grid(r, cfg.level_grids[0]), None
+        emin, emax = data["bounds"][k - 2]
+        return transfer.restrict_grid_cheb_first(
+            r, cfg.level_grids[k - 1], lvl_diag[k - 1],
+            float(treeops.cheb_scale(emin, emax)))
+
+    def vcycle(k, b, p1=None):
         if k == 0:
             return coarse_solve(b)
-        x = smooth(k, b, torch.zeros_like(b), pre=True)
+        x = smooth(k, b, torch.zeros_like(b), pre=True, p1=p1)
         if k == nlev - 1:
             xc = vcycle(k - 1, transfer.restrict_parity_residual(
                 b, lvl_ops[k](x), cfg.cls_shapes, cfg.m_el))
             x = transfer.prolong_parity(xc, cfg.cls_shapes, cfg.m_el, add=x)
         else:
-            r = lvl_ops[k].residual(b, x)
-            xc = vcycle(k - 1, transfer.restrict_grid(
-                r, cfg.level_grids[k - 1]))
+            xc = vcycle(k - 1, *restrict(k, lvl_ops[k].residual(b, x)))
             x = transfer.prolong_grid(xc, cfg.level_grids[k], add=x)
         return smooth(k, b, x)
 

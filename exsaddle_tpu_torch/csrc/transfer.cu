@@ -11,7 +11,10 @@
 //     prolong_grid      separable multilinear interpolation between node
 //                       grids (spatial dims leading, dof trailing), every
 //                       axis in one pass; fused: + x in the store
-//     restrict_grid     its transpose, every axis in one pass
+//     restrict_grid     its transpose, every axis in one pass; fused
+//                       (restrict_grid_cheb_first): also the next level's
+//                       zero-guess first Chebyshev iterate scale (d b) + 0
+//                       in the store
 //
 // Replaces exsaddle_tpu/abf.py:110 prolong_parity, :132 restrict_parity,
 // :150 prolong_grid (with _prolong_axis :161) and :171 restrict_grid (with
@@ -30,24 +33,24 @@
 // Design: a gather, one thread per output value, threads along the fastest
 // axis (x, the dof trailing), so neighbouring threads touch neighbouring
 // class or grid entries; no atomics, so the result is deterministic. Index
-// arithmetic is 32-bit (every array holds < 2^31 values). The parity pair
-// runs row by row (below): a block's class and rows come from its block
-// index, a thread's value from its thread index, so no thread decodes a
-// coordinate with runtime divides (a per-value class search and decode
-// made the first version integer-bound), and every term is a compile-time
-// entry of a table, so each thread issues all of its loads (<= 8 coarse
-// reads, <= 27 fine ones, each of them two or three in the fused forms)
-// before the first add. On grids with two blocks per SM or more the
-// prolongation stages its coarse rows in shared memory and a block writes
-// every class's rows of its plane (each coarse value leaves L2 about once
-// per block); a cart shard's box keeps a block per class as well. Staging
-// the restriction's fine rows the same way (cp.async, double-buffered by
-// class), or taking its dx = 1 terms from lane - ND by shuffle, measured
-// slower on an H100 (PERF.md). Each output evaluates the twin's
-// arithmetic in the twin's order with explicitly rounded intrinsics
-// (__fadd_rn, __fmul_rn, __fsub_rn and the __d* forms; nvcc contracts
-// nothing into an FMA), so every kernel is bitwise its twin and cannot
-// move an iteration count:
+// arithmetic is 32-bit (every array holds < 2^31 values). Every kernel
+// runs row by row (below): a block's class or plane and rows come from its
+// block index, a thread's value from its thread index, so no thread decodes
+// a coordinate with runtime divides (a per-value decode made the first
+// versions integer-bound), and every term is a compile-time entry of a
+// table, so each thread issues all of its loads (the parity pair <= 8
+// coarse reads or <= 27 fine ones, each of them two or three in the fused
+// forms; the grid pair <= 8 or 27) before the first add. On grids with two
+// blocks per SM or more the parity prolongation stages its coarse rows in
+// shared memory and a block writes every class's rows of its plane (each
+// coarse value leaves L2 about once per block); a cart shard's box keeps a
+// block per class as well. Staging the restriction's fine rows the same way
+// (cp.async, double-buffered by class), or taking its dx = 1 terms from
+// lane - ND by shuffle, measured slower on an H100 (PERF.md). Each output
+// evaluates the twin's arithmetic in the twin's order with explicitly
+// rounded intrinsics (__fadd_rn, __fmul_rn, __fsub_rn and the __d* forms;
+// nvcc contracts nothing into an FMA), so every kernel is bitwise its twin
+// and cannot move an iteration count:
 //   - prolong_parity sums a class's 2^popcount(bits) coarse reads in
 //     itertools.product order, then scales by w = 0.5^popcount (exact);
 //   - restrict_parity starts from 0 (the twin's zeros, so the sign of a
@@ -56,18 +59,19 @@
 //   - the grid pair evaluates the twin's per-axis recurrence nested in
 //     its axis order (axis 0 innermost): odd prolongation slots are
 //     0.5 * (a + b), restriction is (x[2j] + 0.5 x[2j+1]) + 0.5 x[2j-1],
-//     the order of _restrict_axis's two in-place adds. Inner values are
-//     recomputed per output, not shared: a few redundant reads, no
-//     intermediate grid in memory.
+//     the order of _restrict_axis's two in-place adds, a term out of range
+//     skipped. Inner values are recomputed per output, not shared: a few
+//     redundant reads, all from L2 (~3.4 per fine value), no intermediate
+//     grid in memory.
 // The fused add is one more __fadd_rn in the store (IEEE addition is
 // commutative, so p + x and x + p give the same bits); the residual forms
-// are one __fsub_rn (and one __fmul_rn by the weight) per loaded term.
+// are one __fsub_rn (and one __fmul_rn by the weight) per loaded term; the
+// Chebyshev form is cheb_update.cu's cheb_first arithmetic on the stored
+// value with x0 = +0, so it reads no x0 and replaces that K6 launch.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int THREADS = 256;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
@@ -404,100 +408,151 @@ prolong_parity_staged_kernel(const T* __restrict__ xc,
   }
 }
 
-// prolong_grid's value at c after axes 0..A (fine along dims 0..A, coarse
-// along the rest): the twin's _prolong_axis along A over the value after
-// axes 0..A-1.
-template <typename T, int A, int NDIM, int ND>
-__device__ __forceinline__ T prolong_at(const T* __restrict__ x,
-                                        const Grid& g, int (&c)[NDIM],
-                                        unsigned d) {
-  if constexpr (A < 0) {
-    unsigned lin = 0;
-#pragma unroll
-    for (int dim = 0; dim < NDIM; ++dim) lin = lin * g.nc[dim] + c[dim];
-    return x[lin * ND + d];
-  } else {
-    const int f = c[A];
-    c[A] = f >> 1;
-    T v = prolong_at<T, A - 1, NDIM, ND>(x, g, c, d);
-    if (f & 1) {
-      c[A] = (f >> 1) + 1;
-      v = mul(T(0.5), add(v, prolong_at<T, A - 1, NDIM, ND>(x, g, c, d)));
-    }
-    c[A] = f;
-    return v;
-  }
+// The grid pair, row by row as the parity pair: a block takes blockDim.y
+// consecutive output rows of one z plane (blockIdx.y; 0 in 2D) from row
+// blockIdx.x * blockDim.y on, its threads run along each row's x * ND
+// values. An output's terms are compile-time entries along each axis (the
+// restriction's 3: fine 2c, 2c + 1 and 2c - 1; the prolongation's 2: coarse
+// f >> 1 and (f + 1) >> 1), so a thread computes its rows' offsets once,
+// issues every leaf load (27, 2D 9, for the restriction; 8, 2D 4, for the
+// prolongation) before the first add, then evaluates the twin's nested
+// per-axis tree in registers, axis 0 innermost.
+
+// The restriction's terms along one axis at coarse coordinate c of nc: the
+// fine coordinates 2c, 2c + 1, 2c - 1 (one out of range replaced by 2c, a
+// valid address whose value the sum skips) and whether each is in range.
+struct Terms {
+  int f[3];
+  bool ok[3];
+};
+
+__device__ __forceinline__ Terms restrict_terms(int c, int nc) {
+  Terms t;
+  t.ok[0] = true;
+  t.ok[1] = c + 1 < nc;
+  t.ok[2] = c > 0;
+  t.f[0] = 2 * c;
+  t.f[1] = t.ok[1] ? 2 * c + 1 : 2 * c;
+  t.f[2] = t.ok[2] ? 2 * c - 1 : 2 * c;
+  return t;
 }
 
-// restrict_grid's value at c after axes 0..A (coarse along dims 0..A, fine
-// along the rest): the twin's _restrict_axis along A,
-// (x[2j] + 0.5 x[2j+1]) + 0.5 x[2j-1], over the value after axes 0..A-1.
-template <typename T, int A, int NDIM, int ND>
-__device__ __forceinline__ T restrict_at(const T* __restrict__ x,
-                                         const Grid& g, int (&c)[NDIM],
-                                         unsigned d) {
-  if constexpr (A < 0) {
-    unsigned lin = 0;
-#pragma unroll
-    for (int dim = 0; dim < NDIM; ++dim) lin = lin * g.nf[dim] + c[dim];
-    return x[lin * ND + d];
-  } else {
-    const int j = c[A];
-    c[A] = 2 * j;
-    T v = restrict_at<T, A - 1, NDIM, ND>(x, g, c, d);
-    if (j + 1 < g.nc[A]) {
-      c[A] = 2 * j + 1;
-      v = add(v, mul(T(0.5), restrict_at<T, A - 1, NDIM, ND>(x, g, c, d)));
-    }
-    if (j > 0) {
-      c[A] = 2 * j - 1;
-      v = add(v, mul(T(0.5), restrict_at<T, A - 1, NDIM, ND>(x, g, c, d)));
-    }
-    c[A] = j;
-    return v;
-  }
+// _restrict_axis at one coarse coordinate, (v0 + 0.5 v1) + 0.5 v2: a term
+// out of range is skipped, not added as a zero (+0 + -0 would be +0).
+template <typename T>
+__device__ __forceinline__ T restrict_axis(T v0, T v1, T v2,
+                                           const Terms& t) {
+  T r = v0;
+  if (t.ok[1]) r = add(r, mul(T(0.5), v1));
+  if (t.ok[2]) r = add(r, mul(T(0.5), v2));
+  return r;
+}
+
+// _prolong_axis at one fine coordinate f: v0 at an even one, 0.5 (v0 + v1)
+// at an odd one.
+template <typename T>
+__device__ __forceinline__ T prolong_axis(T v0, T v1, int f) {
+  return (f & 1) ? mul(T(0.5), add(v0, v1)) : v0;
 }
 
 template <typename T, int NDIM, int ND, bool ADD>
-__global__ void prolong_grid_kernel(const T* __restrict__ xc,
-                                    const T* __restrict__ xadd,
-                                    T* __restrict__ out, Grid g,
-                                    unsigned n) {
-  const unsigned i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const unsigned d = i % ND;
-  unsigned node = i / ND;
-  int c[NDIM];
+__global__ void __launch_bounds__(ROW_THREADS)
+prolong_grid_kernel(const T* __restrict__ xc, const T* __restrict__ xadd,
+                    T* __restrict__ out, Grid g) {
+  constexpr int NZ = NDIM == 3 ? 2 : 1;
+  const int nfy = g.nf[NDIM - 2];
+  const int fy = blockIdx.x * blockDim.y + threadIdx.y;
+  if (fy >= nfy) return;
+  const int fz = NDIM == 3 ? (int)blockIdx.y : 0;
+  const int ncy = g.nc[NDIM - 2];
+  const int L = g.nf[NDIM - 1] * ND, cl = g.nc[NDIM - 1] * ND;
+  const int zc[2] = {fz >> 1, (fz + 1) >> 1};
+  const int yc[2] = {fy >> 1, (fy + 1) >> 1};
+  int rows[NZ][2];
 #pragma unroll
-  for (int dim = NDIM - 1; dim >= 0; --dim) {
-    const unsigned s = g.nf[dim];
-    c[dim] = (int)(node % s);
-    node /= s;
+  for (int a = 0; a < NZ; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) rows[a][b] = (zc[a] * ncy + yc[b]) * cl;
+  const int o = (fz * nfy + fy) * L;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const int fx = j / ND, d = j - fx * ND;
+    const int xo[2] = {(fx >> 1) * ND + d, ((fx + 1) >> 1) * ND + d};
+    T v[NZ][2][2];
+#pragma unroll
+    for (int a = 0; a < NZ; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) v[a][b][c] = xc[rows[a][b] + xo[c]];
+    const T x = ADD ? xadd[o + j] : T(0);
+    T vx[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      T vy[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        vy[b] = NDIM == 3 ? prolong_axis(v[0][b][c], v[NZ - 1][b][c], fz)
+                          : v[0][b][c];
+      vx[c] = prolong_axis(vy[0], vy[1], fy);
+    }
+    T r = prolong_axis(vx[0], vx[1], fx);
+    if (ADD) r = add(r, x);
+    out[o + j] = r;
   }
-  T v = prolong_at<T, NDIM - 1, NDIM, ND>(xc, g, c, d);
-  if (ADD) v = add(v, xadd[i]);
-  out[i] = v;
 }
 
-template <typename T, int NDIM, int ND>
-__global__ void restrict_grid_kernel(const T* __restrict__ x,
-                                     T* __restrict__ out, Grid g,
-                                     unsigned n) {
-  const unsigned i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const unsigned d = i % ND;
-  unsigned node = i / ND;
-  int c[NDIM];
+// CHEB: also p1 = scale (d b) + 0, b the restricted value (K6's
+// cheb_first_kernel with x0 = +0: the next level's zero-guess first
+// Chebyshev iterate), into p1.
+template <typename T, int NDIM, int ND, bool CHEB>
+__global__ void __launch_bounds__(ROW_THREADS)
+restrict_grid_kernel(const T* __restrict__ x, const T* __restrict__ dinv,
+                     T scale, T* __restrict__ out, T* __restrict__ p1,
+                     Grid g) {
+  constexpr int NZ = NDIM == 3 ? 3 : 1;
+  const int ncy = g.nc[NDIM - 2];
+  const int cy = blockIdx.x * blockDim.y + threadIdx.y;
+  if (cy >= ncy) return;
+  const int cz = NDIM == 3 ? (int)blockIdx.y : 0;
+  const int nfy = g.nf[NDIM - 2];
+  const int L = g.nc[NDIM - 1] * ND, fl = g.nf[NDIM - 1] * ND;
+  const Terms ty = restrict_terms(cy, ncy);
+  const Terms tz = restrict_terms(cz, g.nc[0]);   // unused in 2D
+  int rows[NZ][3];
 #pragma unroll
-  for (int dim = NDIM - 1; dim >= 0; --dim) {
-    const unsigned s = g.nc[dim];
-    c[dim] = (int)(node % s);
-    node /= s;
+  for (int a = 0; a < NZ; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      rows[a][b] = ((NDIM == 3 ? tz.f[a] : 0) * nfy + ty.f[b]) * fl;
+  const int o = (cz * ncy + cy) * L;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const int cx = j / ND, d = j - cx * ND;
+    const Terms tx = restrict_terms(cx, g.nc[NDIM - 1]);
+    T v[NZ][3][3];
+#pragma unroll
+    for (int a = 0; a < NZ; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          v[a][b][c] = x[rows[a][b] + tx.f[c] * ND + d];
+    const T dv = CHEB ? dinv[o + j] : T(0);
+    T vx[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      T vy[3];
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        vy[b] = NDIM == 3 ? restrict_axis(v[0][b][c], v[1 % NZ][b][c],
+                                          v[2 % NZ][b][c], tz)
+                          : v[0][b][c];
+      vx[c] = restrict_axis(vy[0], vy[1], vy[2], ty);
+    }
+    const T r = restrict_axis(vx[0], vx[1], vx[2], tx);
+    out[o + j] = r;
+    if (CHEB) p1[o + j] = add(mul(scale, mul(dv, r)), T(0));
   }
-  out[i] = restrict_at<T, NDIM - 1, NDIM, ND>(x, g, c, d);
 }
-
-unsigned int blocks(unsigned n) { return (n + THREADS - 1) / THREADS; }
 
 bool supported(int ndim, int nd) {
   return (ndim == 2 || ndim == 3) && (nd == 2 || nd == 3);
@@ -529,22 +584,20 @@ long long parity_layout(const int* shapes, int ndim, int nd, Parity* P) {
   return off;
 }
 
-long long grid_layout(const int* nc, int ndim, int nd, Grid* g,
-                      bool fine_out) {
-  long long fine = nd, coarse = nd;
+// The grid pair's node counts; returns the fine grid's value count, or -1.
+long long grid_layout(const int* nc, int ndim, int nd, Grid* g) {
+  long long fine = nd;
   for (int dim = 0; dim < ndim; ++dim) {
     if (nc[dim] < 1) return -1;
     g->nc[dim] = nc[dim];
     g->nf[dim] = 2 * nc[dim] - 1;
     fine *= g->nf[dim];
-    coarse *= g->nc[dim];
   }
-  if (fine >= MAX_VALUES) return -1;
-  return fine_out ? fine : coarse;
+  return fine < MAX_VALUES ? fine : -1;
 }
 
-// The row launch of a parity kernel: rows of len values (the longest row),
-// ny rows per plane, nz planes, nclass classes. Threads along a row up to
+// The row launch of a K5 kernel: rows of len values (the longest row), ny
+// rows per plane, nz planes, nclass classes. Threads along a row up to
 // ROW_THREADS (a longer row loops), then as many rows per block as fit.
 struct RowLaunch {
   dim3 grid, block;
@@ -665,16 +718,18 @@ struct ProlongGrid {
   const T* xadd;
   T* out;
   Grid g;
-  unsigned n;
   cudaStream_t s;
   template <int NDIM, int ND>
   int run() const {
+    const RowLaunch l = row_launch(g.nf[NDIM - 1] * ND, g.nf[NDIM - 2],
+                                   NDIM == 3 ? g.nf[0] : 1, 1);
+    if (!l.ok) return (int)cudaErrorInvalidValue;
     if (xadd != nullptr)
       prolong_grid_kernel<T, NDIM, ND, true>
-          <<<blocks(n), THREADS, 0, s>>>(xc, xadd, out, g, n);
+          <<<l.grid, l.block, 0, s>>>(xc, xadd, out, g);
     else
       prolong_grid_kernel<T, NDIM, ND, false>
-          <<<blocks(n), THREADS, 0, s>>>(xc, xadd, out, g, n);
+          <<<l.grid, l.block, 0, s>>>(xc, xadd, out, g);
     return (int)cudaGetLastError();
   }
 };
@@ -682,14 +737,23 @@ struct ProlongGrid {
 template <typename T>
 struct RestrictGrid {
   const T* x;
+  const T* dinv;
+  T scale;
   T* out;
+  T* p1;
   Grid g;
-  unsigned n;
   cudaStream_t s;
   template <int NDIM, int ND>
   int run() const {
-    restrict_grid_kernel<T, NDIM, ND><<<blocks(n), THREADS, 0, s>>>(x, out,
-                                                                     g, n);
+    const RowLaunch l = row_launch(g.nc[NDIM - 1] * ND, g.nc[NDIM - 2],
+                                   NDIM == 3 ? g.nc[0] : 1, 1);
+    if (!l.ok) return (int)cudaErrorInvalidValue;
+    if (p1 != nullptr)
+      restrict_grid_kernel<T, NDIM, ND, true>
+          <<<l.grid, l.block, 0, s>>>(x, dinv, scale, out, p1, g);
+    else
+      restrict_grid_kernel<T, NDIM, ND, false>
+          <<<l.grid, l.block, 0, s>>>(x, dinv, scale, out, p1, g);
     return (int)cudaGetLastError();
   }
 };
@@ -724,23 +788,22 @@ int prolong_grid(const void* xc, const void* xadd, void* out, const int* nc,
                  int ndim, int nd, void* stream) {
   if (!supported(ndim, nd)) return (int)cudaErrorInvalidValue;
   Grid g = {};
-  const long long n = grid_layout(nc, ndim, nd, &g, true);
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (grid_layout(nc, ndim, nd, &g) <= 0) return (int)cudaErrorInvalidValue;
   return dispatch(ndim, nd, ProlongGrid<T>{
       static_cast<const T*>(xc), static_cast<const T*>(xadd),
-      static_cast<T*>(out), g, (unsigned)n,
-      static_cast<cudaStream_t>(stream)});
+      static_cast<T*>(out), g, static_cast<cudaStream_t>(stream)});
 }
 
+// p1 null: the plain restriction (dinv and scale unread).
 template <typename T>
-int restrict_grid(const void* x, void* out, const int* nc, int ndim, int nd,
-                  void* stream) {
+int restrict_grid(const void* x, const void* dinv, double scale, void* out,
+                  void* p1, const int* nc, int ndim, int nd, void* stream) {
   if (!supported(ndim, nd)) return (int)cudaErrorInvalidValue;
   Grid g = {};
-  const long long n = grid_layout(nc, ndim, nd, &g, false);
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (grid_layout(nc, ndim, nd, &g) <= 0) return (int)cudaErrorInvalidValue;
   return dispatch(ndim, nd, RestrictGrid<T>{
-      static_cast<const T*>(x), static_cast<T*>(out), g, (unsigned)n,
+      static_cast<const T*>(x), static_cast<const T*>(dinv),
+      static_cast<T>(scale), static_cast<T*>(out), static_cast<T*>(p1), g,
       static_cast<cudaStream_t>(stream)});
 }
 
@@ -811,10 +874,36 @@ extern "C" int k5_prolong_grid_f64(const void* xc, const void* xadd,
 
 extern "C" int k5_restrict_grid_f32(const void* x, void* out, const int* nc,
                                     int ndim, int nd, void* stream) {
-  return restrict_grid<float>(x, out, nc, ndim, nd, stream);
+  return restrict_grid<float>(x, nullptr, 0.0, out, nullptr, nc, ndim, nd,
+                              stream);
 }
 
 extern "C" int k5_restrict_grid_f64(const void* x, void* out, const int* nc,
                                     int ndim, int nd, void* stream) {
-  return restrict_grid<double>(x, out, nc, ndim, nd, stream);
+  return restrict_grid<double>(x, nullptr, 0.0, out, nullptr, nc, ndim, nd,
+                               stream);
+}
+
+// restrict_grid into out, and into p1 the next level's zero-guess first
+// Chebyshev iterate scale (d out) + 0 (d: that level's Jacobi inverse
+// diagonal, of out's shape; scale rounded to the dtype here, as K6 rounds
+// it); no pointer may be null.
+extern "C" int k5_restrict_grid_cheb_first_f32(const void* x, const void* d,
+                                               double scale, void* out,
+                                               void* p1, const int* nc,
+                                               int ndim, int nd,
+                                               void* stream) {
+  if (x == nullptr || d == nullptr || p1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_grid<float>(x, d, scale, out, p1, nc, ndim, nd, stream);
+}
+
+extern "C" int k5_restrict_grid_cheb_first_f64(const void* x, const void* d,
+                                               double scale, void* out,
+                                               void* p1, const int* nc,
+                                               int ndim, int nd,
+                                               void* stream) {
+  if (x == nullptr || d == nullptr || p1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_grid<double>(x, d, scale, out, p1, nc, ndim, nd, stream);
 }

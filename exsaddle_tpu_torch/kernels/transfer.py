@@ -16,6 +16,10 @@ Hopper, one launch per transfer.
         dims leading, dof trailing) (+ add)
     restrict_grid(rf, coarse_shape)
         its transpose
+    restrict_grid_cheb_first(rf, coarse_shape, d, scale)
+        (b, p1): b = restrict_grid(rf, coarse_shape), and the coarse level's
+        zero-guess first Chebyshev iterate p1 = scale (d b) + 0 computed in
+        the same store (the K6 cheb_first launch that followed)
 
 Replaces exsaddle_tpu/abf.py:110 prolong_parity, :132 restrict_parity,
 :150 prolong_grid and :171 restrict_grid (XLA fusions on the TPU). Source:
@@ -28,7 +32,8 @@ the slices, cats and in-place adds the solvers issued before the kernel;
 any other device raises. Kernel and twin are bitwise equal: the kernel
 evaluates the twin's operations in the twin's order with explicitly
 rounded intrinsics, and the fused forms are the twin followed by the add
-or preceded by the subtraction (and the weighting)."""
+(or K6's first step) or preceded by the subtraction (and the
+weighting)."""
 
 import ctypes
 import itertools
@@ -36,12 +41,13 @@ import itertools
 import numpy as np
 import torch
 
-from exsaddle_tpu_torch.kernels import _build
+from exsaddle_tpu_torch.kernels import _build, cheb
 
 # the launch forms, by the name the kernels line and the counters use
 FORMS = ("prolong_parity", "prolong_parity_add", "restrict_parity",
          "restrict_parity_residual", "restrict_parity_weighted_residual",
-         "prolong_grid", "prolong_grid_add", "restrict_grid")
+         "prolong_grid", "prolong_grid_add", "restrict_grid",
+         "restrict_grid_cheb_first")
 
 _V = ctypes.c_void_p
 _bound = False
@@ -155,6 +161,13 @@ def restrict_grid_plain(rf, coarse_shape):
     return x
 
 
+def restrict_grid_cheb_first_plain(rf, coarse_shape, d, scale):
+    """restrict_grid, then K6's zero-guess first step on the result: (b,
+    scale (d b) + 0)."""
+    b = restrict_grid_plain(rf, coarse_shape)
+    return b, cheb.cheb_first_plain(b, None, d, torch.zeros_like(b), scale)
+
+
 def _restrict_axis(x, axis, nc):
     x = torch.movedim(x, axis, 0)
     r = x[::2].clone()
@@ -246,6 +259,10 @@ def _fn(kind, dtype):
             f = getattr(lib, "k5_restrict_parity_weighted_residual" + sfx)
             f.argtypes = [_V] * 5 + [ctypes.c_int] * 2 + [_V]
             f.restype = ctypes.c_int
+            f = getattr(lib, "k5_restrict_grid_cheb_first" + sfx)
+            f.argtypes = [_V] * 2 + [ctypes.c_double] + [_V] * 3 + [
+                ctypes.c_int] * 2 + [_V]
+            f.restype = ctypes.c_int
         _bound = True
     return lib, getattr(lib, f"k5_{kind}_"
                         + ("f32" if dtype == torch.float32 else "f64"))
@@ -255,20 +272,23 @@ def _ptr(t):
     return _V(0) if t is None else _V(t.data_ptr())
 
 
-def _launch(form, kind, x, out_shape, ptrs, table, ndim, nd):
+def _launch(form, kind, x, out_shape, ptrs, table, ndim, nd, nout=1):
+    """One launch into nout new outputs of out_shape (the last arguments
+    before the table); returns the output, or the tuple of them."""
     lib, fn = _fn(kind, x.dtype)
     arr = (ctypes.c_int * len(table))(*table)
     with torch.cuda.device(x.device):
-        out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-        args = ptrs + [_V(out.data_ptr()), arr, ndim, nd,
-                       _V(torch.cuda.current_stream(x.device).cuda_stream)]
+        outs = tuple(torch.empty(out_shape, dtype=x.dtype, device=x.device)
+                     for _ in range(nout))
+        args = ptrs + [_V(o.data_ptr()) for o in outs] + [
+            arr, ndim, nd, _V(torch.cuda.current_stream(x.device).cuda_stream)]
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{form} kernel launch failed: "
                            f"{_build.error_string(lib, err)}")
     LAUNCHES.n += 1
     LAUNCHES.by[form] += 1
-    return out
+    return outs[0] if nout == 1 else outs
 
 
 # --------------------------------------------------------------------------
@@ -370,6 +390,25 @@ def restrict_grid(rf, coarse_shape):
                    ndim, nd)
 
 
+def restrict_grid_cheb_first(rf, coarse_shape, d, scale):
+    """(b, p1): b = restrict_grid(rf, coarse_shape) and the coarse level's
+    zero-guess first Chebyshev iterate p1 = scale (d b) + 0 (K6's
+    cheb_first with x0 = 0; d that level's Jacobi inverse diagonal, of b's
+    shape), both from one launch."""
+    name = "restrict_grid_cheb_first"
+    if not _device(name, rf):
+        return restrict_grid_cheb_first_plain(rf, coarse_shape, d, scale)
+    ndim, nd = _grid_dims(name, rf, coarse_shape)
+    nc = [int(n) for n in coarse_shape]
+    if min(nc) < 1:
+        raise ValueError(f"{name}: coarse grid {tuple(nc)}")
+    _check(name, rf, tuple(2 * n - 1 for n in nc) + (nd,),
+           d=(tuple(nc) + (nd,), d))
+    return _launch(name, name, rf, tuple(nc) + (nd,),
+                   [_ptr(rf), _ptr(d), ctypes.c_double(float(scale))], nc,
+                   ndim, nd, nout=2)
+
+
 # every K5 entry and its plain twin, by the name the solvers call it by
 TWINS = {"prolong_parity": prolong_parity_plain,
          "restrict_parity": restrict_parity_plain,
@@ -377,4 +416,5 @@ TWINS = {"prolong_parity": prolong_parity_plain,
          "restrict_parity_weighted_residual":
              restrict_parity_weighted_residual_plain,
          "prolong_grid": prolong_grid_plain,
-         "restrict_grid": restrict_grid_plain}
+         "restrict_grid": restrict_grid_plain,
+         "restrict_grid_cheb_first": restrict_grid_cheb_first_plain}

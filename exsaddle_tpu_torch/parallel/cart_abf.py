@@ -753,9 +753,20 @@ def _cart_bodies(dcfg, smesh, dd, blk):
         cinv = repl[xg.device]["coarse_inv"]
         return (cinv @ xg.reshape(-1)).reshape(xg.shape)
 
-    def repl_vcycle(k, b):
+    def repl_restrict(k, r):
+        """Level k's residual r (replicated, or the full L-2 grid) on level
+        k - 1's grid, and, where level k - 1 is smoothed, its first
+        pre-smoothing iterate from the same K5 launch (else None)."""
+        if k == 1:
+            return transfer.restrict_grid(r, cfg.level_grids[0]), None
+        emin, emax = dd["bounds"][k - 2]
+        return transfer.restrict_grid_cheb_first(
+            r, cfg.level_grids[k - 1], repl[r.device]["inv_diag_repl"][k - 2],
+            float(treeops.cheb_scale(emin, emax)))
+
+    def repl_vcycle(k, b, p1=None):
         """Replicated V-cycle below the sharded levels (PCREDUNDANT),
-        on one device's copy."""
+        on one device's copy; p1 its first pre-smoothing iterate."""
         if k == 0:
             return coarse_solve(b)
         rep = repl[b.device]
@@ -764,18 +775,16 @@ def _cart_bodies(dcfg, smesh, dd, blk):
         invd = rep["inv_diag_repl"][k - 1]
         x = treeops.cheb_smooth(A, None, emin, emax, pre_its, b,
                                 torch.zeros_like(b), x0_zero=True,
-                                diag=invd)
-        r = A.residual(b, x)
-        xc = repl_vcycle(k - 1, transfer.restrict_grid(
-            r, cfg.level_grids[k - 1]))
+                                diag=invd, p1=p1)
+        xc = repl_vcycle(k - 1, *repl_restrict(k, A.residual(b, x)))
         x = transfer.prolong_grid(xc, cfg.level_grids[k], add=x)
         return treeops.cheb_smooth(A, None, emin, emax, cfg.cheb_its, b, x,
                                    diag=invd)
 
     def coarse_correction(r_full):
-        r_rep = transfer.restrict_grid(r_full, cfg.level_grids[nlev - 3])
+        r_rep, p1 = repl_restrict(nlev - 2, r_full)
         xc_rep = (coarse_solve(r_rep) if nlev == 3
-                  else repl_vcycle(nlev - 3, r_rep))
+                  else repl_vcycle(nlev - 3, r_rep, p1))
         return transfer.prolong_grid(xc_rep, cfg.level_grids[nlev - 2])
 
     emin1, emax1 = dd["bounds"][nlev - 2 - 1]

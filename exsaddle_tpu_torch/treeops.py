@@ -230,8 +230,15 @@ def _basis(t, k):
 
 # --- Chebyshev smoother ------------------------------------------------------
 
+def cheb_scale(emin, emax):
+    """The Chebyshev smoother's first-step scale 2 / (emax + emin), a numpy
+    scalar in the working dtype of the numpy scalars emin, emax: the value
+    cheb_smooth steps with (the update kernels take it as a Python float)."""
+    return 2.0 / (emax + emin)
+
+
 def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
-                diag=None):
+                diag=None, p1=None):
     """KSPSolve_Chebyshev three-term recurrence with norm type NONE
     (abf.opts:8-12 smoother: fixed `its` applications, nonzero initial
     guess). emin/emax: numpy scalars of the working dtype (the scalar
@@ -252,8 +259,17 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
 
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with
-    one fewer operator application)."""
-    scale = 2.0 / (emax + emin)
+    one fewer operator application).
+
+    p1: the first iterate scale (d b) + x0, computed by the caller (only
+    with x0_zero=True; x0 is still the zero that the second step reads as
+    p_0): K5's restrict_grid_cheb_first computes it in the store of the
+    restriction that made b, bitwise this function's first step, so the
+    step launches nothing."""
+    if p1 is not None and not x0_zero:
+        raise ValueError("cheb_smooth: p1 is the zero-guess first iterate; "
+                         "it needs x0_zero=True")
+    scale = cheb_scale(emin, emax)
     alpha_ = 1.0 - scale * emin
     mu = 1.0 / alpha_
     omegaprod = 2.0 / alpha_
@@ -288,7 +304,7 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
                 b_, a, d, p, q, float(scale), omega), b, mult(p_k), diag,
                 p_k, p_km1)
 
-    p_k = first(x0)
+    p_k = first(x0) if p1 is None else p1
     p_km1 = x0
     c_km1 = mu / mu
     c_k = mu * c_km1

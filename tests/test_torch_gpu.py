@@ -1189,10 +1189,14 @@ K5_PARITY = {"flagship": ((32, 32, 32), _flagship_classes((32, 32, 32))),
              "3d_odd": ((3, 4, 2), _flagship_classes((3, 4, 2))),
              "ragged": ((7, 5, 9), _flagship_classes((7, 5, 9)))}
 # (coarse grid, dofs per node) of the grid pair: the flagship's L-3 <-> L-2
-# and coarse <-> L-3, and small grids of every (ndim, nd)
+# and coarse <-> L-3, small grids of every (ndim, nd), and ragged grids
+# whose rows no block of rows divides (fine 9 x 13 x 17, a 2D 13 x 399:
+# rows of 1,197 values, longer than a block's threads)
 K5_GRID = {"L-3_L-2": ((17, 17, 17), 3), "coarse_L-3": ((9, 9, 9), 3),
            "2d_nd2": ((4, 7), 2), "2d_nd3": ((5, 3), 3),
-           "3d_nd2": ((3, 4, 5), 2)}
+           "3d_nd2": ((3, 4, 5), 2), "ragged_nd3": ((5, 7, 9), 3),
+           "ragged_nd2": ((5, 7, 9), 2), "ragged_2d_nd3": ((7, 200), 3),
+           "ragged_2d_nd2": ((7, 200), 2)}
 
 
 @pytest.mark.gpu
@@ -1245,29 +1249,43 @@ def test_parity_transfer_kernels_bitwise_twins(cuda, case, dtype):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("case", list(K5_GRID))
 def test_grid_transfer_kernels_bitwise_twins(cuda, case, dtype):
-    """prolong_grid (and its add form) and restrict_grid against their
-    twins on the card, bit for bit, one launch each."""
+    """prolong_grid (and its add form), restrict_grid and
+    restrict_grid_cheb_first against their twins on the card, bit for
+    bit, one launch each; the fused form's p1 also against K6's cheb_first
+    kernel on the twin's restriction. Signed zeros in the inputs (a block
+    of -0 in the fine grid, so some restricted values are -0 and their
+    first iterates +0)."""
     coarse, nd = K5_GRID[case]
     fine = tuple(2 * c - 1 for c in coarse)
     rng = np.random.default_rng(22)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa
     xc = t(rng.standard_normal(coarse + (nd,)))
     xf, x = (t(rng.standard_normal(fine + (nd,))) for _ in range(2))
+    xf[: (fine[0] + 1) // 2] = -0.0
+    xf.view(-1)[::7] = 0.0
+    xc.view(-1)[::3] = -0.0
+    d = t(0.5 + rng.random(coarse + (nd,)))
+    scale = 0.7312345678901234
     _reset_kernel_counts()
+    b, p1 = transfer.restrict_grid_cheb_first(xf, coarse, d, scale)
     pairs = [(transfer.prolong_grid(xc, fine),
               transfer.prolong_grid_plain(xc, fine)),
              (transfer.prolong_grid(xc, fine, add=x),
               x + transfer.prolong_grid_plain(xc, fine)),
              (transfer.restrict_grid(xf, coarse),
               transfer.restrict_grid_plain(xf, coarse))]
+    bw, pw = transfer.restrict_grid_cheb_first_plain(xf, coarse, d, scale)
+    pairs += [(b, bw), (p1, pw), (p1, cheb.cheb_first(
+        bw, None, d, torch.zeros_like(bw), scale))]
     torch.cuda.synchronize()
     for i, (got, want) in enumerate(pairs):
         assert _same_bits(got, want), (case, i, float(
             (got - want).abs().max()))
-    assert transfer.LAUNCHES.n == 3
+    assert transfer.LAUNCHES.n == 4 and cheb.LAUNCHES.n == 1
     assert transfer.LAUNCHES.by == {**dict.fromkeys(transfer.FORMS, 0),
                                     "prolong_grid": 1, "prolong_grid_add": 1,
-                                    "restrict_grid": 1}
+                                    "restrict_grid": 1,
+                                    "restrict_grid_cheb_first": 1}
 
 
 @pytest.mark.gpu
@@ -1310,6 +1328,15 @@ def test_transfer_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="dofs per node"):
         transfer.restrict_grid(torch.rand((5, 7, 9, 4), device=cuda),
                                (3, 4, 5))
+    dg = torch.rand((3, 4, 5, 3), device=cuda)
+    with pytest.raises(ValueError, match="d has shape"):
+        transfer.restrict_grid_cheb_first(g, (3, 4, 5), dg[:, :3], 1.0)
+    with pytest.raises(ValueError, match="d is torch.float64"):
+        transfer.restrict_grid_cheb_first(g, (3, 4, 5), dg.double(), 1.0)
+    with pytest.raises(ValueError, match="d is not contiguous"):
+        transfer.restrict_grid_cheb_first(
+            g, (3, 4, 5), dg.transpose(0, 1).contiguous().transpose(0, 1),
+            1.0)
     assert transfer.LAUNCHES.n == 0
 
 
@@ -1341,3 +1368,38 @@ def test_transfer_kernels_capture_with_launches_counted(cuda):
         assert torch.equal(g(b), want)
         assert transfer.LAUNCHES.n == 4 * (i + 2)
     assert transfer.LAUNCHES.by["restrict_parity_residual"] == 3
+
+
+@pytest.mark.gpu
+def test_fused_grid_restriction_captures_with_launches_counted(cuda):
+    """The grid restriction with the next level's first Chebyshev step in
+    its store, followed by the smoother's steps that read that iterate,
+    captures into a CUDA graph; each replay gives the eager bits and adds
+    one restrict_grid_cheb_first launch and no K6 cheb_first launch (the
+    smoother given p1 launches none for its first step)."""
+    from exsaddle_tpu_torch import graphs, treeops
+    coarse = (9, 9, 9)
+    rng = np.random.default_rng(24)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa
+                                  device=cuda)
+    xf = t(rng.standard_normal(tuple(2 * c - 1 for c in coarse) + (3,)))
+    d = t(0.5 + rng.random(coarse + (3,)))
+    emin, emax = np.float32(0.1), np.float32(1.9)
+
+    def body(r):
+        b, p1 = transfer.restrict_grid_cheb_first(
+            r, coarse, d, float(treeops.cheb_scale(emin, emax)))
+        return treeops.cheb_smooth(lambda v: 0.5 * v, None, emin, emax, 3, b,
+                                   torch.zeros_like(b), x0_zero=True,
+                                   diag=d, p1=p1)
+
+    want = body(xf)
+    _reset_kernel_counts()
+    g = graphs.Captured(body, xf)
+    assert (transfer.LAUNCHES.by["restrict_grid_cheb_first"],
+            cheb.LAUNCHES.n) == (1, 2)          # the warm-up run's
+    for i in range(2):
+        assert torch.equal(g(xf), want)
+        assert transfer.LAUNCHES.by["restrict_grid_cheb_first"] == i + 2
+        assert transfer.LAUNCHES.n == i + 2
+        assert cheb.LAUNCHES.n == 2 * (i + 2)   # the two steps only

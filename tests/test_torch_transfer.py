@@ -5,14 +5,18 @@ entry runs its plain twin:
   prolong_grid and restrict_grid (exsaddle_tpu/abf.py): prolongations bit
   for bit, restrictions to 1e-12 relative in float64 (XLA may sum the
   padded terms in another order);
-- each fused twin bit for bit the unfused twin followed by the add, or
-  preceded by the subtraction (and the weighting: the cart V-cycle's
-  w * (b - y), against JAX's restriction of it as well);
+- each fused twin bit for bit the unfused twin followed by the add (or
+  K6's zero-guess first Chebyshev step: restrict_grid_cheb_first, against
+  JAX's restriction followed by that step as well), or preceded by the
+  subtraction (and the weighting: the cart V-cycle's w * (b - y), against
+  JAX's restriction of it as well);
+- cheb_smooth given that first iterate (p1=) gives the zero-guess bits;
 - the entries on CPU tensors are the twins and count no launch;
 - the launch checks refuse what the kernel cannot take;
 - the single-device V-cycle and the cart V-cycle call each K5 entry, the
   fused ones where the V-cycle adds the correction or forms the residual
-  (the cart V-cycle its weighted residual);
+  (the cart V-cycle its weighted residual) or restricts into a smoothed
+  level (its first pre-smoothing step in the restriction's store);
 - the port's V-cycle (ABFSolver's mg_pc body) against the JAX package's.
 
 The kernels themselves run on the card (tests/test_torch_gpu.py). Inputs
@@ -32,7 +36,8 @@ from exsaddle_tpu import matfree as jmf
 from exsaddle_tpu import treeops as jtreeops
 
 from exsaddle_tpu_torch import abf as tabf
-from exsaddle_tpu_torch.kernels import transfer
+from exsaddle_tpu_torch import treeops
+from exsaddle_tpu_torch.kernels import cheb, stencil, transfer
 from exsaddle_tpu_torch.matfree import _parity_classes
 from exsaddle_tpu_torch.parallel.cart import CartPartition
 from exsaddle_tpu_torch.parallel.cart_abf import (CartABFSolver, _cart_bodies,
@@ -182,6 +187,76 @@ def test_fused_grid_twin_is_the_unfused_ops(ndim, nd, dtype):
                  x + transfer.prolong_grid_plain(xc, fine))
 
 
+def _cheb_first_inputs(ndim, nd, dtype, seed=11):
+    """A fine grid with signed zeros (a block of -0, so some restricted
+    values are -0 and their first iterates +0), a positive inverse
+    diagonal of the coarse grid and a scale with every bit of a float64."""
+    coarse, fine, _, xf, _ = _grid_inputs(ndim, nd, dtype)
+    xf[: (fine[0] + 1) // 2] = -0.0
+    xf.view(-1)[::7] = 0.0
+    rng = np.random.default_rng(seed + 10 * ndim + nd)
+    d = torch.as_tensor(0.5 + rng.random(coarse + (nd,)), dtype=dtype)
+    return coarse, xf, d, 0.7312345678901234
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("ndim,nd", [(2, 2), (2, 3), (3, 2), (3, 3)])
+def test_fused_cheb_first_twin_is_the_unfused_ops(ndim, nd, dtype):
+    """restrict_grid_cheb_first's twin is restrict_grid_plain followed by
+    K6's twin of the zero-guess first step, bit for bit, signed zeros
+    included (a -0 restricted value gives a +0 iterate)."""
+    coarse, xf, d, scale = _cheb_first_inputs(ndim, nd, dtype)
+    b, p1 = transfer.restrict_grid_cheb_first_plain(xf, coarse, d, scale)
+    want = transfer.restrict_grid_plain(xf, coarse)
+    assert _same(b, want)
+    assert _same(p1, cheb.cheb_first_plain(want, None, d,
+                                           torch.zeros_like(want), scale))
+    assert bool((_bits(b) == _bits(torch.tensor(-0.0, dtype=dtype))).any())
+    assert not bool(torch.signbit(p1[b == 0]).any())
+
+
+@pytest.mark.parametrize("ndim,nd", [(2, 2), (2, 3), (3, 2), (3, 3)])
+def test_fused_cheb_first_twin_matches_jax(ndim, nd):
+    """In float64 the fused twin is JAX's restrict_grid
+    (exsaddle_tpu/abf.py:171) followed by the zero-guess first Chebyshev
+    iterate scale (d b) of exsaddle_tpu/treeops.py's cheb_smooth, to
+    TOL64 (XLA may sum the restriction in another order)."""
+    coarse, xf, d, scale = _cheb_first_inputs(ndim, nd, torch.float64)
+    b, p1 = transfer.restrict_grid_cheb_first_plain(xf, coarse, d, scale)
+    jb = jabf.restrict_grid(jnp.asarray(xf.numpy()), coarse)
+    assert _rel(b.numpy(), jb) < TOL64
+    assert _rel(p1.numpy(), scale * (jnp.asarray(d.numpy()) * jb)) < TOL64
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_cheb_smooth_first_iterate_given(dtype):
+    """cheb_smooth with the zero-guess first iterate given (p1=, what
+    restrict_grid_cheb_first computes) returns the x0_zero=True path's
+    bits, over a stencil operator (K4's fused steps) and over a plain one
+    (K6's steps); p1 without x0_zero=True raises."""
+    coarse, xf, _, _ = _cheb_first_inputs(3, 3, dtype)
+    rng = np.random.default_rng(13)
+    W = torch.as_tensor(0.1 * rng.standard_normal(coarse + (27, 3, 3)),
+                        dtype=dtype)
+    b = transfer.restrict_grid_plain(xf, coarse)
+    d = torch.as_tensor(0.5 + rng.random(b.shape), dtype=dtype)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    emin, emax = npdt(0.1), npdt(1.9)
+    scale = float(treeops.cheb_scale(emin, emax))
+    _, p1 = transfer.restrict_grid_cheb_first_plain(xf, coarse, d, scale)
+    for op in (stencil.StencilOp(W), lambda x: stencil.stencil_apply(W, x)):
+        want = treeops.cheb_smooth(op, None, emin, emax, 3, b,
+                                   torch.zeros_like(b), x0_zero=True,
+                                   diag=d)
+        got = treeops.cheb_smooth(op, None, emin, emax, 3, b,
+                                  torch.zeros_like(b), x0_zero=True, diag=d,
+                                  p1=p1)
+        assert _same(got, want)
+    with pytest.raises(ValueError, match="x0_zero"):
+        treeops.cheb_smooth(op, None, emin, emax, 3, b, torch.zeros_like(b),
+                            diag=d, p1=p1)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_entries_on_cpu_are_the_twins(dtype):
     """Every entry on CPU tensors returns its twin's bits and counts no
@@ -214,6 +289,9 @@ def test_entries_on_cpu_are_the_twins(dtype):
               transfer.prolong_grid_plain(gc, fine, add=gx)),
              (transfer.restrict_grid(gf, coarse),
               transfer.restrict_grid_plain(gf, coarse))]
+    gd = torch.ones(coarse + (3,), dtype=dtype)
+    pairs += zip(transfer.restrict_grid_cheb_first(gf, coarse, gd, 0.5),
+                 transfer.restrict_grid_cheb_first_plain(gf, coarse, gd, 0.5))
     assert all(_same(a, w) for a, w in pairs)
     assert transfer.LAUNCHES.n == 0
     assert transfer.LAUNCHES.by == dict.fromkeys(transfer.FORMS, 0)
@@ -267,7 +345,9 @@ def test_checks_refuse_what_the_kernel_cannot_take():
                      b.to(meta), y.to(meta), y.to(meta), cls, m_el),
                  lambda: transfer.prolong_grid(gc.to(meta), fine),
                  lambda: transfer.restrict_grid(gf.to(meta),
-                                                GRID_COARSE[3])):
+                                                GRID_COARSE[3]),
+                 lambda: transfer.restrict_grid_cheb_first(
+                     gf.to(meta), GRID_COARSE[3], gc.to(meta), 1.0)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
 
@@ -315,7 +395,9 @@ def test_single_device_vcycle_goes_through_k5(monkeypatch):
     """A 4-level mx=8 V-cycle makes 6 transfers: the fine residual
     restricted by the fused restrict_parity_residual, the correction
     prolonged and added by prolong_parity(add=), and on the two stencil
-    levels restrict_grid and prolong_grid(add=)."""
+    levels prolong_grid(add=) and the restriction: into the smoothed L-3
+    restrict_grid_cheb_first (L-3's first pre-smoothing step in its
+    store), into the coarse solve restrict_grid."""
     _, t = problems(3, (8, 8, 8), ["-model", "2"])
     slv = tabf.ABFSolver(*t[1:], device="cpu", nlevels=4)
     calls = _count_entries(monkeypatch)
@@ -324,7 +406,8 @@ def test_single_device_vcycle_goes_through_k5(monkeypatch):
         slv.data["op"].nu)))
     assert calls == {**dict.fromkeys(transfer.FORMS, 0),
                      "restrict_parity_residual": 1, "prolong_parity_add": 1,
-                     "restrict_grid": 2, "prolong_grid_add": 2}
+                     "restrict_grid_cheb_first": 1, "restrict_grid": 1,
+                     "prolong_grid_add": 2}
 
 
 def test_cart_vcycle_goes_through_k5(monkeypatch):
@@ -334,7 +417,9 @@ def test_cart_vcycle_goes_through_k5(monkeypatch):
     correction), and on the
     replicated levels the grid pair (once per distinct device): the L-2
     grid to L-3 and back (no add: the correction goes back to the shards
-    first), L-3 to the coarse grid and back with the add."""
+    first; into the smoothed L-3 the restriction computes L-3's first
+    pre-smoothing step in its store), L-3 to the coarse grid and back with
+    the add."""
     _, t = problems(3, (8, 8, 8), ["-model", "2"])
     slv = CartABFSolver(CartPartition(t[1], (1, 2, 2)), t[0], *t[4:],
                         ["cpu"] * 4, nlevels=4, loop="plain")
@@ -348,8 +433,8 @@ def test_cart_vcycle_goes_through_k5(monkeypatch):
     assert calls == {**dict.fromkeys(transfer.FORMS, 0),
                      "restrict_parity_weighted_residual": shards,
                      "prolong_parity_add": shards,
-                     "restrict_grid": 2, "prolong_grid": 1,
-                     "prolong_grid_add": 1}
+                     "restrict_grid_cheb_first": 1, "restrict_grid": 1,
+                     "prolong_grid": 1, "prolong_grid_add": 1}
 
 
 def _jax_vcycle(slv):
