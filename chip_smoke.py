@@ -28,6 +28,18 @@ Phases, in order; any failure raises and the script exits nonzero:
               version and one library call for the same function (SpMV of
               the raw A00 as an int32 CSR tensor, built here only), beside
               the bound (data-sheet peaks) and the kernel's share of it.
+              At the 3D flagship's fine level, in both precisions, K1's
+              fused forms (the keep in its loads: a00_apply(keep=); the
+              mask terms, and K6's first step and step on the masked
+              value, in its node gather's store: a00_masked,
+              a00_cheb_first, a00_cheb_step) and K6's masked forms
+              (cheb_first_masked, cheb_step_masked: the cart path's), each
+              bitwise the launches it replaces (K1 without keep, the torch
+              mask ops, K6) and its twin; each form, the launches it
+              replaces and the plain version timed (graphs of 50 calls,
+              cold and hot; the plain version eager), beside the bound;
+              K1 with and without the keep alternated, with the bound by
+              bytes of each.
               The build phase prints every kernel's registers and spills.
 3b. ctl    -- the four Krylov control kernels (csrc/krylov_ctl.cu:
               fgmres_start_ctl, fgmres_arnoldi_ctl, gcr_ctl, ir_ctl)
@@ -106,13 +118,21 @@ Phases, in order; any failure raises and the script exits nonzero:
               restrict_grid_cheb_first, one into the coarse solve plain),
               K6 launches per V-cycle, control-kernel, graph
               launches and replays, loop-body executions and peak memory
-              per solve. Then the float64 witness: the same flagship as
+              per solve; K1's fused forms on the fine level (one
+              a00_cheb_first and pre + its - 2 a00_cheb_step per V-cycle,
+              the residual and GCR's operator a00_masked, no keep-only
+              form) and K6's launches per V-cycle. The device-loop solve
+              with K1's fused forms swapped for their twins (the launches
+              they replace) is bitwise the fused solve (x, history,
+              rounds, inner its), with equal K1 launches and K6 the fused
+              solve's plus one per fused Chebyshev step.
+              Then the float64 witness: the same flagship as
               a float64 direct
               solve through the driver (device loop) and over its setup
               with loop="host": equal iterations, reason and K1 counts;
-              and over the same setup with every K4 and K5 entry and K6
-              swapped for its plain twin: the same reason and
-              iterations, x within 1e-10.
+              and over the same setup with every K4 and K5 entry, K1's
+              fused forms and K6 swapped for their twins: the same reason
+              and iterations, x within 1e-10.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -178,7 +198,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               w * (r - A x), shards per V-cycle, no unfused one;
               2 x shards + 2 (levels - 2) per V-cycle, of them levels - 3
               grid restrictions into a smoothed replicated level as
-              restrict_grid_cheb_first), K6 and
+              restrict_grid_cheb_first), K6 (its masked forms: every
+              fine-level step after a zero guess) and K1's keep form
+              (every fine apply; K1's store epilogues never run there) and
               control launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
@@ -192,8 +214,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               loop runs no control kernel), K6 above 0; the walls of each
               kind
               and the graph launch's CUDA-event span with the card; then
-              a device-loop solve with every K5 entry swapped for its
-              twin, x and history bitwise the kernels' solve. K1,
+              a device-loop solve with every K5 entry, K1's keep form and
+              K6's masked forms swapped for their twins, x and history
+              bitwise the kernels' solve, K1 launches equal. K1 (and its
+              keep form), K6's masked forms,
               K4 (and its fused epilogues, bitwise K4 + K6), K5's weighted
               residual restriction (on each shard's own weights, bitwise)
               and K6 on the sharded solver's own operands against their
@@ -429,10 +453,186 @@ def _device_kernels(fn, calls=10):
             if "a00" in e.key and self_device_us(e) > 0}
 
 
-def phase_k1(device):
-    """K1 against its plain version and the library's CSR SpMV; returns the
-    float32 3D numbers (the main path's working precision and shapes)."""
+# K1's fused forms and K6's masked forms, by the kernels line's names
+A00_FUSED = ("a00_apply_keep", "a00_masked", "a00_cheb_first",
+             "a00_cheb_step")
+K6_MASKED = ("cheb_first_masked", "cheb_step_masked")
+# the fine level's Chebyshev scalars in phase K1 (any: the forms are
+# bitwise their twins for every scale and omega)
+FUSED_SCALE, FUSED_OMEGA = 0.37, 1.61
+
+
+def _fused_bound(op, dtype, form):
+    """(bound ms, what sets it, the bytes' ms, bytes) of one call of a
+    fused form on op's fine level: K1's products (the operations of its
+    twin's elementwise ops besides) at the peak rate of their type against
+    every input read once and the output written once. K1's forms read x,
+    scale_visc and Bs and write y as the plain apply does, and besides the
+    keep (the keep form), ks = keep and ms (mask), ks, ms, b and d (first
+    step), and p_km1 too (step); K6's masked forms read b, y, ks, ms, d and
+    x0 (and p_km1) and write one vector."""
+    nd = len(op.m_el)
+    nel, nrow = op.scale_visc.shape
+    ncol = 3 ** nd * nd
+    size = torch.empty((), dtype=dtype).element_size()
+    if form in K6_MASKED:
+        first = form == "cheb_first_masked"
+        nbytes = size * (7 if first else 8) * op.nu
+        nops = (7 if first else 10) * op.nu
+    else:
+        vecs = {"a00_apply": 0, "a00_apply_keep": 1, "a00_masked": 2,
+                "a00_cheb_first": 4, "a00_cheb_step": 5}[form]
+        nbytes = size * ((2 + vecs) * op.nu + nel * nrow + nrow * ncol)
+        nops = 2 * 2 * nel * nrow * ncol + {
+            "a00_apply": 0, "a00_apply_keep": 1, "a00_masked": 4,
+            "a00_cheb_first": 8, "a00_cheb_step": 11}[form] * op.nu
+    t_ops, t_bytes = nops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", 1e3 * t_bytes,
+            nbytes)
+
+
+def _fused_calls(op, aux):
+    """{form: (fused, pair, plain)}, each a function of (x, b, q, y, d):
+    the fused entry; the launches it replaces as the port issued them
+    before (K1 without keep, the torch mask ops, K6), bitwise its result;
+    the plain PyTorch version (a00_apply_plain and the torch ops)."""
+    ks, ms = aux[0], aux[1]
+    sc, om = FUSED_SCALE, FUSED_OMEGA
+
+    def masked(x):
+        return a00.a00_apply(op, x * ks) * ks + ms * x
+
+    def masked_plain(x):
+        return a00.a00_apply_plain(op, x * ks) * ks + ms * x
+
+    return {
+        "a00_apply": (lambda x, b, q, y, d: a00.a00_apply(op, x),
+                      lambda x, b, q, y, d: a00.a00_apply(op, x),
+                      lambda x, b, q, y, d: a00.a00_apply_plain(op, x)),
+        "a00_apply_keep": (
+            lambda x, b, q, y, d: a00.a00_apply(op, x, keep=ks),
+            lambda x, b, q, y, d: a00.a00_apply(op, x * ks),
+            lambda x, b, q, y, d: a00.a00_apply_plain(op, x * ks)),
+        "a00_masked": (lambda x, b, q, y, d: a00.a00_masked(op, aux, x),
+                       lambda x, b, q, y, d: masked(x),
+                       lambda x, b, q, y, d: masked_plain(x)),
+        "a00_cheb_first": (
+            lambda x, b, q, y, d: a00.a00_cheb_first(op, aux, b, x, d, sc),
+            lambda x, b, q, y, d: cheb.cheb_first(b, masked(x), d, x, sc),
+            lambda x, b, q, y, d: cheb.cheb_first_plain(
+                b, masked_plain(x), d, x, sc)),
+        "a00_cheb_step": (
+            lambda x, b, q, y, d: a00.a00_cheb_step(op, aux, b, x, q, d, sc,
+                                                    om),
+            lambda x, b, q, y, d: cheb.cheb_step(b, masked(x), d, x, q, sc,
+                                                 om),
+            lambda x, b, q, y, d: cheb.cheb_step_plain(
+                b, masked_plain(x), d, x, q, sc, om)),
+        "cheb_first_masked": (
+            lambda x, b, q, y, d: cheb.cheb_first_masked(b, y, ks, ms, d, x,
+                                                         sc),
+            lambda x, b, q, y, d: cheb.cheb_first(b, y * ks + ms * x, d, x,
+                                                  sc),
+            lambda x, b, q, y, d: cheb.cheb_first_masked_plain(
+                b, y, ks, ms, d, x, sc)),
+        "cheb_step_masked": (
+            lambda x, b, q, y, d: cheb.cheb_step_masked(b, y, ks, ms, d, x,
+                                                        q, sc, om),
+            lambda x, b, q, y, d: cheb.cheb_step(b, y * ks + ms * x, d, x, q,
+                                                 sc, om),
+            lambda x, b, q, y, d: cheb.cheb_step_masked_plain(
+                b, y, ks, ms, d, x, q, sc, om))}
+
+
+def _hot_cold(fn, args):
+    """Device ms per call of fn(*args) captured as one CUDA graph of
+    MG_REPS calls and replayed (_graph_ms): (hot: one input; cold: the
+    vectors args cycled through _cold_copies, op's scale_visc and Bs
+    shared, as consecutive fine-level applies share them)."""
+    hot = _graph_ms([lambda: fn(*args)] * MG_REPS)
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    copies = _cold_copies(args, nbytes)
+    cold = _graph_ms([lambda c=c: fn(*c) for c in copies]
+                     * -(-MG_REPS // len(copies)))
+    return hot, cold
+
+
+def _k1_fused(name, op, dtype, card):
+    """K1's fused forms and K6's masked forms on op's fine level (the mx=32
+    flagship's, as the main path runs them): each bitwise the launches it
+    replaces (K1 without keep, the torch mask ops, K6) and its twin;
+    device us per call cold and hot (_hot_cold) of the form, of the pair
+    it replaces and (eager, CUDA events) of the plain version, beside its
+    bound; K1 with and without keep alternated (none, keep, keep, none).
+    Returns {form: the kernels line's numbers}."""
+    aux = tree_aux(op)
+    rng = np.random.default_rng(23)
+    x, b, q, y = (torch.as_tensor(rng.standard_normal(op.nu), dtype=dtype,
+                                  device=op.Bs.device) for _ in range(4))
+    d = torch.as_tensor(rng.uniform(0.5, 1.5, op.nu), dtype=dtype,
+                        device=op.Bs.device)
+    args = (x, b, q, y, d)
+    calls = _fused_calls(op, aux)
+    twins = {"a00_apply_keep": lambda: a00.TWINS["a00_apply"](
+        op, x, aux[0]),
+             "a00_masked": lambda: a00.TWINS["a00_masked"](op, aux, x),
+             "a00_cheb_first": lambda: a00.TWINS["a00_cheb_first"](
+                 op, aux, b, x, d, FUSED_SCALE),
+             "a00_cheb_step": lambda: a00.TWINS["a00_cheb_step"](
+                 op, aux, b, x, q, d, FUSED_SCALE, FUSED_OMEGA)}
+    tag = f"[K1] {name} {str(dtype)[6:]}"
     out = {}
+    for form in A00_FUSED + K6_MASKED:
+        fused, pair, plain = calls[form]
+        got = fused(*args)
+        same = _same_bits(got, pair(*args)) and _same_bits(
+            got, twins[form]() if form in twins else plain(*args))
+        check(same, f"{tag}: {form} is not bitwise the launches it "
+              f"replaces and its twin")
+        check(_same_bits(fused(*args), got),
+              f"{tag}: repeated {form} calls differ")
+        err = float((got - plain(*args)).abs().max())
+        (hot, pair_hot), (cold, pair_cold) = zip(_hot_cold(fused, args),
+                                                 _hot_cold(pair, args))
+        plain_ms = _median_ms(lambda: plain(*args), reps=5, inner=5)
+        bound_ms, bound_by, bytes_ms, nbytes = _fused_bound(op, dtype, form)
+        log(f"{tag}: {form} bitwise the launches it replaces and its twin;"
+            f" {1e3 * cold:.2f} us cold, {1e3 * hot:.2f} us hot per call "
+            f"(graph of {MG_REPS}); the launches it replaces "
+            f"{1e3 * pair_cold:.2f} / {1e3 * pair_hot:.2f} us cold / hot; "
+            f"plain {1e3 * plain_ms:.2f} us (max abs err against it "
+            f"{err:.3e}); bound {1e3 * bound_ms:.2f} us ({bound_by}; bytes "
+            f"{nbytes / 1e6:.1f} MB take {1e3 * bytes_ms:.2f} us), at "
+            f"{100 * bound_ms / cold:.1f}% of it cold ({card})")
+        out[form] = {"max_abs_err": 0.0, "ms": cold, "hot_ms": hot,
+                     "plain_ms": plain_ms, "pair_ms": pair_cold,
+                     "pair_hot_ms": pair_hot, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+                     "library_ms": None}
+    # K1 with and without the keep in its loads, alternated
+    keep = {"a00_apply": [], "a00_apply_keep": []}
+    for form in ("a00_apply", "a00_apply_keep", "a00_apply_keep",
+                 "a00_apply"):
+        keep[form].append(_hot_cold(calls[form][0], args))
+    for form, times in keep.items():
+        _, _, bytes_ms, nbytes = _fused_bound(op, dtype, form)
+        log(f"{tag}: {form}, alternated (none, keep, keep, none): cold "
+            + ", ".join(f"{1e3 * c:.2f}" for _, c in times) + " us, hot "
+            + ", ".join(f"{1e3 * h:.2f}" for h, _ in times)
+            + f" us; HBM bound by bytes {1e3 * bytes_ms:.2f} us "
+            f"({nbytes / 1e6:.1f} MB) ({card})")
+    out["a00_apply_keep"]["alternated_us"] = {
+        f: [[1e3 * h, 1e3 * c] for h, c in t] for f, t in keep.items()}
+    return out
+
+
+def phase_k1(device, card):
+    """K1 against its plain version and the library's CSR SpMV, then its
+    fused forms at the flagship's shapes (_k1_fused); returns the float32
+    3D numbers (the main path's working precision and shapes) and the
+    fused forms' float32 numbers."""
+    out, fused = {}, {}
     cases = [("3D mx=32 pseudoice", 3, (32, 32, 32), 11, (0.1, 1.0, 1.0)),
              ("2D mx=my=64 SolCx", 2, (64, 64), 0, (1.0, 1.0))]
     for name, ndim, m, model, size in cases:
@@ -480,14 +680,19 @@ def phase_k1(device):
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (CSR SpMV, "
                 f"int32) {library_ms:.4f} ms, bound {1e3 * bound_ms:.1f} us "
                 f"({bound_by}), kernel at {100 * bound_ms / ms:.1f}% of it")
-            if ndim == 3 and dtype == torch.float32:
-                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
-            del op, x, y_k, y_p, csr
+            del y_k, y_p, csr
+            torch.cuda.empty_cache()
+            if ndim == 3:
+                rec = _k1_fused(name, op, dtype, card)
+                if dtype == torch.float32:
+                    out = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+                    fused = rec
+            del op, x
         del op64, csr64
         torch.cuda.empty_cache()
-    return out
+    return out, fused
 
 
 # the Krylov control kernels: (name, the JAX code whose scalar tail each
@@ -1428,6 +1633,7 @@ def _ir_solve(slv, F):
     wall = time.perf_counter() - t0
     out = {"res": res, "wall": wall,
            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
+           "a00_by": dict(a00.LAUNCHES.by), "k6_by": dict(cheb.LAUNCHES.by),
            "mg": _mg_counts(), "k5": _k5_counts(),
            "ctl": dict(krylov_ctl.LAUNCHES.n),
            "replays": graphs.replays(slv.bodies()) - n0,
@@ -1466,11 +1672,13 @@ def phase_main(card):
                       for e in stencil.EPILOGUES}}
     ctl_launches = dict(krylov_ctl.LAUNCHES.n)
     k5_launches = _k5_counts()
+    a00_by = dict(a00.LAUNCHES.by)
     res = r["res"]
     slv = r["solver"]
     graph = slv._dev.graph if slv._dev is not None else None
     log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
-        f"launches in {applies} applies, K4 / K6 {mg_launches}, K5 "
+        f"launches in {applies} applies (by form {a00_by}), K4 / K6 "
+        f"{mg_launches}, K5 "
         f"{k5_launches}, control kernels {ctl_launches} "
         f"(capture warm-ups included); graph capture "
         f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
@@ -1492,6 +1700,10 @@ def phase_main(card):
           f"cart path's form ran there: {k5_launches}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
+    check(all(a00_by[f] > 0 for f in A00_FUSED[1:])
+          and a00_by["a00_apply_keep"] == 0,
+          f"a fused K1 form never ran on the main path, or the cart path's "
+          f"keep-only form ran there: K1 applies by form {a00_by}")
     check(not res["stalled"], "iterative refinement stalled")
     check(res["converged"], "iterative refinement did not converge")
     check(np.all(np.isfinite(res["x"]))
@@ -1574,6 +1786,8 @@ def phase_main(card):
                          "main device-loop IR solve")
     check(d["graph_launches"] == 1 and d["replays"] == 0,
           f"device loop: {d['graph_launches']} graph launches per solve")
+    _check_fine_fused(d, vcycles, slv.cfg, "main device-loop IR solve")
+    _fused_witness(slv, F, d, card)
     for kind, res_k in first.items():
         its = res_k["inner_its"]
         check(res_k["rounds"] == 3 and 34 <= its <= 38,
@@ -1616,7 +1830,72 @@ def phase_main(card):
             f"{max(x['reserved'] for x in recs):.2f} GiB reserved ({card})")
     del solvers, plain, slv, r
     _main_witness(card)
-    return launches, applies, mg_launches, ctl_launches, k5_launches
+    return (launches, applies, mg_launches, ctl_launches, k5_launches,
+            a00_by)
+
+
+def _check_fine_fused(rec, vcycles, cfg, where):
+    """A single-device V-cycle's fine level: the post-smooth's first step
+    a00_cheb_first, every step after a first a00_cheb_step, the residual
+    before the restriction a00_masked (GCR's operator too); no K1 keep
+    form without an epilogue (the cart path's) and no masked K6 form."""
+    by, k6 = rec["a00_by"], rec["k6_by"]
+    pre = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
+    steps = pre + cfg.cheb_its - 2
+    check(by["a00_cheb_first"] == vcycles
+          and by["a00_cheb_step"] == steps * vcycles
+          and by["a00_masked"] >= vcycles and by["a00_apply_keep"] == 0
+          and k6["cheb_first_masked"] == k6["cheb_step_masked"] == 0,
+          f"{where}: K1 applies by form {by}, K6 launches by form {k6} in "
+          f"{vcycles:g} V-cycles: expected 1 a00_cheb_first and {steps} "
+          f"a00_cheb_step per V-cycle, no keep-only or masked K6 form")
+    log(f"[main] {where}: K1 applies by form {by}; per V-cycle "
+        f"a00_cheb_first 1, a00_cheb_step {steps}, K6 "
+        f"{rec['mg'][1] / vcycles:.2f} launches (its zero-guess first "
+        f"steps and the p-block's; by form {k6})")
+
+
+def _fused_witness(slv, F, d, card):
+    """The device-loop IR solve over slv's setup with K1's fused entries
+    swapped for their twins (K1 without keep, the torch mask ops, K6: the
+    launches the port issued before them): x, history, rounds and inner
+    its bitwise the fused solve's; K1 launches and applies equal; K6 the
+    fused solve's plus one launch per fused Chebyshev form; K4 and K5
+    equal."""
+    saved = {name: getattr(a00, name) for name in a00.TWINS}
+    for name, twin in a00.TWINS.items():
+        setattr(a00, name, twin)
+    try:
+        tslv = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                         device=slv.device, dtype=slv.dtype,
+                                         ir=True)
+        t = _ir_solve(tslv, F)
+        t = _ir_solve(tslv, F)
+    finally:
+        for name, fn in saved.items():
+            setattr(a00, name, fn)
+    fused_k6 = d["a00_by"]["a00_cheb_first"] + d["a00_by"]["a00_cheb_step"]
+    check(tslv.loop == "device" and _same_ir(t["res"], d["res"]),
+          f"main: with K1's fused forms swapped for their twins the device "
+          f"loop ran {tslv.loop} and differs from the fused solve (rounds "
+          f"{t['res']['rounds']} / {d['res']['rounds']}, inner its "
+          f"{t['res']['inner_its']} / {d['res']['inner_its']})")
+    check((t["launches"], t["applies"], t["mg"][0], t["k5"])
+          == (d["launches"], d["applies"], d["mg"][0], d["k5"])
+          and t["mg"][1] == d["mg"][1] + fused_k6
+          and t["a00_by"]["a00_apply"] == t["applies"],
+          f"main: twins' solve K1 {t['launches']} / {t['applies']} (by form "
+          f"{t['a00_by']}), K6 {t['mg'][1]}, K4 {t['mg'][0]}; fused solve "
+          f"K1 {d['launches']} / {d['applies']}, K6 {d['mg'][1]} + "
+          f"{fused_k6} fused Chebyshev forms, K4 {d['mg'][0]}")
+    log(f"[main] witness: the device-loop IR solve with K1's fused forms "
+        f"swapped for their twins: {t['res']['rounds']} rounds / "
+        f"{t['res']['inner_its']} inner its, x and history bitwise the "
+        f"fused solve's; K1 {t['launches']} launches in {t['applies']} "
+        f"applies (equal), K6 {t['mg'][1]} against the fused solve's "
+        f"{d['mg'][1]} ({t['mg'][1] - d['mg'][1]} fine-level Chebyshev "
+        f"steps now in K1's store); wall {t['wall']:.4f} s against "
+        f"{d['wall']:.4f} s ({card})")
 
 
 def _main_witness(card):
@@ -1629,8 +1908,8 @@ def _main_witness(card):
     iterations), histories within 1e-10 of the initial residual (their
     last entries are ~1e-5 of it, where float64 rounding amplified through
     the GCR preconditioner may show at ~1e-8 of the entry). Then the
-    same direct solve over the same setup with K4, K5 and K6 swapped for
-    their plain twins (device loop): K4 sums in another order than its
+    same direct solve over the same setup with K4, K5, K6 and K1's fused
+    forms swapped for their twins (device loop): K4 sums in another order than its
     twin, yet in float64 the kernels must give the twins' reason and
     iterations, with x within 1e-10 (norm-relative)."""
     argv = tdriver.ABF_OPTS + (
@@ -1666,7 +1945,8 @@ def _main_witness(card):
           f"initial residual")
     swaps = _k4_twins() + [(cheb, "cheb_first", cheb.cheb_first_plain),
                            (cheb, "cheb_step", cheb.cheb_step_plain)] + [
-        (transfer, name, twin) for name, twin in transfer.TWINS.items()]
+        (transfer, name, twin) for name, twin in transfer.TWINS.items()] + [
+        (a00, name, twin) for name, twin in a00.TWINS.items()]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     for mod, attr, fn in swaps:
         setattr(mod, attr, fn)
@@ -1680,8 +1960,9 @@ def _main_witness(card):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     xrel = float(np.linalg.norm(d["x"] - t["x"]) / np.linalg.norm(t["x"]))
-    log(f"[main] witness, float64 direct solve with every K4 and K5 entry "
-        f"and K6 swapped for its twin ({twins.loop} loop): kernels "
+    log(f"[main] witness, float64 direct solve with every K4 and K5 entry, "
+        f"K1's fused forms and K6 swapped for their twins ({twins.loop} "
+        f"loop): kernels "
         f"{d['reason']} in {d['its']} its, twins {t['reason']} in "
         f"{t['its']} its, x differs by {xrel:.3e} (norm-relative), twin "
         f"run K4 / K6 / K5 launches {mg} ({card})")
@@ -2252,6 +2533,12 @@ def phase_cart(device, card):
     check(all(counts[k] > 0 for k in krylov_ctl.NAMES if k != "ir_ctl"),
           f"cart: a control kernel never ran on the sharded path: "
           f"{ {k: counts[k] for k in krylov_ctl.NAMES} }")
+    check(counts["a00_apply_keep"] > 0
+          and all(counts[k] > 0 for k in K6_MASKED)
+          and not any(counts[k] for k in A00_FUSED[1:]),
+          f"cart: K1's keep form and K6's masked forms must run on the "
+          f"sharded path, K1's store epilogues not: "
+          f"{ {k: counts[k] for k in (*A00_FUSED, *K6_MASKED)} }")
     check(all(counts[k] > 0 for k in K5_KERNELS)
           and counts["prolong_parity_add"] == counts["prolong_parity"]
           and counts["restrict_parity_weighted_residual"]
@@ -2286,7 +2573,9 @@ def phase_cart(device, card):
         f"exchanges, {launches} K1 launches in {applies} applies (single "
         f"device {applies1} applies), K4 {counts['stencil_accum']} (fused "
         f"{ {k: counts[k] for k in FUSED.values()} }), K6 "
-        f"{counts['cheb_update']}, K5 "
+        f"{counts['cheb_update']} (masked forms "
+        f"{ {k: counts[k] for k in K6_MASKED} }), K1 keep form "
+        f"{counts['a00_apply_keep']} applies, K5 "
         f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }, control "
         f"{sum(counts[k] for k in krylov_ctl.NAMES)} launches (capture "
         f"warm-ups included), peak mem {peak:.2f} GiB ({card})")
@@ -2317,7 +2606,8 @@ def _launch_counts():
             "cheb_update": cheb.LAUNCHES.n,
             **{FUSED[e]: stencil.LAUNCHES.fused[e]
                for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n,
-            **_k5_counts()}
+            **_k5_counts(), **{f: a00.LAUNCHES.by[f] for f in A00_FUSED},
+            **{f: cheb.LAUNCHES.by[f] for f in K6_MASKED}}
 
 
 def _cart_solve(slv, F):
@@ -2402,7 +2692,7 @@ def _cart_loops(slv, single, F, r, card):
               f"{q['res']['halo_exchanges']}")
         keys = d["counts"] if kind == "plain" else (
             "a00_apply", "stencil_accum", "cheb_update", *FUSED.values(),
-            *K5_KERNELS, *K5_FUSED)
+            *K5_KERNELS, *K5_FUSED, *A00_FUSED, *K6_MASKED)
         check(all(q["counts"][k] == d["counts"][k] for k in keys),
               f"cart: launches per solve: device {d['counts']}, {kind} "
               f"{q['counts']}")
@@ -2425,25 +2715,37 @@ def _cart_loops(slv, single, F, r, card):
           f"cart: {wres} weighted residual restrictions of "
           f"{c['restrict_parity']} in {vcycles} V-cycles, expected "
           f"{shards} per V-cycle and no unfused one")
-    # the witness: the device loop over the same setup with every K5 entry
-    # swapped for its twin gives the kernels' bits (K5 is bitwise its twins)
-    saved = {name: getattr(transfer, name) for name in transfer.TWINS}
-    for name, twin in transfer.TWINS.items():
-        setattr(transfer, name, twin)
+    # the witness: the device loop over the same setup with every K5 entry,
+    # K1's keep form and K6's masked forms swapped for their twins gives
+    # the kernels' bits (each is bitwise its twin)
+    swaps = ([(transfer, n, t) for n, t in transfer.TWINS.items()]
+             + [(a00, "a00_apply", a00.TWINS["a00_apply"])]
+             + [(cheb, n, cheb.TWINS[n]) for n in K6_MASKED])
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
+    for mod, n, twin in swaps:
+        setattr(mod, n, twin)
     try:
         tw = _cart_solve(slv.with_loop("device"), F)
     finally:
-        for name, fn in saved.items():
-            setattr(transfer, name, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
     tk5 = sum(tw["counts"][k] for k in K5_KERNELS)
+    tfused = {k: tw["counts"][k] for k in (*A00_FUSED, *K6_MASKED)}
     check(tw["res"]["history"] == d["res"]["history"]
-          and np.array_equal(tw["res"]["x"], d["res"]["x"]) and tk5 == 0,
-          f"cart: with K5's twins the device loop differs from the kernels' "
+          and np.array_equal(tw["res"]["x"], d["res"]["x"]) and tk5 == 0
+          and not any(tfused.values())
+          and tw["counts"]["a00_apply"] == c["a00_apply"],
+          f"cart: with the twins the device loop differs from the kernels' "
           f"(x relative {_rel(tw['res']['x'], d['res']['x']):.3e}) or ran "
-          f"{tk5} K5 launches")
-    log(f"[cart] witness: the device loop with every K5 entry swapped for "
-        f"its twin, {tw['res']['its']} its, 0 K5 launches, x and history "
-        f"bitwise the kernels' solve; wall {tw['wall']:.4f} s ({card})")
+          f"{tk5} K5 launches, fused K1 / masked K6 {tfused}, K1 "
+          f"{tw['counts']['a00_apply']} against {c['a00_apply']}")
+    log(f"[cart] witness: the device loop with every K5 entry, K1's keep "
+        f"form and K6's masked forms swapped for their twins, "
+        f"{tw['res']['its']} its, 0 K5 launches, no fused K1 or masked K6 "
+        f"launch, K1 {tw['counts']['a00_apply'][0]} launches (equal), K6 "
+        f"{tw['counts']['cheb_update']} (the kernels' solve "
+        f"{c['cheb_update']}), x and history bitwise the kernels' solve; "
+        f"wall {tw['wall']:.4f} s ({card})")
     log(f"[cart] loops over one setup: device loop bitwise the plain "
         f"driver and the host loop ({d['res']['its']} its, x, history), "
         f"each device solve 1 graph launch under sync debug \"error\", 0 "
@@ -2499,6 +2801,21 @@ def _cart_kernels(slv):
               f"cart: K1 on shard {i}'s box disagrees with its plain "
               f"version (relative {rel:.3e})")
         k1 = max(k1, rel)
+        # the keep in K1's loads and K6's masked forms on the shard's own
+        # keep / mask and fine inverse diagonal
+        ks, ms = blk.aux[0].parts[i], blk.aux[1].parts[i]
+        d = dd["inv_diag_fine"].parts[i]
+        b, q = rand(x), rand(x)
+        yk = a00.a00_apply(op, x, keep=ks)
+        pairs = [(yk, a00.a00_apply(op, x * ks)),
+                 (cheb.cheb_first_masked(b, yk, ks, ms, d, x, 0.37),
+                  cheb.cheb_first_masked_plain(b, yk, ks, ms, d, x, 0.37)),
+                 (cheb.cheb_step_masked(b, yk, ks, ms, d, x, q, 0.37, 1.61),
+                  cheb.cheb_step_masked_plain(b, yk, ks, ms, d, x, q, 0.37,
+                                              1.61))]
+        check(all(_same_bits(a, w) for a, w in pairs),
+              f"cart: K1's keep form or K6's masked forms on shard {i} are "
+              f"not bitwise their twins")
 
     xp = dd["inv_diag_l1"].map(rand)
     for k in range(nd):
@@ -2579,7 +2896,9 @@ def _cart_kernels(slv):
             k6 += len(pairs)
     log(f"[cart] kernels on the sharded solve's own operands, float64: K1 "
         f"on each of the {len(blk.ops.parts)} local boxes {slv.dcfg.mloc} "
-        f"within {k1:.3e} of max |y| (tol {TOL[f64]:g}); K4 on "
+        f"within {k1:.3e} of max |y| (tol {TOL[f64]:g}), its keep form "
+        f"and K6's masked forms on each shard's own keep, mask and fine "
+        f"diagonal bitwise their twins; K4 on "
         f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
         f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}), their "
         f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K5's "
@@ -2935,7 +3254,9 @@ def _ranged(name, fn):
 # counts (the innermost enclosing one; the hand-written K1, K4, K5 and K6
 # by kernel name wherever they run; restrict_grid_kernel covers both of its
 # forms, the restriction and restrict_grid_cheb_first)
-PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
+PROFILE_KERNELS = (("K1 a00_apply", "a00_element_kernel"),
+                   ("K1 a00_apply", "a00_node_gather_kernel"),
+                   ("K1 fused gather", "a00_fused_gather_kernel"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),
                    ("K5 transfers", "prolong_parity_kernel"),
                    ("K5 transfers", "prolong_parity_staged_kernel"),
@@ -2943,7 +3264,9 @@ PROFILE_KERNELS = (("K1 a00_apply", "a00_"),
                    ("K5 transfers", "prolong_grid_kernel"),
                    ("K5 transfers", "restrict_grid_kernel"),
                    ("K6 cheb_smooth", "cheb_first_kernel"),
-                   ("K6 cheb_smooth", "cheb_step_kernel"))
+                   ("K6 cheb_smooth", "cheb_step_kernel"),
+                   ("K6 cheb_smooth", "cheb_first_masked_kernel"),
+                   ("K6 cheb_smooth", "cheb_step_masked_kernel"))
 PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K3 mp_apply", tabf, "mp_apply"),
                   ("K6 cheb_smooth", treeops, "cheb_smooth"),
@@ -3043,7 +3366,8 @@ def phase_profile(card):
     log(f"[profile] mx=32 IR solve, tuned schedule, eager=True: unprofiled "
         f"wall {wall:.3f} s, {res['rounds']} rounds / {res['inner_its']} "
         f"inner its, device time {total:.3f} s (busy {100 * total / wall:.1f}%"
-        f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies, K4 / "
+        f" of the unprofiled wall), {a00.LAUNCHES.applies} K1 applies (by "
+        f"form {dict(a00.LAUNCHES.by)}), K4 / "
         f"K6 {mg_eager[0]} / {mg_eager[1]} launches (K4 fused residual / "
         f"cheb_first / cheb_step {mg_eager[2]} / {mg_eager[3]} / "
         f"{mg_eager[4]}), K5 {k5_eager} launches, {pads} F.pad calls, "
@@ -3225,14 +3549,14 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    k1 = phase_k1(device)
+    k1, k1_fused = phase_k1(device, card)
     ctl = phase_ctl(device)
     t_mg = time.perf_counter()
     k4, fused, k6, k5 = phase_mg_kernels(device, card)
     log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
     phase_anchor()
-    launches, applies, mg_launches, ctl_launches, k5_launches = \
-        phase_main(card)
+    launches, applies, mg_launches, ctl_launches, k5_launches, \
+        a00_fused_launches = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -3292,6 +3616,22 @@ def main():
             "replaces": "exsaddle_tpu/treeops.py:167",
             "launches": mg_launches["cheb_update"],
             "cart_launches": cart_counts["cheb_update"], **k6}] + [{
+            "name": form, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/a00_apply.cu",
+            "replaces": {"a00_apply_keep": "exsaddle_tpu/pallas_apply.py:61",
+                         "a00_masked": "exsaddle_tpu/abf.py:56"}.get(
+                             form, "exsaddle_tpu/treeops.py:167"),
+            # the cart path's own form: its launches in phase cart's run
+            "launches": a00.KERNELS_PER_APPLY * (
+                cart_counts if form == "a00_apply_keep"
+                else a00_fused_launches)[form],
+            "cart_launches": a00.KERNELS_PER_APPLY * cart_counts[form],
+            **k1_fused[form]} for form in A00_FUSED] + [{
+            "name": form, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/cheb_update.cu",
+            "replaces": "exsaddle_tpu/treeops.py:167",
+            "launches": cart_counts[form], "cart_launches": cart_counts[form],
+            **k1_fused[form]} for form in K6_MASKED] + [{
             "name": name, "route": "cuda",
             "source": "exsaddle_tpu_torch/csrc/transfer.cu",
             "replaces": K5_REPLACES[kernel],

@@ -9,7 +9,8 @@ Jacobi-preconditioned viscosity-scaled pressure mass matrix.
 
 Multigrid structure (-saddle_fieldsplit_u_pc_mg_galerkin, abf.opts:13):
   - fine level: the factored matrix-free A00 apply, K1 on CUDA
-    (kernels/a00.py);
+    (kernels/a00.py), its Dirichlet terms and Chebyshev updates in K1's
+    loads and store (kernels.a00.A00Op);
   - intermediate levels, including the Galerkin L-2 level: 3^nd-point block
     stencils W (*grid, 3^nd, nd, nd) extracted from the host Galerkin
     products;
@@ -40,7 +41,9 @@ from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
-from exsaddle_tpu_torch.kernels.a00 import a00_apply
+# K1's entries, called through the module (a00.<entry>) so a caller may
+# swap the fused forms for their twins
+from exsaddle_tpu_torch.kernels import a00
 # stencil_accum and stencil_apply: K4's entries, this module's names for
 # the block stencil apply (as exsaddle_tpu/abf.py's)
 from exsaddle_tpu_torch.kernels.stencil import (  # noqa: F401
@@ -62,16 +65,33 @@ from exsaddle_tpu_torch.mesh import SaddleMesh
 # BC-eliminated saddle matrix, as PETSc's MatCreateSubMatrix extracts them)
 # --------------------------------------------------------------------------
 
+def _a00_keep(op, xu, ks):
+    return a00.a00_apply(op, xu, keep=ks)
+
+
+def _a00_masked(op, xu, ks, ms):
+    return a00.a00_masked(op, (ks, ms), xu)
+
+
+def mult_u_raw(op, aux, xu, halo_u=None):
+    """The raw A00 (ks x_u) before the output's keep/mask terms: K1 with
+    the keep in its loads; in a sharded layout (parallel/) per shard, with
+    the interface planes of K1's output added by halo_u."""
+    y = smap(_a00_keep, op, xu, aux[0])
+    return y if halo_u is None else halo_u(y)
+
+
 def mult_u_tree(op, aux, xu, halo_u=None):
     """A00 x_u (flat u vector): K1 with keep/mask Dirichlet elimination
-    (unit diagonal on BC rows). In a sharded layout (parallel/) op, aux and
-    xu are per shard and halo_u adds the interface planes of K1's raw
-    output before the keep/mask terms."""
+    (unit diagonal on BC rows): the keep in K1's loads, and on one device
+    the mask terms in its store (a00.a00_masked). In a sharded layout
+    (parallel/) op, aux and xu are per shard and halo_u adds the interface
+    planes of K1's raw output before the keep/mask terms, which stay torch
+    ops there."""
     ks, ms, _, _ = aux
-    y = smap(a00_apply, op, xu * ks)
-    if halo_u is not None:
-        y = halo_u(y)
-    return y * ks + ms * xu
+    if halo_u is None:
+        return smap(_a00_masked, op, xu, ks, ms)
+    return mult_u_raw(op, aux, xu, halo_u) * ks + ms * xu
 
 
 def _up_local(op, pg):
@@ -740,8 +760,9 @@ def _mg_pc(cfg, data, fineA):
     def coarse_solve(xg):
         return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
-    # each level's operator and Jacobi inverse diagonal (K6 takes it; on
-    # the stencil levels K4 computes the update in its store)
+    # each level's operator and Jacobi inverse diagonal (K6 takes it for
+    # a zero-guess first step; K1's node gather on the fine level and K4 on
+    # the stencil levels compute every other update in their store)
     lvl_ops, lvl_diag = {}, {}
     for k in range(1, nlev):
         if k == nlev - 1:
@@ -804,15 +825,13 @@ def _fieldsplit(op, aux, p_solve, u_solve):
 
 def _plain_bodies(cfg, data):
     """The ABF solve's bodies as plain functions: fineA (A00 with the
-    Dirichlet terms), mg_pc (one V-cycle), p_solve (the p-block's
-    Chebyshev polynomial), mult (the full saddle apply) and, with
+    Dirichlet terms: a kernels.a00.A00Op, whose Chebyshev updates the
+    V-cycle's fine-level smoother calls), mg_pc (one V-cycle), p_solve (the
+    p-block's Chebyshev polynomial), mult (the full saddle apply) and, with
     cfg.u_fixed_vcycles > 0, fixed_pc (the fieldsplit PC with fixed
     V-cycles in place of GCR)."""
     op, aux = data["op"], data["aux"]
-
-    def fineA(xu):
-        return mult_u_tree(op, aux, xu)
-
+    fineA = a00.A00Op(op, aux)
     mg_pc = _mg_pc(cfg, data, fineA)
     p_emin, p_emax = data["p_bounds"]
 

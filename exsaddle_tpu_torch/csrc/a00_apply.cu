@@ -61,8 +61,32 @@
 //   197,888 B, one block of 384 threads per SM;
 // both above the 48 KB static limit, set with cudaFuncSetAttribute.
 // 2D (Bs 27 x 18) runs the same two passes with its own shapes.
+//
+// Fused forms (the fine level of the ABF V-cycle and GCR's operator; the
+// products and the node gather's summation order are the plain apply's):
+// - keep in the loads: y_u = A00 (x_u ks). The x gather is cp.async
+//   global -> shared, which cannot scale a value, so once a tile's copies
+//   have landed (cp.async.wait_group, then a barrier) each thread scales
+//   16-byte chunks of the tile in place by 1.0 or 0.0 from the keep's bits
+//   (a bit table per element built once from ks,
+//   kernels/a00.py:keep_bit_table; the words loaded into registers during
+//   the previous tile's element_out): x * 0.0 and x * 1.0 round as
+//   torch's xu * ks. It adds no cp.async buffer and no shared memory, so
+//   the float32 pair of blocks per SM still fits. Measured on an H100 80GB
+//   HBM3 at 700 W (k1_tune.py): ~2 us (float32) and ~4 us (float64) above
+//   the plain apply's ~93 / ~90 us at mx=32.
+// - store epilogues in the node gather (a00_fused_gather_kernel, the
+//   epilogue a template parameter): mask, y ks + ms x_u; cheb_first and
+//   cheb_step, K6's update on that masked y with x_u = x0 or p_k. The
+//   arithmetic is cheb_math.cuh's, shared with K6 (cheb_update.cu), in the
+//   twin's order with explicitly rounded intrinsics: each form gives the
+//   bits of the plain apply followed by the torch ops (and K6) it replaces
+//   (kernels/a00.py twins). The plain apply (no keep, no epilogue) runs the
+//   same kernels as before the fused forms existed.
 
 #include <cuda_runtime.h>
+
+#include "cheb_math.cuh"
 
 namespace {
 
@@ -344,15 +368,60 @@ constexpr size_t smem_bytes() {
 
 // ---------------------------------------------------------------------------
 // Pass 1: Ye = (X_e Bs^T * s_e) Bs for every element, persistent blocks.
-// ---------------------------------------------------------------------------
-template <typename T, int ND, class P>
+// KEEP: x is scaled by the Dirichlet keep vector (0 or 1) once it has
+// landed. The keep arrives as a bit table, one bit per element column
+// (kernels/a00.py:keep_bit_table, NW words per element): a warp's loads of
+// it touch one or two words, where loads of the keep vector at the
+// gather's scattered indices would double the gather's L1 traffic; and
+// the scaling runs by 16-byte chunks, a quarter (float32) of the scalar
+// passes' instructions.
+template <int C>
+struct KeepBits {
+  static constexpr int NW = (C + 31) / 32;   // words per element
+};
+
+// 16-byte chunks of a tile's x rows (rows are 16-byte aligned, their
+// padding columns zero: any keep bit leaves them zero): thread tid takes
+// chunks q = tid + j NT, element q / NV, columns W (q % NV) ..
+template <typename T> struct Vec;
+template <> struct Vec<float> { using V = float4; static constexpr int W = 4; };
+template <> struct Vec<double> { using V = double2; static constexpr int W = 2; };
+
+__device__ __forceinline__ void scale_chunk(float4& v, unsigned w, int c0) {
+  v.x = cheb_math::mul(v.x, (w >> (c0 & 31)) & 1u ? 1.f : 0.f);
+  v.y = cheb_math::mul(v.y, (w >> ((c0 + 1) & 31)) & 1u ? 1.f : 0.f);
+  v.z = cheb_math::mul(v.z, (w >> ((c0 + 2) & 31)) & 1u ? 1.f : 0.f);
+  v.w = cheb_math::mul(v.w, (w >> ((c0 + 3) & 31)) & 1u ? 1.f : 0.f);
+}
+__device__ __forceinline__ void scale_chunk(double2& v, unsigned w, int c0) {
+  v.x = cheb_math::mul(v.x, (w >> (c0 & 31)) & 1u ? 1.0 : 0.0);
+  v.y = cheb_math::mul(v.y, (w >> ((c0 + 1) & 31)) & 1u ? 1.0 : 0.0);
+}
+
+template <typename T, int C, int NT, int KPT>
+__device__ __forceinline__ void keep_words(unsigned (&kw)[KPT],
+                                           const unsigned* __restrict__ kb,
+                                           int tid, int e0, int ne) {
+  constexpr int W = Vec<T>::W, NV = (C + W - 1) / W;
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    const int q = tid + j * NT, el = q / NV, c0 = (q - el * NV) * W;
+    kw[j] = q < ne * NV
+                ? __ldg(kb + (size_t)(e0 + el) * KeepBits<C>::NW + (c0 >> 5))
+                : 0u;
+  }
+}
+
+template <typename T, int ND, class P, bool KEEP>
 __global__ void __launch_bounds__(P::NT, P::MINB)
-a00_element_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                   const T* __restrict__ Bs, T* __restrict__ ye, int nel,
-                   int mx, int my, Grid g) {
+a00_element_kernel(const T* __restrict__ x, const unsigned* __restrict__ kb,
+                   const T* __restrict__ scale, const T* __restrict__ Bs,
+                   T* __restrict__ ye, int nel, int mx, int my, Grid g) {
   using S = Shape<ND>;
   constexpr int R = S::R, C = S::C, NCLS = S::NCLS;
   constexpr int LDX = P::LDX, NT = P::NT;
+  constexpr int NV = (C + Vec<T>::W - 1) / Vec<T>::W;
+  constexpr int KPT = (TM * NV + NT - 1) / NT;     // keep words per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* bs = reinterpret_cast<T*>(smem_raw);   // P::RP x LDX
   T* xs = bs + P::RP * LDX;                 // 2 x TM x LDX
@@ -395,11 +464,19 @@ a00_element_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
     cp_async_commit();
   };
+  // KEEP: the keep words of this thread's chunks of a tile, in registers:
+  // loaded for the next tile while this tile's element_out runs, applied
+  // once that tile's copies have landed
+  unsigned kw[KPT];
 
   int tile = blockIdx.x;
   if (tile < ntiles) element_bases(tile);
   __syncthreads();
   if (tile < ntiles) gather(tile, xs);
+  if constexpr (KEEP)
+    if (tile < ntiles)
+      keep_words<T, C, NT>(kw, kb, tid, tile * TM,
+                           min(TM, nel - tile * TM));
   __syncthreads();   // every thread has read ebase
   for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
     const int next = tile + gridDim.x;
@@ -411,9 +488,30 @@ a00_element_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     else
       cp_async_commit();
     cp_async_wait_prev();   // this tile's group has landed
+    if constexpr (KEEP) {
+      // every copy has landed: x * keep by 16-byte chunks, in place
+      __syncthreads();
+      using V = typename Vec<T>::V;
+      T* xt = xs + (it & 1) * TM * LDX;
+      const int ne = min(TM, nel - tile * TM);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const int q = tid + j * NT, el = q / NV, c0 = (q - el * NV) * Vec<T>::W;
+        if (q < ne * NV) {
+          V* p = reinterpret_cast<V*>(xt + el * LDX + c0);
+          V v = *p;
+          scale_chunk(v, kw[j], c0);
+          *p = v;
+        }
+      }
+    }
     __syncthreads();
     P::strain(xs + (it & 1) * TM * LDX, bs, ss, scale, tile * TM, nel);
     __syncthreads();
+    if constexpr (KEEP)
+      if (next < ntiles)
+        keep_words<T, C, NT>(kw, kb, tid, next * TM,
+                             min(TM, nel - next * TM));
     P::element_out(ss, bs, ye, tile * TM, nel);
   }
 }
@@ -448,22 +546,82 @@ a00_node_gather_kernel(const T* __restrict__ ye, const int* __restrict__ ell,
   y[i] = acc;
 }
 
+// The node gather with a store epilogue on the summed A00 value acc of
+// (keep-scaled) x_u: EPI_MASK y = acc ks + ms x_u; EPI_FIRST K6's first
+// iterate scale (d (b - y)) + x_u (x_u = x0); EPI_STEP K6's step
+// omega ((scale (d (b - y)) + x_u) - p_km1) + p_km1 (x_u = p_k). The sum is
+// the plain gather's, in its order.
+enum { EPI_NONE = 0, EPI_MASK = 1, EPI_FIRST = 2, EPI_STEP = 3 };
+
+template <typename T, int ND, int EPI>
+__global__ void __launch_bounds__(GATHER_THREADS)
+a00_fused_gather_kernel(const T* __restrict__ ye, const int* __restrict__ ell,
+                        const T* __restrict__ xu, const T* __restrict__ ks,
+                        const T* __restrict__ ms, const T* __restrict__ b,
+                        const T* __restrict__ d, const T* __restrict__ pkm1,
+                        T scale, T omega, T* __restrict__ y, int nu) {
+  constexpr int NS = 1 << ND;   // elements per node, at most
+  const int i = blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (i >= nu) return;
+  const int node = i / ND, a = i - node * ND;
+  // the epilogue's operands, in flight with the table's and ye's loads
+  const T k = ks[i], m = ms[i], x = xu[i];
+  T bi = T(0), di = T(0), pm = T(0);
+  if constexpr (EPI != EPI_MASK) {
+    bi = b[i];
+    di = d[i];
+  }
+  if constexpr (EPI == EPI_STEP) pm = pkm1[i];
+  const int4* row = reinterpret_cast<const int4*>(ell + (size_t)node * NS);
+  int idx[NS];
+#pragma unroll
+  for (int v = 0; v < NS / 4; ++v) {
+    const int4 q = __ldg(row + v);
+    idx[4 * v] = q.x;
+    idx[4 * v + 1] = q.y;
+    idx[4 * v + 2] = q.z;
+    idx[4 * v + 3] = q.w;
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    if (idx[s] >= 0) acc += ye[idx[s] + a];
+  const T ax = cheb_math::masked(acc, k, m, x);
+  if constexpr (EPI == EPI_MASK)
+    y[i] = ax;
+  else if constexpr (EPI == EPI_FIRST)
+    y[i] = cheb_math::first(cheb_math::sub(bi, ax), di, x, scale);
+  else
+    y[i] = cheb_math::step(bi, ax, di, x, pm, scale, omega);
+}
+
+// What a fused launch adds to the plain apply: the keep vector (or null)
+// and the epilogue's operands.
+template <typename T>
+struct Fused {
+  const unsigned* keep;   // keep_bit_table's words, or null
+  const T *ks, *ms, *b, *d, *pkm1;
+  double scale, omega;
+  int epi;
+};
+
 // Sets the element kernel's dynamic shared memory and returns how many of
 // its blocks fit on one SM.
-template <typename T, int ND, class P>
+template <typename T, int ND, class P, bool KEEP>
 cudaError_t blocks_per_sm(int* per_sm) {
   constexpr size_t smem = smem_bytes<P, T>();
   cudaError_t err = cudaFuncSetAttribute(
-      a00_element_kernel<T, ND, P>,
+      a00_element_kernel<T, ND, P, KEEP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, a00_element_kernel<T, ND, P>, P::NT, smem);
+      per_sm, a00_element_kernel<T, ND, P, KEEP>, P::NT, smem);
 }
 
-template <typename T, int ND, class P>
+template <typename T, int ND, class P, bool KEEP>
 int launch(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
-           T* y, int mx, int my, int mz, cudaStream_t stream) {
+           T* y, int mx, int my, int mz, const Fused<T>& f,
+           cudaStream_t stream) {
   using S = Shape<ND>;
   if (ND == 2) mz = 1;
   Grid g{};
@@ -487,7 +645,7 @@ int launch(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    err = blocks_per_sm<T, ND, P>(&per_sm);
+    err = blocks_per_sm<T, ND, P, KEEP>(&per_sm);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident[dev] = per_sm * sms;
@@ -495,20 +653,53 @@ int launch(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
   const int ntiles = (nel + TM - 1) / TM;
   const int blocks = ntiles < resident[dev] ? ntiles : resident[dev];
   constexpr size_t smem = smem_bytes<P, T>();
-  a00_element_kernel<T, ND, P><<<blocks, P::NT, smem, stream>>>(
-      x, scale, Bs, ye, nel, mx, my, g);
+  a00_element_kernel<T, ND, P, KEEP><<<blocks, P::NT, smem, stream>>>(
+      x, f.keep, scale, Bs, ye, nel, mx, my, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  a00_node_gather_kernel<T, ND>
-      <<<(nu + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS, 0,
-         stream>>>(ye, ell, y, nu);
+  const int gblocks = (nu + GATHER_THREADS - 1) / GATHER_THREADS;
+  const T sc = static_cast<T>(f.scale), om = static_cast<T>(f.omega);
+  switch (f.epi) {
+    case EPI_NONE:
+      a00_node_gather_kernel<T, ND>
+          <<<gblocks, GATHER_THREADS, 0, stream>>>(ye, ell, y, nu);
+      break;
+    case EPI_MASK:
+      a00_fused_gather_kernel<T, ND, EPI_MASK>
+          <<<gblocks, GATHER_THREADS, 0, stream>>>(
+              ye, ell, x, f.ks, f.ms, f.b, f.d, f.pkm1, sc, om, y, nu);
+      break;
+    case EPI_FIRST:
+      a00_fused_gather_kernel<T, ND, EPI_FIRST>
+          <<<gblocks, GATHER_THREADS, 0, stream>>>(
+              ye, ell, x, f.ks, f.ms, f.b, f.d, f.pkm1, sc, om, y, nu);
+      break;
+    case EPI_STEP:
+      a00_fused_gather_kernel<T, ND, EPI_STEP>
+          <<<gblocks, GATHER_THREADS, 0, stream>>>(
+              ye, ell, x, f.ks, f.ms, f.b, f.d, f.pkm1, sc, om, y, nu);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int ND>
+int launch_nd(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
+              T* y, int mx, int my, int mz, const Fused<T>& f,
+              cudaStream_t s) {
+  using P = typename Products<T, ND>::type;
+  if (f.keep != nullptr)
+    return launch<T, ND, P, true>(x, scale, Bs, ell, ye, y, mx, my, mz, f,
+                                  s);
+  return launch<T, ND, P, false>(x, scale, Bs, ell, ye, y, mx, my, mz, f, s);
 }
 
 template <typename T>
 int dispatch(const void* x, const void* scale, const void* Bs,
              const void* ell, void* ye, void* y, int nd, int mx, int my,
-             int mz, void* stream) {
+             int mz, const Fused<T>& f, void* stream) {
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   const T* bt = static_cast<const T*>(Bs);
@@ -516,13 +707,26 @@ int dispatch(const void* x, const void* scale, const void* Bs,
   T* yet = static_cast<T*>(ye);
   T* yt = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f.epi != EPI_NONE && f.ks == nullptr) return (int)cudaErrorInvalidValue;
   if (nd == 3)
-    return launch<T, 3, typename Products<T, 3>::type>(xt, st, bt, et, yet,
-                                                       yt, mx, my, mz, s);
+    return launch_nd<T, 3>(xt, st, bt, et, yet, yt, mx, my, mz, f, s);
   if (nd == 2)
-    return launch<T, 2, typename Products<T, 2>::type>(xt, st, bt, et, yet,
-                                                       yt, mx, my, mz, s);
+    return launch_nd<T, 2>(xt, st, bt, et, yet, yt, mx, my, mz, f, s);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int fused(const void* x, const void* keep, const void* scale, const void* Bs,
+          const void* ell, void* ye, void* y, const void* ks, const void* ms,
+          const void* b, const void* d, const void* pkm1, double cs,
+          double omega, int epi, int nd, int mx, int my, int mz,
+          void* stream) {
+  const Fused<T> f{static_cast<const unsigned*>(keep),
+                   static_cast<const T*>(ks),
+                   static_cast<const T*>(ms),   static_cast<const T*>(b),
+                   static_cast<const T*>(d),    static_cast<const T*>(pkm1),
+                   cs, omega, epi};
+  return dispatch<T>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, f, stream);
 }
 
 }  // namespace
@@ -535,13 +739,46 @@ int dispatch(const void* x, const void* scale, const void* Bs,
 extern "C" int a00_apply_f32(const void* x, const void* scale, const void* Bs,
                              const void* ell, void* ye, void* y, int nd,
                              int mx, int my, int mz, void* stream) {
-  return dispatch<float>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, stream);
+  return dispatch<float>(x, scale, Bs, ell, ye, y, nd, mx, my, mz,
+                         Fused<float>{}, stream);
 }
 
 extern "C" int a00_apply_f64(const void* x, const void* scale, const void* Bs,
                              const void* ell, void* ye, void* y, int nd,
                              int mx, int my, int mz, void* stream) {
-  return dispatch<double>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, stream);
+  return dispatch<double>(x, scale, Bs, ell, ye, y, nd, mx, my, mz,
+                          Fused<double>{}, stream);
+}
+
+// The fused forms: keep (kernels/a00.py:keep_bit_table's nel x NW int32
+// words of the operator's keep vector, or null) scales x in the element
+// kernel's loads;
+// epi (0 none, 1 mask, 2 cheb_first, 3 cheb_step) picks the node gather's
+// store epilogue, which reads x itself as x_u (x0, p_k), the keep and mask
+// vectors ks, ms (both non-null with an epilogue), b and d (the Chebyshev
+// forms) and p_km1 (the step), each a contiguous nu-vector of x's dtype;
+// scale and omega are rounded to the dtype here (as torch rounds a Python
+// scalar). y aliases no input.
+extern "C" int a00_fused_f32(const void* x, const void* keep,
+                             const void* scale, const void* Bs,
+                             const void* ell, void* ye, void* y,
+                             const void* ks, const void* ms, const void* b,
+                             const void* d, const void* pkm1, double cs,
+                             double omega, int epi, int nd, int mx, int my,
+                             int mz, void* stream) {
+  return fused<float>(x, keep, scale, Bs, ell, ye, y, ks, ms, b, d, pkm1, cs,
+                      omega, epi, nd, mx, my, mz, stream);
+}
+
+extern "C" int a00_fused_f64(const void* x, const void* keep,
+                             const void* scale, const void* Bs,
+                             const void* ell, void* ye, void* y,
+                             const void* ks, const void* ms, const void* b,
+                             const void* d, const void* pkm1, double cs,
+                             double omega, int epi, int nd, int mx, int my,
+                             int mz, void* stream) {
+  return fused<double>(x, keep, scale, Bs, ell, ye, y, ks, ms, b, d, pkm1,
+                       cs, omega, epi, nd, mx, my, mz, stream);
 }
 
 extern "C" const char* a00_error_string(int err) {

@@ -4,12 +4,18 @@
 //                                                          is not given)
 //     cheb_step:  p_{k+1} = omega ((scale (d (b - A p_k)) + p_k) - p_{k-1})
 //                           + p_{k-1}
+//     cheb_first_masked / cheb_step_masked: the same with A x = y ks + ms x
+//                           formed in the loads from the raw apply y and
+//                           the Dirichlet keep / mask vectors (the cart
+//                           path's fine level, whose halo exchange sits
+//                           between K1's raw output and the mask terms)
 //
 // Replaces the loop body of exsaddle_tpu/treeops.py:167 cheb_smooth (the
 // PETSc Chebyshev recurrence with a Jacobi preconditioner d = 1/diag A),
 // which XLA fused, and on the stencil levels unrolled, on the TPU. The
-// operator apply A p_k stays outside (K1, K4 or the Mp apply); this
-// kernel takes its result.
+// operator apply A p_k stays outside (K1 or the Mp apply); this kernel
+// takes its result. On the stencil levels K4, and on the single-device
+// fine level K1's node gather, compute the update in their store instead.
 //
 // Bound on an H100 SXM: a step reads 5 vectors and writes 1, 7 FLOP per
 // entry. On the mx=32 fine level (823,875 entries) that is 19.8 MB in
@@ -22,25 +28,22 @@
 //
 // Design: one thread per entry, scalar coalesced loads (vectors here may
 // start at any offset: the p-block's right-hand side is a view into the
-// saddle vector). Bitwise with its plain twin (kernels/cheb.py): every
-// operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
-// __fsub_rn and the __d* forms) in the twin's order, so nvcc contracts
-// nothing into an FMA, and the host scalars arrive rounded to the working
-// dtype as torch rounds a Python scalar. The smoother therefore computes
-// the same bits as the plain torch ops and cannot move an iteration count.
+// saddle vector). Bitwise with its plain twin (kernels/cheb.py): the
+// arithmetic is cheb_math.cuh's explicitly rounded intrinsics in the twin's
+// order, so nvcc contracts nothing into an FMA, and the host scalars arrive
+// rounded to the working dtype as torch rounds a Python scalar. The
+// smoother therefore computes the same bits as the plain torch ops and
+// cannot move an iteration count.
 
 #include <cuda_runtime.h>
 
+#include "cheb_math.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+using cheb_math::sub;
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+constexpr int THREADS = 256;
 
 template <typename T>
 __global__ void cheb_first_kernel(const T* __restrict__ b,
@@ -51,7 +54,7 @@ __global__ void cheb_first_kernel(const T* __restrict__ b,
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const T r = ax0 == nullptr ? b[i] : sub(b[i], ax0[i]);
-  out[i] = add(mul(scale, mul(d[i], r)), x0[i]);
+  out[i] = cheb_math::first(r, d[i], x0[i], scale);
 }
 
 template <typename T>
@@ -63,10 +66,34 @@ __global__ void cheb_step_kernel(const T* __restrict__ b,
                                  T* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const T z = mul(d[i], sub(b[i], ap[i]));
-  const T t = add(mul(scale, z), pk[i]);
-  const T pm = pkm1[i];
-  out[i] = add(mul(omega, sub(t, pm)), pm);
+  out[i] = cheb_math::step(b[i], ap[i], d[i], pk[i], pkm1[i], scale, omega);
+}
+
+// y: the raw apply of x0 (p_k); ks, ms: the Dirichlet keep and mask
+// vectors. A x0 = y ks + ms x0, formed before the update as the twin does.
+template <typename T>
+__global__ void cheb_first_masked_kernel(
+    const T* __restrict__ b, const T* __restrict__ y, const T* __restrict__ ks,
+    const T* __restrict__ ms, const T* __restrict__ d,
+    const T* __restrict__ x0, T scale, T* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const T x = x0[i];
+  const T ax0 = cheb_math::masked(y[i], ks[i], ms[i], x);
+  out[i] = cheb_math::first(sub(b[i], ax0), d[i], x, scale);
+}
+
+template <typename T>
+__global__ void cheb_step_masked_kernel(
+    const T* __restrict__ b, const T* __restrict__ y, const T* __restrict__ ks,
+    const T* __restrict__ ms, const T* __restrict__ d,
+    const T* __restrict__ pk, const T* __restrict__ pkm1, T scale, T omega,
+    T* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const T p = pk[i];
+  const T ap = cheb_math::masked(y[i], ks[i], ms[i], p);
+  out[i] = cheb_math::step(b[i], ap, d[i], p, pkm1[i], scale, omega);
 }
 
 unsigned int blocks(long long n) {
@@ -93,6 +120,35 @@ int step(const void* b, const void* ap, const void* d, const void* pk,
   cheb_step_kernel<T><<<blocks(n), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(b), static_cast<const T*>(ap),
+      static_cast<const T*>(d), static_cast<const T*>(pk),
+      static_cast<const T*>(pkm1), static_cast<T>(scale),
+      static_cast<T>(omega), static_cast<T*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int first_masked(const void* b, const void* y, const void* ks,
+                 const void* ms, const void* d, const void* x0, double scale,
+                 void* out, long long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cheb_first_masked_kernel<T><<<blocks(n), THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(b), static_cast<const T*>(y),
+      static_cast<const T*>(ks), static_cast<const T*>(ms),
+      static_cast<const T*>(d), static_cast<const T*>(x0),
+      static_cast<T>(scale), static_cast<T*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int step_masked(const void* b, const void* y, const void* ks, const void* ms,
+                const void* d, const void* pk, const void* pkm1, double scale,
+                double omega, void* out, long long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cheb_step_masked_kernel<T><<<blocks(n), THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(b), static_cast<const T*>(y),
+      static_cast<const T*>(ks), static_cast<const T*>(ms),
       static_cast<const T*>(d), static_cast<const T*>(pk),
       static_cast<const T*>(pkm1), static_cast<T>(scale),
       static_cast<T>(omega), static_cast<T*>(out), n);
@@ -130,4 +186,42 @@ extern "C" int cheb_step_f64(const void* b, const void* ap, const void* d,
                              double omega, void* out, long long n,
                              void* stream) {
   return step<double>(b, ap, d, pk, pkm1, scale, omega, out, n, stream);
+}
+
+// The masked forms: y is the raw apply (K1 with the keep in its loads, the
+// halo planes added), ks / ms the keep and mask vectors, all of n entries.
+extern "C" int cheb_first_masked_f32(const void* b, const void* y,
+                                     const void* ks, const void* ms,
+                                     const void* d, const void* x0,
+                                     double scale, void* out, long long n,
+                                     void* stream) {
+  return first_masked<float>(b, y, ks, ms, d, x0, scale, out, n, stream);
+}
+
+extern "C" int cheb_first_masked_f64(const void* b, const void* y,
+                                     const void* ks, const void* ms,
+                                     const void* d, const void* x0,
+                                     double scale, void* out, long long n,
+                                     void* stream) {
+  return first_masked<double>(b, y, ks, ms, d, x0, scale, out, n, stream);
+}
+
+extern "C" int cheb_step_masked_f32(const void* b, const void* y,
+                                    const void* ks, const void* ms,
+                                    const void* d, const void* pk,
+                                    const void* pkm1, double scale,
+                                    double omega, void* out, long long n,
+                                    void* stream) {
+  return step_masked<float>(b, y, ks, ms, d, pk, pkm1, scale, omega, out, n,
+                            stream);
+}
+
+extern "C" int cheb_step_masked_f64(const void* b, const void* y,
+                                    const void* ks, const void* ms,
+                                    const void* d, const void* pk,
+                                    const void* pkm1, double scale,
+                                    double omega, void* out, long long n,
+                                    void* stream) {
+  return step_masked<double>(b, y, ks, ms, d, pk, pkm1, scale, omega, out,
+                             n, stream);
 }

@@ -297,13 +297,15 @@ def track(counter):
 def _counters():
     """Every count a body or piece can move: K1's launches and applies,
     K4's, K6's, K4's by fused epilogue, each control kernel's, K5's and
-    K5's by form, then the tracked counters."""
+    K5's by form, K1's and K6's by form, then the tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
             + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
             + tuple(krylov_ctl.LAUNCHES.n[k] for k in krylov_ctl.NAMES)
             + (transfer.LAUNCHES.n,)
             + tuple(transfer.LAUNCHES.by[f] for f in transfer.FORMS)
+            + tuple(a00.LAUNCHES.by[f] for f in a00.FORMS)
+            + tuple(cheb.LAUNCHES.by[f] for f in cheb.FORMS)
             + tuple(c.n for c in _TRACKED))
 
 
@@ -318,6 +320,10 @@ def _set_counters(vals):
     transfer.LAUNCHES.n = vals.pop(0)
     for f in transfer.FORMS:
         transfer.LAUNCHES.by[f] = vals.pop(0)
+    for f in a00.FORMS:
+        a00.LAUNCHES.by[f] = vals.pop(0)
+    for f in cheb.FORMS:
+        cheb.LAUNCHES.by[f] = vals.pop(0)
     for c, v in zip(_TRACKED, vals):
         c.n = v
 

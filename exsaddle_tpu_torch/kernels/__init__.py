@@ -2,7 +2,9 @@
 plain PyTorch version beside it and a launch count.
 
   a00        -- K1, the fused velocity-block apply (replaces
-                exsaddle_tpu/pallas_apply.py:make_pallas_mult_u)
+                exsaddle_tpu/pallas_apply.py:make_pallas_mult_u), with the
+                Dirichlet keep in its loads and, on the fine level, the
+                mask terms and the Chebyshev update in its store
   stencil    -- K4, the 3^ndim-point block stencil apply of the deep MG
                 levels (replaces exsaddle_tpu/abf.py:stencil_accum, an XLA
                 fusion on the TPU), with the levels' Chebyshev update and
@@ -15,7 +17,8 @@ plain PyTorch version beside it and a launch count.
                 restrict_grid, XLA fusions on the TPU)
   cheb       -- K6, the Chebyshev smoother's vector update with a Jacobi
                 preconditioner, one pass per step (replaces the loop body
-                of exsaddle_tpu/treeops.py:cheb_smooth, an XLA fusion)
+                of exsaddle_tpu/treeops.py:cheb_smooth, an XLA fusion),
+                and its masked forms for the cart path's fine level
   krylov_ctl -- the Krylov control kernels: the scalar tails of the GCR,
                 FGMRES and refinement loop bodies, run inside the solve's
                 CUDA graph (the JAX package compiles them into its

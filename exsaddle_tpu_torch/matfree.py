@@ -35,7 +35,8 @@ import torch
 from exsaddle_tpu_torch.grid_ops import (split_u_parity, gather_u_parity,
                                          scatter_u_parity, _gather_q1,
                                          _scatter_q1, _gather_q2, _scatter_q2)
-from exsaddle_tpu_torch.kernels.a00 import a00_apply, node_gather_table
+from exsaddle_tpu_torch.kernels.a00 import (a00_apply, keep_bit_table,
+                                            node_gather_table)
 from exsaddle_tpu_torch.treeops import smap
 
 def _strain_matrix(G, nd, nbu):
@@ -383,6 +384,12 @@ class ParityMatFreeOperator:
             return self.gather_table
         return torch.as_tensor(node_gather_table(self.m_el),
                                device=self.Bs.device)
+
+    @cached_property
+    def keep_bits(self):
+        """K1's keep bit table (kernels/a00.py:keep_bit_table) of this
+        operator's velocity keep, built at its first keep apply."""
+        return keep_bit_table(self)
 
     @property
     def ndof(self):

@@ -40,9 +40,10 @@ import torch
 
 from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
-                                    mp_apply, mult_u_tree, mult_up_tree,
+                                    mp_apply, mult_u_raw, mult_u_tree,
+                                    mult_up_tree,
                                     stencil_from_csr, _esteig_bounds)
-from exsaddle_tpu_torch.kernels import stencil, transfer
+from exsaddle_tpu_torch.kernels import cheb, stencil, transfer
 from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
@@ -664,6 +665,11 @@ class CartBlocks:
     def fine_mult(self, xu):
         return mult_u_tree(self.ops, self.aux, xu, halo_u=self.halo_u)
 
+    def fine_raw(self, xu):
+        """K1 of ks x_u per shard (the keep in K1's loads), the interface
+        planes added: the fine apply before its keep/mask terms."""
+        return mult_u_raw(self.ops, self.aux, xu, halo_u=self.halo_u)
+
     # --- the local L-2 slabs <-> the replicated full L-2 grid -----------
     def _l1_slices(self, i):
         nd, mloc, box = self.nd, self.dcfg.mloc, self.smesh.boxes[i]
@@ -721,13 +727,43 @@ class _ShardedStencil:
             self._ghosted(p_k), b, d, p_km1)
 
 
+class _ShardedFine:
+    """The sharded fine level as the smoothers and the V-cycle take it
+    (kernels.a00.A00Op's interface on ShardVecs): called, the fine apply
+    (K1 with the keep in its loads, the halo, the mask terms as torch ops);
+    its Chebyshev updates run K1 with the keep, the halo, then K6's masked
+    form per shard, which forms y ks + ms x in its loads (bitwise the
+    separate ops: the halo sits between K1's raw output and the masks, so
+    they cannot go into K1's store)."""
+
+    def __init__(self, blk):
+        self.blk = blk
+
+    def __call__(self, xu):
+        return self.blk.fine_mult(xu)
+
+    def cheb_first(self, b, x0, d, scale):
+        ks, ms = self.blk.aux[0], self.blk.aux[1]
+        return smap(lambda b_, y, k, m, d_, x: cheb.cheb_first_masked(
+            b_, y, k, m, d_, x, scale), b, self.blk.fine_raw(x0), ks, ms, d,
+            x0)
+
+    def cheb_step(self, b, p_k, p_km1, d, scale, omega):
+        ks, ms = self.blk.aux[0], self.blk.aux[1]
+        return smap(lambda b_, y, k, m, d_, p, q: cheb.cheb_step_masked(
+            b_, y, k, m, d_, p, q, scale, omega), b, self.blk.fine_raw(p_k),
+            ks, ms, d, p_k, p_km1)
+
+
 def _cart_bodies(dcfg, smesh, dd, blk):
     """The sharded ABF solve's bodies over placed data `dd` and the blocks
     `blk` (the structure of the JAX package's shard_map body): mg_pc (one
     V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev polynomial
     on pressure grids) and up (the A01 apply of a p ShardVec, halos
     included). Every Chebyshev smoother takes its level's inverse diagonal
-    as diag=, so its update is K6 per shard on the fine and p levels and,
+    as diag=, so its update is K6 per shard on the p level, K6's masked
+    form after K1 (keep in its loads) and the halo on the fine level
+    (_ShardedFine) and,
     on the stencil levels (L-2 per shard, the replicated levels per
     distinct device), computed in K4's store, as is their residual. The
     transfers are K5's entries: the parity pair per shard (the
@@ -805,8 +841,10 @@ def _cart_bodies(dcfg, smesh, dd, blk):
 
     eminf, emaxf = dd["bounds"][-1]
 
+    fineA = _ShardedFine(blk)
+
     def smooth_fine(b, x0v, pre=False):
-        return treeops.cheb_smooth(blk.fine_mult, None, eminf, emaxf,
+        return treeops.cheb_smooth(fineA, None, eminf, emaxf,
                                    pre_its if pre else cfg.cheb_its,
                                    b, x0v, x0_zero=pre,
                                    diag=dd["inv_diag_fine"])

@@ -251,11 +251,14 @@ def cheb_smooth(mult, pc_apply, emin, emax, its, b, x0, x0_zero=False,
     kernels.cheb call per shard (K6: one kernel pass on CUDA, bitwise the
     ops of the callable path; those ops on the CPU).
 
-    With diag given and `mult` a stencil operator object (one carrying
-    cheb_first and cheb_step: kernels.stencil.StencilOp, the cart path's
-    L-2 operator), each apply and its update are one call of mult's fused
-    form (K4 with K6's update in its store, bitwise the separate calls);
-    a zero-guess first step, which applies nothing, stays K6.
+    With diag given and `mult` an operator object with fused updates (one
+    carrying cheb_first and cheb_step: kernels.stencil.StencilOp and the
+    cart path's L-2 operator, K4 with K6's update in its store;
+    kernels.a00.A00Op, K1 with the Dirichlet terms and the update in its
+    loads and store; the cart path's fine operator, K1 with the keep in its
+    loads, the halo, then K6's masked form), each apply and its update are
+    one call of mult's fused form, bitwise the separate calls; a zero-guess
+    first step, which applies nothing, stays K6.
 
     x0_zero=True asserts x0 is exactly zero and skips the initial
     r = b - A x0 apply (A 0 == 0 bitwise, so the result is identical with

@@ -1,0 +1,364 @@
+"""K1 (exsaddle_tpu_torch/csrc/a00_apply.cu) on one CUDA card beside an
+earlier build of its source, and the fine level's fused forms against the
+launches they replace.
+
+    python3 k1_tune.py --parent OLD.cu [--variant ALT.cu ...]
+
+OLD.cu is a K1 source with this version's C ABI for the plain apply:
+a00_apply_f32 / _f64 (x, scale_visc, Bs, ell, ye, y, nd, mx, my, mz,
+stream) and a00_error_string. Each ALT.cu is a variant of this version's
+source (its C ABI, fused forms included; it may include csrc/'s headers).
+Each is built into a library of its own.
+
+1. Byte for byte: on the mx=32 flagship's fine level (pseudoice, 3D), a
+   2D SolCx mesh (64 x 64) and a ragged 3D mesh (5 x 7 x 3 elements), in
+   float32 and float64, this build's plain apply (keep=None) against the
+   parent's, and its keep form against the parent's apply of x * ks.
+2. Times at the flagship's fine level, both precisions: the parent's
+   plain apply, this build's plain apply and its keep form, alternated
+   (parent, this, keep, keep, this, parent), each cold and hot (graphs of
+   50 calls replayed; cold: the vectors cycled through copies that move 3x
+   the L2), beside the bound by bytes of each. With variants: each
+   variant's keep, mask and Chebyshev-step forms byte for byte this
+   build's, and its keep form timed alternated with this build's (this,
+   variants, variants reversed, this).
+3. The flagship's device-loop IR solve under the bench's tuned schedule
+   (mx=32, float32 inner solves, 4 levels), over one setup, in two
+   routings: this PR's (K1's fused forms: the keep in its loads, the mask
+   terms and the fine level's Chebyshev updates in its node gather's
+   store) and the parent's (the parent's K1 without keep, the torch mask
+   ops, K6: every fused entry swapped for its twin, with the twins' K1
+   taken from the parent's library). The two solves must agree bit for bit
+   (x, history, rounds, inner its) with equal K1 launches; their walls
+   alternated (parent, PR, PR, parent, twice; median of 3 solves per
+   turn), with each routing's K1 and K6 launches per solve.
+
+The last line is one JSON object with every number. It exits 1 if any
+output differs. Needs a CUDA card and nvcc."""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from exsaddle_tpu_torch import abf as tabf
+from exsaddle_tpu_torch import bench
+from exsaddle_tpu_torch.kernels import _build, a00, cheb
+from exsaddle_tpu_torch.matfree import tree_aux
+
+F32, F64 = torch.float32, torch.float64
+CASES = [("3D mx=32 pseudoice", 3, (32, 32, 32), 11, (0.1, 1.0, 1.0)),
+         ("2D mx=my=64 SolCx", 2, (64, 64), 0, (1.0, 1.0)),
+         ("3D ragged 5x7x3", 3, (5, 7, 3), 11, (0.1, 1.0, 1.0))]
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def build_parent(src, out_dir):
+    """The parent's K1 as its own ctypes library."""
+    out = os.path.join(out_dir, "libk1_parent.so")
+    cmd = [_build._nvcc()] + _build.NVCC_FLAGS + ["-shared", "-o", out, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    log(f"[k1_tune] built {src} in {time.perf_counter() - t0:.1f} s")
+    lib = ctypes.CDLL(out)
+    for sfx in ("_f32", "_f64"):
+        f = getattr(lib, "a00_apply" + sfx)
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    lib.a00_error_string.argtypes = [ctypes.c_int]
+    lib.a00_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def parent_apply(lib):
+    """The parent's plain apply behind a00._k1's signature (counted as an
+    apply of the plain form, as this build's is)."""
+    def apply(op, xu):
+        a00._check(op, xu)
+        nd = len(op.m_el)
+        mz = op.m_el[2] if nd == 3 else 1
+        fn = lib.a00_apply_f32 if xu.dtype == F32 else lib.a00_apply_f64
+        ye = torch.empty(op.scale_visc.shape[0], 3 ** nd * nd,
+                         dtype=xu.dtype, device=xu.device)
+        y = torch.empty_like(xu)
+        err = fn(xu.data_ptr(), op.scale_visc.data_ptr(), op.Bs.data_ptr(),
+                 op.node_table.data_ptr(), ye.data_ptr(), y.data_ptr(), nd,
+                 op.m_el[0], op.m_el[1], mz,
+                 torch.cuda.current_stream(xu.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K1 launch failed: "
+                               f"{lib.a00_error_string(err).decode()}")
+        a00.LAUNCHES.n += a00.KERNELS_PER_APPLY
+        a00.LAUNCHES.applies += 1
+        a00.LAUNCHES.by["a00_apply"] += 1
+        return y
+    return apply
+
+
+def build_variant(src, out_dir, i):
+    """A variant of this version's K1 source as its own library."""
+    out = os.path.join(out_dir, f"libk1_variant{i}.so")
+    cmd = [_build._nvcc()] + _build.NVCC_FLAGS + [
+        "-I", _build.CSRC, "-shared", "-o", out, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    main = _build.load()
+    for sfx in ("_f32", "_f64"):
+        for kind in ("a00_apply", "a00_fused"):
+            ref = getattr(main, kind + sfx)
+            f = getattr(lib, kind + sfx)
+            f.argtypes, f.restype = ref.argtypes, ref.restype
+    lib.a00_error_string.argtypes = [ctypes.c_int]
+    lib.a00_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class installed:
+    """K1's entries launch a variant library's kernels inside the block."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        a00._fn(F32)                       # bind this build's first
+        self.saved = a00._fn
+        lib = self.lib
+        a00._fn = lambda dtype, fused=False: (lib, getattr(
+            lib, ("a00_fused" if fused else "a00_apply")
+            + ("_f32" if dtype == F32 else "_f64")))
+
+    def __exit__(self, *exc):
+        a00._fn = self.saved
+
+
+def variants(vlibs, device, card):
+    """Each variant's keep, mask and step forms against this build's,
+    byte for byte; its keep form's times alternated with this build's."""
+    bad, out = [], {}
+    name, ndim, m, model, size = CASES[0]
+    for dtype in (F32, F64):
+        op = cs._operator(ndim, m, model, size, dtype, device)
+        aux = tree_aux(op)
+        rng = np.random.default_rng(7)
+        x, b, q = (torch.as_tensor(rng.standard_normal(op.nu), dtype=dtype,
+                                   device=device) for _ in range(3))
+        d = torch.as_tensor(rng.uniform(0.5, 1.5, op.nu), dtype=dtype,
+                            device=device)
+        forms = {"keep": lambda v: a00.a00_apply(op, v, keep=aux[0]),
+                 "masked": lambda v: a00.a00_masked(op, aux, v),
+                 "step": lambda v: a00.a00_cheb_step(op, aux, b, v, q, d,
+                                                     0.37, 1.61)}
+        ref = {k: f(x) for k, f in forms.items()}
+        builds = [("this", None)] + [(f"variant {i}", lib)
+                                     for i, lib in enumerate(vlibs)]
+        for bname, lib in builds[1:]:
+            with installed(lib):
+                same = {k: cs._same_bits(f(x), ref[k])
+                        for k, f in forms.items()}
+            if not all(same.values()):
+                bad.append((bname, str(dtype), same))
+            log(f"[k1_tune] {bname} {str(dtype)[6:]}: keep / mask / step "
+                f"forms {same} byte for byte this build's")
+        rec = {n: [] for n, _ in builds}
+        for bname, lib in builds + builds[::-1]:
+            if lib is None:
+                rec[bname].append(cs._hot_cold(forms["keep"], (x,)))
+            else:
+                with installed(lib):
+                    rec[bname].append(cs._hot_cold(forms["keep"], (x,)))
+        for bname, t in rec.items():
+            log(f"[k1_tune] {name} {str(dtype)[6:]} keep form, {bname}: "
+                "cold " + ", ".join(f"{1e3 * c:.2f}" for _, c in t)
+                + " us, hot " + ", ".join(f"{1e3 * h:.2f}" for h, _ in t)
+                + f" us ({card})")
+        out[str(dtype)[6:]] = {k: [[1e3 * c, 1e3 * h] for h, c in t]
+                               for k, t in rec.items()}
+        del op, aux, x, b, q, d, ref
+        torch.cuda.empty_cache()
+    return out, bad
+
+
+def byte_for_byte(papply, device):
+    bad = []
+    for name, ndim, m, model, size in CASES:
+        for dtype in (F32, F64):
+            op = cs._operator(ndim, m, model, size, dtype, device)
+            ks = tree_aux(op)[0]
+            x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+                op.nu), dtype=dtype, device=device)
+            x[::7] = -0.0
+            same = (cs._same_bits(a00.a00_apply(op, x), papply(op, x)),
+                    cs._same_bits(a00.a00_apply(op, x, keep=ks),
+                                  papply(op, x * ks)))
+            if not all(same):
+                bad.append((name, str(dtype), same))
+            log(f"[k1_tune] {name} {str(dtype)[6:]}: plain apply "
+                f"{'byte for byte' if same[0] else 'DIFFERS from'} the "
+                f"parent's; keep form "
+                f"{'byte for byte' if same[1] else 'DIFFERS from'} the "
+                f"parent's apply of x * ks")
+    return bad
+
+
+def times(papply, device, card):
+    """Cold / hot us of the parent's plain apply, this one and the keep
+    form at the flagship's fine level, alternated."""
+    out = {}
+    name, ndim, m, model, size = CASES[0]
+    order = ("parent", "this", "keep", "keep", "this", "parent")
+    for dtype in (F32, F64):
+        op = cs._operator(ndim, m, model, size, dtype, device)
+        ks = tree_aux(op)[0]
+        rng = np.random.default_rng(5)
+        args = (torch.as_tensor(rng.standard_normal(op.nu), dtype=dtype,
+                                device=device),)
+        fns = {"parent": lambda x: papply(op, x),
+               "this": lambda x: a00.a00_apply(op, x),
+               "keep": lambda x: a00.a00_apply(op, x, keep=ks)}
+        rec = {k: [] for k in fns}
+        for k in order:
+            hot, cold = cs._hot_cold(fns[k], args)
+            rec[k].append([1e3 * cold, 1e3 * hot])
+        for k, t in rec.items():
+            form = "a00_apply_keep" if k == "keep" else "a00_apply"
+            _, _, bytes_ms, nbytes = cs._fused_bound(op, dtype, form)
+            log(f"[k1_tune] {name} {str(dtype)[6:]} {k}: cold "
+                + ", ".join(f"{c:.2f}" for c, _ in t) + " us, hot "
+                + ", ".join(f"{h:.2f}" for _, h in t)
+                + f" us; bound by bytes {1e3 * bytes_ms:.2f} us "
+                f"({nbytes / 1e6:.1f} MB) ({card})")
+        out[str(dtype)[6:]] = rec
+        del op, ks, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def walls(papply, device, card, turns=2, per_turn=3):
+    """The tuned device-loop IR solve in the PR's routing and the
+    parent's, over one setup: bitwise, counts, walls alternated."""
+    t0 = time.perf_counter()
+    p = bench._build_problem(32, with_rhs=True)
+    base = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                          p["bc_vals"], device=device, dtype=F32, nlevels=4,
+                          ir=True, loop="plain",
+                          **bench.bench_solver_kw(env=False))
+    cfg, data, setup = base.cfg, base.data, base.setup
+    log(f"[k1_tune] mx=32 float32 4-level setup (tuned schedule) "
+        f"{time.perf_counter() - t0:.2f} s")
+    F = p["F_raw"] + setup["rhs_diri"]
+    kw = dict(device=device, dtype=F32, ir=True)
+    slv = {"PR": tabf.ABFSolver.from_parts(cfg, data, setup, **kw)}
+    swaps = [(a00, n, t) for n, t in a00.TWINS.items()] + [
+        (a00, "_k1", papply)]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
+
+    def install():
+        for mod, n, fn in swaps:
+            setattr(mod, n, fn)
+
+    def restore():
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+    install()
+    try:
+        slv["parent"] = tabf.ABFSolver.from_parts(cfg, data, setup, **kw)
+        first = {"parent": cs._ir_solve(slv["parent"], F)}
+    finally:
+        restore()
+    first["PR"] = cs._ir_solve(slv["PR"], F)
+    a, b = first["PR"], first["parent"]
+    same = (slv["PR"].loop == slv["parent"].loop == "device"
+            and cs._same_ir(a["res"], b["res"])
+            and (a["launches"], a["applies"]) == (b["launches"],
+                                                  b["applies"]))
+    for k, q in first.items():
+        log(f"[k1_tune] device-loop IR solve, {k} routing: "
+            f"{q['res']['rounds']} rounds / {q['res']['inner_its']} inner "
+            f"its, K1 {q['launches']} launches in {q['applies']} applies "
+            f"(by form {q['a00_by']}), K6 {q['mg'][1]} launches (by form "
+            f"{q['k6_by']}), K4 {q['mg'][0]}, {q['graph_launches']} graph "
+            f"launch")
+    log(f"[k1_tune] the two routings "
+        + ("agree bit for bit (x, history, rounds, inner its) with equal "
+           "K1 launches" if same else "DIFFER"))
+    rec = {"parent": [], "PR": []}
+    for _ in range(turns):
+        for k in ("parent", "PR", "PR", "parent"):
+            if k == "parent":
+                install()
+            try:
+                w = []
+                for _ in range(per_turn):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    slv[k].solve_ir(F, rtol=1e-8)
+                    torch.cuda.synchronize()
+                    w.append(time.perf_counter() - t)
+            finally:
+                restore()
+            rec[k].append(float(np.median(w)))
+    for k, w in rec.items():
+        log(f"[k1_tune] device-loop IR solve wall, {k} routing: "
+            + ", ".join(f"{x:.4f}" for x in w) + f" s ({card})")
+    counts = {k: {"rounds": q["res"]["rounds"],
+                  "inner_its": q["res"]["inner_its"],
+                  "k1_launches": q["launches"], "k1_by": q["a00_by"],
+                  "k6_launches": q["mg"][1], "k6_by": q["k6_by"]}
+              for k, q in first.items()}
+    return {"walls_s": rec, "counts": counts, "bitwise": same}, same
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True,
+                    help="an earlier K1 source (a00_apply.cu)")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="a variant of this version's a00_apply.cu")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("k1_tune: no CUDA device available", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    card = cs.phase_device()
+    cs.phase_build()
+    out = {"card": card, "parent": args.parent}
+    with tempfile.TemporaryDirectory() as tmp:
+        papply = parent_apply(build_parent(args.parent, tmp))
+        bad = byte_for_byte(papply, device)
+        out["k1_us"] = times(papply, device, card)
+        if args.variant:
+            vlibs = [build_variant(v, tmp, i)
+                     for i, v in enumerate(args.variant)]
+            out["variants"], more = variants(vlibs, device, card)
+            bad += more
+        out["solve"], same = walls(papply, device, card)
+        if not same:
+            bad.append("device-loop solve")
+    log(f"[k1_tune] against {args.parent}: "
+        + (f"{len(bad)} outputs differ: {bad}" if bad
+           else f"every output byte for byte ({card})"))
+    log(json.dumps(out))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -101,24 +101,28 @@ def test_plain_loop_counts(sinker, monkeypatch):
     """One plain solve's halo exchanges, K6 calls and fused K4 calls
     against what its loop counters say ran: per GCR step a V-cycle over
     the fine and L-2 levels on every shard (pre_its + cheb_its Chebyshev
-    updates on each: K6 on the fine level; on L-2 K4's fused updates and
-    residual, only the zero-guess first update K6) and its fine apply, per
-    Arnoldi step a saddle apply, the p-block (p_cheb_its updates) and an
-    A01 apply, per cycle start a saddle apply. Each K6 call gets operands
-    of b's shape, dtype and device, contiguous, and each fused K4 call
-    operands that K4's launch checks accept, as the kernels require. The
-    host loop makes the same halo exchanges."""
+    updates on each: on the fine level K6, its masked form after the
+    zero-guess first update; on L-2 K4's fused updates and residual, only
+    the zero-guess first update K6) and its fine apply, per Arnoldi step a
+    saddle apply, the p-block (p_cheb_its updates) and an A01 apply, per
+    cycle start a saddle apply. Each K6 call gets operands of b's shape,
+    dtype and device, contiguous, and each fused K4 call operands that
+    K4's launch checks accept, as the kernels require. The host loop makes
+    the same halo exchanges."""
     solver, F = sinker
     calls = []
+    # the vector operands of each K6 form, after b (the rest are scalars)
+    nvecs = {"cheb_first": 3, "cheb_step": 4, "cheb_first_masked": 5,
+             "cheb_step_masked": 6}
 
     def checked(fn):
-        def f(b, a, d, *rest):
-            for t in (b, a, d) + rest[:-1 if fn is cheb.cheb_first else -2]:
+        def f(b, *rest):
+            for t in rest[:nvecs[fn.__name__]]:
                 if t is not None:
                     assert t.shape == b.shape and t.dtype == b.dtype
                     assert t.is_contiguous() and t.device == b.device
             calls.append(fn.__name__)
-            return fn(b, a, d, *rest)
+            return fn(b, *rest)
         return f
 
     def checked_k4(name, vecs):
@@ -130,8 +134,8 @@ def test_plain_loop_counts(sinker, monkeypatch):
             return fn(W, x, *rest, padded=padded)
         return f
 
-    monkeypatch.setattr(cheb, "cheb_first", checked(cheb.cheb_first))
-    monkeypatch.setattr(cheb, "cheb_step", checked(cheb.cheb_step))
+    for name in cheb.FORMS:
+        monkeypatch.setattr(cheb, name, checked(getattr(cheb, name)))
     for name, vecs in (("stencil_residual", ("b",)),
                        ("stencil_cheb_first", ("b", "d")),
                        ("stencil_cheb_step", ("b", "d", "p_km1"))):
@@ -147,10 +151,14 @@ def test_plain_loop_counts(sinker, monkeypatch):
     pre = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
     nshards = len(slv.smesh.devices)
     # a first update per smoother: four per V-cycle (the L-2 post-smooth's
-    # fused), one per p-block
-    assert calls.count("cheb_first") == nshards * (3 * steps + arnoldi)
-    assert calls.count("cheb_step") == nshards * (
-        steps * (pre + cfg.cheb_its - 2) + arnoldi * (cfg.p_cheb_its - 1))
+    # fused into K4, the fine post-smooth's the masked form), one per
+    # p-block
+    assert calls.count("cheb_first") == nshards * (2 * steps + arnoldi)
+    assert calls.count("cheb_first_masked") == nshards * steps
+    assert calls.count("cheb_step") == nshards * arnoldi * (
+        cfg.p_cheb_its - 1)
+    assert calls.count("cheb_step_masked") == nshards * steps * (
+        pre + cfg.cheb_its - 2)
     assert calls.count("stencil_cheb_first") == nshards * steps
     assert calls.count("stencil_cheb_step") == nshards * steps * (
         pre + cfg.cheb_its - 2)

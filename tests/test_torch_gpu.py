@@ -102,6 +102,150 @@ def test_a00_kernel_refuses_bad_input(cuda):
         a00.a00_apply(op, torch.zeros(2 * op.nu, device=cuda)[::2])
 
 
+# K1's fused forms: 2D, a small and a ragged 3D mesh, and the mx=32
+# flagship's fine level (823,875 dofs)
+FUSED_CASES = {"2d": CASES[0], "3d": CASES[1], "ragged": CASES[5],
+               "flagship": (3, (32, 32, 32), False, "11", (0.1, 1.0, 1.0))}
+FUSED_SCALE, FUSED_OMEGA = 0.37, 1.61
+
+
+def _fused_inputs(op, dtype, device, seed):
+    """x, b, p_km1, y (standard normals) and d (in [0.5, 1.5]) of op's nu,
+    on the card."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    x, b, q, y = (t(rng.standard_normal(op.nu)) for _ in range(4))
+    return x, b, q, y, t(rng.uniform(0.5, 1.5, op.nu))
+
+
+def _fused_pairs(op, aux, x, b, q, y, d):
+    """{form: (the fused entry, its twin)} as thunks: K1's four forms (the
+    twins: K1 without keep, then the torch ops and K6 the port issued
+    before) and K6's two masked forms (the twins: torch ops)."""
+    ks, ms = aux[0], aux[1]
+    sc, om = FUSED_SCALE, FUSED_OMEGA
+    return {
+        "a00_apply_keep": (lambda: a00.a00_apply(op, x, keep=ks),
+                           lambda: a00.a00_apply(op, x * ks)),
+        "a00_masked": (lambda: a00.a00_masked(op, aux, x),
+                       lambda: a00.a00_apply(op, x * ks) * ks + ms * x),
+        "a00_cheb_first": (
+            lambda: a00.a00_cheb_first(op, aux, b, x, d, sc),
+            lambda: cheb.cheb_first(b, a00.TWINS["a00_masked"](op, aux, x),
+                                    d, x, sc)),
+        "a00_cheb_step": (
+            lambda: a00.a00_cheb_step(op, aux, b, x, q, d, sc, om),
+            lambda: cheb.cheb_step(b, a00.TWINS["a00_masked"](op, aux, x), d,
+                                   x, q, sc, om)),
+        "cheb_first_masked": (
+            lambda: cheb.cheb_first_masked(b, y, ks, ms, d, x, sc),
+            lambda: cheb.cheb_first_plain(b, y * ks + ms * x, d, x, sc)),
+        "cheb_step_masked": (
+            lambda: cheb.cheb_step_masked(b, y, ks, ms, d, x, q, sc, om),
+            lambda: cheb.cheb_step_plain(b, y * ks + ms * x, d, x, q, sc,
+                                         om))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_a00_fused_forms_bitwise_twins(cuda, case, dtype):
+    """Every fused K1 form bit for bit K1 followed by the unfused ops, and
+    K6's masked forms bit for bit their twins; one K1 apply (two launches)
+    per fused K1 call, counted by form; the keep=None apply repeatable
+    beside the keep form; a keep that is not the operator's own refused."""
+    op = _operator(FUSED_CASES[case], dtype, cuda)
+    aux = tmf.tree_aux(op)
+    vecs = _fused_inputs(op, dtype, cuda, 17)
+    x = vecs[0]
+    assert float(aux[0].min()) == 0.0 and float(aux[1].max()) == 1.0
+    for form, (fused, twin) in _fused_pairs(op, aux, *vecs).items():
+        n0 = (a00.LAUNCHES.n, a00.LAUNCHES.by.get(form, 0),
+              cheb.LAUNCHES.by.get(form, 0))
+        got = fused()
+        if form in a00.FORMS:
+            assert (a00.LAUNCHES.n, a00.LAUNCHES.by[form]) == (
+                n0[0] + 2, n0[1] + 1)
+        else:
+            assert cheb.LAUNCHES.by[form] == n0[2] + 1
+        want = twin()
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), form
+        assert _same_bits(fused(), got), form
+    y0 = a00.a00_apply(op, x)
+    a00.a00_apply(op, x, keep=aux[0])
+    assert _same_bits(a00.a00_apply(op, x), y0)
+    with pytest.raises(ValueError, match="own keep vector"):
+        a00.a00_apply(op, x, keep=torch.ones_like(x))
+
+
+@pytest.mark.gpu
+def test_a00_fused_forms_refuse_bad_input(cuda):
+    """The fused forms' vectors: shape, dtype, device and layout are
+    checked before a launch."""
+    op = _operator(CASES[1], torch.float32, cuda)
+    aux = tmf.tree_aux(op)
+    x, b, q, y, d = _fused_inputs(op, torch.float32, cuda, 2)
+    n0 = a00.LAUNCHES.n
+    with pytest.raises(ValueError, match="keep has shape"):
+        a00.a00_apply(op, x, keep=aux[0][:-1])
+    with pytest.raises(ValueError, match="d is torch.float64"):
+        a00.a00_cheb_first(op, aux, b, x, d.double(), 0.5)
+    with pytest.raises(ValueError, match="p_km1 is torch.float32 on cpu"):
+        a00.a00_cheb_step(op, aux, b, x, q.cpu(), d, 0.5, 1.2)
+    with pytest.raises(ValueError, match="b is not contiguous"):
+        a00.a00_cheb_step(op, aux, torch.stack([b, b], 1)[:, 0], x, q, d,
+                          0.5, 1.2)
+    assert a00.LAUNCHES.n == n0
+    n0 = cheb.LAUNCHES.n
+    with pytest.raises(ValueError, match="ks is"):
+        cheb.cheb_step_masked(b, y, aux[0][:-1], aux[1], d, x, q, 0.5, 1.2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        cheb.cheb_first_masked(b[::2], y[::2], aux[0][::2], aux[1][::2],
+                               d[::2], x[::2], 0.5)
+    assert cheb.LAUNCHES.n == n0
+
+
+@pytest.mark.gpu
+def test_a00_fused_forms_capture_with_launches_counted(cuda):
+    """A fine-level smoothing body (A00Op's fused first step and steps,
+    a masked residual, K6's masked step) captures into a CUDA graph; each
+    replay gives the eager bits and adds the captured launches by form."""
+    from exsaddle_tpu_torch import graphs
+    op = _operator(CASES[6], torch.float32, cuda)
+    aux = tmf.tree_aux(op)
+    x, b, q, y, d = _fused_inputs(op, torch.float32, cuda, 5)
+    A = a00.A00Op(op, aux)
+    op.node_table   # its H2D copy syncs: before any capture
+
+    def body(v):
+        p = A.cheb_first(b, v, d, 0.5)
+        p2 = A.cheb_step(b, p, v, d, 0.5, 1.3)
+        p3 = cheb.cheb_step_masked(b, a00.a00_apply(op, p2, keep=aux[0]),
+                                   aux[0], aux[1], d, p2, p, 0.5, 1.3)
+        return b - A(p3)
+
+    want = body(x)
+
+    def counts():
+        return ((a00.LAUNCHES.n,) + tuple(a00.LAUNCHES.by[f]
+                                          for f in a00.FORMS)
+                + (cheb.LAUNCHES.n,) + tuple(cheb.LAUNCHES.by[f]
+                                             for f in cheb.FORMS))
+
+    per = (8, 0, 1, 1, 1, 1, 1, 0, 0, 0, 1)
+    k0 = counts()
+    g = graphs.Captured(body, x)
+    k1 = counts()
+    assert tuple(b_ - a_ for a_, b_ in zip(k0, k1)) == per
+    for i in range(2):
+        assert torch.equal(g(x), want)
+        k = counts()
+        assert tuple(b_ - a_ for a_, b_ in zip(k1, k)) == tuple(
+            (i + 1) * n for n in per)
+
+
 @pytest.mark.gpu
 def test_driver_on_cuda_matches_cpu(cuda):
     """The driver's default device runs K1 and reproduces the CPU run's
