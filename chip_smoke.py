@@ -68,7 +68,18 @@ Phases, in order; any failure raises and the script exits nonzero:
               yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W); CUDA
               events, cold and hot) and the HBM bound (bytes); the fused
               entries against their twins and the fused Chebyshev step
-              against the K4 + K6 pair it replaces. Then K5, the MG transfers
+              against the K4 + K6 pair it replaces. Then K3, the p-block's
+              Mpscaled apply (csrc/mp_apply.cu), at the flagship's p size
+              (33^3 nodes) on its own pscale, Np, diagonal and bounds, in
+              float32 and float64: its plain form within 1e-5 / 1e-13 of
+              the plain apply over absolute values (mp_apply_plain),
+              bitwise repeatable, its step form (mp_cheb_step: K6's
+              update in its store) bitwise its twin (the plain kernel,
+              then K6); each form, its twin and
+              the parent's launches it replaces (mp_apply_plain, then
+              K6) timed cold and hot as K4; the library yardstick
+              (cuSPARSE CSR SpMV of the assembled Mpscaled) and the bound.
+              Then K5, the MG transfers
               (csrc/transfer.cu), at the flagship's own shapes: the
               parity pair fine <-> L-2, the grid pair L-2 <-> L-3 and
               L-3 <-> coarse, and the parity pair on one cart shard's box
@@ -78,7 +89,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               the next level's first Chebyshev step in its store:
               restrict_grid_cheb_first, with L-3's own diagonal and bounds
               at L-2 -> L-3, also against the restrict_grid + K6
-              cheb_first pair it replaces) bit for bit its twin;
+              cheb_first pair it replaces; the fine residual's restriction
+              with L-2's first Chebyshev step in its store,
+              restrict_parity_residual_cheb_first, likewise at fine ->
+              L-2 with L-2's diagonal and bounds) bit for bit its twin;
               kernel and twin timed cold and hot as K4;
               the grid pair's library yardstick (F.conv3d /
               F.conv_transpose3d with the [0.5, 1, 0.5] tensor-product
@@ -116,23 +130,32 @@ Phases, in order; any failure raises and the script exits nonzero:
               the prolongations with their add, levels - 3 grid
               restrictions into a smoothed level as
               restrict_grid_cheb_first, one into the coarse solve plain),
-              K6 launches per V-cycle, control-kernel, graph
-              launches and replays, loop-body executions and peak memory
-              per solve; K1's fused forms on the fine level (one
-              a00_cheb_first and pre + its - 2 a00_cheb_step per V-cycle,
-              the residual and GCR's operator a00_masked, no keep-only
-              form) and K6's launches per V-cycle. The device-loop solve
+              K6 launches per V-cycle, K3 launches (every p-block step
+              after its zero-guess first one mp_cheb_step; K6 only the
+              fine and p-block zero-guess first steps; the fine residual
+              restricted with L-2's first step in the store once per
+              V-cycle), control-kernel, graph launches and replays,
+              loop-body executions and peak memory per solve; K1's fused
+              forms on the fine level (one a00_cheb_first and pre + its
+              - 2 a00_cheb_step per V-cycle, the residual and GCR's
+              operator a00_masked, no keep-only form) and K6's launches
+              per V-cycle. The device-loop solve
               with K1's fused forms swapped for their twins (the launches
               they replace) is bitwise the fused solve (x, history,
               rounds, inner its), with equal K1 launches and K6 the fused
-              solve's plus one per fused Chebyshev step.
+              solve's plus one per fused Chebyshev step. The same with
+              K3's fused forms and the fused fine restriction swapped for
+              their twins: bitwise, K6 one more per K3 step and per
+              V-cycle; and the order witness, K3's entries swapped for the
+              parent's routing (mp_apply_plain, then K6): its rounds and
+              inner its logged beside the kernel's.
               Then the float64 witness: the same flagship as
               a float64 direct
               solve through the driver (device loop) and over its setup
               with loop="host": equal iterations, reason and K1 counts;
               and over the same setup with every K4 and K5 entry, K1's
-              fused forms and K6 swapped for their twins: the same reason
-              and iterations, x within 1e-10.
+              fused forms, K6 and K3 (mp_apply_plain) swapped for their
+              twins: the same reason and iterations, x within 1e-10.
 6. host_anchor -- the host KSP/PC route on CUDA for three reference trees
               (3d_mg_1, abf.opts under -tpu 0, ildl_1): each must reach
               CONVERGED_RTOL in exactly the JAX package's iteration count,
@@ -200,8 +223,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               grid restrictions into a smoothed replicated level as
               restrict_grid_cheb_first), K6 (its masked forms: every
               fine-level step after a zero guess) and K1's keep form
-              (every fine apply; K1's store epilogues never run there) and
-              control launches (each above 0), peak memory. The
+              (every fine apply; K1's store epilogues never run there),
+              K3 (its plain form only, one launch per shard and p-block
+              step) and control launches (each above 0), peak memory. The
               driver's sharded solver runs the device loop (one CUDA graph
               with conditional nodes per solve, CartABFSolver loop
               "device"); over its setup the device loop, the plain driver
@@ -216,8 +240,11 @@ Phases, in order; any failure raises and the script exits nonzero:
               and the graph launch's CUDA-event span with the card; then
               a device-loop solve with every K5 entry, K1's keep form and
               K6's masked forms swapped for their twins, x and history
-              bitwise the kernels' solve, K1 launches equal. K1 (and its
-              keep form), K6's masked forms,
+              bitwise the kernels' solve, K1 launches equal; and with K3
+              swapped for mp_apply_plain (the order witness, float64):
+              the same its and reason, x within 1e-10. K1 (and its
+              keep form), K6's masked forms, K3 (within 1e-13 of the
+              apply over absolute values on each shard's box and pscale),
               K4 (and its fused epilogues, bitwise K4 + K6), K5's weighted
               residual restriction (on each shard's own weights, bitwise)
               and K6 on the sharded solver's own operands against their
@@ -262,7 +289,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               with K4 and with every K4 entry swapped for its plain twin:
               K4 gives the bench's tuned counts with every stencil apply
               fused and 2 (levels - 1) K5 launches per V-cycle, the twins
-              the pre-K4 band (BENCH_TWIN_BAND) and no K4 launch.
+              the pre-K4 band (BENCH_TWIN_BAND) and no K4 launch; the K4
+              solve's K3 and K6 launches as in phase main, and a third
+              solve with K3's entries swapped for the parent's routing
+              (the order witness of the tuned solve: its counts logged).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -299,6 +329,7 @@ from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.kernels import cheb
 from exsaddle_tpu_torch.kernels import krylov_ctl
+from exsaddle_tpu_torch.kernels import mp
 from exsaddle_tpu_torch.kernels import stencil
 from exsaddle_tpu_torch.kernels import transfer
 from exsaddle_tpu_torch.krylov import KSP, KSPConfig
@@ -1060,15 +1091,22 @@ def _cheb_scalars(emin, emax, npdt=np.float64):
 K5_KERNELS = {"prolong_parity": ("prolong_parity", "prolong_parity_add"),
               "restrict_parity": ("restrict_parity",
                                   "restrict_parity_residual",
+                                  "restrict_parity_residual_cheb_first",
                                   "restrict_parity_weighted_residual"),
               "prolong_grid": ("prolong_grid", "prolong_grid_add"),
               "restrict_grid": ("restrict_grid", "restrict_grid_cheb_first")}
 K5_FUSED = ("prolong_parity_add", "restrict_parity_residual",
+            "restrict_parity_residual_cheb_first",
             "restrict_parity_weighted_residual", "prolong_grid_add",
             "restrict_grid_cheb_first")
 # the fused form only the cart V-cycle runs (its ownership-weighted
-# residual); the single-device path runs every other form
+# residual); the single-device path runs every other form but K5_NONE
 K5_CART = ("restrict_parity_weighted_residual",)
+# the fused form no V-cycle of this script runs: the fine residual
+# restricted without L-2's first Chebyshev step, which only a 2-level
+# V-cycle takes (L-2 the coarse solve); held against its twin in phase
+# mg_kernels, without a row in the kernels line
+K5_NONE = ("restrict_parity_residual",)
 # the JAX functions each K5 kernel replaces
 K5_REPLACES = {"prolong_parity": "exsaddle_tpu/abf.py:110",
                "restrict_parity": "exsaddle_tpu/abf.py:132",
@@ -1151,7 +1189,7 @@ def _outputs(y):
     return y if isinstance(y, tuple) else (y,)
 
 
-def _k5_kernels(cfg, device, card, rng, l3):
+def _k5_kernels(cfg, device, card, rng, l3, l2):
     """K5 (csrc/transfer.cu) at the mx=32 flagship's own shapes: the
     parity pair between the fine level and L-2, the grid pair between L-2
     and L-3 and between L-3 and the coarse grid, and the parity pair on
@@ -1163,8 +1201,10 @@ def _k5_kernels(cfg, device, card, rng, l3):
     written once). restrict_grid_cheb_first runs at L-2 -> L-3 only, the
     one shape the V-cycles give it, with L-3's own inverse diagonal and
     Chebyshev bounds l3 = (d, (emin, emax)), and is also timed against the
-    pair it replaces (restrict_grid, then K6's cheb_first). Returns the
-    records by (form, case, dtype)."""
+    pair it replaces (restrict_grid, then K6's cheb_first);
+    restrict_parity_residual_cheb_first likewise at fine -> L-2 with L-2's
+    own diagonal and bounds l2 (against restrict_parity_residual, then
+    K6's cheb_first). Returns the records by (form, case, dtype)."""
     from exsaddle_tpu_torch.parallel.cart_abf import _local_cls_shapes
     f32, f64 = torch.float32, torch.float64
     nd = cfg.ndim
@@ -1222,6 +1262,28 @@ def _k5_kernels(cfg, device, card, rng, l3):
                             lambda v, q, u: transfer.restrict_parity_plain(
                                 u * (v - q), cls, m_el), (bb, y, wt),
                             3 * n + nc, 2 * terms + 2 * n)}
+                    if cshape + (nd,) == tuple(l2[0].shape):
+                        # the V-cycle's restriction into L-2: reads b, y
+                        # and d, writes b2 and p1; the first step's 3
+                        # operations per coarse value beside the
+                        # restriction's
+                        npdt = np.float32 if dtype == f32 else np.float64
+                        dg = t(l2[0])
+                        sc2 = float(treeops.cheb_scale(*map(npdt, l2[1])))
+
+                        def ppair(v, q, dd, cls=cls, m_el=m_el, sc2=sc2):
+                            bc = transfer.restrict_parity_residual(
+                                v, q, cls, m_el)
+                            return bc, cheb.cheb_first(
+                                bc, None, dd, torch.zeros_like(bc), sc2)
+                        forms["restrict_parity_residual_cheb_first"] = (
+                            lambda v, q, dd, cls=cls, m_el=m_el, sc2=sc2:
+                            transfer.restrict_parity_residual_cheb_first(
+                                v, q, cls, m_el, dd, sc2),
+                            lambda v, q, dd, cls=cls, m_el=m_el, sc2=sc2:
+                            transfer.restrict_parity_residual_cheb_first_plain(
+                                v, q, cls, m_el, dd, sc2), (bb, y, dg),
+                            2 * n + 3 * nc, 2 * terms + n + 3 * nc)
                     shapes = f"{cshape} <-> {n} values"
                 else:
                     coarse, fine = a, b
@@ -1307,16 +1369,20 @@ def _k5_kernels(cfg, device, card, rng, l3):
                                     f"groups {nd}, off by {lib_err:.3e} of "
                                     f"max {mag:.3e}) {1e3 * lib_ms:.2f} / "
                                     f"{1e3 * lib_hot:.2f} us cold / hot")
-                    if form == "restrict_grid_cheb_first":
-                        g, q = _outputs(pair(*args)), _outputs(kern(*args))
+                    if form in ("restrict_grid_cheb_first",
+                                "restrict_parity_residual_cheb_first"):
+                        unfused = form[:-len("_cheb_first")]
+                        fpair = (pair if form == "restrict_grid_cheb_first"
+                                 else ppair)
+                        g, q = _outputs(fpair(*args)), _outputs(kern(*args))
                         torch.cuda.synchronize()
                         check(all(_same_bits(u, v) for u, v in zip(g, q)),
                               f"K5 {form} {case} {dtype}: not bitwise "
-                              f"restrict_grid followed by K6's cheb_first")
+                              f"{unfused} followed by K6's cheb_first")
                         (p_hot, _), (p_cold, _), _ = _mg_times(
-                            pair, pair, args, nbytes)
+                            fpair, fpair, args, nbytes)
                         rec.update(pair_ms=p_cold, pair_hot_ms=p_hot)
-                        lib_line += (f"; the restrict_grid + K6 cheb_first "
+                        lib_line += (f"; the {unfused} + K6 cheb_first "
                                      f"pair it replaces (bitwise) "
                                      f"{1e3 * p_cold:.2f} / "
                                      f"{1e3 * p_hot:.2f} us cold / hot")
@@ -1336,6 +1402,192 @@ def _k5_kernels(cfg, device, card, rng, l3):
     return res
 
 
+# K3's forms: the plain apply (the cart path's, per shard), the step (the
+# single-device p-block's); the JAX function each replaces
+K3_REPLACES = {"mp_apply": "exsaddle_tpu/abf.py:92",
+               "mp_cheb_step": "exsaddle_tpu/treeops.py:167"}
+# each form's record in the kernels line: at the shape and dtype of the path
+# that runs it (the cart path's shard box in float64, the flagship's p size
+# in float32)
+K3_CASE = {"mp_apply": ("cart shard", torch.float64),
+           "mp_cheb_step": ("p size", torch.float32)}
+
+
+def _k3_plain_step(op, pscale, b, p_k, p_km1, d, scale, omega):
+    return cheb.cheb_step(b, mp.mp_apply_plain(op, pscale, p_k), d, p_k,
+                          p_km1, scale, omega)
+
+
+# the parent's routing of K3's entries: the plain torch apply (the ~13
+# launches of mp_apply_plain), then K6 (looked up at each call); a caller
+# swaps them in before a solver is built, as the order witness does
+K3_PARENT = {"mp_apply": mp.mp_apply_plain,
+             "mp_cheb_step": _k3_plain_step}
+
+
+def _mp_csr(op, pscale):
+    """The assembled Mpscaled as an int32 CSR tensor on pscale's device (a
+    yardstick only: the port never assembles it): each element's
+    Np^T diag(pscale_e) Np scattered to its 2^nd corner nodes."""
+    import scipy.sparse as sp
+    nd = len(op.m_el)
+    nn = [int(n) for n in op.nn_p]
+    Np = op.Np.double().cpu().numpy()
+    ps = pscale.double().cpu().numpy()
+    Me = np.einsum("qa,eq,qb->eab", Np, ps, Np)
+    e = np.arange(ps.shape[0])
+    ex, ey = e % op.m_el[0], (e // op.m_el[0]) % op.m_el[1]
+    ez = e // (op.m_el[0] * op.m_el[1]) if nd == 3 else 0 * e
+    node = np.stack([((ez + (c >> 2)) * nn[1] + ey + ((c >> 1) & 1)) * nn[0]
+                     + ex + (c & 1) for c in range(2 ** nd)], 1)
+    rows = np.repeat(node, 2 ** nd, 1).reshape(-1)
+    cols = np.tile(node, (1, 2 ** nd)).reshape(-1)
+    A = sp.csr_matrix((Me.reshape(-1), (rows, cols)),
+                      shape=(int(np.prod(nn)),) * 2)
+    A.sum_duplicates()
+    dev, dt = pscale.device, pscale.dtype
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr, dtype=torch.int32),
+        torch.as_tensor(A.indices, dtype=torch.int32),
+        torch.as_tensor(A.data, dtype=dt), A.shape, device=dev), A.nnz
+
+
+def _k3_kernels(data, device, card, rng):
+    """K3 (csrc/mp_apply.cu) at the mx=32 flagship's p size (33^3 nodes,
+    32,768 elements) on its own pscale, Np, Jacobi diagonal and Chebyshev
+    bounds, float32 and float64, and its plain form on one cart shard's
+    box of the 1x2x2 grid (32 x 16 x 16 elements, the flagship's pscale
+    rows of that box), float64: the plain form within K4_TOL of the plain
+    apply over absolute values (mp_apply_plain: gather, two GEMMs,
+    scatter; the kernel's element products sum in another order), bitwise
+    repeatable; the step form bitwise its twin (the plain kernel, then K6)
+    and MpOp's forms the entries. Device ms per call, cold and hot
+    (_mg_times), of the kernel, its twin (the plain form's:
+    mp_apply_plain) and the launches the form replaces on the main path
+    (the parent's routing: mp_apply_plain, then K6's update); the library
+    yardstick (cuSPARSE CSR SpMV of the assembled Mpscaled, int32; CUDA
+    events, cold and hot, as K4's); the bound (bytes: pscale, Np and each
+    node vector once; operations: the element products, the node sums and
+    the update). Returns the records by (form, case, dtype)."""
+    from types import SimpleNamespace
+    f32, f64 = torch.float32, torch.float64
+    op = data["op"]
+    emin, emax = (float(b) for b in data["p_bounds"])
+    nq, nc = op.Np.shape
+    mloc = tuple(m // s for m, s in zip(op.m_el, (1, 2, 2)))
+    # (case, m_el, dtype, forms)
+    cases = [("p size", tuple(op.m_el), f32, mp.FORMS),
+             ("p size", tuple(op.m_el), f64, mp.FORMS),
+             ("cart shard", mloc, f64, ("mp_apply",))]
+    res = {}
+    for case, m_el, dtype, case_forms in cases:
+        nn = tuple(m + 1 for m in m_el)
+        grid = tuple(reversed(nn))
+        nel, nodes = int(np.prod(m_el)), int(np.prod(grid))
+        scale, omega = _cheb_scalars(emin, emax, treeops.NP_DTYPE[dtype])
+        kop = SimpleNamespace(m_el=m_el, nn_p=nn,
+                              Np=op.Np.to(dtype).contiguous())
+        aop = SimpleNamespace(m_el=m_el, nn_p=nn, Np=kop.Np.abs())
+        # the box's pscale rows: elements z, y, x with x fastest
+        ps = data["pscale"].reshape(*reversed(op.m_el), nq)[
+            :m_el[2], :m_el[1], :m_el[0]].reshape(nel, nq).to(
+                dtype).contiguous()
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device=device)
+        x, b, q = (t(rng.standard_normal(grid)) for _ in range(3))
+        d = t(rng.uniform(0.5, 1.5, grid)) if case == "cart shard" else (
+            data["inv_diag_p"].to(dtype).contiguous())
+        y = mp.mp_apply(kop, ps, x)
+        yp = mp.mp_apply_plain(kop, ps, x)
+        mag = float(mp.mp_apply_plain(aop, ps.abs(), x.abs()).max())
+        torch.cuda.synchronize()
+        err = float((y - yp).abs().max())
+        check(bool(torch.isfinite(y).all()) and err <= K4_TOL[dtype] * mag,
+              f"K3 {case} {dtype}: max_abs_err {err:.3e} > "
+              f"{K4_TOL[dtype]:g} x {mag:.3e}")
+        check(torch.equal(mp.mp_apply(kop, ps, x), y),
+              f"K3 {case} {dtype}: repeated applies differ")
+        step = mp.mp_cheb_step(kop, ps, b, x, q, d, scale, omega)
+        twin = mp.TWINS["mp_cheb_step"](kop, ps, b, x, q, d, scale, omega)
+        via = mp.MpOp(kop, ps).cheb_step(b, x, q, d, scale, omega)
+        torch.cuda.synchronize()
+        check(_same_bits(step, twin) and _same_bits(via, step),
+              f"K3 {case} {dtype}: the step form is not bitwise its twin "
+              f"(the plain kernel, then K6)")
+        csr, nnz = _mp_csr(kop, ps)
+        xf = x.reshape(-1)
+        lib_err = float((csr @ xf - yp.reshape(-1)).abs().max())
+        check(lib_err <= 1e3 * K4_TOL[dtype] * mag,
+              f"K3 {case} {dtype}: CSR yardstick off by {lib_err:.3e}")
+        size = ps.element_size()
+        lib_bytes = nnz * (size + 4) + 2 * nodes * size
+        # as K4's yardstick: CUDA events around calls issued from Python
+        lib_hot = _median_ms(lambda: csr @ xf)
+        lcp = _cold_copies((csr,), lib_bytes)
+        lib_ms = _events_ms([lambda c=c: c[0] @ xf for c in lcp]
+                            * -(-MG_REPS // len(lcp)))
+        # (kernel, twin, the parent's launches (None: the twin is them),
+        # args, node vectors moved, update operations per node)
+        forms = {
+            "mp_apply": (lambda v: mp.mp_apply(kop, ps, v),
+                         lambda v: mp.mp_apply_plain(kop, ps, v), None,
+                         (x,), 2, 0),
+            "mp_cheb_step": (
+                lambda v, bb, qq, dd: mp.mp_cheb_step(
+                    kop, ps, bb, v, qq, dd, scale, omega),
+                lambda v, bb, qq, dd: mp.TWINS["mp_cheb_step"](
+                    kop, ps, bb, v, qq, dd, scale, omega),
+                lambda v, bb, qq, dd: _k3_plain_step(
+                    kop, ps, bb, v, qq, dd, scale, omega), (x, b, q, d), 5,
+                7)}
+        for form in case_forms:
+            kern, twin, parent, args, nvec, nupd = forms[form]
+            nbytes = size * (ps.numel() + kop.Np.numel() + nvec * nodes)
+            nops = nel * (4 * nq * nc + nq) + nodes * (nc + nupd)
+            (ms_hot, tw_hot), (ms, tw_ms), ncp = _mg_times(kern, twin, args,
+                                                           nbytes)
+            pa_hot, pa_ms = tw_hot, tw_ms
+            if parent is not None:
+                (_, pa_hot), (_, pa_ms), _ = _mg_times(kern, parent, args,
+                                                       nbytes)
+            bound_ms, bound_by = _ctl_bound(nbytes, nops, dtype)
+            rec = {"max_abs_err": err if form == "mp_apply" else 0.0,
+                   "ms": ms, "hot_ms": ms_hot, "plain_ms": tw_ms,
+                   "plain_hot_ms": tw_hot, "parent_ms": pa_ms,
+                   "parent_hot_ms": pa_hot, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "library_ms": lib_ms if form == "mp_apply" else None,
+                   "cold_copies": ncp, "shape": list(m_el)}
+            lib_line = ("library null (no PyTorch call computes the fused "
+                        "form)")
+            if form == "mp_apply":
+                rec.update(library_hot_ms=lib_hot, library_nnz=nnz,
+                           library_err=lib_err)
+                lib_line = (f"library (CSR SpMV of the assembled Mpscaled, "
+                            f"{nnz} nnz, int32, off by {lib_err:.3e}) "
+                            f"{1e3 * lib_ms:.2f} / {1e3 * lib_hot:.2f} us "
+                            f"cold / hot")
+            log(f"[mg_kernels] K3 {form} {case} {grid} ({nel} elements) "
+                f"{str(dtype)[6:]}: "
+                + (f"max_abs_err {err:.3e} ({err / mag:.3e} of the apply "
+                   f"over absolute values, tol {K4_TOL[dtype]:g}), bitwise "
+                   f"repeatable" if form == "mp_apply" else
+                   "bitwise its twin (the plain kernel, then K6)")
+                + f"; per launch in a graph {1e3 * ms:.2f} us cold (inputs "
+                f"cycled through {ncp} copies), {1e3 * ms_hot:.2f} us hot; "
+                f"twin {1e3 * tw_ms:.2f} / {1e3 * tw_hot:.2f} us cold / hot; "
+                f"the parent's launches it replaces (mp_apply_plain"
+                f"{'' if form == 'mp_apply' else ', then K6'}) "
+                f"{1e3 * pa_ms:.2f} / {1e3 * pa_hot:.2f} us; {lib_line}; "
+                f"bound {1e3 * bound_ms:.3f} us ({bound_by}: "
+                f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} MFLOP), kernel at "
+                f"{100 * bound_ms / ms:.1f}% of it cold, "
+                f"{100 * bound_ms / ms_hot:.1f}% hot ({card})")
+            res[(form, case, dtype)] = rec
+        del csr, lcp
+    return res
+
+
 def phase_mg_kernels(device, card):
     """K4 (the block stencil, csrc/stencil_apply.cu) on the mx=32
     flagship's own L-2 and L-3 stencils (zero-boundary form, as the
@@ -1352,9 +1604,10 @@ def phase_mg_kernels(device, card):
     yardstick (cuSPARSE CSR SpMV of csr_from_stencil(W), int32 indices;
     CUDA events, cold and hot), the bound; the fused Chebyshev step
     against its twin and against the K4 + K6 pair it replaces (cold and
-    hot). Then K5 (_k5_kernels). Returns the float32 L-2 numbers of K4,
-    of each fused entry and of K6's fine-level step, and K5's by form at
-    the single-device path's shapes."""
+    hot). Then K3 at the p size (_k3_kernels) and K5 (_k5_kernels).
+    Returns the float32 L-2 numbers of K4, of each fused entry and of K6's
+    fine-level step, K5's and K3's by form at the shapes of the path that
+    runs each (K3_CASE)."""
     f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
     p = bench._build_problem(32)
@@ -1555,8 +1808,11 @@ def phase_mg_kernels(device, card):
                 "library_ms": None, "cold_copies": ncp}
     l3 = (data["inv_diag_lvls"][0].double().cpu().numpy(),
           tuple(float(b) for b in data["bounds"][0]))
+    l2 = (data["inv_diag_lvls"][-1].double().cpu().numpy(),
+          tuple(float(b) for b in data["bounds"][-2]))
+    k3 = _k3_kernels(data, device, card, rng)
     del data, setup, diags
-    k5 = _k5_kernels(cfg, device, card, rng, l3)
+    k5 = _k5_kernels(cfg, device, card, rng, l3, l2)
     torch.cuda.empty_cache()
     # the kernels line's K5 entries: each form at the single-device main
     # path's float32 shape (the parity pair fine <-> L-2, the grid pair
@@ -1567,7 +1823,8 @@ def phase_mg_kernels(device, card):
     return (res[("K4", "L-2", f32)],
             {e: res[(e, "L-2", f32)] for e in stencil.EPILOGUES},
             res[("K6", "fine", f32)],
-            {f: k5[(f, *k5_case[f])] for f in transfer.FORMS})
+            {f: k5[(f, *k5_case[f])] for f in transfer.FORMS},
+            {f: k3[(f, *K3_CASE[f])] for f in mp.FORMS})
 
 
 def phase_anchor():
@@ -1592,9 +1849,9 @@ MAIN_ORDER = ("device", "host", "eager", "eager", "host", "device",
 
 
 def _reset_launches():
-    """Every kernel's launch count to 0: K1, K4, K5, K6, the control
+    """Every kernel's launch count to 0: K1, K3, K4, K5, K6, the control
     kernels."""
-    for k in (a00, stencil, transfer, cheb, krylov_ctl):
+    for k in (a00, mp, stencil, transfer, cheb, krylov_ctl):
         k.LAUNCHES.reset()
 
 
@@ -1634,6 +1891,7 @@ def _ir_solve(slv, F):
     out = {"res": res, "wall": wall,
            "launches": a00.LAUNCHES.n, "applies": a00.LAUNCHES.applies,
            "a00_by": dict(a00.LAUNCHES.by), "k6_by": dict(cheb.LAUNCHES.by),
+           "k3": dict(mp.LAUNCHES.by),
            "mg": _mg_counts(), "k5": _k5_counts(),
            "ctl": dict(krylov_ctl.LAUNCHES.n),
            "replays": graphs.replays(slv.bodies()) - n0,
@@ -1655,8 +1913,8 @@ def _same_ir(a, b):
 def phase_main(card):
     """The driver on the flagship (its solver runs the device loop), then
     the three modes timed over one setup; returns the driver run's K1
-    (launches, applies), K4 and K6 launches, control-kernel launches and
-    K5 launches."""
+    (launches, applies), K4 and K6 launches, control-kernel launches, K5
+    launches, K1's by form and K3's by form."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
@@ -1673,13 +1931,14 @@ def phase_main(card):
     ctl_launches = dict(krylov_ctl.LAUNCHES.n)
     k5_launches = _k5_counts()
     a00_by = dict(a00.LAUNCHES.by)
+    k3_by = dict(mp.LAUNCHES.by)
     res = r["res"]
     slv = r["solver"]
     graph = slv._dev.graph if slv._dev is not None else None
     log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
         f"launches in {applies} applies (by form {a00_by}), K4 / K6 "
         f"{mg_launches}, K5 "
-        f"{k5_launches}, control kernels {ctl_launches} "
+        f"{k5_launches}, K3 by form {k3_by}, control kernels {ctl_launches} "
         f"(capture warm-ups included); graph capture "
         f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
         f"captured pieces, {graph.launches if graph else 0} graph launches")
@@ -1694,10 +1953,16 @@ def phase_main(card):
     check(mg_launches["stencil_accum"] == sum(
         mg_launches[FUSED[e]] for e in stencil.EPILOGUES),
           f"an unfused K4 launch on the main path: {mg_launches}")
-    check(all(n > 0 for k, n in k5_launches.items() if k not in K5_CART)
-          and not any(k5_launches[k] for k in K5_CART),
+    check(all(n > 0 for k, n in k5_launches.items()
+              if k not in K5_CART + K5_NONE)
+          and not any(k5_launches[k] for k in K5_CART + K5_NONE),
           f"a K5 kernel or fused form never ran on the main path, or the "
-          f"cart path's form ran there: {k5_launches}")
+          f"cart path's form or the unfused fine restriction ran there: "
+          f"{k5_launches}")
+    check(k3_by["mp_cheb_step"] > 0
+          and not any(k3_by[f] for f in mp.FORMS if f != "mp_cheb_step"),
+          f"K3's fused step never ran on the main path, or another K3 form "
+          f"ran there: {k3_by}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
     check(all(a00_by[f] > 0 for f in A00_FUSED[1:])
@@ -1766,17 +2031,20 @@ def phase_main(card):
           "device loop's window arithmetic on CUDA) and the device loop "
           "differ (x, history, rounds or inner its)")
     d, h, e = runs["device"][0], runs["host"][0], runs["eager"][0]
-    check((d["launches"], d["applies"], d["mg"], d["k5"], d["ctl"])
-          == (pl["launches"], pl["applies"], pl["mg"], pl["k5"], pl["ctl"]),
-          f"K1 / K4, K6 / K5 / control launches per solve: graph "
+    check((d["launches"], d["applies"], d["mg"], d["k5"], d["ctl"], d["k3"])
+          == (pl["launches"], pl["applies"], pl["mg"], pl["k5"], pl["ctl"],
+              pl["k3"]),
+          f"K1 / K4, K6 / K5 / control / K3 launches per solve: graph "
           f"{d['launches']} / {d['applies']} / {d['mg']} / {d['k5']} / "
-          f"{d['ctl']}, plain driver {pl['launches']} / {pl['applies']} / "
-          f"{pl['mg']} / {pl['k5']} / {pl['ctl']}")
-    check((h["launches"], h["applies"], h["mg"], h["k5"])
-          == (e["launches"], e["applies"], e["mg"], e["k5"]),
-          f"K1, K4, K6, K5 per solve: host loop {h['launches']} / "
-          f"{h['applies']} / {h['mg']} / {h['k5']}, eager {e['launches']} "
-          f"/ {e['applies']} / {e['mg']} / {e['k5']}")
+          f"{d['ctl']} / {d['k3']}, plain driver {pl['launches']} / "
+          f"{pl['applies']} / {pl['mg']} / {pl['k5']} / {pl['ctl']} / "
+          f"{pl['k3']}")
+    check((h["launches"], h["applies"], h["mg"], h["k5"], h["k3"])
+          == (e["launches"], e["applies"], e["mg"], e["k5"], e["k3"]),
+          f"K1, K4, K6, K5, K3 per solve: host loop {h['launches']} / "
+          f"{h['applies']} / {h['mg']} / {h['k5']} / {h['k3']}, eager "
+          f"{e['launches']} / {e['applies']} / {e['mg']} / {e['k5']} / "
+          f"{e['k3']}")
     nlev = slv.cfg.nlevels
     per_vc, vcycles = _k5_per_vcycle(d["k5"], d["mg"][2], nlev)
     check(per_vc == 2 * (nlev - 1),
@@ -1787,7 +2055,9 @@ def phase_main(card):
     check(d["graph_launches"] == 1 and d["replays"] == 0,
           f"device loop: {d['graph_launches']} graph launches per solve")
     _check_fine_fused(d, vcycles, slv.cfg, "main device-loop IR solve")
+    _check_k3(d, vcycles, slv.cfg, "main device-loop IR solve")
     _fused_witness(slv, F, d, card)
+    _k3_witness(slv, F, d, vcycles, card)
     for kind, res_k in first.items():
         its = res_k["inner_its"]
         check(res_k["rounds"] == 3 and 34 <= its <= 38,
@@ -1822,7 +2092,7 @@ def phase_main(card):
             f"residual / cheb_first / cheb_step {q['mg'][2]} / {q['mg'][3]} "
             f"/ {q['mg'][4]}), K5 {sum(q['k5'][k] for k in K5_KERNELS)} "
             f"launches ({_k5_per_vcycle(q['k5'], q['mg'][2], nlev)[0]:g} "
-            f"per V-cycle: {q['k5']}), control "
+            f"per V-cycle: {q['k5']}), K3 {q['k3']}, control "
             f"kernels {sum(q['ctl'].values())}, "
             f"{q['graph_launches']} graph launches and {q['replays']} "
             f"captured-body replays per solve{extra}, peak mem "
@@ -1831,7 +2101,7 @@ def phase_main(card):
     del solvers, plain, slv, r
     _main_witness(card)
     return (launches, applies, mg_launches, ctl_launches, k5_launches,
-            a00_by)
+            a00_by, k3_by)
 
 
 def _check_fine_fused(rec, vcycles, cfg, where):
@@ -1853,6 +2123,117 @@ def _check_fine_fused(rec, vcycles, cfg, where):
         f"a00_cheb_first 1, a00_cheb_step {steps}, K6 "
         f"{rec['mg'][1] / vcycles:.2f} launches (its zero-guess first "
         f"steps and the p-block's; by form {k6})")
+
+
+def _check_k3(rec, vcycles, cfg, where):
+    """The single-device p-block and the fine level's restriction: every
+    p-block step after its zero-guess first is one mp_cheb_step (K3 with
+    K6's update in its store), no other K3 form; K6 runs only the
+    zero-guess first steps, the fine level's (one per V-cycle) and the
+    p-block's (one per p-block solve), and no step; the fine residual is
+    restricted with L-2's first Chebyshev step in the store, once per
+    V-cycle, never unfused. Returns the p-block solves."""
+    k3, k6, k5 = rec["k3"], rec["k6_by"], rec["k5"]
+    steps = cfg.p_cheb_its - 1
+    p_solves = k3["mp_cheb_step"] / steps
+    check(k3["mp_cheb_step"] > 0 and p_solves == int(p_solves)
+          and k3["mp_apply"] == 0
+          and k6["cheb_step"] == 0 and k6["cheb_first"] == vcycles + p_solves
+          and k5["restrict_parity_residual_cheb_first"] == vcycles
+          and k5["restrict_parity_residual"] == 0,
+          f"{where}: K3 by form {k3}, K6 by form {k6}, fine restrictions "
+          f"{k5['restrict_parity_residual_cheb_first']} fused / "
+          f"{k5['restrict_parity_residual']} unfused in {vcycles:g} "
+          f"V-cycles: expected {steps} mp_cheb_step per p-block solve, "
+          f"K6 one first step per V-cycle and per p-block solve, one "
+          f"fused restriction per V-cycle")
+    log(f"[{where.split()[0]}] {where}: K3 {k3['mp_cheb_step']} launches "
+        f"(mp_cheb_step, {steps} per p-block solve, {p_solves:g} solves), "
+        f"K6 {k6['cheb_first']} launches ({vcycles:g} fine and {p_solves:g} "
+        f"p-block zero-guess first steps, no step), "
+        f"restrict_parity_residual_cheb_first {vcycles:g} (L-2's first "
+        f"step in its store)")
+    return p_solves
+
+
+def _fine_pair(b, y, cls_shapes, m_el, d, scale):
+    """The launches restrict_parity_residual_cheb_first replaces: K5's
+    residual restriction, then K6's zero-guess first step."""
+    b2 = transfer.restrict_parity_residual(b, y, cls_shapes, m_el)
+    return b2, cheb.cheb_first(b2, None, d, torch.zeros_like(b2), scale)
+
+
+def _swapped_solve(slv, F, swaps):
+    """An IR solve over slv's setup by a device-loop solver built with the
+    (module, name, function) swaps in place (its graph captures them), the
+    second of two; the entries restored after."""
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
+    for mod, n, fn in swaps:
+        setattr(mod, n, fn)
+    try:
+        tslv = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
+                                         device=slv.device, dtype=slv.dtype,
+                                         ir=True)
+        _ir_solve(tslv, F)
+        t = _ir_solve(tslv, F)
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+    check(tslv.loop == "device" and t["res"]["converged"]
+          and not t["res"]["stalled"],
+          f"main: a witness solve ran the {tslv.loop} loop or did not "
+          f"converge")
+    return t
+
+
+def _k3_witness(slv, F, d, vcycles, card):
+    """The device-loop IR solve over slv's setup with K3's fused forms
+    swapped for their twins (the plain kernel, then K6) and the fused fine
+    restriction for the pair it replaces (K5's residual restriction, then
+    K6's first step): x, history, rounds and inner its bitwise the fused
+    solve's; K3 the same launches in the plain form, K6 one more per K3
+    step and per V-cycle. Then the order witness: the same solve with K3's
+    entries swapped for the parent's routing (mp_apply_plain, then K6):
+    its rounds and inner its beside the fused solve's, x compared (the
+    kernel's element products sum in another order than the GEMMs)."""
+    t = _swapped_solve(slv, F, [(mp, n, fn) for n, fn in mp.TWINS.items()]
+                       + [(transfer, "restrict_parity_residual_cheb_first",
+                           _fine_pair)])
+    steps = d["k3"]["mp_cheb_step"]
+    check(_same_ir(t["res"], d["res"]),
+          f"main: with K3's fused forms and the fused fine restriction "
+          f"swapped for their twins the solve differs (rounds "
+          f"{t['res']['rounds']} / {d['res']['rounds']}, inner its "
+          f"{t['res']['inner_its']} / {d['res']['inner_its']})")
+    check(t["k3"] == {**dict.fromkeys(mp.FORMS, 0), "mp_apply": steps}
+          and t["mg"][1] == d["mg"][1] + steps + vcycles
+          and t["k5"]["restrict_parity_residual"] == vcycles
+          and t["k5"]["restrict_parity_residual_cheb_first"] == 0,
+          f"main: twins' solve K3 {t['k3']}, K6 {t['mg'][1]}, K5 "
+          f"{t['k5']}; fused solve K3 {d['k3']}, K6 {d['mg'][1]}")
+    log(f"[main] witness: the device-loop IR solve with K3's fused forms "
+        f"and the fused fine restriction swapped for their twins: "
+        f"{t['res']['rounds']} rounds / {t['res']['inner_its']} inner its, "
+        f"x and history bitwise the fused solve's; K3 {steps} plain "
+        f"launches, K6 {t['mg'][1]} against {d['mg'][1]} ({steps} p-block "
+        f"steps and {vcycles:g} L-2 first steps now in K3's and K5's "
+        f"stores); wall {t['wall']:.4f} s against {d['wall']:.4f} s "
+        f"({card})")
+    o = _swapped_solve(slv, F, [(mp, n, fn) for n, fn in K3_PARENT.items()])
+    xrel = float(np.linalg.norm(o["res"]["x"] - d["res"]["x"])
+                 / np.linalg.norm(d["res"]["x"]))
+    check(not any(o["k3"].values()),
+          f"main: the order witness launched K3: {o['k3']}")
+    ocounts = (o["res"]["rounds"], o["res"]["inner_its"])
+    dcounts = (d["res"]["rounds"], d["res"]["inner_its"])
+    log(f"[main] order witness: the device-loop IR solve with K3's entries "
+        f"swapped for the parent's routing (mp_apply_plain, then K6): "
+        f"{ocounts[0]} rounds / {ocounts[1]} inner its against the "
+        f"kernel's {dcounts[0]} / {dcounts[1]} (counts equal "
+        f"{ocounts == dcounts}, x bitwise "
+        f"{bool(np.array_equal(o['res']['x'], d['res']['x']))}, x differs "
+        f"by {xrel:.3e} norm-relative); K6 {o['mg'][1]}; wall "
+        f"{o['wall']:.4f} s against {d['wall']:.4f} s ({card})")
 
 
 def _fused_witness(slv, F, d, card):
@@ -1908,10 +2289,11 @@ def _main_witness(card):
     iterations), histories within 1e-10 of the initial residual (their
     last entries are ~1e-5 of it, where float64 rounding amplified through
     the GCR preconditioner may show at ~1e-8 of the entry). Then the
-    same direct solve over the same setup with K4, K5, K6 and K1's fused
-    forms swapped for their twins (device loop): K4 sums in another order than its
-    twin, yet in float64 the kernels must give the twins' reason and
-    iterations, with x within 1e-10 (norm-relative)."""
+    same direct solve over the same setup with K4, K5, K6, K1's fused
+    forms and K3 swapped for their twins (device loop; K3's plain version
+    mp_apply_plain): K4 and K3 sum in another order than their twins, yet
+    in float64 the kernels must give the twins' reason and iterations,
+    with x within 1e-10 (norm-relative)."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -saddle_fieldsplit_u_pc_mg_levels 4 "
         "-saddle_ksp_converged_reason").split()
@@ -1946,7 +2328,8 @@ def _main_witness(card):
     swaps = _k4_twins() + [(cheb, "cheb_first", cheb.cheb_first_plain),
                            (cheb, "cheb_step", cheb.cheb_step_plain)] + [
         (transfer, name, twin) for name, twin in transfer.TWINS.items()] + [
-        (a00, name, twin) for name, twin in a00.TWINS.items()]
+        (a00, name, twin) for name, twin in a00.TWINS.items()] + [
+        (mp, name, fn) for name, fn in K3_PARENT.items()]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     for mod, attr, fn in swaps:
         setattr(mod, attr, fn)
@@ -1955,20 +2338,20 @@ def _main_witness(card):
                                           device=slv.device, dtype=slv.dtype)
         _reset_launches()
         t = twins.solve(r["F"])
-        mg = _mg_counts() + (transfer.LAUNCHES.n,)
+        mg = _mg_counts() + (transfer.LAUNCHES.n, mp.LAUNCHES.n)
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     xrel = float(np.linalg.norm(d["x"] - t["x"]) / np.linalg.norm(t["x"]))
     log(f"[main] witness, float64 direct solve with every K4 and K5 entry, "
-        f"K1's fused forms and K6 swapped for their twins ({twins.loop} "
-        f"loop): kernels "
+        f"K1's fused forms, K6 and K3 (mp_apply_plain, then K6's twin) "
+        f"swapped for their twins ({twins.loop} loop): kernels "
         f"{d['reason']} in {d['its']} its, twins {t['reason']} in "
         f"{t['its']} its, x differs by {xrel:.3e} (norm-relative), twin "
-        f"run K4 / K6 / K5 launches {mg} ({card})")
+        f"run K4 / K6 / K5 / K3 launches {mg} ({card})")
     check(twins.loop == "device" and not any(mg),
           f"witness: the twins' solve ran loop {twins.loop}, K4 / K6 / K5 "
-          f"launches {mg}")
+          f"/ K3 launches {mg}")
     check((t["its"], t["reason"]) == (d["its"], d["reason"]),
           f"witness: kernels {d['its']} its / {d['reason']}, twins "
           f"{t['its']} / {t['reason']}")
@@ -2539,6 +2922,14 @@ def phase_cart(device, card):
           f"cart: K1's keep form and K6's masked forms must run on the "
           f"sharded path, K1's store epilogues not: "
           f"{ {k: counts[k] for k in (*A00_FUSED, *K6_MASKED)} }")
+    shards, p_steps = CART_DEVICES, slv.dcfg.base.p_cheb_its - 1
+    check(counts["mp_apply"] > 0
+          and counts["mp_apply"] % (shards * p_steps) == 0
+          and not any(counts[f] for f in mp.FORMS[1:]),
+          f"cart: K3 {counts['mp_apply']} launches (fused forms "
+          f"{ {f: counts[f] for f in mp.FORMS[1:]} }): expected its plain "
+          f"form only, {shards} per p-block step ({p_steps} per p-block "
+          f"solve)")
     check(all(counts[k] > 0 for k in K5_KERNELS)
           and counts["prolong_parity_add"] == counts["prolong_parity"]
           and counts["restrict_parity_weighted_residual"]
@@ -2576,9 +2967,11 @@ def phase_cart(device, card):
         f"{counts['cheb_update']} (masked forms "
         f"{ {k: counts[k] for k in K6_MASKED} }), K1 keep form "
         f"{counts['a00_apply_keep']} applies, K5 "
-        f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }, control "
-        f"{sum(counts[k] for k in krylov_ctl.NAMES)} launches (capture "
-        f"warm-ups included), peak mem {peak:.2f} GiB ({card})")
+        f"{ {k: counts[k] for k in (*K5_KERNELS, *K5_FUSED)} }, K3 "
+        f"{counts['mp_apply']} (the plain form, {shards} per p-block step: "
+        f"{counts['mp_apply'] // (shards * p_steps)} p-block solves), "
+        f"control {sum(counts[k] for k in krylov_ctl.NAMES)} launches "
+        f"(capture warm-ups included), peak mem {peak:.2f} GiB ({card})")
     _cart_loops(slv, r1["solver"], r["F"], r, card)
     _cart_kernels(slv)
     _cart_k1(slv, r1["solver"], card)
@@ -2607,7 +3000,8 @@ def _launch_counts():
             **{FUSED[e]: stencil.LAUNCHES.fused[e]
                for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n,
             **_k5_counts(), **{f: a00.LAUNCHES.by[f] for f in A00_FUSED},
-            **{f: cheb.LAUNCHES.by[f] for f in K6_MASKED}}
+            **{f: cheb.LAUNCHES.by[f] for f in K6_MASKED},
+            **{f: mp.LAUNCHES.by[f] for f in mp.FORMS}}
 
 
 def _cart_solve(slv, F):
@@ -2692,7 +3086,7 @@ def _cart_loops(slv, single, F, r, card):
               f"{q['res']['halo_exchanges']}")
         keys = d["counts"] if kind == "plain" else (
             "a00_apply", "stencil_accum", "cheb_update", *FUSED.values(),
-            *K5_KERNELS, *K5_FUSED, *A00_FUSED, *K6_MASKED)
+            *K5_KERNELS, *K5_FUSED, *A00_FUSED, *K6_MASKED, *mp.FORMS)
         check(all(q["counts"][k] == d["counts"][k] for k in keys),
               f"cart: launches per solve: device {d['counts']}, {kind} "
               f"{q['counts']}")
@@ -2739,6 +3133,29 @@ def _cart_loops(slv, single, F, r, card):
           f"(x relative {_rel(tw['res']['x'], d['res']['x']):.3e}) or ran "
           f"{tk5} K5 launches, fused K1 / masked K6 {tfused}, K1 "
           f"{tw['counts']['a00_apply']} against {c['a00_apply']}")
+    # the order witness: K3's plain form swapped for mp_apply_plain (its
+    # element products sum in another order), float64: the same
+    # iterations and reason, x within 1e-10
+    saved = mp.mp_apply
+    mp.mp_apply = mp.mp_apply_plain
+    try:
+        ow = _cart_solve(slv.with_loop("device"), F)
+    finally:
+        mp.mp_apply = saved
+    oxrel = _rel(ow["res"]["x"], d["res"]["x"])
+    check(ow["res"]["its"] == d["res"]["its"]
+          and ow["res"]["reason"] == d["res"]["reason"]
+          and ow["counts"]["mp_apply"] == 0 and oxrel <= 1e-10,
+          f"cart: with K3 swapped for mp_apply_plain {ow['res']['its']} its "
+          f"/ {ow['res']['reason']} (the kernels' {d['res']['its']} / "
+          f"{d['res']['reason']}), {ow['counts']['mp_apply']} K3 launches, "
+          f"x differs by {oxrel:.3e}")
+    log(f"[cart] order witness: the device loop with K3 swapped for "
+        f"mp_apply_plain: {ow['res']['its']} its / {ow['res']['reason']} "
+        f"(equal), x bitwise "
+        f"{bool(np.array_equal(ow['res']['x'], d['res']['x']))}, differs "
+        f"by {oxrel:.3e} (norm-relative); 0 K3 launches against "
+        f"{c['mp_apply']}; wall {ow['wall']:.4f} s ({card})")
     log(f"[cart] witness: the device loop with every K5 entry, K1's keep "
         f"form and K6's masked forms swapped for their twins, "
         f"{tw['res']['its']} its, 0 K5 launches, no fused K1 or masked K6 "
@@ -2753,7 +3170,8 @@ def _cart_loops(slv, single, F, r, card):
         f"in {c['a00_apply'][1]} applies, K4 {c['stencil_accum']} (fused "
         f"{ {k: c[k] for k in FUSED.values()} }), K6 "
         f"{c['cheb_update']}, K5 {k5} ({k5 / vcycles:g} per V-cycle: "
-        f"{ {k: c[k] for k in (*K5_KERNELS, *K5_FUSED)} }), control "
+        f"{ {k: c[k] for k in (*K5_KERNELS, *K5_FUSED)} }), K3 "
+        f"{c['mp_apply']}, control "
         f"{ {k: c[k] for k in krylov_ctl.NAMES} }, "
         f"{d['res']['halo_exchanges']} halo exchanges ({card})")
     for kind, recs in runs.items():
@@ -2865,6 +3283,20 @@ def _cart_kernels(slv):
     for rep in dd["repl"].values():
         levels += [(f"L-{nlev - k - 1}", [d], dd["bounds"][k])
                    for k, d in enumerate(rep["inv_diag_repl"])]
+    # K3 on each shard's local box, its own pscale and Np
+    from types import SimpleNamespace
+    k3 = 0.0
+    for i, (op, ps) in enumerate(zip(blk.ops.parts, dd["pscale"].parts)):
+        x = rand(dd["inv_diag_p"].parts[i])
+        y, yp = mp.mp_apply(op, ps, x), mp.mp_apply_plain(op, ps, x)
+        mag = float(mp.mp_apply_plain(
+            SimpleNamespace(m_el=op.m_el, nn_p=op.nn_p, Np=op.Np.abs()),
+            ps.abs(), x.abs()).max())
+        err = float((y - yp).abs().max())
+        check(bool(torch.isfinite(y).all()) and err <= K4_TOL[f64] * mag,
+              f"cart: K3 on shard {i}'s box max_abs_err {err:.3e} > "
+              f"{K4_TOL[f64]:g} x {mag:.3e}")
+        k3 = max(k3, err / mag)
     # K5's weighted residual restriction on each shard's own ownership
     # weights and local parity layout
     mloc, cls_loc = slv.dcfg.mloc, slv.dcfg.cls_shapes_loc
@@ -2901,7 +3333,9 @@ def _cart_kernels(slv):
         f"diagonal bitwise their twins; K4 on "
         f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
         f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}), their "
-        f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K5's "
+        f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K3 on "
+        f"each shard's box and pscale within {k3:.3e} of the apply over "
+        f"absolute values (tol {K4_TOL[f64]:g}); K5's "
         f"weighted residual restriction on every shard's own weights "
         f"bitwise its twin; K6 first "
         f"and step on every part's fine, L-2 and p inverse diagonals and "
@@ -3128,7 +3562,11 @@ def _bench_twin_witness(device, card, extras):
     the bench's tuned rounds and inner its (a code path's counts are
     deterministic) with every stencil apply fused, the twin solve the
     pre-K4 band BENCH_TWIN_BAND and no K4 launch, each converged to a
-    true 1e-8."""
+    true 1e-8. The K4 solve's K3 and K6 launches are checked
+    (_check_k3); a third solve over the same setup with K3's entries
+    swapped for the parent's routing (mp_apply_plain, then K6) is the
+    order witness: its rounds and inner its are logged beside the
+    kernel's."""
     prob = bench._build_problem(32, with_rhs=True)
     slv = tabf.ABFSolver(prob["mesh"], prob["fes"], prob["coeff"],
                          prob["bc_idx"], prob["bc_vals"], device=device,
@@ -3136,19 +3574,23 @@ def _bench_twin_witness(device, card, extras):
                          nlevels=bench.bench_nlevels(prob["mesh"]), ir=True,
                          **bench.bench_solver_kw())
     F = prob["F_raw"] + slv.setup["rhs_diri"]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in _k4_twins()]
-    for mod, attr, fn in _k4_twins():
-        setattr(mod, attr, fn)
-    try:
-        twin = tabf.ABFSolver.from_parts(slv.cfg, slv.data, slv.setup,
-                                         device=device, dtype=torch.float32,
-                                         ir=True)
-    finally:
-        for mod, attr, fn in saved:
+    solvers = {"K4": slv}
+    for name, swaps in (("twin", _k4_twins()),
+                        ("K3 parent", [(mp, n, fn)
+                                       for n, fn in K3_PARENT.items()])):
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+        for mod, attr, fn in swaps:
             setattr(mod, attr, fn)
+        try:
+            solvers[name] = tabf.ABFSolver.from_parts(
+                slv.cfg, slv.data, slv.setup, device=device,
+                dtype=torch.float32, ir=True)
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
     out = {}
     nlev = slv.cfg.nlevels
-    for name, s in (("K4", slv), ("twin", twin)):
+    for name, s in solvers.items():
         rec = _ir_solve(s, F)
         res = rec["res"]
         out[name] = (res["rounds"], res["inner_its"], rec["mg"])
@@ -3164,6 +3606,19 @@ def _bench_twin_witness(device, card, extras):
                   f"solve, expected {2 * (nlev - 1)}")
             _check_k5_cheb_first(rec["k5"], vcycles, nlev, rec["mg"][1],
                                  "bench tuned solve")
+            p_solves = _check_k3(rec, vcycles, slv.cfg, "bench tuned solve")
+            log(f"[bench] tuned solve: K6 {rec['mg'][1]} launches = "
+                f"{vcycles:g} fine + {p_solves:g} p-block zero-guess first "
+                f"steps; K3 {rec['k3']['mp_cheb_step']} mp_cheb_step "
+                f"launches ({card})")
+        if name == "K3 parent":
+            k = out["K4"]
+            log(f"[bench] order witness, the tuned solve with K3's entries "
+                f"swapped for the parent's routing (mp_apply_plain, then "
+                f"K6): {res['rounds']} rounds / {res['inner_its']} inner its "
+                f"against the kernel's {k[0]} / {k[1]} (counts equal "
+                f"{(res['rounds'], res['inner_its']) == k[:2]}); K3 "
+                f"launches {sum(rec['k3'].values())} ({card})")
         log(f"[bench] tuned solve with {name} ({s.loop} loop): "
             f"{res['rounds']} rounds, {res['inner_its']} inner its, "
             f"{rec['wall']:.3f} s, K4 / K6 launches {rec['mg'][0]} / "
@@ -3183,7 +3638,7 @@ def _bench_twin_witness(device, card, extras):
     check(nt[0] == 0 and r0 <= rt <= r1 and i0 <= it <= i1,
           f"bench twin witness: twin {rt} / {it} ({nt[0]} K4 launches) "
           f"outside the pre-K4 band {r0}-{r1} / {i0}-{i1}")
-    del slv, twin
+    del slv, solvers
 
 
 def phase_bench(device, card):
@@ -3236,7 +3691,7 @@ def phase_bench(device, card):
         check(r0 <= rounds <= r1 and i0 <= its <= i1,
               f"bench {pre[:-1]}: {rounds} rounds / {its} inner its outside "
               f"{r0}-{r1} / {i0}-{i1}")
-    check(all(n > 0 for k, n in k5.items() if k not in K5_CART),
+    check(all(n > 0 for k, n in k5.items() if k not in K5_CART + K5_NONE),
           f"bench: a K5 kernel or fused form never ran: {k5}")
     log(f"[bench] K5 launches over the bench's solves: {k5} ({card})")
     _bench_twin_witness(device, card, extras)
@@ -3251,10 +3706,11 @@ def _ranged(name, fn):
 
 
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
-# counts (the innermost enclosing one; the hand-written K1, K4, K5 and K6
-# by kernel name wherever they run; restrict_grid_kernel covers both of its
-# forms, the restriction and restrict_grid_cheb_first)
+# counts (the innermost enclosing one; the hand-written K1, K3, K4, K5 and
+# K6 by kernel name wherever they run; restrict_grid_kernel and
+# restrict_parity_kernel cover their fused forms, mp_apply_kernel K3's)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_element_kernel"),
+                   ("K3 mp_apply", "mp_apply_kernel"),
                    ("K1 a00_apply", "a00_node_gather_kernel"),
                    ("K1 fused gather", "a00_fused_gather_kernel"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),
@@ -3552,11 +4008,11 @@ def main():
     k1, k1_fused = phase_k1(device, card)
     ctl = phase_ctl(device)
     t_mg = time.perf_counter()
-    k4, fused, k6, k5 = phase_mg_kernels(device, card)
+    k4, fused, k6, k5, k3 = phase_mg_kernels(device, card)
     log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
     phase_anchor()
     launches, applies, mg_launches, ctl_launches, k5_launches, \
-        a00_fused_launches = phase_main(card)
+        a00_fused_launches, k3_launches = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -3642,7 +4098,16 @@ def main():
             "bench_launches": bench_k5[name], **k5[name]}
             for kernel, forms in K5_KERNELS.items()
             for name in (kernel,) + tuple(f for f in forms
-                                          if f in K5_FUSED)]}))
+                                          if f in K5_FUSED
+                                          and f not in K5_NONE)] + [{
+            "name": form, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/mp_apply.cu",
+            "replaces": K3_REPLACES[form],
+            # the cart path's own form: its launches in phase cart's run
+            "launches": (cart_counts if form == "mp_apply"
+                         else k3_launches)[form],
+            "cart_launches": cart_counts[form], **k3[form]}
+            for form in mp.FORMS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

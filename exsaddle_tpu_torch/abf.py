@@ -41,9 +41,9 @@ from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
-# K1's entries, called through the module (a00.<entry>) so a caller may
-# swap the fused forms for their twins
-from exsaddle_tpu_torch.kernels import a00
+# K1's and K3's entries, called through their modules (a00.<entry>,
+# mp.<entry>) so a caller may swap the fused forms for their twins
+from exsaddle_tpu_torch.kernels import a00, mp
 # stencil_accum and stencil_apply: K4's entries, this module's names for
 # the block stencil apply (as exsaddle_tpu/abf.py's)
 from exsaddle_tpu_torch.kernels.stencil import (  # noqa: F401
@@ -127,14 +127,13 @@ def mult_pu_tree(op, aux, xu, halo_p=None):
 
 
 def _mp_local(op, pscale, pg):
-    pe = _gather_q1(pg, op.m_el)
-    ptmp = (pe @ op.Np.T) * pscale
-    return _scatter_q1(ptmp @ op.Np, op.m_el, op.nn_p)
+    return mp.mp_apply(op, pscale, pg)
 
 
 def mp_apply(op, pscale, pg, halo_p=None):
     """Mpscaled x_p: viscosity-scaled pressure mass matrix in factored form
-    (MatAssemble_Schur weights, femixedspace.c:2837-2948).
+    (MatAssemble_Schur weights, femixedspace.c:2837-2948): K3 per shard
+    (kernels/mp.py: the kernel on CUDA, its plain version on the CPU).
     pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)]."""
     yp = smap(_mp_local, op, pscale, pg)
     return yp if halo_p is None else halo_p(yp)
@@ -761,8 +760,9 @@ def _mg_pc(cfg, data, fineA):
         return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
     # each level's operator and Jacobi inverse diagonal (K6 takes it for
-    # a zero-guess first step; K1's node gather on the fine level and K4 on
-    # the stencil levels compute every other update in their store)
+    # the fine level's zero-guess first step, and K5's restrictions for
+    # every other level's; K1's node gather on the fine level and K4 on the
+    # stencil levels compute every other update in their store)
     lvl_ops, lvl_diag = {}, {}
     for k in range(1, nlev):
         if k == nlev - 1:
@@ -793,13 +793,24 @@ def _mg_pc(cfg, data, fineA):
             r, cfg.level_grids[k - 1], lvl_diag[k - 1],
             float(treeops.cheb_scale(emin, emax)))
 
+    def restrict_fine(b, y):
+        """The fine residual b - y on L-2's grid, and, where L-2 is
+        smoothed, its first pre-smoothing iterate from the same K5 launch
+        (else None)."""
+        if nlev == 2:
+            return transfer.restrict_parity_residual(
+                b, y, cfg.cls_shapes, cfg.m_el), None
+        emin, emax = data["bounds"][nlev - 3]
+        return transfer.restrict_parity_residual_cheb_first(
+            b, y, cfg.cls_shapes, cfg.m_el, lvl_diag[nlev - 2],
+            float(treeops.cheb_scale(emin, emax)))
+
     def vcycle(k, b, p1=None):
         if k == 0:
             return coarse_solve(b)
         x = smooth(k, b, torch.zeros_like(b), pre=True, p1=p1)
         if k == nlev - 1:
-            xc = vcycle(k - 1, transfer.restrict_parity_residual(
-                b, lvl_ops[k](x), cfg.cls_shapes, cfg.m_el))
+            xc = vcycle(k - 1, *restrict_fine(b, lvl_ops[k](x)))
             x = transfer.prolong_parity(xc, cfg.cls_shapes, cfg.m_el, add=x)
         else:
             xc = vcycle(k - 1, *restrict(k, lvl_ops[k].residual(b, x)))
@@ -836,11 +847,14 @@ def _plain_bodies(cfg, data):
     p_emin, p_emax = data["p_bounds"]
 
     # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled -------
+    # (K3 with K6's update in its store: one launch per step after the
+    # zero-guess first, which applies nothing and stays K6)
+    p_mult = mp.MpOp(op, data["pscale"])
+
     def p_solve(bp):
         return treeops.cheb_smooth(
-            lambda pg: mp_apply(op, data["pscale"], pg), None, p_emin,
-            p_emax, cfg.p_cheb_its, bp, torch.zeros_like(bp), x0_zero=True,
-            diag=data["inv_diag_p"])
+            p_mult, None, p_emin, p_emax, cfg.p_cheb_its, bp,
+            torch.zeros_like(bp), x0_zero=True, diag=data["inv_diag_p"])
 
     def mult(t):
         return mult_tree(op, aux, t)

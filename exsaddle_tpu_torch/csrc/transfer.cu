@@ -7,7 +7,9 @@
 //                       fused: restricts b - y (the residual form) or
 //                       w * (b - y) (the weighted residual form, the cart
 //                       V-cycle's ownership-weighted residual), formed in
-//                       the loads
+//                       the loads; the residual form also computes L-2's
+//                       zero-guess first Chebyshev iterate scale (d b) + 0
+//                       in its store (restrict_parity_residual_cheb_first)
 //     prolong_grid      separable multilinear interpolation between node
 //                       grids (spatial dims leading, dof trailing), every
 //                       axis in one pass; fused: + x in the store
@@ -66,10 +68,13 @@
 // The fused add is one more __fadd_rn in the store (IEEE addition is
 // commutative, so p + x and x + p give the same bits); the residual forms
 // are one __fsub_rn (and one __fmul_rn by the weight) per loaded term; the
-// Chebyshev form is cheb_update.cu's cheb_first arithmetic on the stored
-// value with x0 = +0, so it reads no x0 and replaces that K6 launch.
+// Chebyshev forms are cheb_update.cu's cheb_first arithmetic on the stored
+// value with x0 = +0, so they read no x0 and each replaces that K6 launch
+// (the parity restriction's through cheb_math.cuh, shared with K6).
 
 #include <cuda_runtime.h>
+
+#include "cheb_math.cuh"
 
 namespace {
 
@@ -236,22 +241,29 @@ __device__ __forceinline__ T restrict_sum(T acc, const T (&v)[nterms(NDIM)],
   }
 }
 
-template <typename T, int NDIM, int ND, int MODE>
+// CHEB: also p1 = scale (d r) + 0, r the restricted value (K6's
+// cheb_first with x0 = +0: L-2's zero-guess first Chebyshev iterate), into
+// p1; d is read with the terms, before the sum.
+template <typename T, int NDIM, int ND, int MODE, bool CHEB>
 __global__ void __launch_bounds__(ROW_THREADS)
 restrict_parity_kernel(const T* __restrict__ b, const T* __restrict__ y,
-                       const T* __restrict__ w, T* __restrict__ out,
+                       const T* __restrict__ w, const T* __restrict__ dinv,
+                       T scale, T* __restrict__ out, T* __restrict__ p1,
                        Parity P) {
   const int cy = P.cshape[NDIM - 2];
   const int yy = blockIdx.x * blockDim.y + threadIdx.y;
   if (yy >= cy) return;
   const int z = NDIM == 3 ? (int)blockIdx.y : 0;
   const int L = P.cshape[NDIM - 1] * ND;
-  T* __restrict__ row = out + (z * cy + yy) * L;
+  const int o = (z * cy + yy) * L;
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
     T v[nterms(NDIM)];
     bool ok[nterms(NDIM)];
     restrict_loads<T, NDIM, ND, MODE>(b, y, w, P, z, yy, j, v, ok);
-    row[j] = restrict_sum<T, NDIM>(T(0), v, ok);
+    const T dv = CHEB ? dinv[o + j] : T(0);
+    const T r = restrict_sum<T, NDIM>(T(0), v, ok);
+    out[o + j] = r;
+    if (CHEB) p1[o + j] = cheb_math::first(r, dv, T(0), scale);
   }
 }
 
@@ -685,12 +697,17 @@ struct ProlongParity {
   }
 };
 
+// p1 non-null: the residual form with the Chebyshev store (y and dinv
+// non-null, w null).
 template <typename T>
 struct RestrictParity {
   const T* b;
   const T* y;
   const T* w;
+  const T* dinv;
+  T scale;
   T* out;
+  T* p1;
   Parity P;
   cudaStream_t s;
   template <int NDIM, int ND>
@@ -699,15 +716,18 @@ struct RestrictParity {
                                    P.cshape[NDIM - 2],
                                    NDIM == 3 ? P.cshape[0] : 1, 1);
     if (!l.ok) return (int)cudaErrorInvalidValue;
-    if (w != nullptr)
-      restrict_parity_kernel<T, NDIM, ND, WEIGHTED>
-          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
+    if (p1 != nullptr)
+      restrict_parity_kernel<T, NDIM, ND, RESIDUAL, true>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, dinv, scale, out, p1, P);
+    else if (w != nullptr)
+      restrict_parity_kernel<T, NDIM, ND, WEIGHTED, false>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, dinv, scale, out, p1, P);
     else if (y != nullptr)
-      restrict_parity_kernel<T, NDIM, ND, RESIDUAL>
-          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
+      restrict_parity_kernel<T, NDIM, ND, RESIDUAL, false>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, dinv, scale, out, p1, P);
     else
-      restrict_parity_kernel<T, NDIM, ND, PLAIN>
-          <<<l.grid, l.block, 0, s>>>(b, y, w, out, P);
+      restrict_parity_kernel<T, NDIM, ND, PLAIN, false>
+          <<<l.grid, l.block, 0, s>>>(b, y, w, dinv, scale, out, p1, P);
     return (int)cudaGetLastError();
   }
 };
@@ -771,7 +791,8 @@ int prolong_parity(const void* xc, const void* xadd, void* out,
 }
 
 template <typename T>
-int restrict_parity(const void* b, const void* y, const void* w, void* out,
+int restrict_parity(const void* b, const void* y, const void* w,
+                    const void* dinv, double scale, void* out, void* p1,
                     const int* shapes, int ndim, int nd, void* stream) {
   if (!supported(ndim, nd)) return (int)cudaErrorInvalidValue;
   Parity P = {};
@@ -779,7 +800,8 @@ int restrict_parity(const void* b, const void* y, const void* w, void* out,
     return (int)cudaErrorInvalidValue;
   return dispatch(ndim, nd, RestrictParity<T>{
       static_cast<const T*>(b), static_cast<const T*>(y),
-      static_cast<const T*>(w), static_cast<T*>(out), P,
+      static_cast<const T*>(w), static_cast<const T*>(dinv),
+      static_cast<T>(scale), static_cast<T*>(out), static_cast<T*>(p1), P,
       static_cast<cudaStream_t>(stream)});
 }
 
@@ -832,15 +854,15 @@ extern "C" int k5_prolong_parity_f64(const void* xc, const void* xadd,
 extern "C" int k5_restrict_parity_f32(const void* b, const void* y,
                                       void* out, const int* shapes, int ndim,
                                       int nd, void* stream) {
-  return restrict_parity<float>(b, y, nullptr, out, shapes, ndim, nd,
-                                stream);
+  return restrict_parity<float>(b, y, nullptr, nullptr, 0.0, out, nullptr,
+                                shapes, ndim, nd, stream);
 }
 
 extern "C" int k5_restrict_parity_f64(const void* b, const void* y,
                                       void* out, const int* shapes, int ndim,
                                       int nd, void* stream) {
-  return restrict_parity<double>(b, y, nullptr, out, shapes, ndim, nd,
-                                 stream);
+  return restrict_parity<double>(b, y, nullptr, nullptr, 0.0, out, nullptr,
+                                 shapes, ndim, nd, stream);
 }
 
 // restrict_parity of w * (b - y); no pointer may be null.
@@ -849,7 +871,8 @@ extern "C" int k5_restrict_parity_weighted_residual_f32(
     const int* shapes, int ndim, int nd, void* stream) {
   if (b == nullptr || y == nullptr || w == nullptr)
     return (int)cudaErrorInvalidValue;
-  return restrict_parity<float>(b, y, w, out, shapes, ndim, nd, stream);
+  return restrict_parity<float>(b, y, w, nullptr, 0.0, out, nullptr, shapes,
+                                ndim, nd, stream);
 }
 
 extern "C" int k5_restrict_parity_weighted_residual_f64(
@@ -857,7 +880,30 @@ extern "C" int k5_restrict_parity_weighted_residual_f64(
     const int* shapes, int ndim, int nd, void* stream) {
   if (b == nullptr || y == nullptr || w == nullptr)
     return (int)cudaErrorInvalidValue;
-  return restrict_parity<double>(b, y, w, out, shapes, ndim, nd, stream);
+  return restrict_parity<double>(b, y, w, nullptr, 0.0, out, nullptr, shapes,
+                                 ndim, nd, stream);
+}
+
+// restrict_parity of b - y into out, and into p1 L-2's zero-guess first
+// Chebyshev iterate scale (d out) + 0 (d: L-2's Jacobi inverse diagonal, of
+// out's shape; scale rounded to the dtype here, as K6 rounds it); no
+// pointer may be null.
+extern "C" int k5_restrict_parity_residual_cheb_first_f32(
+    const void* b, const void* y, const void* d, double scale, void* out,
+    void* p1, const int* shapes, int ndim, int nd, void* stream) {
+  if (b == nullptr || y == nullptr || d == nullptr || p1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_parity<float>(b, y, nullptr, d, scale, out, p1, shapes,
+                                ndim, nd, stream);
+}
+
+extern "C" int k5_restrict_parity_residual_cheb_first_f64(
+    const void* b, const void* y, const void* d, double scale, void* out,
+    void* p1, const int* shapes, int ndim, int nd, void* stream) {
+  if (b == nullptr || y == nullptr || d == nullptr || p1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return restrict_parity<double>(b, y, nullptr, d, scale, out, p1, shapes,
+                                 ndim, nd, stream);
 }
 
 extern "C" int k5_prolong_grid_f32(const void* xc, const void* xadd,

@@ -30,7 +30,7 @@ import time
 
 import torch
 
-from exsaddle_tpu_torch.kernels import (_build, a00, cheb, krylov_ctl,
+from exsaddle_tpu_torch.kernels import (_build, a00, cheb, krylov_ctl, mp,
                                        stencil, transfer)
 
 
@@ -297,7 +297,8 @@ def track(counter):
 def _counters():
     """Every count a body or piece can move: K1's launches and applies,
     K4's, K6's, K4's by fused epilogue, each control kernel's, K5's and
-    K5's by form, K1's and K6's by form, then the tracked counters."""
+    K5's by form, K1's and K6's by form, K3's and K3's by form, then the
+    tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
             + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
@@ -306,6 +307,7 @@ def _counters():
             + tuple(transfer.LAUNCHES.by[f] for f in transfer.FORMS)
             + tuple(a00.LAUNCHES.by[f] for f in a00.FORMS)
             + tuple(cheb.LAUNCHES.by[f] for f in cheb.FORMS)
+            + (mp.LAUNCHES.n,) + tuple(mp.LAUNCHES.by[f] for f in mp.FORMS)
             + tuple(c.n for c in _TRACKED))
 
 
@@ -324,6 +326,9 @@ def _set_counters(vals):
         a00.LAUNCHES.by[f] = vals.pop(0)
     for f in cheb.FORMS:
         cheb.LAUNCHES.by[f] = vals.pop(0)
+    mp.LAUNCHES.n = vals.pop(0)
+    for f in mp.FORMS:
+        mp.LAUNCHES.by[f] = vals.pop(0)
     for c, v in zip(_TRACKED, vals):
         c.n = v
 

@@ -9,12 +9,18 @@ plain PyTorch version beside it and a launch count.
                 levels (replaces exsaddle_tpu/abf.py:stencil_accum, an XLA
                 fusion on the TPU), with the levels' Chebyshev update and
                 residual as its epilogues
+  mp         -- K3, the p-block's Mpscaled apply (replaces
+                exsaddle_tpu/abf.py:mp_apply, an XLA fusion on the TPU),
+                one launch per apply, with the single-device p-block's
+                Chebyshev update in its store
   transfer   -- K5, the MG transfers between the fine parity layout and
                 the coarse grid and between the node grids of the deep
                 levels, one launch each, with the V-cycle's correction add
-                and fine residual fused (replaces exsaddle_tpu/abf.py:
-                prolong_parity, restrict_parity, prolong_grid,
-                restrict_grid, XLA fusions on the TPU)
+                and fine residual fused, and each restriction into a
+                smoothed level with that level's first Chebyshev step
+                (replaces exsaddle_tpu/abf.py: prolong_parity,
+                restrict_parity, prolong_grid, restrict_grid, XLA fusions
+                on the TPU)
   cheb       -- K6, the Chebyshev smoother's vector update with a Jacobi
                 preconditioner, one pass per step (replaces the loop body
                 of exsaddle_tpu/treeops.py:cheb_smooth, an XLA fusion),

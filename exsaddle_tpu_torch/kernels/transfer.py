@@ -8,6 +8,10 @@ Hopper, one launch per transfer.
         its transpose: flat fine u vector -> coarse node grid
     restrict_parity_residual(b, y, cls_shapes, m_el)
         restrict_parity(b - y, ...), b - y formed in the kernel's loads
+    restrict_parity_residual_cheb_first(b, y, cls_shapes, m_el, d, scale)
+        (b2, p1): b2 = restrict_parity_residual(b, y, ...), and L-2's
+        zero-guess first Chebyshev iterate p1 = scale (d b2) + 0 computed in
+        the same store (the K6 cheb_first launch that followed)
     restrict_parity_weighted_residual(b, y, w, cls_shapes, m_el)
         restrict_parity(w * (b - y), ...), formed in the kernel's loads
         (the cart V-cycle's ownership-weighted residual)
@@ -45,9 +49,9 @@ from exsaddle_tpu_torch.kernels import _build, cheb
 
 # the launch forms, by the name the kernels line and the counters use
 FORMS = ("prolong_parity", "prolong_parity_add", "restrict_parity",
-         "restrict_parity_residual", "restrict_parity_weighted_residual",
-         "prolong_grid", "prolong_grid_add", "restrict_grid",
-         "restrict_grid_cheb_first")
+         "restrict_parity_residual", "restrict_parity_residual_cheb_first",
+         "restrict_parity_weighted_residual", "prolong_grid",
+         "prolong_grid_add", "restrict_grid", "restrict_grid_cheb_first")
 
 _V = ctypes.c_void_p
 _bound = False
@@ -124,6 +128,14 @@ def restrict_parity_plain(xu, cls_shapes, m_el):
 def restrict_parity_residual_plain(b, y, cls_shapes, m_el):
     """restrict_parity of the residual b - y."""
     return restrict_parity_plain(b - y, cls_shapes, m_el)
+
+
+def restrict_parity_residual_cheb_first_plain(b, y, cls_shapes, m_el, d,
+                                               scale):
+    """restrict_parity_residual, then K6's zero-guess first step on the
+    result: (b2, scale (d b2) + 0)."""
+    b2 = restrict_parity_residual_plain(b, y, cls_shapes, m_el)
+    return b2, cheb.cheb_first_plain(b2, None, d, torch.zeros_like(b2), scale)
 
 
 def restrict_parity_weighted_residual_plain(b, y, w, cls_shapes, m_el):
@@ -263,6 +275,10 @@ def _fn(kind, dtype):
             f.argtypes = [_V] * 2 + [ctypes.c_double] + [_V] * 3 + [
                 ctypes.c_int] * 2 + [_V]
             f.restype = ctypes.c_int
+            f = getattr(lib, "k5_restrict_parity_residual_cheb_first" + sfx)
+            f.argtypes = [_V] * 3 + [ctypes.c_double] + [_V] * 3 + [
+                ctypes.c_int] * 2 + [_V]
+            f.restype = ctypes.c_int
         _bound = True
     return lib, getattr(lib, f"k5_{kind}_"
                         + ("f32" if dtype == torch.float32 else "f64"))
@@ -334,6 +350,26 @@ def restrict_parity_residual(b, y, cls_shapes, m_el):
     if not _device(name, b):
         return restrict_parity_residual_plain(b, y, cls_shapes, m_el)
     return _restrict_parity(name, b, y, cls_shapes, m_el)
+
+
+def restrict_parity_residual_cheb_first(b, y, cls_shapes, m_el, d, scale):
+    """(b2, p1): b2 = restrict_parity_residual(b, y, cls_shapes, m_el) and
+    L-2's zero-guess first Chebyshev iterate p1 = scale (d b2) + 0 (K6's
+    cheb_first with x0 = 0; d L-2's Jacobi inverse diagonal, of b2's
+    shape), both from one launch."""
+    name = "restrict_parity_residual_cheb_first"
+    if not _device(name, b):
+        return restrict_parity_residual_cheb_first_plain(b, y, cls_shapes,
+                                                         m_el, d, scale)
+    if y is None or d is None:
+        raise ValueError(f"{name}: y and d are required")
+    ndim = nd = len(m_el)
+    _dims(name, ndim, nd)
+    cshape, n, table = parity_layout(cls_shapes, m_el, nd)
+    _check(name, b, (n,), y=((n,), y), d=(cshape + (nd,), d))
+    return _launch(name, name, b, cshape + (nd,),
+                   [_ptr(b), _ptr(y), _ptr(d), ctypes.c_double(float(scale))],
+                   table, ndim, nd, nout=2)
 
 
 def restrict_parity_weighted_residual(b, y, w, cls_shapes, m_el):
@@ -413,6 +449,8 @@ def restrict_grid_cheb_first(rf, coarse_shape, d, scale):
 TWINS = {"prolong_parity": prolong_parity_plain,
          "restrict_parity": restrict_parity_plain,
          "restrict_parity_residual": restrict_parity_residual_plain,
+         "restrict_parity_residual_cheb_first":
+             restrict_parity_residual_cheb_first_plain,
          "restrict_parity_weighted_residual":
              restrict_parity_weighted_residual_plain,
          "prolong_grid": prolong_grid_plain,

@@ -852,7 +852,8 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     def mg_pc(r):
         x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
         # the ownership-weighted residual w_u * (r - A x), formed in K5's
-        # loads
+        # loads; L-2's first step stays K6 (smooth_l1): each shard's
+        # restriction is a partial slab that only halo_p completes
         r1 = blk.halo_p(smap(
             lambda b, y, w: transfer.restrict_parity_weighted_residual(
                 b, y, w, cls_loc, mloc), r, blk.fine_mult(x), blk.w_u))
@@ -865,6 +866,8 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     p_emin, p_emax = dd["p_bounds"]
 
     def p_solve(bp):
+        # K3's plain form per shard, the halo, then K6: the update cannot
+        # go in K3's store before the interface planes are summed
         return treeops.cheb_smooth(
             lambda pg: mp_apply(ops, dd["pscale"], pg, halo_p=blk.halo_p),
             None, p_emin, p_emax, cfg.p_cheb_its, bp,

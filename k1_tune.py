@@ -1,8 +1,9 @@
 """K1 (exsaddle_tpu_torch/csrc/a00_apply.cu) on one CUDA card beside an
 earlier build of its source, and the fine level's fused forms against the
-launches they replace.
+launches they replace; or, with --routing k3, K3's (csrc/mp_apply.cu).
 
     python3 k1_tune.py --parent OLD.cu [--variant ALT.cu ...]
+    python3 k1_tune.py --routing k3
 
 OLD.cu is a K1 source with this version's C ABI for the plain apply:
 a00_apply_f32 / _f64 (x, scale_visc, Bs, ell, ye, y, nd, mx, my, mz,
@@ -33,6 +34,17 @@ Each is built into a library of its own.
    alternated (parent, PR, PR, parent, twice; median of 3 solves per
    turn), with each routing's K1 and K6 launches per solve.
 
+--routing k3 runs step 3 alone, with K3's swap table: the parent's
+routing has K3's entries as the plain torch apply (mp_apply_plain, ~13
+launches) followed by K6, and the fine residual's restriction with L-2's
+first Chebyshev step in its store (restrict_parity_residual_cheb_first)
+as K5's residual restriction followed by K6's first step. The
+restriction's swap is bitwise, K3's is not (the kernel's element
+products sum in another order than the GEMMs), so the two solves are the
+order witness: their rounds, inner iterations and x are compared, each
+routing's K3, K5 and K6 launches per solve printed, and both must
+converge.
+
 The last line is one JSON object with every number. It exits 1 if any
 output differs. Needs a CUDA card and nvcc."""
 
@@ -51,7 +63,7 @@ import torch
 import chip_smoke as cs
 from exsaddle_tpu_torch import abf as tabf
 from exsaddle_tpu_torch import bench
-from exsaddle_tpu_torch.kernels import _build, a00, cheb
+from exsaddle_tpu_torch.kernels import _build, a00, cheb, mp, transfer
 from exsaddle_tpu_torch.matfree import tree_aux
 
 F32, F64 = torch.float32, torch.float64
@@ -251,9 +263,26 @@ def times(papply, device, card):
     return out
 
 
-def walls(papply, device, card, turns=2, per_turn=3):
+# each kernel's swap table for the parent's routing of the tuned solve:
+# (module, attribute, the parent's function)
+def k1_swaps(papply):
+    """K1's fused entries as their twins, whose K1 is the parent's."""
+    return [(a00, n, t) for n, t in a00.TWINS.items()] + [
+        (a00, "_k1", papply)]
+
+
+# K3's entries as the plain torch apply then K6; the fine restriction
+# unfused, then K6's first step
+K3_SWAPS = [(mp, n, fn) for n, fn in cs.K3_PARENT.items()] + [
+    (transfer, "restrict_parity_residual_cheb_first", cs._fine_pair)]
+
+
+def walls(swaps, device, card, bitwise=True, turns=2, per_turn=3):
     """The tuned device-loop IR solve in the PR's routing and the
-    parent's, over one setup: bitwise, counts, walls alternated."""
+    parent's (swaps installed while the parent's solver is built and
+    timed), over one setup: counts side by side, walls alternated. With
+    bitwise the two must agree bit for bit with equal K1 launches;
+    without, they are an order witness, compared and both converged."""
     t0 = time.perf_counter()
     p = bench._build_problem(32, with_rhs=True)
     base = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
@@ -266,8 +295,6 @@ def walls(papply, device, card, turns=2, per_turn=3):
     F = p["F_raw"] + setup["rhs_diri"]
     kw = dict(device=device, dtype=F32, ir=True)
     slv = {"PR": tabf.ABFSolver.from_parts(cfg, data, setup, **kw)}
-    swaps = [(a00, n, t) for n, t in a00.TWINS.items()] + [
-        (a00, "_k1", papply)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
 
     def install():
@@ -286,20 +313,48 @@ def walls(papply, device, card, turns=2, per_turn=3):
         restore()
     first["PR"] = cs._ir_solve(slv["PR"], F)
     a, b = first["PR"], first["parent"]
-    same = (slv["PR"].loop == slv["parent"].loop == "device"
-            and cs._same_ir(a["res"], b["res"])
-            and (a["launches"], a["applies"]) == (b["launches"],
-                                                  b["applies"]))
+    devloop = slv["PR"].loop == slv["parent"].loop == "device"
+    witness = {"counts_equal": (a["res"]["rounds"], a["res"]["inner_its"])
+               == (b["res"]["rounds"], b["res"]["inner_its"]),
+               "x_bitwise": bool(np.array_equal(a["res"]["x"],
+                                                b["res"]["x"])),
+               "x_rel": float(np.linalg.norm(a["res"]["x"] - b["res"]["x"])
+                              / np.linalg.norm(b["res"]["x"]))}
+    if bitwise:
+        ok = (devloop and cs._same_ir(a["res"], b["res"])
+              and (a["launches"], a["applies"]) == (b["launches"],
+                                                    b["applies"]))
+        log(f"[k1_tune] the two routings "
+            + ("agree bit for bit (x, history, rounds, inner its) with "
+               "equal K1 launches" if ok else "DIFFER"))
+    else:
+        ok = devloop and all(q["res"]["converged"] and not q["res"]["stalled"]
+                             for q in first.values())
+        log(f"[k1_tune] order witness: rounds / inner its "
+            + ("equal" if witness["counts_equal"] else "DIFFER")
+            + f", x bitwise {witness['x_bitwise']}, x differs by "
+            f"{witness['x_rel']:.3e} norm-relative"
+            + ("" if ok else "; a solve did not converge") + f" ({card})")
+    fine = ("restrict_parity_residual", "restrict_parity_residual_cheb_first")
+    counts = {k: {"rounds": q["res"]["rounds"],
+                  "inner_its": q["res"]["inner_its"],
+                  "k1_launches": q["launches"], "k1_applies": q["applies"],
+                  "k1_by": q["a00_by"], "k3_by": q["k3"],
+                  "k6_launches": q["mg"][1], "k6_by": q["k6_by"],
+                  "k4_launches": q["mg"][0],
+                  "k5_fine_restrictions": {f: q["k5"][f] for f in fine}}
+              for k, q in first.items()}
     for k, q in first.items():
+        c = counts[k]
         log(f"[k1_tune] device-loop IR solve, {k} routing: "
-            f"{q['res']['rounds']} rounds / {q['res']['inner_its']} inner "
-            f"its, K1 {q['launches']} launches in {q['applies']} applies "
-            f"(by form {q['a00_by']}), K6 {q['mg'][1]} launches (by form "
-            f"{q['k6_by']}), K4 {q['mg'][0]}, {q['graph_launches']} graph "
-            f"launch")
-    log(f"[k1_tune] the two routings "
-        + ("agree bit for bit (x, history, rounds, inner its) with equal "
-           "K1 launches" if same else "DIFFER"))
+            f"{c['rounds']} rounds / {c['inner_its']} inner its, K1 "
+            f"{c['k1_launches']} launches in {c['k1_applies']} applies (by "
+            f"form {c['k1_by']}), K3 by form {c['k3_by']}, K6 "
+            f"{c['k6_launches']} launches (by form {c['k6_by']}), K4 "
+            f"{c['k4_launches']}, fine restrictions "
+            f"{c['k5_fine_restrictions']}, true float64 relative residual "
+            f"{q['res']['rnorm'] / q['res']['rnorm0']:.3e}, "
+            f"{q['graph_launches']} graph launch")
     rec = {"parent": [], "PR": []}
     for _ in range(turns):
         for k in ("parent", "PR", "PR", "parent"):
@@ -319,27 +374,32 @@ def walls(papply, device, card, turns=2, per_turn=3):
     for k, w in rec.items():
         log(f"[k1_tune] device-loop IR solve wall, {k} routing: "
             + ", ".join(f"{x:.4f}" for x in w) + f" s ({card})")
-    counts = {k: {"rounds": q["res"]["rounds"],
-                  "inner_its": q["res"]["inner_its"],
-                  "k1_launches": q["launches"], "k1_by": q["a00_by"],
-                  "k6_launches": q["mg"][1], "k6_by": q["k6_by"]}
-              for k, q in first.items()}
-    return {"walls_s": rec, "counts": counts, "bitwise": same}, same
+    return {"walls_s": rec, "counts": counts, "order_witness": witness,
+            "ok": ok}, ok
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True,
-                    help="an earlier K1 source (a00_apply.cu)")
+    ap.add_argument("--routing", choices=("k1", "k3"), default="k1",
+                    help="whose fused routing the tuned solve sets against "
+                    "the parent's (k3: that solve alone)")
+    ap.add_argument("--parent", help="an earlier K1 source (a00_apply.cu), "
+                    "required with --routing k1")
     ap.add_argument("--variant", action="append", default=[],
                     help="a variant of this version's a00_apply.cu")
     args = ap.parse_args()
+    if args.routing == "k1" and not args.parent:
+        ap.error("--routing k1 needs --parent")
     if not torch.cuda.is_available():
         print("k1_tune: no CUDA device available", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
     card = cs.phase_device()
     cs.phase_build()
+    if args.routing == "k3":
+        out, ok = walls(K3_SWAPS, device, card, bitwise=False)
+        log(json.dumps({"card": card, "routing": "k3", "solve": out}))
+        return 0 if ok else 1
     out = {"card": card, "parent": args.parent}
     with tempfile.TemporaryDirectory() as tmp:
         papply = parent_apply(build_parent(args.parent, tmp))
@@ -350,7 +410,7 @@ def main():
                      for i, v in enumerate(args.variant)]
             out["variants"], more = variants(vlibs, device, card)
             bad += more
-        out["solve"], same = walls(papply, device, card)
+        out["solve"], same = walls(k1_swaps(papply), device, card)
         if not same:
             bad.append("device-loop solve")
     log(f"[k1_tune] against {args.parent}: "

@@ -20,7 +20,7 @@ from exsaddle_tpu_torch import driver as tdriver
 from exsaddle_tpu_torch import matfree as tmf
 from exsaddle_tpu_torch import models as tmodels
 from exsaddle_tpu_torch.assembly import FESpace, assemble_rhs, scatter_vector
-from exsaddle_tpu_torch.kernels import a00, cheb, stencil, transfer
+from exsaddle_tpu_torch.kernels import a00, cheb, mp, stencil, transfer
 from exsaddle_tpu_torch.mesh import SaddleMesh
 from exsaddle_tpu_torch.options import Options
 from exsaddle_tpu_torch.precond import PCLU
@@ -891,7 +891,7 @@ K5 = 4 + len(stencil.EPILOGUES)
 
 
 def _reset_kernel_counts():
-    for k in (a00, stencil, cheb, transfer):
+    for k in (a00, stencil, cheb, transfer, mp):
         k.LAUNCHES.reset()
 
 
@@ -1547,3 +1547,162 @@ def test_fused_grid_restriction_captures_with_launches_counted(cuda):
         assert transfer.LAUNCHES.by["restrict_grid_cheb_first"] == i + 2
         assert transfer.LAUNCHES.n == i + 2
         assert cheb.LAUNCHES.n == 2 * (i + 2)   # the two steps only
+
+
+# --- K3, the p-block's Mpscaled apply, and K5's fused parity restriction ----
+
+# (m_el) of K3: 2D, a small and a ragged 3D mesh (tiles that do not divide
+# the node grid on any axis), a cart shard's box and the mx=32 flagship
+K3_CASES = {"2d": (5, 4), "2d_large": (64, 48), "small": (3, 4, 2),
+            "ragged": (5, 7, 9), "cart_shard": (32, 16, 16),
+            "mx32": (32, 32, 32)}
+SCALE_K3, OMEGA_K3 = 0.7312345678901234, 1.6180339887498949
+
+
+def _mp_inputs(m_el, dtype, device, seed):
+    """(op, pscale, x, b, p_km1, d): Np of the Q1 shape with uniform
+    entries, negative weights as the ABF setup makes them, b a view at an
+    odd offset into a longer vector (as the p-block's right-hand side is a
+    view into the saddle vector)."""
+    from types import SimpleNamespace
+    nd = len(m_el)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    nn = tuple(m + 1 for m in m_el)
+    grid = tuple(reversed(nn))
+    op = SimpleNamespace(m_el=m_el, nn_p=nn,
+                         Np=t(rng.uniform(-0.2, 1.0, (3 ** nd, 2 ** nd))))
+    ps = t(-rng.uniform(0.1, 2.0, (int(np.prod(m_el)), 3 ** nd)))
+    x, q = (t(rng.standard_normal(grid)) for _ in range(2))
+    n = int(np.prod(grid))
+    b = t(rng.standard_normal(n + 3))[1:1 + n].view(grid)
+    return op, ps, x, b, q, t(rng.uniform(0.5, 1.5, grid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_mp_kernel_within_tolerance_and_fused_forms_bitwise(cuda, case,
+                                                           dtype):
+    """K3's plain form against mp_apply_plain within TOL of the apply over
+    absolute values (the element products sum in another order than a
+    GEMM), bitwise repeatable; the step form bit for bit its twin (the
+    plain kernel, then K6's kernel) and MpOp's forms the entries (its
+    cheb_first the plain kernel, then K6's); one launch per call, counted
+    by form."""
+    from types import SimpleNamespace
+    op, ps, x, b, q, d = _mp_inputs(K3_CASES[case], dtype, cuda, 31)
+    _reset_kernel_counts()
+    y = mp.mp_apply(op, ps, x)
+    step = mp.mp_cheb_step(op, ps, b, x, q, d, SCALE_K3, OMEGA_K3)
+    fused = mp.MpOp(op, ps)
+    again = (fused(x), fused.cheb_step(b, x, q, d, SCALE_K3, OMEGA_K3))
+    assert mp.LAUNCHES.n == 4 and mp.LAUNCHES.by == {
+        "mp_apply": 2, "mp_cheb_step": 2}
+    assert cheb.LAUNCHES.n == 0
+    twin = mp.TWINS["mp_cheb_step"](op, ps, b, x, q, d, SCALE_K3, OMEGA_K3)
+    first = fused.cheb_first(b, x, d, SCALE_K3)
+    pair = cheb.cheb_first(b, y, d, x, SCALE_K3)
+    assert mp.LAUNCHES.by["mp_apply"] == 4 and cheb.LAUNCHES.n == 3
+    plain = mp.mp_apply_plain(op, ps, x)
+    mag = float(mp.mp_apply_plain(
+        SimpleNamespace(m_el=op.m_el, nn_p=op.nn_p, Np=op.Np.abs()),
+        ps.abs(), x.abs()).max())
+    torch.cuda.synchronize()
+    err = float((y - plain).abs().max())
+    assert bool(torch.isfinite(y).all()) and err <= TOL[dtype] * mag, (
+        case, err, mag)
+    assert _same_bits(again[0], y) and _same_bits(first, pair)
+    assert _same_bits(step, twin) and _same_bits(again[1], step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(K5_PARITY))
+def test_fused_parity_restriction_bitwise_twin(cuda, case, dtype):
+    """restrict_parity_residual_cheb_first against its twin on the card,
+    bit for bit, one launch; its p1 also against K6's cheb_first kernel on
+    the residual restriction kernel's b2 (the pair it replaces); signed
+    zeros in b - y, so some restricted values are -0 and their first
+    iterates +0."""
+    m_el, cls = K5_PARITY[case]
+    nd = len(m_el)
+    n = sum(int(np.prod(c)) for c in cls) * nd
+    cshape = tuple(m + 1 for m in reversed(m_el)) + (nd,)
+    rng = np.random.default_rng(25)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa
+    b, y = (t(rng.standard_normal(n)) for _ in range(2))
+    b[: n // 3] = -0.0
+    y[: n // 3] = 0.0
+    d = t(0.5 + rng.random(cshape))
+    _reset_kernel_counts()
+    b2, p1 = transfer.restrict_parity_residual_cheb_first(b, y, cls, m_el, d,
+                                                          SCALE_K3)
+    assert transfer.LAUNCHES.n == 1 and transfer.LAUNCHES.by[
+        "restrict_parity_residual_cheb_first"] == 1
+    bw, pw = transfer.restrict_parity_residual_cheb_first_plain(
+        b, y, cls, m_el, d, SCALE_K3)
+    r = transfer.restrict_parity_residual(b, y, cls, m_el)
+    pair = cheb.cheb_first(r, None, d, torch.zeros_like(r), SCALE_K3)
+    torch.cuda.synchronize()
+    assert _same_bits(b2, bw) and _same_bits(p1, pw)
+    assert _same_bits(b2, r) and _same_bits(p1, pair)
+
+
+@pytest.mark.gpu
+def test_mp_kernel_refuses_bad_input(cuda):
+    """Non-contiguous inputs, mismatched shapes, dtypes or devices raise
+    before a launch, for K3 and for the fused parity restriction."""
+    op, ps, x, b, q, d = _mp_inputs((3, 4, 2), torch.float32, cuda, 32)
+    _reset_kernel_counts()
+    with pytest.raises(ValueError, match="pg is not contiguous"):
+        mp.mp_apply(op, ps, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="pscale has shape"):
+        mp.mp_apply(op, ps[:-1], x)
+    with pytest.raises(ValueError, match="pscale is torch.float64"):
+        mp.mp_apply(op, ps.double(), x)
+    with pytest.raises(ValueError, match="d is torch.float32 on cpu"):
+        mp.mp_cheb_step(op, ps, b, x, q, d.cpu(), SCALE_K3, OMEGA_K3)
+    with pytest.raises(ValueError, match="p_km1 has shape"):
+        mp.mp_cheb_step(op, ps, b, x, q[:-1], d, SCALE_K3, OMEGA_K3)
+    with pytest.raises(TypeError, match="not supported"):
+        mp.mp_apply(op, ps.half(), x.half())
+    m_el, cls = K5_PARITY["3d_odd"]
+    n = sum(int(np.prod(c)) for c in cls) * 3
+    v = torch.rand(n, device=cuda)
+    dg = torch.rand((3, 5, 4, 3), device=cuda)
+    fused = transfer.restrict_parity_residual_cheb_first
+    with pytest.raises(ValueError, match="y and d are required"):
+        fused(v, v, cls, m_el, None, 1.0)
+    with pytest.raises(ValueError, match="d has shape"):
+        fused(v, v, cls, m_el, dg[:, :4], 1.0)
+    with pytest.raises(ValueError, match="d is torch.float64"):
+        fused(v, v, cls, m_el, dg.double(), 1.0)
+    assert mp.LAUNCHES.n == 0 and transfer.LAUNCHES.n == 0
+
+
+@pytest.mark.gpu
+def test_mp_kernel_captures_with_launches_counted(cuda):
+    """The p-block's smoother over MpOp (a K6 first step, then fused K3
+    steps) captures into a CUDA graph under the sync debug mode "error";
+    each replay gives the eager bits and adds its captured launches,
+    counted by form, through the graph counters."""
+    from exsaddle_tpu_torch import graphs, treeops
+    op, ps, _, b, _, d = _mp_inputs((9, 8, 7), torch.float32, cuda, 33)
+    b = b.contiguous()
+    emin, emax = np.float32(0.1), np.float32(1.9)
+    its = 6
+    body = lambda r: treeops.cheb_smooth(  # noqa: E731
+        mp.MpOp(op, ps), None, emin, emax, its, r, torch.zeros_like(r),
+        x0_zero=True, diag=d)
+    want = body(b)
+    _reset_kernel_counts()
+    g = graphs.Captured(body, b)
+    assert (mp.LAUNCHES.by["mp_cheb_step"], cheb.LAUNCHES.n) == (its - 1, 1)
+    for i in range(2):
+        assert torch.equal(g(b), want)
+        assert mp.LAUNCHES.n == mp.LAUNCHES.by["mp_cheb_step"] == \
+            (its - 1) * (i + 2)
+        assert cheb.LAUNCHES.n == i + 2

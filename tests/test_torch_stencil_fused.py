@@ -227,9 +227,10 @@ def _count_entries(monkeypatch):
 
 def test_single_device_vcycle_goes_through_the_fused_entries(monkeypatch):
     """A 4-level mx=8 V-cycle: both stencil levels smooth and take their
-    residual through the fused entries; K6 runs only L-2's zero-guess
-    first step (L-3's comes from the store of K5's
-    restrict_grid_cheb_first) and the fine level's updates."""
+    residual through the fused entries; K6 runs only the fine level's
+    zero-guess first step (L-2's and L-3's come from the stores of K5's
+    restrict_parity_residual_cheb_first and restrict_grid_cheb_first) and
+    the fine level's updates."""
     _, t = problems(3, (8, 8, 8), ["-model", "2"])
     slv = tabf.ABFSolver(*t[1:], device="cpu", nlevels=4)
     cfg = slv.cfg
@@ -243,7 +244,7 @@ def test_single_device_vcycle_goes_through_the_fused_entries(monkeypatch):
                      "stencil_residual": levels,
                      "stencil_cheb_first": levels,
                      "stencil_cheb_step": levels * (pre + cfg.cheb_its - 2),
-                     "cheb_first": 2 + levels - 1,
+                     "cheb_first": 2,
                      "cheb_step": pre + cfg.cheb_its - 2}
 
 

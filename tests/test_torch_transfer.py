@@ -393,7 +393,8 @@ def _count_entries(monkeypatch):
 
 def test_single_device_vcycle_goes_through_k5(monkeypatch):
     """A 4-level mx=8 V-cycle makes 6 transfers: the fine residual
-    restricted by the fused restrict_parity_residual, the correction
+    restricted by the fused restrict_parity_residual_cheb_first (L-2's
+    first pre-smoothing step in its store), the correction
     prolonged and added by prolong_parity(add=), and on the two stencil
     levels prolong_grid(add=) and the restriction: into the smoothed L-3
     restrict_grid_cheb_first (L-3's first pre-smoothing step in its
@@ -405,7 +406,8 @@ def test_single_device_vcycle_goes_through_k5(monkeypatch):
     slv.bodies()["mg_pc"](torch.as_tensor(rng.standard_normal(
         slv.data["op"].nu)))
     assert calls == {**dict.fromkeys(transfer.FORMS, 0),
-                     "restrict_parity_residual": 1, "prolong_parity_add": 1,
+                     "restrict_parity_residual_cheb_first": 1,
+                     "prolong_parity_add": 1,
                      "restrict_grid_cheb_first": 1, "restrict_grid": 1,
                      "prolong_grid_add": 2}
 
