@@ -69,7 +69,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               events, cold and hot) and the HBM bound (bytes); the fused
               entries against their twins and the fused Chebyshev step
               against the K4 + K6 pair it replaces. Then K3, the p-block's
-              Mpscaled apply (csrc/mp_apply.cu), at the flagship's p size
+              Mpscaled apply (csrc/mp_apply.cu: Mpscaled's 27-point node
+              stencil, built at setup), at the flagship's p size
               (33^3 nodes) on its own pscale, Np, diagonal and bounds, in
               float32 and float64: its plain form within 1e-5 / 1e-13 of
               the plain apply over absolute values (mp_apply_plain),
@@ -1413,62 +1414,58 @@ K3_CASE = {"mp_apply": ("cart shard", torch.float64),
            "mp_cheb_step": ("p size", torch.float32)}
 
 
-def _k3_plain_step(op, pscale, b, p_k, p_km1, d, scale, omega):
+def _k3_plain(op, pscale, W, pg):
+    return mp.mp_apply_plain(op, pscale, pg)
+
+
+def _k3_plain_step(op, pscale, W, b, p_k, p_km1, d, scale, omega):
     return cheb.cheb_step(b, mp.mp_apply_plain(op, pscale, p_k), d, p_k,
                           p_km1, scale, omega)
 
 
-# the parent's routing of K3's entries: the plain torch apply (the ~13
-# launches of mp_apply_plain), then K6 (looked up at each call); a caller
-# swaps them in before a solver is built, as the order witness does
-K3_PARENT = {"mp_apply": mp.mp_apply_plain,
-             "mp_cheb_step": _k3_plain_step}
+# the torch routing of K3's entries (the port's before K3 was a kernel):
+# the plain apply (the ~13 launches of mp_apply_plain, on the factored
+# form), then K6 (looked up at each call); a caller swaps them in before a
+# solver is built, as the order witness does
+K3_PARENT = {"mp_apply": _k3_plain, "mp_cheb_step": _k3_plain_step}
 
 
 def _mp_csr(op, pscale):
-    """The assembled Mpscaled as an int32 CSR tensor on pscale's device (a
-    yardstick only: the port never assembles it): each element's
-    Np^T diag(pscale_e) Np scattered to its 2^nd corner nodes."""
-    import scipy.sparse as sp
-    nd = len(op.m_el)
-    nn = [int(n) for n in op.nn_p]
-    Np = op.Np.double().cpu().numpy()
-    ps = pscale.double().cpu().numpy()
-    Me = np.einsum("qa,eq,qb->eab", Np, ps, Np)
-    e = np.arange(ps.shape[0])
-    ex, ey = e % op.m_el[0], (e // op.m_el[0]) % op.m_el[1]
-    ez = e // (op.m_el[0] * op.m_el[1]) if nd == 3 else 0 * e
-    node = np.stack([((ez + (c >> 2)) * nn[1] + ey + ((c >> 1) & 1)) * nn[0]
-                     + ex + (c & 1) for c in range(2 ** nd)], 1)
-    rows = np.repeat(node, 2 ** nd, 1).reshape(-1)
-    cols = np.tile(node, (1, 2 ** nd)).reshape(-1)
-    A = sp.csr_matrix((Me.reshape(-1), (rows, cols)),
-                      shape=(int(np.prod(nn)),) * 2)
-    A.sum_duplicates()
+    """The assembled Mpscaled (tabf.mp_csr of the working-precision Np and
+    pscale, in float64) as an int32 CSR tensor in pscale's dtype and on
+    its device: the library yardstick's operand, and (tabf.mp_stencil)
+    K3's stencil. Returns (CSR tensor, nnz, stencil W)."""
+    A = tabf.mp_csr(op.Np.double().cpu().numpy(),
+                    pscale.double().cpu().numpy(), op.m_el)
     dev, dt = pscale.device, pscale.dtype
+    W = torch.as_tensor(tabf.mp_stencil(A, op.nn_p), dtype=dt, device=dev)
     return torch.sparse_csr_tensor(
         torch.as_tensor(A.indptr, dtype=torch.int32),
         torch.as_tensor(A.indices, dtype=torch.int32),
-        torch.as_tensor(A.data, dtype=dt), A.shape, device=dev), A.nnz
+        torch.as_tensor(A.data, dtype=dt), A.shape, device=dev), A.nnz, W
 
 
 def _k3_kernels(data, device, card, rng):
-    """K3 (csrc/mp_apply.cu) at the mx=32 flagship's p size (33^3 nodes,
-    32,768 elements) on its own pscale, Np, Jacobi diagonal and Chebyshev
+    """K3 (csrc/mp_apply.cu: Mpscaled's node stencil W, assembled in
+    float64 from the box's pscale and Np and rounded once, as the setup
+    builds it) at the mx=32 flagship's p size (33^3 nodes, 32,768
+    elements) on its own pscale, Np, Jacobi diagonal and Chebyshev
     bounds, float32 and float64, and its plain form on one cart shard's
     box of the 1x2x2 grid (32 x 16 x 16 elements, the flagship's pscale
     rows of that box), float64: the plain form within K4_TOL of the plain
     apply over absolute values (mp_apply_plain: gather, two GEMMs,
-    scatter; the kernel's element products sum in another order), bitwise
-    repeatable; the step form bitwise its twin (the plain kernel, then K6)
-    and MpOp's forms the entries. Device ms per call, cold and hot
-    (_mg_times), of the kernel, its twin (the plain form's:
-    mp_apply_plain) and the launches the form replaces on the main path
-    (the parent's routing: mp_apply_plain, then K6's update); the library
-    yardstick (cuSPARSE CSR SpMV of the assembled Mpscaled, int32; CUDA
-    events, cold and hot, as K4's); the bound (bytes: pscale, Np and each
-    node vector once; operations: the element products, the node sums and
-    the update). Returns the records by (form, case, dtype)."""
+    scatter, on the factored form), bitwise repeatable; the step form
+    bitwise its twin (the plain kernel, then K6) and MpOp's forms the
+    entries. Device ms per call, cold and hot (_mg_times: the vectors
+    cycled, W held as the p-block's steps hold it), of the kernel, its
+    twin (the plain form's: mp_apply_plain) and the launches the form
+    replaces on the torch routing (mp_apply_plain, then K6's update); the
+    library yardstick (cuSPARSE CSR SpMV of the assembled Mpscaled,
+    int32; CUDA events, cold and hot, as K4's); the bound (the least
+    bytes of the same work, the factored form's: pscale, Np and each node
+    vector once; operations: the element products, the node sums and the
+    update), beside the stencil's own bytes. Returns the records by
+    (form, case, dtype)."""
     from types import SimpleNamespace
     f32, f64 = torch.float32, torch.float64
     op = data["op"]
@@ -1497,7 +1494,8 @@ def _k3_kernels(data, device, card, rng):
         x, b, q = (t(rng.standard_normal(grid)) for _ in range(3))
         d = t(rng.uniform(0.5, 1.5, grid)) if case == "cart shard" else (
             data["inv_diag_p"].to(dtype).contiguous())
-        y = mp.mp_apply(kop, ps, x)
+        csr, nnz, W = _mp_csr(kop, ps)
+        y = mp.mp_apply(kop, ps, W, x)
         yp = mp.mp_apply_plain(kop, ps, x)
         mag = float(mp.mp_apply_plain(aop, ps.abs(), x.abs()).max())
         torch.cuda.synchronize()
@@ -1505,16 +1503,16 @@ def _k3_kernels(data, device, card, rng):
         check(bool(torch.isfinite(y).all()) and err <= K4_TOL[dtype] * mag,
               f"K3 {case} {dtype}: max_abs_err {err:.3e} > "
               f"{K4_TOL[dtype]:g} x {mag:.3e}")
-        check(torch.equal(mp.mp_apply(kop, ps, x), y),
+        check(torch.equal(mp.mp_apply(kop, ps, W, x), y),
               f"K3 {case} {dtype}: repeated applies differ")
-        step = mp.mp_cheb_step(kop, ps, b, x, q, d, scale, omega)
-        twin = mp.TWINS["mp_cheb_step"](kop, ps, b, x, q, d, scale, omega)
-        via = mp.MpOp(kop, ps).cheb_step(b, x, q, d, scale, omega)
+        step = mp.mp_cheb_step(kop, ps, W, b, x, q, d, scale, omega)
+        twin = mp.TWINS["mp_cheb_step"](kop, ps, W, b, x, q, d, scale,
+                                        omega)
+        via = mp.MpOp(kop, ps, W).cheb_step(b, x, q, d, scale, omega)
         torch.cuda.synchronize()
         check(_same_bits(step, twin) and _same_bits(via, step),
               f"K3 {case} {dtype}: the step form is not bitwise its twin "
               f"(the plain kernel, then K6)")
-        csr, nnz = _mp_csr(kop, ps)
         xf = x.reshape(-1)
         lib_err = float((csr @ xf - yp.reshape(-1)).abs().max())
         check(lib_err <= 1e3 * K4_TOL[dtype] * mag,
@@ -1529,20 +1527,21 @@ def _k3_kernels(data, device, card, rng):
         # (kernel, twin, the parent's launches (None: the twin is them),
         # args, node vectors moved, update operations per node)
         forms = {
-            "mp_apply": (lambda v: mp.mp_apply(kop, ps, v),
+            "mp_apply": (lambda v: mp.mp_apply(kop, ps, W, v),
                          lambda v: mp.mp_apply_plain(kop, ps, v), None,
                          (x,), 2, 0),
             "mp_cheb_step": (
                 lambda v, bb, qq, dd: mp.mp_cheb_step(
-                    kop, ps, bb, v, qq, dd, scale, omega),
+                    kop, ps, W, bb, v, qq, dd, scale, omega),
                 lambda v, bb, qq, dd: mp.TWINS["mp_cheb_step"](
-                    kop, ps, bb, v, qq, dd, scale, omega),
+                    kop, ps, W, bb, v, qq, dd, scale, omega),
                 lambda v, bb, qq, dd: _k3_plain_step(
-                    kop, ps, bb, v, qq, dd, scale, omega), (x, b, q, d), 5,
-                7)}
+                    kop, ps, W, bb, v, qq, dd, scale, omega), (x, b, q, d),
+                5, 7)}
         for form in case_forms:
             kern, twin, parent, args, nvec, nupd = forms[form]
             nbytes = size * (ps.numel() + kop.Np.numel() + nvec * nodes)
+            wbytes = size * (W.numel() + nvec * nodes)
             nops = nel * (4 * nq * nc + nq) + nodes * (nc + nupd)
             (ms_hot, tw_hot), (ms, tw_ms), ncp = _mg_times(kern, twin, args,
                                                            nbytes)
@@ -1557,7 +1556,8 @@ def _k3_kernels(data, device, card, rng):
                    "parent_hot_ms": pa_hot, "bound_ms": bound_ms,
                    "bound_by": bound_by,
                    "library_ms": lib_ms if form == "mp_apply" else None,
-                   "cold_copies": ncp, "shape": list(m_el)}
+                   "cold_copies": ncp, "shape": list(m_el),
+                   "stencil_bytes": wbytes}
             lib_line = ("library null (no PyTorch call computes the fused "
                         "form)")
             if form == "mp_apply":
@@ -1576,11 +1576,13 @@ def _k3_kernels(data, device, card, rng):
                 + f"; per launch in a graph {1e3 * ms:.2f} us cold (inputs "
                 f"cycled through {ncp} copies), {1e3 * ms_hot:.2f} us hot; "
                 f"twin {1e3 * tw_ms:.2f} / {1e3 * tw_hot:.2f} us cold / hot; "
-                f"the parent's launches it replaces (mp_apply_plain"
+                f"the torch routing it replaces (mp_apply_plain"
                 f"{'' if form == 'mp_apply' else ', then K6'}) "
                 f"{1e3 * pa_ms:.2f} / {1e3 * pa_hot:.2f} us; {lib_line}; "
-                f"bound {1e3 * bound_ms:.3f} us ({bound_by}: "
-                f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} MFLOP), kernel at "
+                f"bound {1e3 * bound_ms:.3f} us ({bound_by}, the factored "
+                f"form's: {nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} MFLOP; "
+                f"the stencil's own bytes {wbytes / 1e6:.2f} MB take "
+                f"{1e3 * wbytes / PEAK_BYTES:.3f} us), kernel at "
                 f"{100 * bound_ms / ms:.1f}% of it cold, "
                 f"{100 * bound_ms / ms_hot:.1f}% hot ({card})")
             res[(form, case, dtype)] = rec
@@ -1806,6 +1808,28 @@ def phase_mg_kernels(device, card):
                 "plain_ms": plain_ms, "plain_hot_ms": plain_hot,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "cold_copies": ncp}
+            if lvl == "L-2":
+                continue
+            # the zero-guess first step scale (d b) + 0, the one K6 launch
+            # left on the single-device fine level and p-block
+            z = torch.zeros_like(pk)
+            fbytes = 4 * n * d.element_size()
+            (f_hot, fp_hot), (f_ms, fp_ms), fcp = _mg_times(
+                lambda bb, dd, zz: cheb.cheb_first(bb, None, dd, zz, scale),
+                lambda bb, dd, zz: cheb.cheb_first_plain(bb, None, dd, zz,
+                                                         scale),
+                (b, d, z), fbytes)
+            fb_ms, fb_by = _ctl_bound(fbytes, 3 * n, dtype)
+            log(f"[mg_kernels] K6 zero-guess first step {lvl} ({n} values) "
+                f"{str(dtype)[6:]}: per launch in a graph {1e3 * f_ms:.2f} "
+                f"us cold (inputs cycled through {fcp} copies), "
+                f"{1e3 * f_hot:.2f} us hot; twin {1e3 * fp_ms:.2f} / "
+                f"{1e3 * fp_hot:.2f} us cold / hot; bound "
+                f"{1e3 * fb_ms:.2f} us ({fb_by}: {fbytes / 1e6:.2f} MB), "
+                f"kernel at {100 * fb_ms / f_ms:.1f}% of it cold ({card})")
+            res[("K6", "fine", dtype)].update({
+                f"first_{lvl}_ms": f_ms, f"first_{lvl}_hot_ms": f_hot,
+                f"first_{lvl}_bound_ms": fb_ms})
     l3 = (data["inv_diag_lvls"][0].double().cpu().numpy(),
           tuple(float(b) for b in data["bounds"][0]))
     l2 = (data["inv_diag_lvls"][-1].double().cpu().numpy(),
@@ -3133,11 +3157,11 @@ def _cart_loops(slv, single, F, r, card):
           f"(x relative {_rel(tw['res']['x'], d['res']['x']):.3e}) or ran "
           f"{tk5} K5 launches, fused K1 / masked K6 {tfused}, K1 "
           f"{tw['counts']['a00_apply']} against {c['a00_apply']}")
-    # the order witness: K3's plain form swapped for mp_apply_plain (its
-    # element products sum in another order), float64: the same
-    # iterations and reason, x within 1e-10
+    # the order witness: K3's plain form swapped for mp_apply_plain (the
+    # factored form, its element products summed per call), float64: the
+    # same iterations and reason, x within 1e-10
     saved = mp.mp_apply
-    mp.mp_apply = mp.mp_apply_plain
+    mp.mp_apply = K3_PARENT["mp_apply"]
     try:
         ow = _cart_solve(slv.with_loop("device"), F)
     finally:
@@ -3283,12 +3307,14 @@ def _cart_kernels(slv):
     for rep in dd["repl"].values():
         levels += [(f"L-{nlev - k - 1}", [d], dd["bounds"][k])
                    for k, d in enumerate(rep["inv_diag_repl"])]
-    # K3 on each shard's local box, its own pscale and Np
+    # K3 on each shard's local box: its own stencil, against the plain
+    # version on its own pscale and Np
     from types import SimpleNamespace
     k3 = 0.0
-    for i, (op, ps) in enumerate(zip(blk.ops.parts, dd["pscale"].parts)):
+    for i, (op, ps, W) in enumerate(zip(blk.ops.parts, dd["pscale"].parts,
+                                        blk.mp_w.parts)):
         x = rand(dd["inv_diag_p"].parts[i])
-        y, yp = mp.mp_apply(op, ps, x), mp.mp_apply_plain(op, ps, x)
+        y, yp = mp.mp_apply(op, ps, W, x), mp.mp_apply_plain(op, ps, x)
         mag = float(mp.mp_apply_plain(
             SimpleNamespace(m_el=op.m_el, nn_p=op.nn_p, Np=op.Np.abs()),
             ps.abs(), x.abs()).max())
@@ -3334,7 +3360,7 @@ def _cart_kernels(slv):
         f"{len(k4)} stencils ({', '.join(n for n, _, _ in k4)}) within "
         f"{k4_worst:.3e} of max sum |W||x| (tol {K4_TOL[f64]:g}), their "
         f"{nfused} fused epilogues bitwise K4 + K6 / the subtraction; K3 on "
-        f"each shard's box and pscale within {k3:.3e} of the apply over "
+        f"each shard's box and stencil within {k3:.3e} of the apply over "
         f"absolute values (tol {K4_TOL[f64]:g}); K5's "
         f"weighted residual restriction on every shard's own weights "
         f"bitwise its twin; K6 first "
@@ -3708,9 +3734,9 @@ def _ranged(name, fn):
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
 # counts (the innermost enclosing one; the hand-written K1, K3, K4, K5 and
 # K6 by kernel name wherever they run; restrict_grid_kernel and
-# restrict_parity_kernel cover their fused forms, mp_apply_kernel K3's)
+# restrict_parity_kernel cover their fused forms, mp_stencil_kernel K3's)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_element_kernel"),
-                   ("K3 mp_apply", "mp_apply_kernel"),
+                   ("K3 mp_apply", "mp_stencil_kernel"),
                    ("K1 a00_apply", "a00_node_gather_kernel"),
                    ("K1 fused gather", "a00_fused_gather_kernel"),
                    ("K4 stencil_apply", "stencil_k4_kernel"),

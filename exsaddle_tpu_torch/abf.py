@@ -126,17 +126,49 @@ def mult_pu_tree(op, aux, xu, halo_p=None):
     return yp if halo_p is None else halo_p(yp)
 
 
-def _mp_local(op, pscale, pg):
-    return mp.mp_apply(op, pscale, pg)
+def _mp_local(op, pscale, W, pg):
+    return mp.mp_apply(op, pscale, W, pg)
 
 
-def mp_apply(op, pscale, pg, halo_p=None):
+def mp_apply(op, pscale, pg, halo_p=None, W=None):
     """Mpscaled x_p: viscosity-scaled pressure mass matrix in factored form
     (MatAssemble_Schur weights, femixedspace.c:2837-2948): K3 per shard
-    (kernels/mp.py: the kernel on CUDA, its plain version on the CPU).
-    pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)]."""
-    yp = smap(_mp_local, op, pscale, pg)
+    (kernels/mp.py: the kernel on CUDA, on W; its plain version on the
+    CPU, on the factored form).
+    pscale: (nel, nqp) = -w_q detJp (1/eta) [Lame: (1/lambda + 1/mu)].
+    W: Mpscaled's node stencil (mp_stencil), which the kernel reads."""
+    yp = smap(_mp_local, op, pscale, W, pg)
     return yp if halo_p is None else halo_p(yp)
+
+
+def mp_csr(Np, pscale, m_el):
+    """The assembled Mpscaled (scipy CSR, float64) from its factored form:
+    each element's Np^T diag(pscale_e) Np on its 2^nd corner nodes (the
+    node grid x fastest, elements x fastest)."""
+    import scipy.sparse as sp
+    nd = len(m_el)
+    nn = [m + 1 for m in m_el] + [1] * (3 - nd)
+    Np, ps = np.asarray(Np, np.float64), np.asarray(pscale, np.float64)
+    Me = np.einsum("qa,eq,qb->eab", Np, ps, Np)
+    e = np.arange(ps.shape[0])
+    ex, ey = e % m_el[0], (e // m_el[0]) % m_el[1]
+    ez = e // (m_el[0] * m_el[1]) if nd == 3 else 0 * e
+    node = np.stack([((ez + (c >> 2)) * nn[1] + ey + ((c >> 1) & 1)) * nn[0]
+                     + ex + (c & 1) for c in range(2 ** nd)], 1)
+    rows = np.repeat(node, 2 ** nd, 1).reshape(-1)
+    cols = np.tile(node, (1, 2 ** nd)).reshape(-1)
+    n = int(np.prod(nn))
+    return sp.coo_matrix((Me.reshape(-1), (rows, cols)),
+                         shape=(n, n)).tocsr()
+
+
+def mp_stencil(Mp, nn_p):
+    """K3's operand: the assembled Mpscaled's 3^ndim-point node stencil,
+    (3^ndim, *rev(nn_p)) float64, slot-major (slots x-fastest over the
+    offsets -1..1), zero where a neighbour is off the grid."""
+    grid = tuple(reversed(tuple(nn_p)))
+    W = stencil_from_csr(Mp, grid, 1).reshape(grid + (3 ** len(grid),))
+    return np.ascontiguousarray(np.moveaxis(W, -1, 0))
 
 
 # --------------------------------------------------------------------------
@@ -638,6 +670,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
                                Sel.shape).ravel()
         Mp = sp.coo_matrix((Sel.ravel(), (rows, cols)),
                            shape=(mesh.np_, mesh.np_)).tocsr()
+        W_p = mp_stencil(Mp, mesh.nn_p)
     with _stage("p-block spectrum"):
         p_emin, p_emax = p_spectrum_bounds_assembled(
             Mp, dmp, p_spectrum_bounds(Sel))
@@ -655,6 +688,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         "coarse_inv": coarse_inv,
         "bounds": bounds,
         "pscale": pscale,
+        "mp_stencil": W_p,
         "inv_diag_p": (1.0 / dmp).reshape(tuple(reversed(mesh.nn_p))),
         "p_bounds": (p_emin, p_emax),
     }
@@ -684,6 +718,7 @@ def _device_data(op, host, dtype, device):
         "coarse_inv": cast(host["coarse_inv"]),
         "bounds": [(npdt(b[0]), npdt(b[1])) for b in host["bounds"]],
         "pscale": cast(host["pscale"]),
+        "mp_stencil": cast(host["mp_stencil"]),
         "inv_diag_p": cast(host["inv_diag_p"]),
         "p_bounds": (npdt(host["p_bounds"][0]), npdt(host["p_bounds"][1])),
     }
@@ -732,6 +767,8 @@ def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
         "bounds": [(np.asarray(b0), np.asarray(b1))
                    for b0, b1 in data_np["bounds"]],
         "pscale": data_np["pscale"],
+        "mp_stencil": mp_stencil(mp_csr(jop.Np, data_np["pscale"],
+                                        mesh.m_el), mesh.nn_p),
         "inv_diag_p": data_np["inv_diag_p"],
         "p_bounds": tuple(np.asarray(b) for b in data_np["p_bounds"]),
     }
@@ -849,7 +886,7 @@ def _plain_bodies(cfg, data):
     # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled -------
     # (K3 with K6's update in its store: one launch per step after the
     # zero-guess first, which applies nothing and stays K6)
-    p_mult = mp.MpOp(op, data["pscale"])
+    p_mult = mp.MpOp(op, data["pscale"], data["mp_stencil"])
 
     def p_solve(bp):
         return treeops.cheb_smooth(

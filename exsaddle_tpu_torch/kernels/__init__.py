@@ -11,7 +11,8 @@ plain PyTorch version beside it and a launch count.
                 residual as its epilogues
   mp         -- K3, the p-block's Mpscaled apply (replaces
                 exsaddle_tpu/abf.py:mp_apply, an XLA fusion on the TPU),
-                one launch per apply, with the single-device p-block's
+                one launch per apply of its 3^ndim-point node stencil
+                (built at setup), with the single-device p-block's
                 Chebyshev update in its store
   transfer   -- K5, the MG transfers between the fine parity layout and
                 the coarse grid and between the node grids of the deep

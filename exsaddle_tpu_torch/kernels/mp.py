@@ -1,8 +1,9 @@
 """K3: the p-block's Mpscaled apply (the viscosity-scaled pressure mass
-matrix in factored form), hand-written for Hopper, with the p-block's
-Chebyshev update in its store.
+matrix), hand-written for Hopper as its 3^ndim-point node stencil, with the
+p-block's Chebyshev update in its store.
 
-    y_p = sum_e G_e^T Np^T diag(pscale_e) Np G_e x_p
+    y_p = Mp x_p = sum_e G_e^T Np^T diag(pscale_e) Np G_e x_p
+        = sum_s W[s] x_p[. + off(s)]
 
 Replaces exsaddle_tpu/abf.py:92 mp_apply (with exsaddle_tpu/grid_ops.py:86
 _gather_q1 and :104 _scatter_q1, an XLA fusion on the TPU) and, on the
@@ -10,26 +11,34 @@ single-device p-block, the loop body of exsaddle_tpu/treeops.py:167
 cheb_smooth (K6's update after each apply). Source: csrc/mp_apply.cu;
 built by kernels/_build.py.
 
+Mpscaled is fixed for a setup: the setup assembles it in float64 and keeps
+its stencil W (abf.mp_stencil: (3^nd, *rev(nn_p)), slot-major, slots
+x-fastest as kernels/stencil.py stencil_offsets, rounded once to the
+working dtype) beside pscale. The kernel reads W, one thread per node,
+and sums its 3^nd products in double before one rounding to the working
+dtype; the plain version reads the factored form (op's Np and pscale).
+
 Entries, each on a CUDA tensor one launch of the kernel (or a raise), on a
 CPU tensor its plain version or twin, any other device a raise; op is a
 ParityMatFreeOperator (its m_el, nn_p and Np), pscale its (nel, 3^nd)
-weights, every vector a pressure grid (*rev(nn_p)):
+weights, W the setup's stencil, every vector a pressure grid
+(*rev(nn_p)):
 
-    mp_apply(op, pscale, pg)           Mp pg (the cart path's form, one
+    mp_apply(op, pscale, W, pg)        Mp pg (the cart path's form, one
                                        launch per shard)
-    mp_cheb_step(op, pscale, b, p_k, p_km1, d, scale, omega)
+    mp_cheb_step(op, pscale, W, b, p_k, p_km1, d, scale, omega)
                                        cheb.cheb_step(b, Mp p_k, d, p_k,
                                        p_km1, scale, omega)
 
 The plain form is held against `mp_apply_plain` (the port's torch ops:
-gather, two GEMMs and a multiply, scatter) within a stated tolerance: the
-kernel's element products sum in another order than a GEMM. The step form
-is bitwise its twin (TWINS): the unfused apply (the kernel on CUDA,
-`mp_apply_plain` on the CPU) followed by K6. `MpOp(op, pscale)` is the
-single-device p-block's operator for treeops.cheb_smooth: called, the
-plain form; its cheb_step the fused update, its cheb_first (from a nonzero
-x0, which no path takes: the p-block starts from zero) the plain form,
-then K6."""
+gather, two GEMMs and a multiply, scatter; the CPU's path) within a stated
+tolerance: the stencil's coefficients are the element products summed
+and rounded at setup. The step form is bitwise its twin (TWINS): the
+unfused apply (the kernel on CUDA, `mp_apply_plain` on the CPU) followed
+by K6. `MpOp(op, pscale, W)` is the single-device p-block's operator for
+treeops.cheb_smooth: called, the plain form; its cheb_step the fused
+update, its cheb_first (from a nonzero x0, which no path takes: the
+p-block starts from zero) the plain form, then K6."""
 
 import ctypes
 
@@ -77,7 +86,7 @@ def _lib():
     if not _bound:
         for sfx in ("_f32", "_f64"):
             f = getattr(lib, "k3_mp_apply" + sfx)
-            f.argtypes = [_V] * 6 + [ctypes.c_double] * 2 + [_V] + [
+            f.argtypes = [_V] * 5 + [ctypes.c_double] * 2 + [_V] + [
                 ctypes.c_int] * 5 + [_V]
             f.restype = ctypes.c_int
         _bound = True
@@ -93,21 +102,23 @@ def _device(name, pg):
     return True
 
 
-def _check(name, op, pscale, pg, **vecs):
+def _check(name, op, W, pg, **vecs):
     """Refuse what the kernel cannot take: ndim, dtype, int32 indices, and
-    the shape, dtype, device and layout of pg, pscale, Np and the fused
+    the shape, dtype, device and layout of pg, the stencil W and the fused
     forms' grids (vecs: b, d, p_km1)."""
     nd = len(op.m_el)
     if nd not in (2, 3):
         raise ValueError(f"{name}: ndim {nd} not supported")
     if pg.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {pg.dtype} not supported")
-    nel = int(np.prod(op.m_el))
     grid = tuple(int(n) for n in reversed(op.nn_p))
-    if int(np.prod(grid)) >= 2 ** 31 or nel * 3 ** nd >= 2 ** 31:
-        raise ValueError(f"{name}: {nel} elements overflow int32 indices")
-    want = {"pg": (pg, grid), "pscale": (pscale, (nel, 3 ** nd)),
-            "Np": (op.Np, (3 ** nd, 2 ** nd)),
+    if int(np.prod(grid)) * 3 ** nd >= 2 ** 31:
+        raise ValueError(f"{name}: {int(np.prod(grid))} nodes overflow "
+                         f"int32 indices")
+    if W is None:
+        raise ValueError(f"{name}: the kernel needs Mpscaled's stencil W "
+                         f"(abf.mp_stencil)")
+    want = {"pg": (pg, grid), "W": (W, (3 ** nd,) + grid),
             **{k: (v, grid) for k, v in vecs.items()}}
     for key, (t, shape) in want.items():
         if tuple(t.shape) != shape:
@@ -120,15 +131,14 @@ def _check(name, op, pscale, pg, **vecs):
             raise ValueError(f"{name}: {key} is not contiguous")
 
 
-def _launch(form, op, pscale, pg, b=None, d=None, p_km1=None, scale=0.0,
+def _launch(form, op, W, pg, b=None, d=None, p_km1=None, scale=0.0,
             omega=0.0):
     vecs = {k: v for k, v in (("b", b), ("d", d), ("p_km1", p_km1))
             if v is not None}
-    _check(form, op, pscale, pg, **vecs)
+    _check(form, op, W, pg, **vecs)
     lib = _lib()
-    nd = len(op.m_el)
-    mx, my = op.m_el[0], op.m_el[1]
-    mz = op.m_el[2] if nd == 3 else 1
+    nx, ny = op.nn_p[0], op.nn_p[1]
+    nz = op.nn_p[2] if len(op.nn_p) == 3 else 1
 
     def ptr(t):
         return _V(0 if t is None else t.data_ptr())
@@ -137,8 +147,8 @@ def _launch(form, op, pscale, pg, b=None, d=None, p_km1=None, scale=0.0,
         out = torch.empty_like(pg)
         err = getattr(lib, "k3_mp_apply" + ("_f32" if pg.dtype == torch.float32
                                             else "_f64"))(
-            ptr(pg), ptr(pscale), ptr(op.Np), ptr(b), ptr(d), ptr(p_km1),
-            float(scale), float(omega), ptr(out), _EPI[form], nd, mx, my, mz,
+            ptr(W), ptr(pg), ptr(b), ptr(d), ptr(p_km1), float(scale),
+            float(omega), ptr(out), _EPI[form], len(op.nn_p), nx, ny, nz,
             _V(torch.cuda.current_stream(pg.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{form} kernel launch failed: "
@@ -148,36 +158,37 @@ def _launch(form, op, pscale, pg, b=None, d=None, p_km1=None, scale=0.0,
     return out
 
 
-def _k3(op, pscale, pg):
+def _k3(op, pscale, W, pg):
     """The unfused apply: the kernel on CUDA, the plain version on the
     CPU. The twins call this, never a module attribute, so swapping the
     entries for the twins cannot recurse."""
     if not _device("mp_apply", pg):
         return mp_apply_plain(op, pscale, pg)
-    return _launch("mp_apply", op, pscale, pg)
+    return _launch("mp_apply", op, W, pg)
 
 
 # --- the twins: the unfused apply, then K6's update (through its module
 # entries, looked up at each call) -------------------------------------------
 
-def mp_cheb_step_twin(op, pscale, b, p_k, p_km1, d, scale, omega):
-    return cheb.cheb_step(b, _k3(op, pscale, p_k), d, p_k, p_km1, scale,
+def mp_cheb_step_twin(op, pscale, W, b, p_k, p_km1, d, scale, omega):
+    return cheb.cheb_step(b, _k3(op, pscale, W, p_k), d, p_k, p_km1, scale,
                           omega)
 
 
 # --- the entries -------------------------------------------------------------
 
-def mp_apply(op, pscale, pg):
+def mp_apply(op, pscale, W, pg):
     """Mpscaled pg, one launch (a pressure grid of op's shape)."""
-    return _k3(op, pscale, pg)
+    return _k3(op, pscale, W, pg)
 
 
-def mp_cheb_step(op, pscale, b, p_k, p_km1, d, scale, omega):
+def mp_cheb_step(op, pscale, W, b, p_k, p_km1, d, scale, omega):
     """One Chebyshev step of the p-block:
     omega ((scale (d (b - Mp p_k)) + p_k) - p_km1) + p_km1."""
     if not _device("mp_cheb_step", p_k):
-        return mp_cheb_step_twin(op, pscale, b, p_k, p_km1, d, scale, omega)
-    return _launch("mp_cheb_step", op, pscale, p_k, b=b, d=d, p_km1=p_km1,
+        return mp_cheb_step_twin(op, pscale, W, b, p_k, p_km1, d, scale,
+                                 omega)
+    return _launch("mp_cheb_step", op, W, p_k, b=b, d=d, p_km1=p_km1,
                    scale=scale, omega=omega)
 
 
@@ -193,16 +204,16 @@ class MpOp:
     nonzero guess, so it has no fused form). The entries are looked up at
     each call, so a caller may swap them for their twins."""
 
-    def __init__(self, op, pscale):
-        self.op, self.pscale = op, pscale
+    def __init__(self, op, pscale, W):
+        self.op, self.pscale, self.W = op, pscale, W
 
     def __call__(self, pg):
-        return mp_apply(self.op, self.pscale, pg)
+        return mp_apply(self.op, self.pscale, self.W, pg)
 
     def cheb_first(self, b, x0, d, scale):
-        return cheb.cheb_first(b, mp_apply(self.op, self.pscale, x0), d, x0,
-                               scale)
+        return cheb.cheb_first(b, mp_apply(self.op, self.pscale, self.W, x0),
+                               d, x0, scale)
 
     def cheb_step(self, b, p_k, p_km1, d, scale, omega):
-        return mp_cheb_step(self.op, self.pscale, b, p_k, p_km1, d, scale,
-                            omega)
+        return mp_cheb_step(self.op, self.pscale, self.W, b, p_k, p_km1, d,
+                            scale, omega)

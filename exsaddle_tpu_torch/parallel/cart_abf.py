@@ -40,8 +40,8 @@ import torch
 
 from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
-                                    mp_apply, mult_u_raw, mult_u_tree,
-                                    mult_up_tree,
+                                    mp_apply, mp_csr, mp_stencil, mult_u_raw,
+                                    mult_u_tree, mult_up_tree,
                                     stencil_from_csr, _esteig_bounds)
 from exsaddle_tpu_torch.kernels import cheb, stencil, transfer
 from exsaddle_tpu_torch.kernels._build import Launches
@@ -618,6 +618,13 @@ class CartBlocks:
                 cls_shapes=tuple(cls_loc), gather_table=tables[dev]))
         self.ops = ShardVec(ops)
         self.aux = smap(tree_aux, self.ops)
+        # K3's operand: each shard's Mpscaled stencil from its own elements
+        # only, over its local node box (an interface node holds this
+        # shard's partial coefficients; halo_p sums the partial applies)
+        self.mp_w = smap(
+            lambda o, ps: torch.as_tensor(mp_stencil(mp_csr(
+                o.Np.cpu().numpy(), ps.cpu().numpy(), o.m_el), o.nn_p),
+                dtype=ps.dtype, device=ps.device), self.ops, dd["pscale"])
 
         def w_cls(i, p):
             return owned_weight(smesh, i, cls_loc[p],
@@ -869,7 +876,8 @@ def _cart_bodies(dcfg, smesh, dd, blk):
         # K3's plain form per shard, the halo, then K6: the update cannot
         # go in K3's store before the interface planes are summed
         return treeops.cheb_smooth(
-            lambda pg: mp_apply(ops, dd["pscale"], pg, halo_p=blk.halo_p),
+            lambda pg: mp_apply(ops, dd["pscale"], pg, halo_p=blk.halo_p,
+                                W=blk.mp_w),
             None, p_emin, p_emax, cfg.p_cheb_its, bp,
             smap(torch.zeros_like, bp), x0_zero=True, diag=dd["inv_diag_p"])
 

@@ -1,9 +1,10 @@
 """K1 (exsaddle_tpu_torch/csrc/a00_apply.cu) on one CUDA card beside an
 earlier build of its source, and the fine level's fused forms against the
-launches they replace; or, with --routing k3, K3's (csrc/mp_apply.cu).
+launches they replace; or, with --routing k3, K3 (csrc/mp_apply.cu) beside
+an earlier build of its source.
 
     python3 k1_tune.py --parent OLD.cu [--variant ALT.cu ...]
-    python3 k1_tune.py --routing k3
+    python3 k1_tune.py --routing k3 --parent OLD_MP.cu
 
 OLD.cu is a K1 source with this version's C ABI for the plain apply:
 a00_apply_f32 / _f64 (x, scale_visc, Bs, ell, ye, y, nd, mx, my, mz,
@@ -34,16 +35,23 @@ Each is built into a library of its own.
    alternated (parent, PR, PR, parent, twice; median of 3 solves per
    turn), with each routing's K1 and K6 launches per solve.
 
---routing k3 runs step 3 alone, with K3's swap table: the parent's
-routing has K3's entries as the plain torch apply (mp_apply_plain, ~13
-launches) followed by K6, and the fine residual's restriction with L-2's
-first Chebyshev step in its store (restrict_parity_residual_cheb_first)
-as K5's residual restriction followed by K6's first step. The
-restriction's swap is bitwise, K3's is not (the kernel's element
-products sum in another order than the GEMMs), so the two solves are the
-order witness: their rounds, inner iterations and x are compared, each
-routing's K3, K5 and K6 launches per solve printed, and both must
-converge.
+--routing k3: OLD_MP.cu is a K3 source with the factored C ABI
+k3_mp_apply_f32 / _f64 (x, pscale, Np, b, d, pkm1, scale, omega, out,
+epi, ndim, mx, my, mz, stream; it may include csrc/'s headers), built into
+a library of its own and installed behind K3's entries (mp_apply and
+mp_cheb_step, reading op's Np and pscale where this version reads the
+setup's stencil W). First both builds' plain and step forms at the
+flagship's p size (33^3 nodes, float32, the single-device p-block's) and
+the plain form on a cart shard's box (32 x 16 x 16 elements, float64,
+the cart path's), on uniform random Np and pscale and their stencil:
+within 1e-5 / 1e-13 of each other over the apply of absolute values,
+times alternated (parent, this, this, parent; cold and hot as in 2).
+Then step 3 with K3's swap table: the two builds sum in other orders, so
+the two solves are the order witness: their rounds, inner iterations and
+x are compared, each routing's K3, K5 and K6 launches per solve printed,
+and both must converge; last, each routing's rounds, inner iterations
+and true residuals over 11 more right-hand sides (F_raw perturbed by
+1e-6 relative noise), since float32 counts are chaotic.
 
 The last line is one JSON object with every number. It exits 1 if any
 output differs. Needs a CUDA card and nvcc."""
@@ -63,7 +71,7 @@ import torch
 import chip_smoke as cs
 from exsaddle_tpu_torch import abf as tabf
 from exsaddle_tpu_torch import bench
-from exsaddle_tpu_torch.kernels import _build, a00, cheb, mp, transfer
+from exsaddle_tpu_torch.kernels import _build, a00, mp
 from exsaddle_tpu_torch.matfree import tree_aux
 
 F32, F64 = torch.float32, torch.float64
@@ -271,18 +279,122 @@ def k1_swaps(papply):
         (a00, "_k1", papply)]
 
 
-# K3's entries as the plain torch apply then K6; the fine restriction
-# unfused, then K6's first step
-K3_SWAPS = [(mp, n, fn) for n, fn in cs.K3_PARENT.items()] + [
-    (transfer, "restrict_parity_residual_cheb_first", cs._fine_pair)]
+def build_parent_k3(src, out_dir):
+    """The parent's K3 as its own ctypes library."""
+    out = os.path.join(out_dir, "libk3_parent.so")
+    cmd = [_build._nvcc()] + _build.NVCC_FLAGS + [
+        "-I", _build.CSRC, "-shared", "-o", out, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    log(f"[k1_tune] built {src} in {time.perf_counter() - t0:.1f} s")
+    lib = ctypes.CDLL(out)
+    for sfx in ("_f32", "_f64"):
+        f = getattr(lib, "k3_mp_apply" + sfx)
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_double] * 2 + [
+            ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return lib
 
 
-def walls(swaps, device, card, bitwise=True, turns=2, per_turn=3):
+def parent_k3(lib):
+    """The parent's K3 behind K3's entries (mp_apply, mp_cheb_step; W
+    unread), counted by form as this build's launches are."""
+    def launch(form, op, pscale, pg, b=None, d=None, q=None, scale=0.0,
+               omega=0.0):
+        nd = len(op.m_el)
+        fn = getattr(lib, "k3_mp_apply" + ("_f32" if pg.dtype == F32
+                                           else "_f64"))
+        out = torch.empty_like(pg)
+        ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+            0 if t is None else t.data_ptr())
+        err = fn(ptr(pg), ptr(pscale), ptr(op.Np), ptr(b), ptr(d), ptr(q),
+                 float(scale), float(omega), ptr(out),
+                 0 if form == "mp_apply" else 1, nd, op.m_el[0], op.m_el[1],
+                 op.m_el[2] if nd == 3 else 1,
+                 ctypes.c_void_p(torch.cuda.current_stream(
+                     pg.device).cuda_stream))
+        if err:
+            raise RuntimeError(f"parent K3 launch failed ({err})")
+        mp.LAUNCHES.n += 1
+        mp.LAUNCHES.by[form] += 1
+        return out
+
+    return {"mp_apply": lambda op, ps, W, pg: launch("mp_apply", op, ps, pg),
+            "mp_cheb_step": lambda op, ps, W, b, pk, pm, d, sc, om: launch(
+                "mp_cheb_step", op, ps, pk, b, d, pm, sc, om)}
+
+
+def k3_times(entries, device, card):
+    """The parent's K3 and this build's at the flagship's p size (float32,
+    plain and step) and on a cart shard's box (float64, plain): within the
+    kernels' tolerance of each other, times alternated."""
+    from types import SimpleNamespace
+    out, bad = {}, []
+    cases = [("p size", (32, 32, 32), F32, ("mp_apply", "mp_cheb_step")),
+             ("cart shard", (32, 16, 16), F64, ("mp_apply",))]
+    for case, m_el, dtype, forms in cases:
+        rng = np.random.default_rng(41)
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device=device)
+        nn = tuple(m + 1 for m in m_el)
+        grid = tuple(reversed(nn))
+        op = SimpleNamespace(m_el=m_el, nn_p=nn,
+                             Np=t(rng.uniform(-0.2, 1.0, (27, 8))))
+        ps = t(-rng.uniform(0.1, 2.0, (int(np.prod(m_el)), 27)))
+        _, _, W = cs._mp_csr(op, ps)
+        x, b, q = (t(rng.standard_normal(grid)) for _ in range(3))
+        d = t(rng.uniform(0.5, 1.5, grid))
+        sc, om = 0.7312345678901234, 1.6180339887498949
+        aop = SimpleNamespace(m_el=m_el, nn_p=nn, Np=op.Np.abs())
+        mag = float(mp.mp_apply_plain(aop, ps.abs(), x.abs()).max())
+        builds = {"parent": entries, "this": {"mp_apply": mp.mp_apply,
+                                              "mp_cheb_step": mp.mp_cheb_step}}
+        for form in forms:
+            if form == "mp_apply":
+                args = (x,)
+                fns = {k: (lambda v, e=e: e["mp_apply"](op, ps, W, v))
+                       for k, e in builds.items()}
+            else:
+                args = (x, b, q, d)
+                fns = {k: (lambda v, bb, qq, dd, e=e: e["mp_cheb_step"](
+                    op, ps, W, bb, v, qq, dd, sc, om))
+                       for k, e in builds.items()}
+            ys = {k: f(*args) for k, f in fns.items()}
+            torch.cuda.synchronize()
+            err = float((ys["this"] - ys["parent"]).abs().max()) / mag
+            if not err <= cs.K4_TOL[dtype] * (1 if form == "mp_apply"
+                                              else 1e3):
+                bad.append((case, form, err))
+            rec = {k: [] for k in fns}
+            for k in ("parent", "this", "this", "parent"):
+                hot, cold = cs._hot_cold(fns[k], args)
+                rec[k].append([1e3 * cold, 1e3 * hot])
+            for k, tt in rec.items():
+                log(f"[k1_tune] K3 {form} {case} {grid} {str(dtype)[6:]}, "
+                    f"{k}: cold " + ", ".join(f"{c:.2f}" for c, _ in tt)
+                    + " us, hot " + ", ".join(f"{h:.2f}" for _, h in tt)
+                    + f" us; the two builds {err:.3e} apart over the apply "
+                    f"of absolute values ({card})")
+            out[f"{form} {case} {str(dtype)[6:]}"] = {"us": rec,
+                                                       "rel_diff": err}
+        del op, ps, W, x, b, q, d
+        torch.cuda.empty_cache()
+    return out, bad
+
+
+def walls(swaps, device, card, bitwise=True, turns=2, per_turn=3,
+          spread=0):
     """The tuned device-loop IR solve in the PR's routing and the
     parent's (swaps installed while the parent's solver is built and
     timed), over one setup: counts side by side, walls alternated. With
     bitwise the two must agree bit for bit with equal K1 launches;
-    without, they are an order witness, compared and both converged."""
+    without, they are an order witness, compared and both converged.
+    With spread, both routings' rounds, inner its and true residuals over
+    `spread` more right-hand sides, F_raw perturbed by 1e-6 relative
+    noise: how far one right-hand side's counts stand for the schedule."""
     t0 = time.perf_counter()
     p = bench._build_problem(32, with_rhs=True)
     base = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
@@ -374,8 +486,30 @@ def walls(swaps, device, card, bitwise=True, turns=2, per_turn=3):
     for k, w in rec.items():
         log(f"[k1_tune] device-loop IR solve wall, {k} routing: "
             + ", ".join(f"{x:.4f}" for x in w) + f" s ({card})")
+    rng = np.random.default_rng(5)
+    Fs = [p["F_raw"] * (1 + 1e-6 * rng.standard_normal(p["F_raw"].shape))
+          + setup["rhs_diri"] for _ in range(spread)]
+    spreads = {}
+    for k in ("parent", "PR") if spread else ():
+        if k == "parent":
+            install()
+        try:
+            spreads[k] = [(int(r["rounds"]), int(r["inner_its"]),
+                           float(r["rnorm"] / r["rnorm0"]),
+                           bool(r["converged"]))
+                          for r in (slv[k].solve_ir(Fk, rtol=1e-8)
+                                    for Fk in Fs)]
+        finally:
+            restore()
+        ok = ok and all(c for *_, c in spreads[k])
+        log(f"[k1_tune] {k} routing over {spread} perturbed right-hand "
+            f"sides: rounds / inner its "
+            + ", ".join(f"{r}/{i}" for r, i, _, _ in spreads[k])
+            + "; true residuals "
+            + ", ".join(f"{e:.2e}" for _, _, e, _ in spreads[k])
+            + f" ({card})")
     return {"walls_s": rec, "counts": counts, "order_witness": witness,
-            "ok": ok}, ok
+            "spread": spreads, "ok": ok}, ok
 
 
 def main():
@@ -383,13 +517,12 @@ def main():
     ap.add_argument("--routing", choices=("k1", "k3"), default="k1",
                     help="whose fused routing the tuned solve sets against "
                     "the parent's (k3: that solve alone)")
-    ap.add_argument("--parent", help="an earlier K1 source (a00_apply.cu), "
-                    "required with --routing k1")
+    ap.add_argument("--parent", required=True,
+                    help="an earlier source of the routing's kernel "
+                    "(a00_apply.cu for k1, mp_apply.cu for k3)")
     ap.add_argument("--variant", action="append", default=[],
                     help="a variant of this version's a00_apply.cu")
     args = ap.parse_args()
-    if args.routing == "k1" and not args.parent:
-        ap.error("--routing k1 needs --parent")
     if not torch.cuda.is_available():
         print("k1_tune: no CUDA device available", file=sys.stderr)
         return 2
@@ -397,9 +530,14 @@ def main():
     card = cs.phase_device()
     cs.phase_build()
     if args.routing == "k3":
-        out, ok = walls(K3_SWAPS, device, card, bitwise=False)
-        log(json.dumps({"card": card, "routing": "k3", "solve": out}))
-        return 0 if ok else 1
+        with tempfile.TemporaryDirectory() as tmp:
+            entries = parent_k3(build_parent_k3(args.parent, tmp))
+            times_k3, bad = k3_times(entries, device, card)
+            out, ok = walls([(mp, n, fn) for n, fn in entries.items()],
+                            device, card, bitwise=False, spread=11)
+        log(json.dumps({"card": card, "routing": "k3", "parent": args.parent,
+                        "k3_us": times_k3, "solve": out}))
+        return 0 if ok and not bad else 1
     out = {"card": card, "parent": args.parent}
     with tempfile.TemporaryDirectory() as tmp:
         papply = parent_apply(build_parent(args.parent, tmp))

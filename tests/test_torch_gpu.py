@@ -1560,11 +1560,14 @@ SCALE_K3, OMEGA_K3 = 0.7312345678901234, 1.6180339887498949
 
 
 def _mp_inputs(m_el, dtype, device, seed):
-    """(op, pscale, x, b, p_km1, d): Np of the Q1 shape with uniform
-    entries, negative weights as the ABF setup makes them, b a view at an
-    odd offset into a longer vector (as the p-block's right-hand side is a
+    """(op, pscale, W, x, b, p_km1, d): Np of the Q1 shape with uniform
+    entries, negative weights as the ABF setup makes them, W their
+    stencil as the setup builds it (assembled in float64 from the
+    working-precision Np and pscale, rounded once), b a view at an odd
+    offset into a longer vector (as the p-block's right-hand side is a
     view into the saddle vector)."""
     from types import SimpleNamespace
+    from exsaddle_tpu_torch import abf
     nd = len(m_el)
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
@@ -1573,10 +1576,12 @@ def _mp_inputs(m_el, dtype, device, seed):
     op = SimpleNamespace(m_el=m_el, nn_p=nn,
                          Np=t(rng.uniform(-0.2, 1.0, (3 ** nd, 2 ** nd))))
     ps = t(-rng.uniform(0.1, 2.0, (int(np.prod(m_el)), 3 ** nd)))
+    W = t(abf.mp_stencil(abf.mp_csr(op.Np.double().cpu().numpy(),
+                                    ps.double().cpu().numpy(), m_el), nn))
     x, q = (t(rng.standard_normal(grid)) for _ in range(2))
     n = int(np.prod(grid))
     b = t(rng.standard_normal(n + 3))[1:1 + n].view(grid)
-    return op, ps, x, b, q, t(rng.uniform(0.5, 1.5, grid))
+    return op, ps, W, x, b, q, t(rng.uniform(0.5, 1.5, grid))
 
 
 @pytest.mark.gpu
@@ -1586,22 +1591,24 @@ def _mp_inputs(m_el, dtype, device, seed):
 def test_mp_kernel_within_tolerance_and_fused_forms_bitwise(cuda, case,
                                                            dtype):
     """K3's plain form against mp_apply_plain within TOL of the apply over
-    absolute values (the element products sum in another order than a
-    GEMM), bitwise repeatable; the step form bit for bit its twin (the
+    absolute values (the stencil's coefficients are the element products
+    summed and rounded at setup; the plain version multiplies in factored
+    form), bitwise repeatable; the step form bit for bit its twin (the
     plain kernel, then K6's kernel) and MpOp's forms the entries (its
     cheb_first the plain kernel, then K6's); one launch per call, counted
     by form."""
     from types import SimpleNamespace
-    op, ps, x, b, q, d = _mp_inputs(K3_CASES[case], dtype, cuda, 31)
+    op, ps, W, x, b, q, d = _mp_inputs(K3_CASES[case], dtype, cuda, 31)
     _reset_kernel_counts()
-    y = mp.mp_apply(op, ps, x)
-    step = mp.mp_cheb_step(op, ps, b, x, q, d, SCALE_K3, OMEGA_K3)
-    fused = mp.MpOp(op, ps)
+    y = mp.mp_apply(op, ps, W, x)
+    step = mp.mp_cheb_step(op, ps, W, b, x, q, d, SCALE_K3, OMEGA_K3)
+    fused = mp.MpOp(op, ps, W)
     again = (fused(x), fused.cheb_step(b, x, q, d, SCALE_K3, OMEGA_K3))
     assert mp.LAUNCHES.n == 4 and mp.LAUNCHES.by == {
         "mp_apply": 2, "mp_cheb_step": 2}
     assert cheb.LAUNCHES.n == 0
-    twin = mp.TWINS["mp_cheb_step"](op, ps, b, x, q, d, SCALE_K3, OMEGA_K3)
+    twin = mp.TWINS["mp_cheb_step"](op, ps, W, b, x, q, d, SCALE_K3,
+                                    OMEGA_K3)
     first = fused.cheb_first(b, x, d, SCALE_K3)
     pair = cheb.cheb_first(b, y, d, x, SCALE_K3)
     assert mp.LAUNCHES.by["mp_apply"] == 4 and cheb.LAUNCHES.n == 3
@@ -1615,6 +1622,27 @@ def test_mp_kernel_within_tolerance_and_fused_forms_bitwise(cuda, case,
         case, err, mag)
     assert _same_bits(again[0], y) and _same_bits(first, pair)
     assert _same_bits(step, twin) and _same_bits(again[1], step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_mp_kernel_float32_is_the_product_sum_rounded_once(cuda, case):
+    """K3 sums its float32 products in double and rounds once: its output
+    is the float64 apply of its own float32 W and x rounded to float32,
+    but for the rare value whose exact sum lies within the two double
+    sums' errors of a rounding boundary (at most 0.1% of the values,
+    there one ulp off)."""
+    from exsaddle_tpu_torch.kernels import stencil
+    op, ps, W, x, _, _, _ = _mp_inputs(K3_CASES[case], torch.float32, cuda,
+                                       34)
+    y = mp.mp_apply(op, ps, W, x)
+    ref = stencil.stencil_apply_plain(
+        W.double().movedim(0, -1)[..., None, None],
+        x.double()[..., None])[..., 0].float()
+    torch.cuda.synchronize()
+    ulps = (y.view(torch.int32) - ref.view(torch.int32)).abs()
+    assert int(ulps.max()) <= 1
+    assert int((ulps > 0).sum()) <= max(1, y.numel() // 1000)
 
 
 @pytest.mark.gpu
@@ -1655,20 +1683,27 @@ def test_fused_parity_restriction_bitwise_twin(cuda, case, dtype):
 def test_mp_kernel_refuses_bad_input(cuda):
     """Non-contiguous inputs, mismatched shapes, dtypes or devices raise
     before a launch, for K3 and for the fused parity restriction."""
-    op, ps, x, b, q, d = _mp_inputs((3, 4, 2), torch.float32, cuda, 32)
+    op, ps, W, x, b, q, d = _mp_inputs((3, 4, 2), torch.float32, cuda, 32)
     _reset_kernel_counts()
     with pytest.raises(ValueError, match="pg is not contiguous"):
-        mp.mp_apply(op, ps, x.transpose(0, 1).contiguous().transpose(0, 1))
-    with pytest.raises(ValueError, match="pscale has shape"):
-        mp.mp_apply(op, ps[:-1], x)
-    with pytest.raises(ValueError, match="pscale is torch.float64"):
-        mp.mp_apply(op, ps.double(), x)
+        mp.mp_apply(op, ps, W,
+                    x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="W has shape"):
+        mp.mp_apply(op, ps, W[:-1], x)
+    with pytest.raises(ValueError, match="W is torch.float64"):
+        mp.mp_apply(op, ps, W.double(), x)
+    with pytest.raises(ValueError, match="W is torch.float32 on cpu"):
+        mp.mp_apply(op, ps, W.cpu(), x)
+    with pytest.raises(ValueError, match="W is not contiguous"):
+        mp.mp_apply(op, ps, W.movedim(0, -1).contiguous().movedim(-1, 0), x)
+    with pytest.raises(ValueError, match="needs Mpscaled's stencil"):
+        mp.mp_apply(op, ps, None, x)
     with pytest.raises(ValueError, match="d is torch.float32 on cpu"):
-        mp.mp_cheb_step(op, ps, b, x, q, d.cpu(), SCALE_K3, OMEGA_K3)
+        mp.mp_cheb_step(op, ps, W, b, x, q, d.cpu(), SCALE_K3, OMEGA_K3)
     with pytest.raises(ValueError, match="p_km1 has shape"):
-        mp.mp_cheb_step(op, ps, b, x, q[:-1], d, SCALE_K3, OMEGA_K3)
+        mp.mp_cheb_step(op, ps, W, b, x, q[:-1], d, SCALE_K3, OMEGA_K3)
     with pytest.raises(TypeError, match="not supported"):
-        mp.mp_apply(op, ps.half(), x.half())
+        mp.mp_apply(op, ps.half(), W.half(), x.half())
     m_el, cls = K5_PARITY["3d_odd"]
     n = sum(int(np.prod(c)) for c in cls) * 3
     v = torch.rand(n, device=cuda)
@@ -1690,12 +1725,12 @@ def test_mp_kernel_captures_with_launches_counted(cuda):
     each replay gives the eager bits and adds its captured launches,
     counted by form, through the graph counters."""
     from exsaddle_tpu_torch import graphs, treeops
-    op, ps, _, b, _, d = _mp_inputs((9, 8, 7), torch.float32, cuda, 33)
+    op, ps, W, _, b, _, d = _mp_inputs((9, 8, 7), torch.float32, cuda, 33)
     b = b.contiguous()
     emin, emax = np.float32(0.1), np.float32(1.9)
     its = 6
     body = lambda r: treeops.cheb_smooth(  # noqa: E731
-        mp.MpOp(op, ps), None, emin, emax, its, r, torch.zeros_like(r),
+        mp.MpOp(op, ps, W), None, emin, emax, its, r, torch.zeros_like(r),
         x0_zero=True, diag=d)
     want = body(b)
     _reset_kernel_counts()

@@ -7,6 +7,11 @@ plain version or twin:
 - the port's mp_apply (abf.mp_apply, mp.mp_apply, mp.mp_apply_plain)
   against the JAX package's exsaddle_tpu.abf.mp_apply, float64, to 1e-12
   relative (the two sum the element products in other orders);
+- the kernel's operand, Mpscaled's node stencil (abf.mp_stencil: the
+  setup's, build_abf's and data_from_numpy's, and each cart shard's partial
+  one), applied through K4's plain twin at one dof per node, against the
+  JAX package's mp_apply (1e-12 relative) and, summed over the shards by
+  halo_p, the whole mesh's apply (1e-13);
 - every twin is the op sequence the port issued before the fusion (K3's
   plain apply, then K6; the restriction, then K6's zero-guess first step),
   bit for bit, in 2D and 3D, float32 and float64;
@@ -78,10 +83,23 @@ def _pscale(mesh, fes, coeff, lame):
 
 
 def _setup(case, dtype=torch.float64):
-    """(JAX op, port op in dtype, pscale numpy, grid shape)."""
+    """(JAX op, port op in dtype, pscale numpy, grid shape, K3's stencil W
+    in dtype: assembled in float64 from the float64 operator, rounded
+    once)."""
     mesh, fes, coeff, jop, top = _pair(CASES[case], tdtype=dtype)
-    return jop, top, _pscale(mesh, fes, coeff, CASES[case][2]), \
-        tuple(reversed(mesh.nn_p))
+    ps = _pscale(mesh, fes, coeff, CASES[case][2])
+    W = tabf.mp_stencil(tabf.mp_csr(np.asarray(jop.Np), ps, mesh.m_el),
+                        mesh.nn_p)
+    return jop, top, ps, tuple(reversed(mesh.nn_p)), \
+        torch.as_tensor(W, dtype=dtype)
+
+
+def _stencil_apply(W, pg):
+    """W's plain apply: K4's plain twin at one dof per node (W slot-major,
+    K4's W node-major)."""
+    from exsaddle_tpu_torch.kernels import stencil
+    return stencil.stencil_apply_plain(W.movedim(0, -1)[..., None, None],
+                                       pg[..., None])[..., 0]
 
 
 def _vectors(grid, dtype, seed):
@@ -96,18 +114,23 @@ def _vectors(grid, dtype, seed):
 def test_mp_apply_matches_jax(case):
     """abf.mp_apply, K3's entry and its plain version against the JAX
     package's mp_apply, float64, to 1e-12 relative; the plain version is
-    the entry on the CPU bit for bit, and the CPU launches nothing."""
-    jop, top, ps, grid = _setup(case)
+    the entry on the CPU bit for bit (W unread there), and the CPU
+    launches nothing; the stencil W (mp_csr, then mp_stencil) applied
+    through K4's plain twin also matches JAX's apply to 1e-12."""
+    jop, top, ps, grid, W = _setup(case)
     pg = np.random.default_rng(5).standard_normal(grid)
     want = np.asarray(jabf.mp_apply(jop, jnp.asarray(ps), jnp.asarray(pg)))
     tps, tpg = torch.as_tensor(ps), torch.as_tensor(pg)
     n0 = (mp.LAUNCHES.n, dict(mp.LAUNCHES.by))
-    got = mp.mp_apply(top, tps, tpg)
+    got = mp.mp_apply(top, tps, W, tpg)
     assert _rel(got.numpy(), want) < TOL64
+    assert _same(tabf.mp_apply(top, tps, tpg, W=W), got)
     assert _same(tabf.mp_apply(top, tps, tpg), got)
     assert _same(mp.mp_apply_plain(top, tps, tpg), got)
-    assert _same(mp.MpOp(top, tps)(tpg), got)
+    assert _same(mp.MpOp(top, tps, W)(tpg), got)
     assert (mp.LAUNCHES.n, mp.LAUNCHES.by) == n0
+    assert W.shape == (3 ** len(grid),) + grid and W.is_contiguous()
+    assert _rel(_stencil_apply(W, tpg).numpy(), want) < TOL64
 
 
 def _before(form, op, ps, x, b, q, d):
@@ -127,18 +150,94 @@ def test_twins_are_the_unfused_ops(case, dtype, form):
     followed by K6's update, bit for bit; TWINS names the function the
     entry runs; MpOp's cheb_step is the entry, and its cheb_first (no
     fused form) the plain apply followed by K6's first iterate."""
-    _, op, ps, grid = _setup(case, dtype)
+    _, op, ps, grid, W = _setup(case, dtype)
     ps = torch.as_tensor(ps, dtype=dtype)
     x, b, q, d = _vectors(grid, dtype, 4 + len(case) if form == "cheb_first"
                           else 5 + len(case))
     if form == "cheb_first":
-        got = twin = via = mp.MpOp(op, ps).cheb_first(b, x, d, SCALE)
+        got = twin = via = mp.MpOp(op, ps, W).cheb_first(b, x, d, SCALE)
     else:
-        got = mp.mp_cheb_step(op, ps, b, x, q, d, SCALE, OMEGA)
-        twin = mp.TWINS[form](op, ps, b, x, q, d, SCALE, OMEGA)
-        via = mp.MpOp(op, ps).cheb_step(b, x, q, d, SCALE, OMEGA)
+        got = mp.mp_cheb_step(op, ps, W, b, x, q, d, SCALE, OMEGA)
+        twin = mp.TWINS[form](op, ps, W, b, x, q, d, SCALE, OMEGA)
+        via = mp.MpOp(op, ps, W).cheb_step(b, x, q, d, SCALE, OMEGA)
     assert _same(got, _before(form, op, ps, x, b, q, d))
     assert _same(twin, got) and _same(via, got)
+
+
+# (ndim, m_el, argv, size) of a whole setup: 2D, small 3D, ragged 3D
+SETUPS = {"2d": (2, (6, 5), ["-model", "0"], None),
+          "3d": (3, (4, 4, 4), ["-model", "11", "-size_x", "0.1"],
+                 (0.1, 1.0, 1.0)),
+          "3d_ragged": (3, (4, 6, 2), ["-model", "2"], None)}
+
+
+@pytest.mark.parametrize("case", list(SETUPS))
+def test_setup_stencil_matches_jax_mp_apply(case):
+    """build_abf's stencil W_p (float64, slot-major (3^nd, *rev(nn_p)))
+    applied through K4's plain twin at one dof per node against the JAX
+    package's mp_apply on the setup's pscale and its op, to 1e-12
+    relative; data_from_numpy's W_p, built from the JAX build's pscale,
+    agrees with it to 1e-13; a float32 setup's W_p is the float64 one
+    rounded once."""
+    nd, m_el, argv, size = SETUPS[case]
+    j, t = problems(nd, m_el, argv, size=size)
+    slv = tabf.ABFSolver(*t[1:], device="cpu", nlevels=3)
+    data = slv.data
+    W, ps = data["mp_stencil"], data["pscale"]
+    grid = tuple(reversed(slv.setup["mesh"].nn_p))
+    assert W.shape == (3 ** nd,) + grid and W.dtype == torch.float64
+    assert W.is_contiguous()
+    pg = np.random.default_rng(21).standard_normal(grid)
+    jslv = jabf.ABFSolver(*j[1:], nlevels=3)
+    want = np.asarray(jabf.mp_apply(jslv.data["op"], jnp.asarray(ps.numpy()),
+                                    jnp.asarray(pg)))
+    assert _rel(_stencil_apply(W, torch.as_tensor(pg)).numpy(), want) < TOL64
+    _, ndata, _ = tabf.data_from_numpy(
+        dataclasses.asdict(jslv.cfg), jax.device_get(jslv.data),
+        jax.device_get(jslv.setup), "cpu", torch.float64)
+    assert _rel(ndata["mp_stencil"].numpy(), W.numpy()) < 1e-13
+    _, d32, _ = tabf.build_abf(*t[1:], device="cpu", dtype=torch.float32,
+                               nlevels=3)
+    assert _same(d32["mp_stencil"], W.float())
+
+
+def test_cart_shard_stencils_sum_to_the_whole_mesh_apply():
+    """Each cart shard's stencil (CartBlocks.mp_w, from its own elements
+    over its local node box) applied through K4's plain twin to its box of
+    a global pressure grid, then summed over the interface planes by
+    halo_p, equals the whole mesh's apply (the setup's stencil, and
+    mp_apply_plain) on each box, to 1e-13 relative, float64, over 1x2x2
+    shards."""
+    from exsaddle_tpu_torch.parallel.cart import stack_boxes
+    _, t = problems(3, (8, 8, 8), ["-model", "2"])
+    part = CartPartition(t[1], (1, 2, 2))
+    slv = CartABFSolver(part, t[0], *t[4:], ["cpu"] * 4, nlevels=4,
+                        loop="plain")
+    blk = slv.blocks
+    nn_p = tuple(part.mesh.nn_p)
+    grid = tuple(reversed(nn_p))
+    pg = np.random.default_rng(22).standard_normal(grid)
+    whole = tabf.ABFSolver(*t[1:], device="cpu", nlevels=3)
+    want = _stencil_apply(whole.data["mp_stencil"], torch.as_tensor(pg))
+    plain = mp.mp_apply_plain(whole.data["op"], whole.data["pscale"],
+                              torch.as_tensor(pg))
+    assert _rel(want.numpy(), plain.numpy()) < 1e-13
+    boxes = stack_boxes(part.dev_shape)
+    parts = slv.smesh.shard([pg[part._grid_slices(b, 1, ())] for b in boxes])
+    for w, o in zip(blk.mp_w.parts, blk.ops.parts):
+        assert w.shape == (27,) + tuple(reversed(o.nn_p))
+        assert w.dtype == torch.float64 and w.is_contiguous()
+    got = blk.halo_p(treeops.smap(
+        lambda w, v: _stencil_apply(w, torch.as_tensor(v)), blk.mp_w, parts))
+    for b, y in zip(boxes, got.parts):
+        assert _rel(y.numpy(), want.numpy()[part._grid_slices(b, 1, ())]) \
+            < 1e-13
+    # the cart path's own apply: the plain version per shard, the halo
+    via = tabf.mp_apply(blk.ops, slv.ddata["pscale"], parts,
+                        halo_p=blk.halo_p, W=blk.mp_w)
+    for b, y in zip(boxes, via.parts):
+        assert _rel(y.numpy(), want.numpy()[part._grid_slices(b, 1, ())]) \
+            < 1e-13
 
 
 def _parity(m_el, dtype, seed):
@@ -194,12 +293,12 @@ def test_fused_parity_restriction_matches_jax():
 
 
 def _p_smoother(dtype, x0_zero):
-    _, op, ps, grid = _setup("3d", dtype)
+    _, op, ps, grid, W = _setup("3d", dtype)
     x0, b, _, d = _vectors(grid, dtype, 11)
     if x0_zero:
         x0 = torch.zeros_like(x0)
     npdt = treeops.NP_DTYPE[dtype]
-    return op, torch.as_tensor(ps, dtype=dtype), x0, b, d, npdt(0.2), \
+    return op, torch.as_tensor(ps, dtype=dtype), W, x0, b, d, npdt(0.2), \
         npdt(2.2)
 
 
@@ -209,10 +308,10 @@ def test_cheb_smooth_over_mp_op_is_the_callable_path(dtype, x0_zero):
     """cheb_smooth(MpOp, diag=d) takes the fused forms and gives the bits
     of the callable Jacobi path and of the unfused diag path over
     abf.mp_apply."""
-    op, ps, x0, b, d, emin, emax = _p_smoother(dtype, x0_zero)
-    got = treeops.cheb_smooth(mp.MpOp(op, ps), None, emin, emax, 6, b, x0,
-                              x0_zero=x0_zero, diag=d)
-    A = lambda v: tabf.mp_apply(op, ps, v)  # noqa: E731
+    op, ps, W, x0, b, d, emin, emax = _p_smoother(dtype, x0_zero)
+    got = treeops.cheb_smooth(mp.MpOp(op, ps, W), None, emin, emax, 6, b,
+                              x0, x0_zero=x0_zero, diag=d)
+    A = lambda v: tabf.mp_apply(op, ps, v, W=W)  # noqa: E731
     assert _same(got, treeops.cheb_smooth(A, lambda r: d * r, emin, emax, 6,
                                           b, x0, x0_zero=x0_zero))
     assert _same(got, treeops.cheb_smooth(A, None, emin, emax, 6, b, x0,
@@ -225,14 +324,14 @@ def test_cheb_smooth_over_mp_op_matches_jax(case, x0_zero):
     """The p-block's smoother over MpOp against the JAX package's p-block,
     cheb_smooth over its mp_apply with a Jacobi PC (exsaddle_tpu/abf.py's
     p_mult and p_pc), float64, to 1e-12 relative."""
-    jop, top, ps, grid = _setup(case)
+    jop, top, ps, grid, W = _setup(case)
     rng = np.random.default_rng(9)
     b = rng.standard_normal(grid)
     x0 = np.zeros(grid) if x0_zero else rng.standard_normal(grid)
     d = rng.uniform(0.5, 1.5, grid)
     emin, emax = np.float64(0.2), np.float64(2.2)
-    got = treeops.cheb_smooth(mp.MpOp(top, torch.as_tensor(ps)), None, emin,
-                              emax, 12, torch.as_tensor(b),
+    got = treeops.cheb_smooth(mp.MpOp(top, torch.as_tensor(ps), W), None,
+                              emin, emax, 12, torch.as_tensor(b),
                               torch.as_tensor(x0), x0_zero=x0_zero,
                               diag=torch.as_tensor(d))
     jps, jd = jnp.asarray(ps), jnp.asarray(d)
@@ -377,34 +476,41 @@ def test_check_refuses_what_the_kernel_cannot_take():
     layout of pg, pscale, Np and the fused forms' grids; any device but
     CUDA and the CPU is refused by every entry; the fused restriction
     checks its diagonal and needs y and d."""
-    _, op, ps, grid = _setup("3d")
+    _, op, ps, grid, W = _setup("3d")
     ps = torch.as_tensor(ps)
     x, b, q, d = _vectors(grid, torch.float64, 4)
-    mp._check("mp_cheb_step", op, ps, x, b=b, d=d, p_km1=q)
+    mp._check("mp_cheb_step", op, W, x, b=b, d=d, p_km1=q)
     with pytest.raises(ValueError, match="pg has shape"):
-        mp._check("mp_apply", op, ps, x.reshape(-1))
-    with pytest.raises(ValueError, match="pscale has shape"):
-        mp._check("mp_apply", op, ps[:-1], x)
-    with pytest.raises(ValueError, match="Np has shape"):
-        mp._check("mp_apply", dataclasses.replace(op, Np=op.Np[:, :4]), ps,
-                  x)
-    with pytest.raises(ValueError, match="pscale is torch.float32"):
-        mp._check("mp_apply", op, ps.float(), x)
+        mp._check("mp_apply", op, W, x.reshape(-1))
     with pytest.raises(ValueError, match="p_km1 is torch.float32"):
-        mp._check("mp_cheb_step", op, ps, x, p_km1=q.float())
+        mp._check("mp_cheb_step", op, W, x, p_km1=q.float())
     with pytest.raises(ValueError, match="d is not contiguous"):
-        mp._check("mp_cheb_step", op, ps, x,
+        mp._check("mp_cheb_step", op, W, x,
                   d=torch.stack([d, d], -1)[..., 0])
     with pytest.raises(ValueError, match="b has shape"):
-        mp._check("mp_cheb_step", op, ps, x, b=b[:, :, :-1])
+        mp._check("mp_cheb_step", op, W, x, b=b[:, :, :-1])
     with pytest.raises(TypeError, match="not supported"):
-        mp._check("mp_apply", op, ps.half(), x.half())
+        mp._check("mp_apply", op, W.half(), x.half())
+    # the stencil: shape, dtype, device, layout, and that it is there
+    with pytest.raises(ValueError, match="W has shape"):
+        mp._check("mp_apply", op, W[:-1], x)
+    with pytest.raises(ValueError, match="W has shape"):
+        mp._check("mp_apply", op, W.movedim(0, -1).contiguous(), x)
+    with pytest.raises(ValueError, match="W is torch.float32"):
+        mp._check("mp_apply", op, W.float(), x)
+    with pytest.raises(ValueError, match="W is torch.float64 on meta"):
+        mp._check("mp_apply", op, W.to("meta"), x)
+    with pytest.raises(ValueError, match="W is not contiguous"):
+        mp._check("mp_apply", op, W.movedim(0, -1).contiguous().movedim(
+            -1, 0), x)
+    with pytest.raises(ValueError, match="needs Mpscaled's stencil"):
+        mp._check("mp_apply", op, None, x)
     meta = x.to("meta")
-    for call in (lambda: mp.mp_apply(op, ps, meta),
-                 lambda: mp.MpOp(op, ps).cheb_first(b, meta, d, SCALE),
-                 lambda: mp.mp_cheb_step(op, ps, b, meta, q, d, SCALE,
+    for call in (lambda: mp.mp_apply(op, ps, W, meta),
+                 lambda: mp.MpOp(op, ps, W).cheb_first(b, meta, d, SCALE),
+                 lambda: mp.mp_cheb_step(op, ps, W, b, meta, q, d, SCALE,
                                          OMEGA),
-                 lambda: mp.MpOp(op, ps)(meta)):
+                 lambda: mp.MpOp(op, ps, W)(meta)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     m_el = (3, 4, 2)
