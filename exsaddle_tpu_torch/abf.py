@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from exsaddle_tpu_torch import graphs, treeops
+from exsaddle_tpu_torch import trace as tracing
 from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.treeops import smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
@@ -224,16 +225,29 @@ def _setup_profile():
 
 
 @contextlib.contextmanager
-def _stage(name):
-    """Setup-phase stage timer: prints the stage's wall time to stderr as
-    `[setup] <name>: <s> s` when EXSADDLE_SETUP_PROFILE=1, else nothing."""
-    if not _setup_profile():
+def _stage(name, trace=None, label=None, show=True):
+    """A set-up stage: a host span of `trace` (trace.Trace; the device
+    synchronised at both ends), and with EXSADDLE_SETUP_PROFILE=1 its
+    time on stderr as `[setup] <label or name>: <s> s` (show=False: no
+    line). With neither, nothing is timed."""
+    shown = show and _setup_profile()
+    if trace is None and not shown:
         yield
         return
-    t0 = time.perf_counter()
-    yield
-    print(f"[setup] {name}: {time.perf_counter() - t0:.2f} s",
-          file=sys.stderr, flush=True)
+    if trace is None:
+        t0 = time.perf_counter_ns()
+        yield
+        t1 = time.perf_counter_ns()
+    else:
+        trace.host_open(name, sync=True)
+        try:
+            yield
+        finally:
+            s = trace.host_close(sync=True)
+        t0, t1 = s.start, s.end
+    if shown:
+        print(f"[setup] {label or name}: {1e-9 * (t1 - t0):.2f} s",
+              file=sys.stderr, flush=True)
 
 
 @dataclass(frozen=True)
@@ -503,8 +517,9 @@ def csr_from_stencil(W, grid_shape, nd):
 
 
 def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
-              dtype=torch.float64, nlevels=3, cfg_kw=None):
-    """Build (cfg, data, setup) for the ABF solve on `device`.
+              dtype=torch.float64, nlevels=3, cfg_kw=None, trace=None):
+    """Build (cfg, data, setup) for the ABF solve on `device`; its stages
+    are host spans of `trace` (_stage) where one is given.
 
     Host setup in FACTORED form, as the JAX package's build_abf: the fine
     Jacobi diagonal, the esteig probe apply, the Galerkin L-2 matrix and
@@ -527,12 +542,12 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
     bc_u = bc_mask[:nu]
     keep_u = 1.0 - bc_u
 
-    with _stage("factored_host"):
+    with _stage("factored_host", trace):
         fd = factored_host(mesh, fes, coeff_qp, lame=lame)
     Bs, Dm_m, Np_m, fac = fd["Bs"], fd["Dm"], fd["Np"], fd["fac"]
     s_flat = fd["scale"]                          # (nel, nqp*ncomp), f64
 
-    with _stage("parity op build"):
+    with _stage("parity op build", trace):
         pop = ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
                                           lame=lame, dtype=dtype,
                                           device=device, host=fd)
@@ -540,7 +555,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
 
     # rhs_diri = -(A_raw x_bc), BC rows zeroed (femixedspace.c:2634-2643);
     # only the O(surface) elements touching a BC node contribute
-    with _stage("rhs_diri"):
+    with _stage("rhs_diri", trace):
         bce = np.nonzero(bc_u[ue].any(axis=1))[0]
         xbe = x_bc[:nu][ue[bce]]
         yue = ((xbe @ Bs.T) * s_flat[bce]) @ Bs
@@ -555,7 +570,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         rhs_diri[:nu][np.asarray(bc_idx)] = 0.0
 
     # float64 operator for true residuals (tests, iterative refinement)
-    with _stage("f64 saddle op"):
+    with _stage("f64 saddle op", trace):
         op64 = pop if dtype == torch.float64 else \
             ParityMatFreeOperator.build(mesh, fes, coeff_qp, bc_mask,
                                         lame=lame, dtype=torch.float64,
@@ -570,11 +585,11 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         if not all(n >= 2 for n in g):
             raise ValueError("too many MG levels for this mesh")
 
-    with _stage("prolongations"):
+    with _stage("prolongations", trace):
         prolongs = [Prolongation(grids[k], grids[k + 1], nd)
                     for k in range(nlevels - 2)]
 
-    with _stage("fine diagonal"):
+    with _stage("fine diagonal", trace):
         keep_e = keep_u[ue]
         diag_e = s_flat @ (Bs ** 2)           # (nel, nud)
         fine_diag = bc_u + np.bincount(
@@ -603,43 +618,39 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
             fine_est["error"] = e
 
     th = threading.Thread(target=_fine_esteig)
-    t_est0 = time.perf_counter()
-    th.start()
     # per-level Jacobi diagonals + esteig bounds (levels coarsest..finest;
     # smoothers live on levels 1..nlevels-1, the fine one's from the thread)
     diags, bounds = [], []
-    try:
-        with _stage("L-2 Galerkin elements"):
-            A1e = _galerkin_l2_elements(mesh, _p_loc_l2(nd), Bs, s_flat,
-                                        keep_e, bc_u)
-        with _stage("L-2 stencil + csr"):
-            W1 = _stencil_from_l2_elements(A1e, mesh.m_el, nd)
-            A1 = csr_from_stencil(W1, tuple(reversed(grids[-2])), nd)
-        with _stage("deep Galerkin RAPs"):
-            coarse_csrs = galerkin_coarse_operators(A1, prolongs) + [A1]
-        for k in range(1, nlevels - 1):
-            A = coarse_csrs[k]
-            d = A.diagonal()
-            d = np.where(d == 0.0, 1.0, d)
-            with _stage(f"esteig level {k}"):
-                emin, emax = _esteig_bounds(lambda v, A=A: A @ np.asarray(v),
-                                            d, A.shape[0])
-            diags.append(d)
-            bounds.append((emin, emax))
-    finally:
-        with _stage("fine esteig join"):
-            th.join()
-    if "error" in fine_est:
-        raise fine_est["error"]
-    if _setup_profile():
-        print(f"[setup] fine esteig total (overlapped): "
-              f"{time.perf_counter() - t_est0:.2f} s", file=sys.stderr,
-              flush=True)
+    with _stage("esteig", trace, label="fine esteig total (overlapped)"):
+        th.start()
+        try:
+            with _stage("L-2 Galerkin elements", trace):
+                A1e = _galerkin_l2_elements(mesh, _p_loc_l2(nd), Bs, s_flat,
+                                            keep_e, bc_u)
+            with _stage("L-2 stencil + csr", trace):
+                W1 = _stencil_from_l2_elements(A1e, mesh.m_el, nd)
+                A1 = csr_from_stencil(W1, tuple(reversed(grids[-2])), nd)
+            with _stage("deep Galerkin RAPs", trace):
+                coarse_csrs = galerkin_coarse_operators(A1, prolongs) + [A1]
+            for k in range(1, nlevels - 1):
+                A = coarse_csrs[k]
+                d = A.diagonal()
+                d = np.where(d == 0.0, 1.0, d)
+                with _stage(f"esteig level {k}", trace):
+                    emin, emax = _esteig_bounds(
+                        lambda v, A=A: A @ np.asarray(v), d, A.shape[0])
+                diags.append(d)
+                bounds.append((emin, emax))
+        finally:
+            with _stage("fine esteig join", trace):
+                th.join()
+        if "error" in fine_est:
+            raise fine_est["error"]
     diags.append(d_fine_w)
     bounds.append(fine_est["bounds"])
 
     # coarse inverse (PCREDUNDANT + stable dense LU stand-in for UMFPACK)
-    with _stage("coarse inverse"):
+    with _stage("coarse inverse", trace):
         coarse_inv = np.linalg.inv(coarse_csrs[0].toarray())
 
     # block stencils for every intermediate level 1..nlevels-2, including
@@ -654,7 +665,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
                                              lvl_grids[k], nd))
 
     # Schur p-block: Mpscaled factored weights + Jacobi + Chebyshev bounds
-    with _stage("Schur-pre assembly"):
+    with _stage("Schur-pre assembly", trace):
         if lame:
             inv = 1.0 / coeff_qp["lambda"] + 1.0 / coeff_qp["mu"]
         else:
@@ -671,7 +682,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         Mp = sp.coo_matrix((Sel.ravel(), (rows, cols)),
                            shape=(mesh.np_, mesh.np_)).tocsr()
         W_p = mp_stencil(Mp, mesh.nn_p)
-    with _stage("p-block spectrum"):
+    with _stage("p-block spectrum", trace):
         p_emin, p_emax = p_spectrum_bounds_assembled(
             Mp, dmp, p_spectrum_bounds(Sel))
 
@@ -692,7 +703,7 @@ def build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals, *, device, lame=False,
         "inv_diag_p": (1.0 / dmp).reshape(tuple(reversed(mesh.nn_p))),
         "p_bounds": (p_emin, p_emax),
     }
-    with _stage("device cast"):
+    with _stage("device cast", trace):
         data = _device_data(pop, host, dtype, device)
     setup = {"mesh": mesh, "op64": op64, "aux64": tree_aux(op64),
              "rhs_diri": rhs_diri, "bc_mask": bc_mask, "x_bc": x_bc,
@@ -787,14 +798,17 @@ def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
 # The composed solver
 # --------------------------------------------------------------------------
 
-def _mg_pc(cfg, data, fineA):
+def _mg_pc(cfg, data, fineA, trace=None):
     """mg_pc(r): one PCMG multiplicative V-cycle from a zero initial guess
-    over the u-block hierarchy of `data`, fine level applied by fineA."""
+    over the u-block hierarchy of `data`, fine level applied by fineA; the
+    V-cycle and its coarse solve are device spans of `trace`
+    (trace.span)."""
     nlev = cfg.nlevels
 
     # --- level applies (index k: 0 coarsest .. nlev-1 finest) -------------
     def coarse_solve(xg):
-        return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
+        with tracing.span(trace, "coarse_solve"):
+            return (data["coarse_inv"] @ xg.reshape(-1)).reshape(xg.shape)
 
     # each level's operator and Jacobi inverse diagonal (K6 takes it for
     # the fine level's zero-guess first step, and K5's restrictions for
@@ -854,7 +868,11 @@ def _mg_pc(cfg, data, fineA):
             x = transfer.prolong_grid(xc, cfg.level_grids[k], add=x)
         return smooth(k, b, x)
 
-    return lambda r: vcycle(nlev - 1, r)
+    def mg_pc(r):
+        with tracing.span(trace, "vcycle"):
+            return vcycle(nlev - 1, r)
+
+    return mg_pc
 
 
 def _fieldsplit(op, aux, p_solve, u_solve):
@@ -871,16 +889,16 @@ def _fieldsplit(op, aux, p_solve, u_solve):
     return pc_apply
 
 
-def _plain_bodies(cfg, data):
+def _plain_bodies(cfg, data, trace=None):
     """The ABF solve's bodies as plain functions: fineA (A00 with the
     Dirichlet terms: a kernels.a00.A00Op, whose Chebyshev updates the
     V-cycle's fine-level smoother calls), mg_pc (one V-cycle), p_solve (the
     p-block's Chebyshev polynomial), mult (the full saddle apply) and, with
     cfg.u_fixed_vcycles > 0, fixed_pc (the fieldsplit PC with fixed
-    V-cycles in place of GCR)."""
+    V-cycles in place of GCR). trace: mg_pc's spans (_mg_pc)."""
     op, aux = data["op"], data["aux"]
     fineA = a00.A00Op(op, aux)
-    mg_pc = _mg_pc(cfg, data, fineA)
+    mg_pc = _mg_pc(cfg, data, fineA, trace)
     p_emin, p_emax = data["p_bounds"]
 
     # --- Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled -------
@@ -1032,7 +1050,7 @@ class DeviceIR:
         self.ints = torch.zeros(5, dtype=torch.int32, device=device)
         self.hist = torch.zeros(max_rounds + 1, dtype=f64, device=device)
         self.p = ctl.pred_slots(1)
-        self.c0 = ctl.count_slots(2)
+        self.c0 = ctl.count_slots("ir_solves", "ir_rounds")
 
 
 class DeviceLoopSolver:
@@ -1062,9 +1080,18 @@ class DeviceLoopSolver:
     same items from Python, one host read per loop test (the CPU's path,
     and the reference on the card). rtol and n_rounds are device scalars:
     a new tolerance replays the same graph. Counts, histories and x come
-    back in one float64 buffer (`out`, the direct solve's `out_direct`)."""
+    back in one float64 buffer (`out`, the direct solve's `out_direct`);
+    the counts by name are ctl.named(...) of its last entries.
 
-    def __init__(self, cfg, data, dtype, graph, ir_ops=None, max_rounds=10):
+    trace (trace.Trace): the solve's device spans (the graph's or the plain
+    driver's solve and pieces, and the spans at the work sites: FGMRES's
+    saddle_apply, GCR's and FGMRES's gram_schmidt, the vcycle and its
+    coarse_solve) and _run's host spans launch, wait and read_out, which
+    follow the caller's stage_in (ABFSolver opens solve_call and stage_in,
+    and closes read_out and solve_call)."""
+
+    def __init__(self, cfg, data, dtype, graph, ir_ops=None, max_rounds=10,
+                 trace=None):
         op, aux = data["op"], data["aux"]
         self.device = op.Bs.device
         ir = ir_ops is not None
@@ -1072,8 +1099,8 @@ class DeviceLoopSolver:
         self.max_rounds = max_rounds
         n = op.ndof
         self.n = n
-        self.ctl = ctl = graphs.Control(self.device)
-        b = _plain_bodies(cfg, data)
+        self.ctl = ctl = graphs.Control(self.device, trace=trace)
+        b = _plain_bodies(cfg, data, trace)
         wz = lambda *shape: torch.zeros(shape, dtype=dtype,     # noqa: E731
                                         device=self.device)
         if cfg.u_fixed_vcycles > 0:
@@ -1203,9 +1230,14 @@ class DeviceLoopSolver:
         items, out, graph = ((self.items, self.out, self.graph) if ir else
                              (self.direct_items, self.out_direct,
                               self.direct_graph))
+        tr = self.ctl.trace
         if self.device.type == "cpu":
             inp.copy_(torch.from_numpy(host_inp))
+            if tr is not None:
+                tr.host_next("launch")
             graphs.run_plain(items, self.ctl)
+            if tr is not None:
+                tr.host_next("read_out")
             return out.numpy().copy()
         if ir not in self._pinned:
             self._pinned[ir] = (torch.empty(inp.shape, dtype=inp.dtype,
@@ -1214,13 +1246,19 @@ class DeviceLoopSolver:
                                             pin_memory=True))
         pin_in, pin_out = self._pinned[ir]
         pin_in.copy_(torch.from_numpy(host_inp))
+        if tr is not None:
+            tr.host_next("launch")
         done = torch.cuda.Event()
         if graph is None:
             inp.copy_(pin_in, non_blocking=True)
             graphs.run_plain(items, self.ctl)
             pin_out.copy_(out, non_blocking=True)
             done.record()
+            if tr is not None:
+                tr.host_next("wait")
             done.synchronize()
+            if tr is not None:
+                tr.host_next("read_out")
             return pin_out.numpy().copy()
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -1231,7 +1269,11 @@ class DeviceLoopSolver:
             done.record()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
+        if tr is not None:
+            tr.host_next("wait")
         done.synchronize()
+        if tr is not None:
+            tr.host_next("read_out")
         res = pin_out.numpy().copy()
         graph.account(res[-self.ctl.counts.numel():])
         return res
@@ -1284,34 +1326,51 @@ class ABFSolver:
     The graphs read the tensors of `data` by address: the solver holds
     `data` for its lifetime and never rebinds it, and solvers built
     from_parts over one `data` each capture their own graphs. A failure to
-    build or launch the device loop raises; nothing falls back."""
+    build or launch the device loop raises; nothing falls back.
+
+    trace: a trace.Trace (of this device) or None (the default: nothing is
+    traced and the captured graphs hold exactly the untraced nodes). With
+    one, the constructor is a host span `build` over its set-up stages
+    (each synchronised, _stage), each solve a host span `solve_call` over
+    `stage_in`, `launch`, `wait` and `read_out`, and the device loop's
+    solve, pieces and work sites device spans (DeviceLoopSolver); a traced
+    solve gives the untraced bits. The device and plain loops only.
+    Results of the device and plain loops carry "counts" (Control's loop
+    counts by name); kernel_nodes(counts) counts what the graph ran."""
 
     def __init__(self, mesh, fes, coeff_qp, bc_idx, bc_vals, *, device,
                  lame=False, dtype=torch.float64, nlevels=3, ir=False,
-                 eager=False, loop=None, **cfg_kw):
-        cfg, data, setup = build_abf(mesh, fes, coeff_qp, bc_idx, bc_vals,
-                                     device=device, lame=lame, dtype=dtype,
-                                     nlevels=nlevels, cfg_kw=cfg_kw)
-        if ir:
-            # the float64 residual operator's K1 node table: built here, so
-            # its host-to-device copy does not fall into the first solve
-            with _stage("ir op64 build"):
-                op64 = setup["op64"]
-                if op64.Bs.device.type == "cuda":
-                    op64.node_table
-        self._init(cfg, data, setup, dtype, device, ir, eager, loop)
+                 eager=False, loop=None, trace=None, **cfg_kw):
+        with _stage("build", trace, show=False):
+            cfg, data, setup = build_abf(mesh, fes, coeff_qp, bc_idx,
+                                         bc_vals, device=device, lame=lame,
+                                         dtype=dtype, nlevels=nlevels,
+                                         cfg_kw=cfg_kw, trace=trace)
+            if ir:
+                # the float64 residual operator's K1 node table: built
+                # here, so its host-to-device copy does not fall into the
+                # first solve
+                with _stage("ir op64 build", trace):
+                    op64 = setup["op64"]
+                    if op64.Bs.device.type == "cuda":
+                        op64.node_table
+            self._init(cfg, data, setup, dtype, device, ir, eager, loop,
+                       trace)
 
     @classmethod
     def from_parts(cls, cfg, data, setup, *, device, dtype, ir=False,
-                   eager=False, loop=None):
+                   eager=False, loop=None, trace=None):
         """Solver over (cfg, data, setup) built elsewhere, e.g. by
         data_from_numpy; on CUDA it captures its graphs against these
         tensors."""
         self = cls.__new__(cls)
-        self._init(cfg, data, setup, dtype, device, ir, eager, loop)
+        with _stage("build", trace, show=False):
+            self._init(cfg, data, setup, dtype, device, ir, eager, loop,
+                       trace)
         return self
 
-    def _init(self, cfg, data, setup, dtype, device, ir, eager, loop):
+    def _init(self, cfg, data, setup, dtype, device, ir, eager, loop,
+              trace):
         self.cfg, self.data, self.setup = cfg, data, setup
         self.mesh = setup["mesh"]
         self.dtype = dtype
@@ -1324,7 +1383,11 @@ class ABFSolver:
             raise ValueError(f"loop {loop!r}: 'device', 'plain' or 'host'")
         if eager and loop != "host":
             raise ValueError(f"eager=True runs the host loop, not {loop!r}")
+        if trace is not None and loop == "host":
+            raise ValueError("trace= traces the device and plain loops, "
+                             "not loop 'host'")
         self.loop = loop
+        self.trace = trace
         self._dev = None
         self._solve_ir_fn = None
         if loop != "host":
@@ -1332,9 +1395,10 @@ class ABFSolver:
             self._bodies = {}
             graph = cuda and loop == "device"
             ir_ops = (setup["op64"], setup["aux64"]) if ir else None
-            with _stage("graph capture") if graph else \
+            with _stage("graph capture", trace) if graph else \
                     contextlib.nullcontext():
-                self._dev = DeviceLoopSolver(cfg, data, dtype, graph, ir_ops)
+                self._dev = DeviceLoopSolver(cfg, data, dtype, graph, ir_ops,
+                                             trace=trace)
             self.capture_seconds = self._dev.capture_seconds
             return
         if cuda and not eager:
@@ -1353,6 +1417,18 @@ class ABFSolver:
         graphs.Captured where captured."""
         return dict(self._bodies)
 
+    def kernel_nodes(self, counts):
+        """The kernel nodes the device loop's graph ran for one solve's
+        "counts" (solve_ir's graph where counts has ir_solves, else
+        solve's): graphs.ControlGraph.kernel_nodes, trace marks left out,
+        computed from the captured graphs when called. None where the
+        solve runs no graph (the CPU, loop "plain" or "host")."""
+        dev = self._dev
+        if dev is None or dev.graph is None:
+            return None
+        graph = dev.graph if counts.get("ir_solves") else dev.direct_graph
+        return graph.kernel_nodes(dev.ctl.slots(counts))
+
     def vec_to_tree(self, x_flat, dtype=None):
         """Natural-ordering (ndof,) vector -> flat parity-layout tensor."""
         xp = np.asarray(x_flat)[self.setup["perm"]]
@@ -1369,20 +1445,35 @@ class ABFSolver:
             raise ValueError("pass F_flat (natural ordering)")
         return self.vec_to_tree(F_flat)
 
+    def _call_open(self):
+        """With a trace: open solve_call (a new solve id) and stage_in."""
+        if self.trace is not None:
+            self.trace.host_open("solve_call", new_solve=True)
+            self.trace.host_open("stage_in")
+
+    def _call_close(self, res):
+        """With a trace: close read_out and solve_call. Returns res."""
+        if self.trace is not None:
+            self.trace.host_close()
+            self.trace.host_close()
+        return res
+
     def solve(self, F_flat, x0_flat=None):
         """Solve A x = F. Returns dict with x (natural ordering), its,
-        rnorm, reason, history (list of monitored residuals)."""
+        rnorm, reason, history (list of monitored residuals) and, on the
+        device and plain loops, counts (the loops' counts by name)."""
         if self._dev is not None:
+            self._call_open()
             perm = self.setup["perm"]
             F = np.asarray(F_flat)[perm]
             x0 = (np.asarray(x0_flat)[perm] if x0_flat is not None
                   else np.zeros_like(F))
-            x, its, rnorm, state, hist, _ = self._dev.solve(F, x0)
-            return {"x": x[self.setup["iperm"]], "its": its,
-                    "rnorm": float(rnorm),
-                    "reason": treeops.reason_name(state),
-                    "history": [float(h) for h in hist[: its + 1]
-                                if h >= 0.0]}
+            x, its, rnorm, state, hist, counts = self._dev.solve(F, x0)
+            return self._call_close({
+                "x": x[self.setup["iperm"]], "its": its,
+                "rnorm": float(rnorm), "reason": treeops.reason_name(state),
+                "history": [float(h) for h in hist[: its + 1] if h >= 0.0],
+                "counts": self._dev.ctl.named(counts)})
         Ft = self.vec_to_tree(F_flat)
         x0 = (self.vec_to_tree(x0_flat) if x0_flat is not None
               else torch.zeros_like(Ft))
@@ -1398,17 +1489,21 @@ class ABFSolver:
 
         Returns dict with x (natural ordering, float64), rounds, inner_its
         (total), rnorm (true float64 residual), rnorm0, history (true
-        residual per accepted round), stalled, converged."""
+        residual per accepted round), stalled, converged and, on the device
+        and plain loops, counts (the loops' counts by name)."""
         if self._dev is not None:
             if self._dev.state is None:
                 raise ValueError("construct with ir=True")
+            self._call_open()
             F64 = np.asarray(F_flat, np.float64)[self.setup["perm"]]
             (x64, rounds, inner_total, rnorm, rnorm0, history, stalled,
-             _) = self._dev.solve_ir(F64, rtol, max_rounds)
-            return {"x": x64[self.setup["iperm"]], "rounds": rounds,
-                    "inner_its": inner_total, "rnorm": rnorm,
-                    "rnorm0": rnorm0, "history": history,
-                    "stalled": stalled, "converged": rnorm <= rtol * rnorm0}
+             counts) = self._dev.solve_ir(F64, rtol, max_rounds)
+            return self._call_close({
+                "x": x64[self.setup["iperm"]], "rounds": rounds,
+                "inner_its": inner_total, "rnorm": rnorm, "rnorm0": rnorm0,
+                "history": history, "stalled": stalled,
+                "converged": rnorm <= rtol * rnorm0,
+                "counts": self._dev.ctl.named(counts)})
         if self._solve_ir_fn is None:
             raise ValueError("construct with ir=True")
         F64 = self.vec_to_tree(F_flat, dtype=torch.float64)

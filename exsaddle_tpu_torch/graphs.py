@@ -22,6 +22,7 @@ held against, and the CPU's path.
 There is no CPU mode for a graph: the CPU runs the bodies eagerly, and
 `Captured` and `ControlGraph` refuse CPU tensors."""
 
+import collections
 import contextlib
 import ctypes
 import gc
@@ -144,17 +145,21 @@ class Control:
     """The loop control of one device-loop solve: `pred` (int32), each
     loop's predicate as its control kernel last wrote it; `handles` (the
     conditional nodes' handles, by predicate slot); `counts` (int64), the
-    executions of each loop body as its control kernel counts them.
-    Slots are handed out by pred_slots / count_slots at construction.
-    The control kernels set the handles only while `armed`, i.e. while
-    ControlGraph captures the pieces that launch them."""
+    executions of each loop body as its control kernel counts them, each
+    slot named (count_names). Slots are handed out by pred_slots /
+    count_slots at construction. The control kernels set the handles only
+    while `armed`, i.e. while ControlGraph captures the pieces that launch
+    them. trace: the solve's trace.Trace, or None; run_plain and
+    ControlGraph mark the solve and its pieces in it."""
 
-    def __init__(self, device, n_pred=16, n_count=32):
+    def __init__(self, device, n_pred=16, n_count=32, trace=None):
         self.pred = torch.zeros(n_pred, dtype=torch.int32, device=device)
         self.handles = torch.zeros(n_pred, dtype=torch.int64, device=device)
         self.counts = torch.zeros(n_count, dtype=torch.int64, device=device)
         self.armed = False
-        self._n_pred = self._n_count = 0
+        self.trace = trace
+        self.count_names = []
+        self._n_pred = 0
 
     def pred_slots(self, n):
         """The first of n new consecutive predicate slots."""
@@ -164,13 +169,23 @@ class Control:
             raise ValueError("Control: out of predicate slots")
         return first
 
-    def count_slots(self, n):
-        """The first of n new consecutive counter slots."""
-        first = self._n_count
-        self._n_count += n
-        if self._n_count > self.counts.numel():
+    def count_slots(self, *names):
+        """The first of len(names) new consecutive counter slots, named in
+        order."""
+        first = len(self.count_names)
+        if first + len(names) > self.counts.numel():
             raise ValueError("Control: out of counter slots")
+        self.count_names.extend(names)
         return first
+
+    def named(self, counts):
+        """{slot name: int} of counts (Control.counts on the host)."""
+        return {name: int(counts[i])
+                for i, name in enumerate(self.count_names)}
+
+    def slots(self, named):
+        """The counts by slot of a named() dict."""
+        return [named[name] for name in self.count_names]
 
     def handles_ptr(self):
         return self.handles.data_ptr() if self.armed else 0
@@ -226,15 +241,30 @@ def _chain(f, g):
 def run_plain(items, ctl):
     """The plain driver: items in order from Python, each loop test one
     host read of its predicate (Control.read) and nothing else. This is
-    the reference ControlGraph is held against, and the CPU's path."""
-    for item in items:
+    the reference ControlGraph is held against, and the CPU's path. With
+    ctl.trace, the solve and each merged Piece are device spans of it (a
+    graph captures merged Pieces), the solve's entry counting a solve."""
+    tr = ctl.trace
+    if tr is None:
+        _plain(items, ctl, None)
+        return
+    with tr.marking(), tr.span("solve", entry=True):
+        _plain(items, ctl, tr)
+
+
+def _plain(items, ctl, tr):
+    for item in (items if tr is None else merged(items)):
         if isinstance(item, Piece):
-            item.fn()
+            if tr is None:
+                item.fn()
+            else:
+                with tr.span(item.name):
+                    item.fn()
         elif item.kind == "while":
             while ctl.read(item.pred):
-                run_plain(item.body, ctl)
+                _plain(item.body, ctl, tr)
         elif ctl.read(item.pred):
-            run_plain(item.body, ctl)
+            _plain(item.body, ctl, tr)
 
 
 _V = ctypes.c_void_p
@@ -311,6 +341,21 @@ def _counters():
             + tuple(c.n for c in _TRACKED))
 
 
+def _counter_names():
+    """Names of _counters()' entries, in its order: <module>.n (launches),
+    a00.applies, stencil.fused.<epilogue>, krylov_ctl.<kernel>,
+    <module>.<form>, tracked.<i>."""
+    return (("a00.n", "a00.applies", "stencil.n", "cheb.n")
+            + tuple(f"stencil.fused.{e}" for e in stencil.EPILOGUES)
+            + tuple(f"krylov_ctl.{k}" for k in krylov_ctl.NAMES)
+            + ("transfer.n",)
+            + tuple(f"transfer.{f}" for f in transfer.FORMS)
+            + tuple(f"a00.{f}" for f in a00.FORMS)
+            + tuple(f"cheb.{f}" for f in cheb.FORMS)
+            + ("mp.n",) + tuple(f"mp.{f}" for f in mp.FORMS)
+            + tuple(f"tracked.{i}" for i in range(len(_TRACKED))))
+
+
 def _set_counters(vals):
     (a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
      cheb.LAUNCHES.n) = vals[:4]
@@ -333,6 +378,13 @@ def _set_counters(vals):
         c.n = v
 
 
+# a run of Pieces as ControlGraph holds it: its name, captured torch graph,
+# the count slot of its executions (None: once per launch), the counter
+# deltas its capture recorded, the trace marks in it, and the Piece
+CapturedPiece = collections.namedtuple(
+    "CapturedPiece", "name graph slot deltas marks piece")
+
+
 class ControlGraph:
     """`items` (Pieces and Loops) as ONE instantiated CUDA graph: every
     Loop a conditional node (WHILE or IF) whose handle the loop's control
@@ -353,8 +405,15 @@ class ControlGraph:
     A piece's kernel launches (K1, K4, K5, K6, control) are recorded at
     capture and not counted; account(counts) adds them times the
     executions the device counted (Control.counts, brought back with the
-    result). The capture keeps the pieces' tensors by address: the caller
-    keeps them alive and never rebinds them.
+    result), and kernel_nodes(counts) counts the kernel nodes that ran.
+    The capture keeps the pieces' tensors by address: the caller keeps
+    them alive and never rebinds them.
+
+    With ctl.trace (trace.Trace), each captured piece is a device span
+    named by Piece.name (a mark kernel first and last in its child graph;
+    the warm-up run marks nothing) and the root graph's first and last
+    nodes are marks of the span `solve`, the first counting a solve on
+    the device. Without it the graph holds no mark.
 
     share: an earlier ControlGraph over the same Control; a run of Pieces
     it captured is added here as the same child graph, not captured
@@ -401,17 +460,27 @@ class ControlGraph:
         for slot, h in handles.items():
             hv[slot] = h
         self.handles = hv.to(dev)
-        # (torch graph, counter deltas) by the Pieces a run joins
+        tr = ctl.trace
+        if tr is not None:
+            # the solve span: the root graph's first and last nodes
+            root_chain = chains[-1][1]
+            root_chain.insert(0, self._mark_node(
+                lambda: tr.mark("solve", False, entry=True)))
+            root_chain.append(self._mark_node(
+                lambda: tr.mark("solve", True)))
+        # (torch graph, counter deltas, marks) by the Pieces a run joins
         self.captured = dict(share.captured) if share is not None else {}
-        self.pieces = []    # (name, torch graph, count slot, counter deltas)
+        self.pieces = []    # CapturedPiece, in the order of the chains
         for graph, chain in chains:
             for i, entry in enumerate(chain):
                 if isinstance(entry, tuple):
                     piece, count = entry
                     if piece.parts not in self.captured:
-                        self.captured[piece.parts] = self._capture(piece)
-                    g, deltas = self.captured[piece.parts]
-                    self.pieces.append((piece.name, g, count, deltas))
+                        self.captured[piece.parts] = self._capture(
+                            self._spanned(piece), warm=piece.fn)
+                    g, deltas, marks = self.captured[piece.parts]
+                    self.pieces.append(CapturedPiece(piece.name, g, count,
+                                                     deltas, marks, piece))
                     node = _V()
                     self._call("gc_add_child", _V(graph),
                                _V(g.raw_cuda_graph()), ctypes.byref(node))
@@ -422,6 +491,7 @@ class ControlGraph:
                               dev.index or 0)
         self.capture_seconds = time.perf_counter() - t0
         self.launches = 0
+        self._nodes = {}
 
     def _call(self, name, *args):
         err = getattr(self._lib, name)(*args)
@@ -435,13 +505,38 @@ class ControlGraph:
         self._call(name, *args, ctypes.byref(p))
         return p.value
 
-    def _capture(self, piece):
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+    def _spanned(self, piece):
+        """piece.fn, inside the device span piece.name with a trace."""
+        tr = self.ctl.trace
+        if tr is None:
+            return piece.fn
+
+        def spanned():
+            with tr.marking(), tr.span(piece.name):
                 piece.fn()
-            torch.cuda.current_stream().wait_stream(side)
+        return spanned
+
+    def _mark_node(self, mark):
+        """A child node of the root graph (a clone of the captured graph):
+        `mark` (one trace mark) captured alone; returns the node."""
+        g, _, _ = self._capture(mark)
+        node = _V()
+        self._call("gc_add_child", _V(self.root), _V(g.raw_cuda_graph()),
+                   ctypes.byref(node))
+        return node.value
+
+    def _capture(self, fn, warm=None):
+        """(torch graph, counter deltas, trace marks) of fn captured, after
+        one run of `warm` on a side stream."""
+        tr = self.ctl.trace
+        marks = tr.marks if tr is not None else 0
+        with torch.cuda.device(self.device):
+            if warm is not None:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    warm()
+                torch.cuda.current_stream().wait_stream(side)
             g = torch.cuda.CUDAGraph(keep_graph=True)
             before = _counters()
             mode = torch.cuda.get_sync_debug_mode()
@@ -450,14 +545,16 @@ class ControlGraph:
                 with collector_held(), torch.cuda.graph(g):
                     torch.cuda.set_sync_debug_mode("error")
                     try:
-                        piece.fn()
+                        fn()
                     finally:
                         torch.cuda.set_sync_debug_mode(mode)
             finally:
                 self.ctl.armed = False
                 after = _counters()
                 _set_counters(before)
-        return g, tuple(b - a for a, b in zip(before, after))
+        if tr is not None:
+            marks = tr.marks - marks
+        return g, tuple(b - a for a, b in zip(before, after)), marks
 
     def launch(self):
         """One launch of the whole graph on the current stream, after its
@@ -472,10 +569,30 @@ class ControlGraph:
         captured launches times its executions (counts: Control.counts on
         the host; a piece outside any loop ran once)."""
         total = list(_counters())
-        for _, _, slot, deltas in self.pieces:
-            n = 1 if slot is None else int(counts[slot])
-            total = [t + n * d for t, d in zip(total, deltas)]
+        for p in self.pieces:
+            n = 1 if p.slot is None else int(counts[p.slot])
+            total = [t + n * d for t, d in zip(total, p.deltas)]
         _set_counters(total)
+
+    def kernel_nodes(self, counts):
+        """The kernel nodes one launch ran for `counts` (Control.counts on
+        the host, by slot), counted from the captured graphs only when
+        called: {"total", "pieces": {piece name: each captured piece's
+        kernel nodes, its trace marks left out, times its executions},
+        "launches": {_counter_names(): the hand-written kernels' launches
+        and applies, from the deltas account() adds}}."""
+        pieces, launches = {}, [0] * len(_counters())
+        for i, p in enumerate(self.pieces):
+            if i not in self._nodes:
+                n = ctypes.c_ulonglong()
+                self._call("gc_kernel_nodes", _V(p.graph.raw_cuda_graph()),
+                           ctypes.byref(n))
+                self._nodes[i] = n.value - p.marks
+            n = 1 if p.slot is None else int(counts[p.slot])
+            pieces[p.name] = pieces.get(p.name, 0) + n * self._nodes[i]
+            launches = [t + n * d for t, d in zip(launches, p.deltas)]
+        return {"total": sum(pieces.values()), "pieces": pieces,
+                "launches": dict(zip(_counter_names(), launches))}
 
     def __del__(self):
         lib = getattr(self, "_lib", None)

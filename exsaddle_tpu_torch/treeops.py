@@ -43,6 +43,7 @@ import torch
 from exsaddle_tpu_torch.graphs import Loop, Piece, run_plain
 from exsaddle_tpu_torch.kernels import cheb
 from exsaddle_tpu_torch.kernels import krylov_ctl
+from exsaddle_tpu_torch.trace import span
 # state codes (sign convention matches PETSc: >0 converged, <0 diverged)
 from exsaddle_tpu_torch.kernels.krylov_ctl import (  # noqa: F401
     CONVERGED_ATOL, CONVERGED_HAPPY, CONVERGED_RTOL, DIVERGED_DTOL,
@@ -565,7 +566,9 @@ class DeviceGCR:
     on ctl's device, which every shard must share. dots: the (dot, bdots)
     pair of make_dots; in a sharded layout its psum hands the control
     kernel the replicated sum (first), and the window mask multiplies the
-    summed dots, as in the JAX body."""
+    summed dots, as in the JAX body. With ctl.trace the step's
+    orthogonalisation and normalisation are the device span gram_schmidt.
+    Counts: gcr_solves (starts), gcr_steps."""
 
     def __init__(self, ctl, mult, pc_apply, n, dtype, device, restart=30,
                  rtol=1e-2, atol=1e-50, max_it=200, dots=None):
@@ -583,7 +586,7 @@ class DeviceGCR:
         self.ix = torch.zeros(1, dtype=torch.int64, device=cdev)
         self.ar = torch.arange(restart, device=cdev)
         self.p = ctl.pred_slots(1)
-        self.c0 = ctl.count_slots(2)
+        self.c0 = ctl.count_slots("gcr_solves", "gcr_steps")
 
     def start(self, b):
         self.x.zero_()
@@ -594,16 +597,17 @@ class DeviceGCR:
     def step(self):
         s = self.pc_apply(self.r)
         v = self.mult(s)
-        mask = (self.ar < self.ints[1]).to(v.dtype)
-        beta = self.bdots(self.V, v) * mask
-        v = v - beta @ self.V
-        s = s - beta @ self.S
-        alpha = _norm(self.dot, v)
-        inv = 1.0 / smap(_safe, alpha)
-        v = inv * v
-        s = inv * s
-        self.V.index_copy_(0, self.ix, v[None])
-        self.S.index_copy_(0, self.ix, s[None])
+        with span(self.ctl.trace, "gram_schmidt"):
+            mask = (self.ar < self.ints[1]).to(v.dtype)
+            beta = self.bdots(self.V, v) * mask
+            v = v - beta @ self.V
+            s = s - beta @ self.S
+            alpha = _norm(self.dot, v)
+            inv = 1.0 / smap(_safe, alpha)
+            v = inv * v
+            s = inv * s
+            self.V.index_copy_(0, self.ix, v[None])
+            self.S.index_copy_(0, self.ix, s[None])
         gamma = self.dot(self.r, v)
         self.x.add_(gamma * s)
         self.r.add_(-gamma * v)
@@ -639,7 +643,11 @@ class DeviceFGMRES:
     init(x0) is a piece (a new solve: x = x0 or 0, bases zeroed,
     fgmres_start_ctl mode 0), loop() the WHILE whose body is IF(cycle
     start) then IF(arnoldi) -- the JAX body's lax.cond -- with the
-    arnoldi body ending in IF(build_soln)."""
+    arnoldi body ending in IF(build_soln). With ctl.trace each operator
+    apply is the device span saddle_apply and the Arnoldi step's
+    orthogonalisation and normalisation gram_schmidt. Counts:
+    fgmres_solves, fgmres_cycles (cycle starts), fgmres_its (Arnoldi
+    steps), build_soln."""
 
     def __init__(self, ctl, mult, pc_items, n, dtype, device, restart=30,
                  rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
@@ -664,7 +672,8 @@ class DeviceFGMRES:
         self.ix = torch.zeros(2, dtype=torch.int64, device=cdev)
         self.ar = torch.arange(k + 1, device=cdev)
         self.p0 = ctl.pred_slots(4)
-        self.c0 = ctl.count_slots(4)
+        self.c0 = ctl.count_slots("fgmres_solves", "fgmres_cycles",
+                                  "fgmres_its", "build_soln")
         self.pc_items = pc_items(self.vin, self.zout)
 
     def init(self, x0=None):
@@ -678,7 +687,9 @@ class DeviceFGMRES:
 
     def cycle_start(self):
         """True residual of the current iterate; V[0] = r / beta."""
-        r = self.F - self.mult(self.x)
+        with span(self.ctl.trace, "saddle_apply"):
+            ax = self.mult(self.x)
+        r = self.F - ax
         beta = first(_norm(self.dot, r))
         krylov_ctl.fgmres_start_ctl(1, self, beta, self.ctl)
         self.V.zero_()
@@ -689,14 +700,16 @@ class DeviceFGMRES:
 
     def arnoldi_post(self):
         z = self.zout
-        w = self.mult(z)
+        with span(self.ctl.trace, "saddle_apply"):
+            w = self.mult(z)
         self.Z.index_copy_(0, self.ix[0:1], z[None])
-        mask = (self.ar <= self.ints[1]).to(w.dtype)
-        h = self.bdots(self.V, w) * mask
-        w = w - h @ self.V
-        tt = _norm(self.dot, w)
-        self.V.index_copy_(0, self.ix[1:2],
-                           ((1.0 / smap(_safe, tt)) * w)[None])
+        with span(self.ctl.trace, "gram_schmidt"):
+            mask = (self.ar <= self.ints[1]).to(w.dtype)
+            h = self.bdots(self.V, w) * mask
+            w = w - h @ self.V
+            tt = _norm(self.dot, w)
+            self.V.index_copy_(0, self.ix[1:2],
+                               ((1.0 / smap(_safe, tt)) * w)[None])
         krylov_ctl.fgmres_arnoldi_ctl(self, first(h), first(tt), self.ctl)
 
     def build_soln(self):

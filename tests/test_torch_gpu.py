@@ -1038,6 +1038,104 @@ def test_device_loop_build_failure_raises(cuda, monkeypatch):
                              dtype=torch.float64)
 
 
+def _graph_kernel_nodes(g):
+    """The kernel nodes of a torch graph captured with keep_graph."""
+    import ctypes
+    from exsaddle_tpu_torch import graphs
+    lib = graphs._shim()
+    n = ctypes.c_ulonglong()
+    assert lib.gc_kernel_nodes(ctypes.c_void_p(g.raw_cuda_graph()),
+                               ctypes.byref(n)) == 0
+    return n.value
+
+
+@pytest.mark.gpu
+def test_traced_device_loop_on_cuda(cuda):
+    """A float32 IR solver traced (trace.Trace) over the setup of an
+    untraced one: solve_ir and solve give the untraced x, rounds, its,
+    histories and counts bit for bit; each solve's marks run forward in
+    time, nested and in order; every device solve span lies inside its
+    solve_call within the calibration's error. Each captured piece of the
+    untraced graph has exactly graphs.kernels_per_call's kernel nodes of
+    its function (the graph the untraced solver captured before the
+    tracer), the traced one 2 more per span marked in it; kernel_nodes
+    (counts) is the kernels_per_call sum over the pieces times their
+    executions, whichever graph counts it."""
+    from exsaddle_tpu_torch import graphs
+    from exsaddle_tpu_torch.abf import ABFSolver
+    from exsaddle_tpu_torch.trace import Trace
+    p = _device_problem()
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, dtype=torch.float32, ir=True)
+    tr = Trace(cuda)
+    t = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                             dtype=torch.float32, ir=True, trace=tr)
+    assert g._dev.ctl.trace is None and t._dev.graph is not None
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    results = []
+    for run, keys in ((lambda s: s.solve_ir(F, rtol=1e-8),
+                       ("rounds", "inner_its", "stalled", "counts")),
+                      (lambda s: s.solve(F), ("its", "reason", "counts"))):
+        a, b = run(g), run(t)
+        assert [a[k] for k in keys] == [b[k] for k in keys]
+        assert a["history"] == b["history"]
+        assert np.array_equal(a["x"], b["x"])
+        results.append(b)
+    col = tr.collect()
+    assert col["drops"] == 0 and len(col["calibration"]) == 2
+    err = max(c["error_ns"] for c in col["calibration"])
+    spans = col["spans"]
+    kids = {}
+    for i, s in enumerate(spans):
+        kids.setdefault(s.parent, []).append(i)
+    for k in (1, 2):
+        call = next(s for s in spans if s.name == "solve_call"
+                    and s.solve == k)
+        i = next(i for i, s in enumerate(spans) if s.device
+                 and s.name == "solve" and s.solve == k)
+        dev = spans[i]
+        assert call.start - err <= dev.start < dev.end <= call.end + err
+        mine = [j for j, s in enumerate(spans) if s.device and s.solve == k]
+        starts = [spans[j].start for j in mine]
+        assert starts == sorted(starts)
+        for j in mine:
+            s = spans[j]
+            assert s.end is not None and s.start <= s.end
+            if s.parent is not None:
+                q = spans[s.parent]
+                assert q.start <= s.start and s.end <= q.end
+            sib = [spans[c] for c in kids.get(j, [])]
+            assert all(x.end <= y.start for x, y in zip(sib, sib[1:]))
+
+    def inside(j):
+        return sum(1 + inside(c) for c in kids.get(j, []))
+    marked = {}
+    for j in kids.get(next(i for i, s in enumerate(spans) if s.device
+                           and s.name == "solve" and s.solve == 1), []):
+        marked.setdefault(spans[j].name, set()).add(1 + inside(j))
+    for dev, traced in ((g._dev, False), (t._dev, True)):
+        for q in dev.graph.pieces:
+            kpc = graphs.kernels_per_call(q.piece.fn)
+            assert _graph_kernel_nodes(q.graph) == kpc + q.marks
+            if traced:
+                assert q.marks > 0 and q.marks % 2 == 0
+                if q.name in marked:
+                    assert marked[q.name] == {q.marks // 2}
+            else:
+                assert q.marks == 0
+    for res, graph in zip(results, (t._dev.graph, t._dev.direct_graph)):
+        slots = t._dev.ctl.slots(res["counts"])
+        want = sum((1 if q.slot is None else slots[q.slot])
+                   * graphs.kernels_per_call(q.piece.fn)
+                   for q in graph.pieces)
+        got = t.kernel_nodes(res["counts"])
+        assert got["total"] == want == g.kernel_nodes(res["counts"])["total"]
+        assert sum(got["pieces"].values()) == want
+        assert got["launches"]["krylov_ctl.fgmres_arnoldi_ctl"] == \
+            res["counts"]["fgmres_its"]
+        assert got["launches"]["a00.n"] > 0
+
+
 # --- K4 and K6: the multigrid kernels ----------------------------------------
 
 # K4 against its twin, relative to max_k sum_{s,j} |W||x| (the kernel sums
