@@ -756,16 +756,17 @@ def data_from_numpy(cfg_dict, data_np, setup_np, device, dtype):
     `data` with numpy leaves (jax.device_get); its "op" only needs the
     ParityMatFreeOperator fields as attributes. setup_np: the JAX `setup`;
     its W-form "stencils_w" (the JAX data holds only the merged form), its
-    float64 "sop" (natural order) and "mesh" are read."""
+    float64 "sop" (natural order; K1's factors come from its Bs) and
+    "mesh" are read."""
     cfg = config_from_dict(cfg_dict)
     m = setup_np["mesh"]
     mesh = SaddleMesh(m.ndim, tuple(m.m_el), tuple(m.size))
     jop = data_np["op"]
+    sop = setup_np["sop"]
     op = ParityMatFreeOperator.from_arrays(
         jop.Bs, jop.Dm, jop.Np, jop.scale_visc, jop.fac, jop.facp_lam,
         jop.keep, jop.bc_mask, mesh, dtype=dtype, device=device,
-        permuted=True)
-    sop = setup_np["sop"]
+        permuted=True, bs64=sop.Bs)
     op64 = ParityMatFreeOperator.from_arrays(
         sop.Bs, sop.Dm, sop.Np, sop.scale_visc, sop.fac, sop.facp_lam,
         sop.keep, sop.bc_mask, mesh, dtype=torch.float64, device=device)

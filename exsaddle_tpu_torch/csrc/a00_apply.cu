@@ -6,7 +6,11 @@
 // at :190). Per element: gather 3^nd nodes x nd dofs from the
 // parity-permuted vector, strain = Bs (nrow x ncol) x_e, scale by s_e,
 // y_e = Bs^T strain, sum into the nodes. Bs is shared by every element
-// (uniform box geometry); only s_e varies.
+// (uniform box geometry); only s_e varies. In 3D Bs factors into one-axis
+// 3x3 matrices (matfree.strain_factors), and the element products run by
+// sum factorization (a00_factored_kernel, below), ~8.3k FLOP per element
+// in place of the dense 52.6k; the dense products (a00_element_kernel) run
+// in 2D only.
 //
 // Layout (matfree.parity_permutation): x is ONE flat vector holding the 2^nd
 // parity classes of the Q2 node grid one after another; class p (bit a of p
@@ -16,30 +20,37 @@
 // (2ex+la, 2ey+lb, 2ez+lc), i.e. class (la&1 | (lb&1)<<1 | (lc&1)<<2) at
 // (ex + la/2, ey + lb/2, ez + lc/2). Bs column nd*(la + 3 lb + 9 lc) + a.
 //
-// Bound on an H100 SXM (data-sheet peaks). At mx=32 one apply is 32,768
-// elements x 2 products x 2*162*81 FLOP = 1.72 GFLOP against >= 27.9 MB
-// moved in float32 (x, y, scale_visc once each; 55.8 MB in float64).
+// Bound on an H100 SXM (data-sheet peaks). At mx=32 the dense products are
+// 32,768 elements x 2 products x 2*162*81 FLOP = 1.72 GFLOP against >= 27.9
+// MB moved in float32 (x, y, scale_visc once each; 55.8 MB in float64).
 // TF32 is not allowed (precision policy), so float32 runs on the FP32 CUDA
 // cores: 25.7 us at 67 TFLOP/s against 8.3 us for the bytes, compute bound.
-// float64 runs on the FP64 tensor cores (mma.sync m16n8k4, IEEE FMA): 25.7
-// us at 67 TFLOP/s against 16.7 us for the bytes. Measured on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py, phase K1): ~0.10 ms per apply in either
-// precision, a quarter of the bound.
+// The factored products are 0.27 GFLOP: 4 us in float32, 8 us in float64
+// on the CUDA cores, so the factored apply is bound by its bytes (8.3 /
+// 16.7 us, and the (nel, ncol) scratch's round trip through the L2).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase K1): the
+// dense 3D apply, before the factored kernel, ~0.09-0.10 ms in either
+// precision; the factored apply ~34 us float32 (element kernel ~22 us) and
+// ~51 us float64 (~35 us).
 //
 // Two launches per apply:
 //
-// 1. a00_element_kernel: persistent blocks (as many as fit on the card at
+// 1. a00_factored_kernel (3D; described at the kernel) or
+//    a00_element_kernel (2D, the dense products): persistent blocks (as many
+//    as fit on the card at
 //    once: 2 per SM in float32, 1 in float64) walk tiles of TM = 32
-//    consecutive elements in linear order over ALL elements. Per tile:
-//    S = X Bs^T (TM x ncol times ncol x nrow), S *= scale_visc (one
-//    contiguous TM x nrow block), Ye = S Bs (TM x nrow times nrow x ncol),
-//    written to a scratch (nel, ncol) array that stays in the 50 MB L2.
+//    consecutive elements in linear order over ALL elements. Per tile of
+//    the dense kernel: S = X Bs^T (TM x ncol times ncol x nrow), S *=
+//    scale_visc (one contiguous TM x nrow block), Ye = S Bs (TM x nrow
+//    times nrow x ncol), written to a scratch (nel, ncol) array that stays
+//    in the 50 MB L2.
 // 2. a00_node_gather_kernel: one thread per velocity dof sums its <= 2^nd
 //    element contributions in a fixed order (an ELL table built on the
 //    host, kernels/a00.py:node_gather_table) and writes y: no zero fill, no
 //    atomic, no colour, so repeated applies are bitwise equal.
 //
-// What this does about the faults of the first (8-colour) version:
+// What the dense kernel does about the faults of the first (8-colour)
+// version:
 // - It computed each output in one thread, one Bs value and one x value
 //   read from shared memory per FMA. Here each float32 thread owns a
 //   register micro-tile (4 elements x 6 strain rows, then 4 elements x 3
@@ -53,8 +64,9 @@
 //   the next tile's x_e gather runs with cp.async into a second buffer
 //   while the current tile computes.
 //
-// Shared memory per block (padded strides keep the vector and fragment
-// reads free of bank conflicts; padding is zero):
+// Shared memory per block of the dense kernel, as sized for the 3D Bs it
+// was written for (padded strides keep the vector and fragment reads free
+// of bank conflicts; padding is zero):
 // - float32: Bs 164 x 84, x tiles 2 x 32 x 84, strain 32 x 164 values:
 //   97,600 B, two blocks of 216 threads per SM;
 // - float64: Bs 168 x 84, x tiles 2 x 32 x 84, strain 32 x 164 values:
@@ -63,7 +75,8 @@
 // 2D (Bs 27 x 18) runs the same two passes with its own shapes.
 //
 // Fused forms (the fine level of the ABF V-cycle and GCR's operator; the
-// products and the node gather's summation order are the plain apply's):
+// products, either route, and the node gather's summation order are the
+// plain apply's):
 // - keep in the loads: y_u = A00 (x_u ks). The x gather is cp.async
 //   global -> shared, which cannot scale a value, so once a tile's copies
 //   have landed (cp.async.wait_group, then a barrier) each thread scales
@@ -517,6 +530,320 @@ a00_element_kernel(const T* __restrict__ x, const unsigned* __restrict__ kb,
 }
 
 // ---------------------------------------------------------------------------
+// Pass 1, factored (3D; kernels/a00.py takes it where the operator holds the
+// one-axis factors of Bs, matfree.strain_factors): the same Ye by sum
+// factorization. dN_i/dx_a at Gauss point q factors as the product of three
+// 3x3 matrices, D_a along axis a and N_b along the two others, so the nine
+// gradient fields du_b/dx_a of an element come from one-axis contractions
+// (x: N and D; y: N on both, D on the N one; z: N, N, D), 648 FMAs per
+// component (the dense product's 13,122 FMAs per element against 1,944),
+// and Ye from the transposed ones (z, y, x). F[axis][0: N, 1: D][q][l] are
+// kernel arguments (__grid_constant__), so each contraction is an FMA chain
+// with constant operands and the block keeps only data in shared memory.
+//
+// Block: 9 warps over tiles of TM = 32 elements, one element per lane;
+// warp j owns line j of the element's 3 x 3 cross-section in each pass:
+// (ly, lz) = (j % 3, j / 3) in the x passes, (qx, lz) in the y passes and
+// (qx, qy) in the z pass, and holds the line's 3 points in registers. Each
+// pass reads and writes whole warps of consecutive elements in the
+// element-fastest tiles B and C (no bank conflict), and the z pass runs the
+// strains, their scaling and the first transposed contraction in registers,
+// in place in C. x lands in an [el][81] tile by cp.async (each thread
+// copies the 9 values it reads, so only the thread's own wait_group guards
+// them), the next tile's while this one computes; the keep scales them as
+// they are read (x * 1.0 or x * 0.0, as the dense kernel's in-place pass).
+// The element's scale row (nrow = 162 contiguous values) lands by cp.async
+// of 2-value chunks into an [el][162] tile, issued a whole pass ahead; read
+// as 2-value vectors (an odd stride of 81 chunks: no bank conflict). Ye
+// leaves through an [el][81] tile in C, stored as 16-byte vectors over the
+// tile's contiguous (TM x 81) rows.
+//
+// Operations per element: 3 x 648 FMAs forward, as many transposed, ~90 for
+// the strains and scales, ~8.3k FLOP against the dense 52.6k; bytes as the
+// dense kernel's (x, the scale row, Ye).
+// ---------------------------------------------------------------------------
+template <typename T>
+struct Factors {
+  T f[3][2][3][3];   // [axis][0: N, 1: D][q][l]
+};
+
+constexpr int FLINES = 9, FNT = 32 * FLINES;   // warps (lines), threads
+constexpr int FC = 81, FR = 162;               // element columns, strain rows
+constexpr int FB = 6 * 27, FCC = 9 * 27;       // the two pass tiles' fields
+static_assert(TM == 32, "one element per lane");
+
+template <typename T> struct Factored;
+template <> struct Factored<float> {
+  using V2 = float2;
+  using V = float4;
+  static constexpr int W = 4, MINB = 2;
+};
+template <> struct Factored<double> {
+  using V2 = double2;
+  using V = double2;
+  static constexpr int W = 2, MINB = 1;
+};
+
+template <typename T>
+constexpr size_t factored_smem() {
+  return sizeof(T) * (size_t)TM * (FC + FB + FCC + FR);
+}
+
+// out[q] = sum_l M[q][l] in[l]
+template <typename T>
+__device__ __forceinline__ void contract(T (&out)[3], const T (&M)[3][3],
+                                         const T (&in)[3]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    out[q] = fma(M[q][2], in[2], fma(M[q][1], in[1], M[q][0] * in[0]));
+}
+
+// out[l] = sum_q M[q][l] in[q] (+ sum_q M2[q][l] in2[q])
+template <typename T>
+__device__ __forceinline__ void contract_t(T (&out)[3], const T (&M)[3][3],
+                                           const T (&in)[3]) {
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+    out[l] = fma(M[2][l], in[2], fma(M[1][l], in[1], M[0][l] * in[0]));
+}
+template <typename T>
+__device__ __forceinline__ void contract_t(T (&out)[3], const T (&M)[3][3],
+                                           const T (&in)[3],
+                                           const T (&M2)[3][3],
+                                           const T (&in2)[3]) {
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+    out[l] = fma(M2[2][l], in2[2],
+                 fma(M2[1][l], in2[1],
+                     fma(M2[0][l], in2[0],
+                         fma(M[2][l], in[2],
+                             fma(M[1][l], in[1], M[0][l] * in[0])))));
+}
+
+template <typename T, bool KEEP>
+__global__ void __launch_bounds__(FNT, Factored<T>::MINB)
+a00_factored_kernel(const T* __restrict__ x, const unsigned* __restrict__ kb,
+                    const T* __restrict__ scale,
+                    const __grid_constant__ Factors<T> F,
+                    T* __restrict__ ye, int nel, int mx, int my, Grid g) {
+  using V2 = typename Factored<T>::V2;
+  using V = typename Factored<T>::V;
+  constexpr int W = Factored<T>::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);   // [el][FC]
+  T* bt = xs + TM * FC;                     // [FB][el]
+  T* ct = bt + TM * FB;                     // [FCC][el]; Ye as [el][FC]
+  T* ss = ct + TM * FCC;                    // [el][FR]
+  const int tid = threadIdx.x, j = tid >> 5, el = tid & 31;
+  const int j3 = j % 3, j9 = j / 3;
+  const int ntiles = (nel + TM - 1) / TM;
+
+  // this thread's 9 x values: column 9 j + 3 lx + b, node (lx, ly, lz) =
+  // (lx, j3, j9); its class and its offset from element (0, 0, 0)'s
+  int cls[3], off[3];
+#pragma unroll
+  for (int lx = 0; lx < 3; ++lx) {
+    const int p = (lx & 1) | ((j3 & 1) << 1) | ((j9 & 1) << 2);
+    cls[lx] = p;
+    off[lx] = g.off[p] +
+              (((j9 >> 1) * g.ny[p] + (j3 >> 1)) * g.nx[p] + (lx >> 1)) * 3;
+  }
+  auto gather = [&](int tile) {
+    const int e = tile * TM + el;
+    if (e < nel) {
+      const int ex = e % mx, ey = (e / mx) % my, ez = e / (mx * my);
+#pragma unroll
+      for (int lx = 0; lx < 3; ++lx) {
+        const int p = cls[lx];
+        const T* src = x + off[lx] + ((ez * g.ny[p] + ey) * g.nx[p] + ex) * 3;
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          cp_async(xs + el * FC + 9 * j + 3 * lx + b, src + b);
+      }
+    }
+    cp_async_commit();
+  };
+  auto stage_scale = [&](int tile) {
+    const int ne = min(TM, nel - tile * TM);
+    const V2* src =
+        reinterpret_cast<const V2*>(scale + (size_t)tile * TM * FR);
+    V2* dst = reinterpret_cast<V2*>(ss);
+    for (int i = tid; i < ne * (FR / 2); i += FNT) cp_async(dst + i, src + i);
+    cp_async_commit();
+  };
+  // KEEP: the keep words of this thread's columns 9 j .. 9 j + 8
+  unsigned kw0 = 0u, kw1 = 0u;
+  auto keep_words = [&](int tile) {
+    const size_t e = min(tile * TM + el, nel - 1);
+    kw0 = __ldg(kb + e * KeepBits<FC>::NW + ((9 * j) >> 5));
+    kw1 = __ldg(kb + e * KeepBits<FC>::NW + ((9 * j + 8) >> 5));
+  };
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) {
+    gather(tile);
+    stage_scale(tile);
+    if constexpr (KEEP) keep_words(tile);
+  }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    cp_async_wait_prev();   // this thread's x copies of the tile have landed
+    // x: the line (., ly, lz) of each component through N_x and D_x
+    {
+      T u[3][3];   // [b][lx]
+#pragma unroll
+      for (int lx = 0; lx < 3; ++lx)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          T v = xs[el * FC + 9 * j + 3 * lx + b];
+          if constexpr (KEEP) {
+            const int c = 9 * j + 3 * lx + b;
+            const unsigned w = (c >> 5) == ((9 * j) >> 5) ? kw0 : kw1;
+            v = cheb_math::mul(v, (w >> (c & 31)) & 1u ? T(1) : T(0));
+          }
+          u[b][lx] = v;
+        }
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          T o[3];
+          contract(o, F.f[0][f], u[b]);
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            bt[((b * 2 + f) * 27 + q + 3 * j) * TM + el] = o[q];
+        }
+    }
+    __syncthreads();   // x read; B written
+    if (next < ntiles) {
+      gather(next);
+      if constexpr (KEEP) keep_words(next);
+    } else {
+      cp_async_commit();
+    }
+    // y: the line (qx, ., lz); NN, ND from the N_x field, DN from the D_x
+    {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        T vn[3], vd[3], o[3];
+#pragma unroll
+        for (int l = 0; l < 3; ++l) {
+          vn[l] = bt[((b * 2) * 27 + j3 + 3 * l + 9 * j9) * TM + el];
+          vd[l] = bt[((b * 2 + 1) * 27 + j3 + 3 * l + 9 * j9) * TM + el];
+        }
+        auto put = [&](int h) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            ct[((b * 3 + h) * 27 + j3 + 3 * q + 9 * j9) * TM + el] = o[q];
+        };
+        contract(o, F.f[1][0], vn);
+        put(0);   // NN
+        contract(o, F.f[1][1], vn);
+        put(1);   // ND
+        contract(o, F.f[1][0], vd);
+        put(2);   // DN
+      }
+    }
+    cp_async_wait_prev();   // this thread's scale copies have landed
+    __syncthreads();        // C written; the tile's scales in place
+    // z: the line (qx, qy, .); du_b/dx_a at its 3 points, the strains and
+    // their scaling, then the first transposed contraction, in place in C
+    {
+      T gr[3][3][3];   // [b][a][qz]
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          // a = 0: DN through N_z; 1: ND through N_z; 2: NN through D_z
+          const int h = 2 - a;
+          T v[3];
+#pragma unroll
+          for (int l = 0; l < 3; ++l)
+            v[l] = ct[((b * 3 + h) * 27 + j + 9 * l) * TM + el];
+          contract(gr[b][a], F.f[2][a == 2], v);
+        }
+      // t[a][d][qz]: the field that meets dN/dx_d in output component a
+      T t[3][3][3];
+#pragma unroll
+      for (int qz = 0; qz < 3; ++qz) {
+        const V2* sp = reinterpret_cast<const V2*>(ss + el * FR +
+                                                   6 * (j + 9 * qz));
+        const V2 s01 = sp[0], s23 = sp[1], s45 = sp[2];
+        t[0][0][qz] = gr[0][0][qz] * s01.x;
+        t[1][1][qz] = gr[1][1][qz] * s01.y;
+        t[2][2][qz] = gr[2][2][qz] * s23.x;
+        const T e01 = (gr[0][1][qz] + gr[1][0][qz]) * s23.y;
+        const T e02 = (gr[0][2][qz] + gr[2][0][qz]) * s45.x;
+        const T e12 = (gr[1][2][qz] + gr[2][1][qz]) * s45.y;
+        t[0][1][qz] = t[1][0][qz] = e01;
+        t[0][2][qz] = t[2][0][qz] = e02;
+        t[1][2][qz] = t[2][1][qz] = e12;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          T o[3];
+          contract_t(o, F.f[2][d == 2], t[a][d]);
+#pragma unroll
+          for (int l = 0; l < 3; ++l)
+            ct[((a * 3 + d) * 27 + j + 9 * l) * TM + el] = o[l];
+        }
+    }
+    __syncthreads();   // the scales read; C holds the z pass's fields
+    if (next < ntiles)
+      stage_scale(next);
+    else
+      cp_async_commit();
+    // y transposed: the line (qx, ., lz); s = N_y^T t2 + D_y^T t1 (then
+    // N_x^T), r = N_y^T t0 (then D_x^T)
+    {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        T v[3][3], o[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            v[d][q] = ct[((a * 3 + d) * 27 + j3 + 3 * q + 9 * j9) * TM + el];
+        contract_t(o, F.f[1][0], v[2], F.f[1][1], v[1]);
+#pragma unroll
+        for (int l = 0; l < 3; ++l)
+          bt[((a * 2) * 27 + j3 + 3 * l + 9 * j9) * TM + el] = o[l];
+        contract_t(o, F.f[1][0], v[0]);
+#pragma unroll
+        for (int l = 0; l < 3; ++l)
+          bt[((a * 2 + 1) * 27 + j3 + 3 * l + 9 * j9) * TM + el] = o[l];
+      }
+    }
+    __syncthreads();   // C read; B written
+    // x transposed: the line (., ly, lz); Ye[el][9 j + 3 lx + a]
+    {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        T vs[3], vr[3], o[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          vs[q] = bt[((a * 2) * 27 + q + 3 * j) * TM + el];
+          vr[q] = bt[((a * 2 + 1) * 27 + q + 3 * j) * TM + el];
+        }
+        contract_t(o, F.f[0][0], vs, F.f[0][1], vr);
+#pragma unroll
+        for (int l = 0; l < 3; ++l) ct[el * FC + 9 * j + 3 * l + a] = o[l];
+      }
+    }
+    __syncthreads();   // the tile's Ye rows in C
+    {
+      const int nv = min(TM, nel - tile * TM) * FC;
+      T* dst = ye + (size_t)tile * TM * FC;
+      for (int i = tid; i < nv / W; i += FNT)
+        reinterpret_cast<V*>(dst)[i] = reinterpret_cast<const V*>(ct)[i];
+      for (int i = nv / W * W + tid; i < nv; i += FNT) dst[i] = ct[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Pass 2: y[dof] = sum over the node's elements, in table order.
 // ---------------------------------------------------------------------------
 constexpr int GATHER_THREADS = 256;
@@ -596,26 +923,41 @@ a00_fused_gather_kernel(const T* __restrict__ ye, const int* __restrict__ ell,
 }
 
 // What a fused launch adds to the plain apply: the keep vector (or null)
-// and the epilogue's operands.
+// and the epilogue's operands; and, for either, Bs's one-axis factors (3D
+// only; 2D reads none).
 template <typename T>
 struct Fused {
   const unsigned* keep;   // keep_bit_table's words, or null
   const T *ks, *ms, *b, *d, *pkm1;
   double scale, omega;
   int epi;
+  const double* fac;      // host: F[3][2][3][3] in float64, or null
 };
 
-// Sets the element kernel's dynamic shared memory and returns how many of
-// its blocks fit on one SM.
-template <typename T, int ND, class P, bool KEEP>
-cudaError_t blocks_per_sm(int* per_sm) {
-  constexpr size_t smem = smem_bytes<P, T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      a00_element_kernel<T, ND, P, KEEP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Blocks of `kernel` resident at once on the current device (its dynamic
+// shared memory set first), found once per device and kept in `cache`.
+template <typename K>
+cudaError_t resident_blocks(K kernel, int nt, size_t smem, int (&cache)[64],
+                            int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, a00_element_kernel<T, ND, P, KEEP>, P::NT, smem);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                        smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = per_sm * sms;
+  }
+  *blocks = cache[dev];
+  return cudaSuccess;
 }
 
 template <typename T, int ND, class P, bool KEEP>
@@ -635,26 +977,32 @@ int launch(const T* x, const T* scale, const T* Bs, const int* ell, T* ye,
     off += nx * ny * nz * ND;
   }
   const int nu = off, nel = mx * my * mz;
-  // blocks resident at once on this device, found once per device
-  static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = blocks_per_sm<T, ND, P, KEEP>(&per_sm);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = per_sm * sms;
-  }
   const int ntiles = (nel + TM - 1) / TM;
-  const int blocks = ntiles < resident[dev] ? ntiles : resident[dev];
-  constexpr size_t smem = smem_bytes<P, T>();
-  a00_element_kernel<T, ND, P, KEEP><<<blocks, P::NT, smem, stream>>>(
-      x, f.keep, scale, Bs, ye, nel, mx, my, g);
+  int resident = 0;
+  cudaError_t err;
+  if constexpr (ND == 3) {
+    if (f.fac == nullptr) return (int)cudaErrorInvalidValue;
+    static int cache[64];
+    constexpr size_t smem = factored_smem<T>();
+    err = resident_blocks(a00_factored_kernel<T, KEEP>, FNT, smem, cache,
+                          &resident);
+    if (err != cudaSuccess) return (int)err;
+    Factors<T> F;
+    T* fv = &F.f[0][0][0][0];
+    for (int i = 0; i < 54; ++i) fv[i] = static_cast<T>(f.fac[i]);
+    a00_factored_kernel<T, KEEP>
+        <<<ntiles < resident ? ntiles : resident, FNT, smem, stream>>>(
+            x, f.keep, scale, F, ye, nel, mx, my, g);
+  } else {
+    static int cache[64];
+    constexpr size_t smem = smem_bytes<P, T>();
+    err = resident_blocks(a00_element_kernel<T, ND, P, KEEP>, P::NT, smem,
+                          cache, &resident);
+    if (err != cudaSuccess) return (int)err;
+    a00_element_kernel<T, ND, P, KEEP>
+        <<<ntiles < resident ? ntiles : resident, P::NT, smem, stream>>>(
+            x, f.keep, scale, Bs, ye, nel, mx, my, g);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int gblocks = (nu + GATHER_THREADS - 1) / GATHER_THREADS;
@@ -717,15 +1065,15 @@ int dispatch(const void* x, const void* scale, const void* Bs,
 
 template <typename T>
 int fused(const void* x, const void* keep, const void* scale, const void* Bs,
-          const void* ell, void* ye, void* y, const void* ks, const void* ms,
-          const void* b, const void* d, const void* pkm1, double cs,
-          double omega, int epi, int nd, int mx, int my, int mz,
-          void* stream) {
+          const void* fac, const void* ell, void* ye, void* y,
+          const void* ks, const void* ms, const void* b, const void* d,
+          const void* pkm1, double cs, double omega, int epi, int nd, int mx,
+          int my, int mz, void* stream) {
   const Fused<T> f{static_cast<const unsigned*>(keep),
                    static_cast<const T*>(ks),
                    static_cast<const T*>(ms),   static_cast<const T*>(b),
                    static_cast<const T*>(d),    static_cast<const T*>(pkm1),
-                   cs, omega, epi};
+                   cs, omega, epi, static_cast<const double*>(fac)};
   return dispatch<T>(x, scale, Bs, ell, ye, y, nd, mx, my, mz, f, stream);
 }
 
@@ -735,19 +1083,28 @@ int fused(const void* x, const void* keep, const void* scale, const void* Bs,
 // (nu / nd x 2^nd int32, kernels/a00.py:node_gather_table), the scratch ye
 // (nel x ncol) and y (nu) are contiguous device arrays on the stream's
 // device, of one dtype but for ell; y is fully written (no zero fill).
+// fac is a HOST array of Bs's one-axis factors, F[3][2][3][3] in float64
+// (matfree.strain_factors), rounded to the dtype here and passed as kernel
+// arguments: the 3D element products run factored from them, and a 3D
+// launch with fac null returns cudaErrorInvalidValue. 2D reads no fac and
+// runs the dense products with Bs.
 // Returns 0 or the cudaError_t of the failed launch.
 extern "C" int a00_apply_f32(const void* x, const void* scale, const void* Bs,
-                             const void* ell, void* ye, void* y, int nd,
-                             int mx, int my, int mz, void* stream) {
-  return dispatch<float>(x, scale, Bs, ell, ye, y, nd, mx, my, mz,
-                         Fused<float>{}, stream);
+                             const void* fac, const void* ell, void* ye,
+                             void* y, int nd, int mx, int my, int mz,
+                             void* stream) {
+  return fused<float>(x, nullptr, scale, Bs, fac, ell, ye, y, nullptr,
+                      nullptr, nullptr, nullptr, nullptr, 0.0, 0.0, EPI_NONE,
+                      nd, mx, my, mz, stream);
 }
 
 extern "C" int a00_apply_f64(const void* x, const void* scale, const void* Bs,
-                             const void* ell, void* ye, void* y, int nd,
-                             int mx, int my, int mz, void* stream) {
-  return dispatch<double>(x, scale, Bs, ell, ye, y, nd, mx, my, mz,
-                          Fused<double>{}, stream);
+                             const void* fac, const void* ell, void* ye,
+                             void* y, int nd, int mx, int my, int mz,
+                             void* stream) {
+  return fused<double>(x, nullptr, scale, Bs, fac, ell, ye, y, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, 0.0, 0.0,
+                       EPI_NONE, nd, mx, my, mz, stream);
 }
 
 // The fused forms: keep (kernels/a00.py:keep_bit_table's nel x NW int32
@@ -758,27 +1115,27 @@ extern "C" int a00_apply_f64(const void* x, const void* scale, const void* Bs,
 // vectors ks, ms (both non-null with an epilogue), b and d (the Chebyshev
 // forms) and p_km1 (the step), each a contiguous nu-vector of x's dtype;
 // scale and omega are rounded to the dtype here (as torch rounds a Python
-// scalar). y aliases no input.
+// scalar). y aliases no input. fac as for the plain apply.
 extern "C" int a00_fused_f32(const void* x, const void* keep,
                              const void* scale, const void* Bs,
-                             const void* ell, void* ye, void* y,
-                             const void* ks, const void* ms, const void* b,
-                             const void* d, const void* pkm1, double cs,
-                             double omega, int epi, int nd, int mx, int my,
-                             int mz, void* stream) {
-  return fused<float>(x, keep, scale, Bs, ell, ye, y, ks, ms, b, d, pkm1, cs,
-                      omega, epi, nd, mx, my, mz, stream);
+                             const void* fac, const void* ell, void* ye,
+                             void* y, const void* ks, const void* ms,
+                             const void* b, const void* d, const void* pkm1,
+                             double cs, double omega, int epi, int nd, int mx,
+                             int my, int mz, void* stream) {
+  return fused<float>(x, keep, scale, Bs, fac, ell, ye, y, ks, ms, b, d,
+                      pkm1, cs, omega, epi, nd, mx, my, mz, stream);
 }
 
 extern "C" int a00_fused_f64(const void* x, const void* keep,
                              const void* scale, const void* Bs,
-                             const void* ell, void* ye, void* y,
-                             const void* ks, const void* ms, const void* b,
-                             const void* d, const void* pkm1, double cs,
-                             double omega, int epi, int nd, int mx, int my,
-                             int mz, void* stream) {
-  return fused<double>(x, keep, scale, Bs, ell, ye, y, ks, ms, b, d, pkm1,
-                       cs, omega, epi, nd, mx, my, mz, stream);
+                             const void* fac, const void* ell, void* ye,
+                             void* y, const void* ks, const void* ms,
+                             const void* b, const void* d, const void* pkm1,
+                             double cs, double omega, int epi, int nd, int mx,
+                             int my, int mz, void* stream) {
+  return fused<double>(x, keep, scale, Bs, fac, ell, ye, y, ks, ms, b, d,
+                       pkm1, cs, omega, epi, nd, mx, my, mz, stream);
 }
 
 extern "C" const char* a00_error_string(int err) {

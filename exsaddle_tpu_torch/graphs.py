@@ -327,8 +327,8 @@ def track(counter):
 def _counters():
     """Every count a body or piece can move: K1's launches and applies,
     K4's, K6's, K4's by fused epilogue, each control kernel's, K5's and
-    K5's by form, K1's and K6's by form, K3's and K3's by form, then the
-    tracked counters."""
+    K5's by form, K1's by form and its factored applies, K6's by form,
+    K3's and K3's by form, then the tracked counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
             + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
@@ -336,6 +336,7 @@ def _counters():
             + (transfer.LAUNCHES.n,)
             + tuple(transfer.LAUNCHES.by[f] for f in transfer.FORMS)
             + tuple(a00.LAUNCHES.by[f] for f in a00.FORMS)
+            + (a00.LAUNCHES.factored,)
             + tuple(cheb.LAUNCHES.by[f] for f in cheb.FORMS)
             + (mp.LAUNCHES.n,) + tuple(mp.LAUNCHES.by[f] for f in mp.FORMS)
             + tuple(c.n for c in _TRACKED))
@@ -344,13 +345,13 @@ def _counters():
 def _counter_names():
     """Names of _counters()' entries, in its order: <module>.n (launches),
     a00.applies, stencil.fused.<epilogue>, krylov_ctl.<kernel>,
-    <module>.<form>, tracked.<i>."""
+    <module>.<form>, a00.factored, tracked.<i>."""
     return (("a00.n", "a00.applies", "stencil.n", "cheb.n")
             + tuple(f"stencil.fused.{e}" for e in stencil.EPILOGUES)
             + tuple(f"krylov_ctl.{k}" for k in krylov_ctl.NAMES)
             + ("transfer.n",)
             + tuple(f"transfer.{f}" for f in transfer.FORMS)
-            + tuple(f"a00.{f}" for f in a00.FORMS)
+            + tuple(f"a00.{f}" for f in a00.FORMS) + ("a00.factored",)
             + tuple(f"cheb.{f}" for f in cheb.FORMS)
             + ("mp.n",) + tuple(f"mp.{f}" for f in mp.FORMS)
             + tuple(f"tracked.{i}" for i in range(len(_TRACKED))))
@@ -369,6 +370,7 @@ def _set_counters(vals):
         transfer.LAUNCHES.by[f] = vals.pop(0)
     for f in a00.FORMS:
         a00.LAUNCHES.by[f] = vals.pop(0)
+    a00.LAUNCHES.factored = vals.pop(0)
     for f in cheb.FORMS:
         cheb.LAUNCHES.by[f] = vals.pop(0)
     mp.LAUNCHES.n = vals.pop(0)

@@ -33,7 +33,14 @@ One apply is two launches: the element products into a scratch (nel, ncol)
 array (the keep applied to each landed x tile), then a node gather that sums
 each dof's element contributions in the order of `node_gather_table` (held
 on the device by the operator, ParityMatFreeOperator.node_table) and, in the
-fused forms, computes the epilogue in its store."""
+fused forms, computes the epilogue in its store.
+
+The 3D element products run by sum factorization, from the one-axis
+factors of Bs that the operator holds (op.factors, matfree.strain_factors
+of the float64 Bs it was built from): the nine gradient fields by one-axis
+3x3 contractions and back (`a00_factored_plain` is that arithmetic in
+PyTorch). 2D takes the dense products with Bs. LAUNCHES.factored counts
+the applies that took the factored route."""
 
 import ctypes
 
@@ -54,10 +61,11 @@ _EPI = {"a00_apply": 0, "a00_apply_keep": 0, "a00_masked": 1,
 
 class LaunchCount:
     """Device launches (`n`) and applies (`applies`) that a wrapper sent to
-    its kernels, and the applies of each form (`by`, FORMS). Plain-version
-    calls are not counted. Inside a CUDA graph capture the wrapper launches
-    nothing; graphs.Captured takes its counts back out and adds them on
-    every replay."""
+    its kernels, the applies of each form (`by`, FORMS) and those whose
+    element products were factored (`factored`). Plain-version calls are
+    not counted. Inside a CUDA graph capture the wrapper launches nothing;
+    graphs.Captured takes its counts back out and adds them on every
+    replay."""
 
     def __init__(self):
         self.reset()
@@ -65,6 +73,7 @@ class LaunchCount:
     def reset(self):
         self.n = 0
         self.applies = 0
+        self.factored = 0
         self.by = dict.fromkeys(FORMS, 0)
 
 
@@ -154,12 +163,12 @@ def _fn(dtype, fused=False):
     if not _bound:
         for name in ("a00_apply_f32", "a00_apply_f64"):
             f = getattr(lib, name)
-            f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             f.restype = ctypes.c_int
         for name in ("a00_fused_f32", "a00_fused_f64"):
             f = getattr(lib, name)
-            f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_double] * 2 + [
+            f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_double] * 2 + [
                 ctypes.c_int] * 5 + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         lib.a00_error_string.argtypes = [ctypes.c_int]
@@ -179,11 +188,63 @@ def a00_apply_plain(op, xu):
     return scatter_u_parity(yue, op.m_el, op.cls_shapes)
 
 
+def factored_products(F, xe, scale):
+    """The factored element products, ((xe Bs^T) * scale) Bs for a Bs with
+    one-axis factors F (matfree.strain_factors, (3, 2, 3, 3): N_b = F[b, 0],
+    D_b = F[b, 1]), xe (nel, 81) and scale (nel, 162), in the contraction
+    order of the kernel: x, y, z forward, the strains and their scaling at
+    each Gauss point, then z, y, x transposed."""
+    nel = xe.shape[0]
+    # u[e, b, lz, ly, lx]: component b at local node lx + 3 ly + 9 lz
+    u = xe.reshape(nel, 3, 3, 3, 3).permute(0, 4, 1, 2, 3)
+    (Nx, Dx), (Ny, Dy), (Nz, Dz) = F[0], F[1], F[2]
+    one = "ebzyl,ql->ebzyq"            # a contraction along x
+    xN, xD = torch.einsum(one, u, Nx), torch.einsum(one, u, Dx)
+    two = "ebzlx,ql->ebzqx"            # along y
+    NN, ND = torch.einsum(two, xN, Ny), torch.einsum(two, xN, Dy)
+    DN = torch.einsum(two, xD, Ny)
+    three = "eblyx,ql->ebqyx"          # along z
+    # g[e, b, a]: du_b / dx_a at the Gauss points (qz, qy, qx)
+    g = torch.stack([torch.einsum(three, DN, Nz),
+                     torch.einsum(three, ND, Nz),
+                     torch.einsum(three, NN, Dz)], 2)
+    s = scale.reshape(nel, 3, 3, 3, 6).permute(0, 4, 1, 2, 3)
+    sig = [g[:, a, a] * s[:, a] for a in range(3)] + [
+        (g[:, a, b] + g[:, b, a]) * s[:, 3 + r]
+        for r, (a, b) in enumerate(((0, 1), (0, 2), (1, 2)))]
+    shear = {(0, 1): sig[3], (0, 2): sig[4], (1, 2): sig[5]}
+    # t[e, a, d]: the field that meets dN/dx_d in output component a
+    t = torch.stack([torch.stack(
+        [sig[a] if d == a else shear[min(a, d), max(a, d)]
+         for d in range(3)], 1) for a in range(3)], 1)
+    back = "ebqyx,ql->eblyx"           # transposed, along z
+    t0, t1 = torch.einsum(back, t[:, :, 0], Nz), torch.einsum(
+        back, t[:, :, 1], Nz)
+    t2 = torch.einsum(back, t[:, :, 2], Dz)
+    back = "ebzqx,ql->ebzlx"           # along y
+    sy = torch.einsum(back, t2, Ny) + torch.einsum(back, t1, Dy)
+    r = torch.einsum(back, t0, Ny)
+    back = "ebzyq,ql->ebzyl"           # along x
+    y = torch.einsum(back, sy, Nx) + torch.einsum(back, r, Dx)
+    return y.permute(0, 2, 3, 4, 1).reshape(nel, 81)
+
+
+def a00_factored_plain(op, xu):
+    """The plain PyTorch version of the factored route: gather ->
+    factored_products with op.factors -> scatter."""
+    nd = len(op.m_el)
+    xe = gather_u_parity(split_u_parity(xu, op.cls_shapes, nd), op.m_el)
+    F = torch.as_tensor(op.factors, dtype=xe.dtype, device=xe.device)
+    yue = factored_products(F, xe, op.scale_visc)
+    return scatter_u_parity(yue, op.m_el, op.cls_shapes)
+
+
 def _check(op, xu, **vecs):
     """Refuse what the kernel cannot take: ndim, dtype, int32 indices, a
     keep other than the operator's own (the kernel reads op.keep_bits),
-    and the shape, dtype, device and layout of xu, Bs, scale_visc and the
-    fused forms' nu-vectors (vecs: keep, ks, ms, b, d, p_km1)."""
+    a 3D operator without its float64 factors, and the shape, dtype,
+    device and layout of xu, Bs, scale_visc and the fused forms'
+    nu-vectors (vecs: keep, ks, ms, b, d, p_km1)."""
     nd = len(op.m_el)
     if nd not in _BS_SHAPE:
         raise ValueError(f"a00_apply: ndim {nd} not supported")
@@ -197,6 +258,14 @@ def _check(op, xu, **vecs):
         raise ValueError("a00_apply: keep must be the operator's own keep "
                          "vector op.keep[:nu] (the kernel reads it as "
                          "op.keep_bits)")
+    F = op.factors
+    if nd == 3 and not (isinstance(F, np.ndarray) and F.dtype == np.float64
+                        and F.shape == (3, 2, 3, 3)
+                        and F.flags.c_contiguous):
+        raise ValueError("a00_apply: a 3D operator needs Bs's one-axis "
+                         "factors, a (3, 2, 3, 3) float64 array "
+                         "(op.factors: matfree.strain_factors of the "
+                         "float64 Bs it was built from)")
     want = {"xu": (xu, (op.nu,)), "Bs": (op.Bs, _BS_SHAPE[nd]),
             "scale_visc": (op.scale_visc, (nel, _BS_SHAPE[nd][0])),
             **{k: (v, (op.nu,)) for k, v in vecs.items()}}
@@ -232,6 +301,7 @@ def _launch(form, op, xu, keep=None, ks=None, ms=None, b=None, d=None,
     mx, my = op.m_el[0], op.m_el[1]
     mz = op.m_el[2] if nd == 3 else 1
     table = op.node_table
+    fac = op.factors.ctypes.data if nd == 3 else None
 
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
@@ -244,20 +314,21 @@ def _launch(form, op, xu, keep=None, ks=None, ms=None, b=None, d=None,
         if fused:
             err = fn(xu.data_ptr(),
                      ptr(None if keep is None else op.keep_bits),
-                     op.scale_visc.data_ptr(),
-                     op.Bs.data_ptr(), table.data_ptr(), ye.data_ptr(),
+                     op.scale_visc.data_ptr(), op.Bs.data_ptr(), fac,
+                     table.data_ptr(), ye.data_ptr(),
                      y.data_ptr(), ptr(ks), ptr(ms), ptr(b), ptr(d),
                      ptr(p_km1), float(scale), float(omega), _EPI[form], nd,
                      mx, my, mz, stream)
         else:
             err = fn(xu.data_ptr(), op.scale_visc.data_ptr(),
-                     op.Bs.data_ptr(), table.data_ptr(), ye.data_ptr(),
+                     op.Bs.data_ptr(), fac, table.data_ptr(), ye.data_ptr(),
                      y.data_ptr(), nd, mx, my, mz, stream)
     if err != 0:
         raise RuntimeError(f"{form} kernel launch failed: "
                            f"{lib.a00_error_string(err).decode()} ({err})")
     LAUNCHES.n += KERNELS_PER_APPLY
     LAUNCHES.applies += 1
+    LAUNCHES.factored += int(fac is not None)
     LAUNCHES.by[form] += 1
     return y
 

@@ -26,7 +26,7 @@ through the strided grid gathers of grid_ops; its A11 term computes K1's
 function in plain PyTorch (on the TPU that term was XLA, not Pallas)."""
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 
 import numpy as np
@@ -59,6 +59,57 @@ def _strain_matrix(G, nd, nbu):
         B[:, nd + r, b::nd] = G[:, a, :]
         wc[nd + r] = 1.0
     return B.reshape(nqp * ncomp, nd * nbu), wc
+
+
+def strain_factors(Bs):
+    """The one-axis factors of a 3D Q2 strain operator Bs (162, 81), or
+    None where Bs does not factor.
+
+    On a uniform box element the derivative block dN_i/dx_a at Gauss point
+    q = qx + 3 qy + 9 qz of node i = lx + 3 ly + 9 lz is a product of three
+    3x3 one-dimensional matrices: D_a[qa, la] along axis a, N_b[qb, lb]
+    along the others (the Q2 basis at the Gauss points, scaled so its
+    entries sum to 3, as the basis values do; D takes the rest). Returns
+    F (3, 2, 3, 3) float64, F[b, 0] = N_b and F[b, 1] = D_b, when the
+    strain matrix rebuilt from them (_strain_matrix) is within 1e-13 of
+    max |Bs| of Bs, float64 throughout; else None (2D, another shape or
+    dtype, or a Bs that is not of this form). K1's 3D element products
+    (kernels/a00.py) are computed from them."""
+    Bs = np.asarray(Bs)
+    if Bs.shape != (162, 81) or Bs.dtype != np.float64:
+        return None
+    # T[a]: dN/dx_a as a (qx lx, qy ly, qz lz) tensor
+    T = [Bs.reshape(27, 6, 27, 3)[:, a, :, a].reshape(3, 3, 3, 3, 3, 3)
+         .transpose(2, 5, 1, 4, 0, 3).reshape(9, 9, 9) for a in range(3)]
+
+    def mode(t, m):
+        """The leading left singular vector of t unfolded along axis m."""
+        u = np.linalg.svd(np.moveaxis(t, m, 0).reshape(9, 81))[0][:, 0]
+        return u * (3.0 / u.sum()) if abs(u.sum()) > 0.5 else None
+
+    def snap(f):
+        """f with the entries that are rounding noise set to zero."""
+        return np.where(np.abs(f) > 1e-14 * np.abs(f).max(), f, 0.0)
+
+    N = [mode(T[(b + 1) % 3], b) for b in range(3)]
+    if any(n is None for n in N):
+        return None
+    N = [snap(n) for n in N]
+    D = []
+    for a in range(3):
+        b, c = [k for k in range(3) if k != a]
+        w = np.moveaxis(T[a], a, 0).reshape(9, 81) @ np.outer(N[b], N[c])\
+            .reshape(81)
+        D.append(snap(w / (N[b] @ N[b] * (N[c] @ N[c]))))
+    F = np.stack([np.stack([N[b], D[b]]) for b in range(3)]).reshape(
+        3, 2, 3, 3)
+    G = np.empty((27, 3, 27))
+    for a in range(3):
+        f = [F[b, int(b == a)] for b in range(3)]
+        G[:, a, :] = np.einsum("zk,yj,xi->zyxkji", f[2], f[1], f[0])\
+            .reshape(27, 27)
+    err = np.abs(_strain_matrix(G, 3, 27)[0] - Bs).max()
+    return F if err <= 1e-13 * np.abs(Bs).max() else None
 
 
 def factored_host(mesh, fes, coeff_qp, lame=False):
@@ -295,7 +346,12 @@ class ParityMatFreeOperator:
     (nel, nqp*ncomp), fac (nqp,), facp_lam ((nel, nqp) Lame, else (1, 1)),
     keep / bc_mask (ndof,) permuted. gather_table: K1's node table, when
     the caller shares one among operators of one box shape on one device
-    (the shards of parallel/cart_abf.CartBlocks); None builds it here."""
+    (the shards of parallel/cart_abf.CartBlocks); None builds it here.
+    factors: strain_factors of the float64 Bs the operator was cast from,
+    (3, 2, 3, 3) float64 on the host (K1's launch passes their pointer and
+    the kernel takes them as arguments in its dtype), or None where no
+    float64 Bs was given or it does not factor. A 3D operator needs them on
+    CUDA: K1's 3D element products are factored; 2D takes the dense ones."""
     Bs: torch.Tensor
     Dm: torch.Tensor
     Np: torch.Tensor
@@ -313,6 +369,7 @@ class ParityMatFreeOperator:
     nqp: int
     cls_shapes: tuple
     gather_table: torch.Tensor = None
+    factors: np.ndarray = field(default=None, compare=False)
 
     @classmethod
     def build(cls, mesh, fes, coeff_qp, bc_mask, *, device, lame=False,
@@ -330,7 +387,8 @@ class ParityMatFreeOperator:
     @classmethod
     def from_matfree(cls, mf, mesh):
         """Permute an existing MatFreeSaddleOperator into the parity layout
-        on its device (keeps its dtype)."""
+        on its device (keeps its dtype; K1's factors come from a float64
+        mf.Bs, so a float32 mf gives a 3D operator that K1 refuses)."""
         perm, _ = parity_permutation(mesh)
         _, shapes = _parity_classes(mesh.nn_u)
         perm_t = torch.as_tensor(perm, device=mf.keep.device)
@@ -338,13 +396,16 @@ class ParityMatFreeOperator:
                    fac=mf.fac, facp_lam=mf.facp_lam, keep=mf.keep[perm_t],
                    bc_mask=mf.bc_mask[perm_t], m_el=mf.m_el, nn_u=mf.nn_u,
                    nn_p=mf.nn_p, nu=mf.nu, np_=mf.np_, ncomp=mf.ncomp,
-                   nqp=mf.nqp, cls_shapes=tuple(tuple(s) for s in shapes))
+                   nqp=mf.nqp, cls_shapes=tuple(tuple(s) for s in shapes),
+                   factors=strain_factors(mf.Bs.cpu().numpy()))
 
     @classmethod
     def from_arrays(cls, Bs, Dm, Np, scale, fac, facp_lam, keep, bc_mask,
-                    mesh, *, dtype, device, permuted=False):
+                    mesh, *, dtype, device, permuted=False, bs64=None):
         """Cast host arrays to `dtype` on `device`; keep/bc_mask are natural
-        order unless `permuted`."""
+        order unless `permuted`. K1's factors come from Bs, or from bs64
+        where given: the float64 Bs that a Bs of another dtype was rounded
+        from."""
         perm, _ = parity_permutation(mesh)
         _, shapes = _parity_classes(mesh.nn_u)
 
@@ -361,7 +422,8 @@ class ParityMatFreeOperator:
                    nn_u=tuple(mesh.nn_u), nn_p=tuple(mesh.nn_p),
                    nu=mesh.nu, np_=mesh.np_, ncomp=Bs.shape[0] // Dm.shape[0],
                    nqp=Dm.shape[0],
-                   cls_shapes=tuple(tuple(s) for s in shapes))
+                   cls_shapes=tuple(tuple(s) for s in shapes),
+                   factors=strain_factors(Bs if bs64 is None else bs64))
 
     @property
     def ndim(self):

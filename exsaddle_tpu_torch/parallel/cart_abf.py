@@ -47,7 +47,7 @@ from exsaddle_tpu_torch.kernels import cheb, stencil, transfer
 from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
-                                        tree_aux)
+                                        strain_factors, tree_aux)
 from exsaddle_tpu_torch.parallel.cart import ghost_ring_coefficients
 from exsaddle_tpu_torch.parallel.shard_mesh import (DTYPE,
                                                     ghost_extend_axis,
@@ -559,9 +559,11 @@ def shard_data(ddata, smesh, nstack):
     def cast(a, dev):
         return torch.as_tensor(np.require(a, requirements="CW"),
                                dtype=DTYPE, device=dev)
+    factors = strain_factors(ddata["Bs"])
     dd["repl"] = {dev: {
         "Bs": cast(ddata["Bs"], dev), "Dm": cast(ddata["Dm"], dev),
         "Np": cast(ddata["Np"], dev), "fac": cast(ddata["fac"], dev),
+        "factors": factors,
         "coarse_inv": cast(ddata["coarse_inv"], dev),
         "stencils": [cast(W, dev) for W in ddata["stencils"]],
         "inv_diag_repl": [cast(d, dev) for d in ddata["inv_diag_repl"]]}
@@ -615,7 +617,8 @@ class CartBlocks:
                 nn_p=tuple(dcfg.nn_p_loc), nu=nu,
                 np_=int(np.prod(dcfg.nn_p_loc)),
                 ncomp=nd + nd * (nd - 1) // 2, nqp=3 ** nd,
-                cls_shapes=tuple(cls_loc), gather_table=tables[dev]))
+                cls_shapes=tuple(cls_loc), gather_table=tables[dev],
+                factors=rep["factors"]))
         self.ops = ShardVec(ops)
         self.aux = smap(tree_aux, self.ops)
         # K3's operand: each shard's Mpscaled stencil from its own elements

@@ -55,7 +55,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _operator(case, dtype, device):
+def _problem(case):
+    """(mesh, fes, coeff, bc_mask) of a case."""
     nd, m_el, lame, model, size = case
     opts = Options.from_args(["-model", model])
     ctx = tmodels.ModelContext(opts, nd, lame=lame, log=lambda *a, **k: None)
@@ -65,8 +66,13 @@ def _operator(case, dtype, device):
     coeff = tdriver.fine_coefficients(ctx, fes)
     bc_mask = np.zeros(mesh.ndof)
     bc_mask[:mesh.nu][bci] = 1.0
+    return mesh, fes, coeff, bc_mask
+
+
+def _operator(case, dtype, device):
+    mesh, fes, coeff, bc_mask = _problem(case)
     return tmf.ParityMatFreeOperator.build(mesh, fes, coeff, bc_mask,
-                                           lame=lame, dtype=dtype,
+                                           lame=case[2], dtype=dtype,
                                            device=device)
 
 
@@ -78,9 +84,12 @@ def test_a00_kernel_matches_plain(cuda, case, dtype):
     x = torch.as_tensor(np.random.default_rng(8).standard_normal(op.nu),
                         dtype=dtype, device=cuda)
     n0, a0 = a00.LAUNCHES.n, a00.LAUNCHES.applies
+    f0 = a00.LAUNCHES.factored
     yk = a00.a00_apply(op, x)
-    # one apply: the element kernel and the node gather
+    # one apply: the element kernel and the node gather; its products
+    # factored in 3D (every case's Bs factors), dense in 2D
     assert a00.LAUNCHES.n == n0 + 2 and a00.LAUNCHES.applies == a0 + 1
+    assert a00.LAUNCHES.factored == f0 + (case[0] == 3)
     yp = a00.a00_apply_plain(op, x)
     torch.cuda.synchronize()
     assert float((yk - yp).abs().max()) <= TOL[dtype] * float(
@@ -1134,6 +1143,32 @@ def test_traced_device_loop_on_cuda(cuda):
         assert got["launches"]["krylov_ctl.fgmres_arnoldi_ctl"] == \
             res["counts"]["fgmres_its"]
         assert got["launches"]["a00.n"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_loop_k1_applies_factored_at_mx32(cuda, dtype):
+    """The mx=32 pseudoice flagship as the benchmark solves it (abf.opts,
+    4 levels): a device-loop solve, float32 inner solves in float64
+    refinement or float64 throughout, counts every K1 apply of its graph
+    as factored (a00.factored == a00.applies, by ABFSolver.kernel_nodes),
+    two launches per apply, and converges."""
+    from exsaddle_tpu_torch import bench
+    from exsaddle_tpu_torch.abf import ABFSolver
+    p = _device_problem(32)
+    ir = dtype == torch.float32
+    slv = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                    p["bc_vals"], device=cuda, dtype=dtype, ir=ir,
+                    nlevels=bench.bench_nlevels(p["mesh"]),
+                    **bench.ABFOPTS_KW)
+    assert slv.loop == "device"
+    F = p["F_raw"] + slv.setup["rhs_diri"]
+    r = slv.solve_ir(F, rtol=1e-8) if ir else slv.solve(F)
+    got = slv.kernel_nodes(r["counts"])["launches"]
+    assert got["a00.applies"] > 0
+    assert got["a00.factored"] == got["a00.applies"]
+    assert got["a00.n"] == a00.KERNELS_PER_APPLY * got["a00.applies"]
+    assert r["converged"] if ir else r["reason"].startswith("CONVERGED")
 
 
 # --- K4 and K6: the multigrid kernels ----------------------------------------
