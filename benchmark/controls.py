@@ -10,7 +10,9 @@ One set-up of the cell, then
 - the control's reading on each of --control-seeds: the same loads solved
   by the system's own float32 path (the direct float32 solve, FGMRES to the
   guarantee, capped at the configuration's control_max_it iterations),
-  the nearest precision below the float64 the guarantee states;
+  the nearest precision below the float64 the guarantee states; for a
+  sharded configuration, whose path has no float32 form, the single-card
+  float32 solve of the same configuration;
 - the faults' readings on those of --seeds that are also control seeds:
   the timed entry's solutions, each with one entry altered where it is
   produced (x[k] + 1e-3 max|x|, k drawn from the seed), and solves that
@@ -53,9 +55,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         log("no CUDA card")
         return 2
-    _, _, _, config, traffic = harness.cell_files(ROOT, args.workload)
+    _, cell, _, config, traffic = harness.cell_files(ROOT, args.workload)
+    if torch.cuda.device_count() < int(cell["chips"]):
+        log(f"{torch.cuda.device_count()} CUDA cards, the cell needs "
+            f"{cell['chips']}")
+        return 2
     out = harness.readings(config, traffic, args.seeds, args.control_seeds,
-                           torch.device("cuda", 0), log)
+                           torch.device("cuda", 0), log,
+                           chips=int(cell["chips"]))
     out.update(workload=args.workload, card=yardstick.card(),
                seconds=time.perf_counter() - T_PROCESS)
     text = json.dumps(out)

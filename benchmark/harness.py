@@ -2,6 +2,11 @@
 of solves over the traffic's loads, the per-layer readings of a traced run,
 and the reference's judgement of every solution the window returned.
 
+A configuration that states "shards": n is run as the port's driver runs
+more than one shard: the sharded solver (parallel/cart_abf.CartABFSolver)
+over the cartesian grid that driver picks, shard i on card i % chips of
+the cell, float64 throughout.
+
 Everything a cell needs is found by name: its configuration file (the
 "file" of its entry in BENCHMARK.json), its traffic file
 (traffic/<traffic>.json) and, in a traced run, one reader per per-layer
@@ -106,7 +111,8 @@ def flag_args(flags):
 
 def system_problem(config):
     """The system's own set-up of the configuration, from its flags, as its
-    driver builds it (mesh, FE space, coefficients, Dirichlet rows)."""
+    driver builds it (mesh, FE space, coefficients, Dirichlet rows, and the
+    model context the sharded build works its coefficients out from)."""
     from exsaddle_tpu_torch import driver, models
     from exsaddle_tpu_torch.assembly import FESpace
     from exsaddle_tpu_torch.mesh import SaddleMesh
@@ -119,7 +125,7 @@ def system_problem(config):
     bc_idx, bc_vals = models.create_bc_list(ctx, mesh)
     return {"mesh": mesh, "fes": fes,
             "coeff": driver.fine_coefficients(ctx, fes),
-            "bc_idx": bc_idx, "bc_vals": bc_vals}
+            "bc_idx": bc_idx, "bc_vals": bc_vals, "ctx": ctx}
 
 
 def load_kernels(device):
@@ -130,12 +136,48 @@ def load_kernels(device):
         _build.load()
 
 
-def build_solver(config, sysprob, device, precision):
+def shards_of(config):
+    """The shard count a sharded configuration states, or None."""
+    n = config.get("shards")
+    return None if n is None else int(n)
+
+
+def check_sharded(config, traffic):
+    """Refuse a sharded configuration under traffic that is not float64:
+    the sharded path solves in float64 only (the port's driver turns -ir
+    off for it)."""
+    if shards_of(config) and traffic["precision"] != "float64":
+        raise ValueError(
+            f"a sharded configuration ({shards_of(config)} shards) runs "
+            f"float64 traffic only, not {traffic['precision']!r}: the "
+            "sharded path has no mixed-precision refinement")
+
+
+def shard_devices(device, n, chips):
+    """The device of each of n shards: card i % chips on CUDA, every shard
+    on `device` elsewhere."""
+    if device.type != "cuda":
+        return [device] * n
+    return [torch.device("cuda", i % int(chips)) for i in range(n)]
+
+
+def solver_cards(slv, device):
+    """The distinct devices a solver holds its data on."""
+    smesh = getattr(slv, "smesh", None)
+    return list(smesh.distinct) if smesh is not None else [device]
+
+
+def build_solver(config, sysprob, device, precision, chips=1):
     """The system under test: one ABFSolver of the configuration's solver
     tree, (solver, seconds to build it, the device synchronised at both
     ends). precision "mixed": float32 inner solves in float64 iterative
     refinement; "float64" / "float32" (the control): the direct solve in
-    that type, its FGMRES to the tolerance the configuration requests."""
+    that type, its FGMRES to the tolerance the configuration requests.
+    A sharded configuration builds the sharded solver (build_sharded), but
+    for the float32 control, which has no sharded form: that stays the
+    single-card ABFSolver."""
+    if shards_of(config) and precision != "float32":
+        return build_sharded(config, sysprob, device, chips)
     from exsaddle_tpu_torch.abf import ABFSolver
     kw = dict(config["solver"])
     if precision != "mixed":
@@ -153,9 +195,43 @@ def build_solver(config, sysprob, device, precision):
     return slv, time.perf_counter() - t0
 
 
+def build_sharded(config, sysprob, device, chips):
+    """The sharded system under test, built as driver.saddle_solve builds
+    it for more than one shard: CartABFSolver over CartPartition(mesh,
+    driver._choose_dev_shape(m_el, shards)), from the configuration's
+    model context, Dirichlet rows and values, mg_levels levels and solver
+    knobs, its FGMRES to the requested tolerance, in float64; shard i on
+    card i % chips (shard_devices). (solver, seconds to build it, every
+    card synchronised at both ends)."""
+    from exsaddle_tpu_torch import driver
+    from exsaddle_tpu_torch.parallel.cart import CartPartition
+    from exsaddle_tpu_torch.parallel.cart_abf import CartABFSolver
+    n = shards_of(config)
+    mesh = sysprob["mesh"]
+    shape = driver._choose_dev_shape(mesh.m_el, n)
+    if shape is None:
+        raise ValueError(f"{n} shards do not factor into the element grid "
+                         f"{mesh.m_el}")
+    devices = shard_devices(device, n, chips)
+    kw = dict(config["solver"],
+              rtol=float(config["guarantee"]["requested_rtol"]))
+    sync_all(dict.fromkeys(devices))
+    t0 = time.perf_counter()
+    slv = CartABFSolver(CartPartition(mesh, shape), sysprob["ctx"],
+                        sysprob["bc_idx"], sysprob["bc_vals"], devices,
+                        nlevels=int(config["mg_levels"]), **kw)
+    sync_all(dict.fromkeys(devices))
+    return slv, time.perf_counter() - t0
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def sync_all(devices):
+    for d in devices:
+        sync(d)
 
 
 class Entry:
@@ -290,17 +366,21 @@ def judge(config, problem, loads_ref, xs, attempted, device, chunk=32):
 
 
 def run_cell(workload, seed, seconds, trace, device, t_process,
-             root=ROOT, config=None, traffic=None, wrap=None, log=None):
+             root=ROOT, config=None, traffic=None, wrap=None, log=None,
+             chips=1):
     """One run of the cell `workload`; returns the result line's object.
 
     t_process: the process's start on the host clock (perf_counter);
     config / traffic: given, they replace the cell's files (the tests'
     small sizes); wrap(entry) -> entry: the tests' faults, planted under
-    the timed path. log(str): progress lines (standard error)."""
+    the timed path. log(str): progress lines (standard error). chips: the
+    cards a sharded configuration's shards are placed on (shard_devices)."""
     log = log or (lambda s: None)
     bench, cell, _, config_f, traffic_f = cell_files(root, workload)
     config = config or config_f
     traffic = traffic or traffic_f
+    check_sharded(config, traffic)
+    sharded = bool(shards_of(config))
     stages = Stages(log)
     with stages("kernel library"):
         load_kernels(device)
@@ -314,9 +394,15 @@ def run_cell(workload, seed, seconds, trace, device, t_process,
     with stages("system problem (mesh, FE space, coefficients)"):
         sysprob = system_problem(config)
     slv, build_s = build_solver(config, sysprob, device,
-                                traffic["precision"])
+                                traffic["precision"], chips)
+    cards = solver_cards(slv, device)
     log(f"solver built in {build_s:.3f} s ({traffic['precision']}, "
         f"{sysprob['mesh'].ndof} dofs)")
+    if sharded:
+        log(f"sharded: {shards_of(config)} shards, grid "
+            f"{slv.part.dev_shape}, {slv.part.mloc} elements each, on "
+            f"{', '.join(str(d) for d in slv.smesh.devices)}; the "
+            f"{slv.loop} loop")
     rhs_diri = np.asarray(slv.setup["rhs_diri"])
     loads_sys = [F + rhs_diri for F in loads_ref]
     entry = Entry(slv, config, traffic["precision"])
@@ -324,7 +410,7 @@ def run_cell(workload, seed, seconds, trace, device, t_process,
         entry = wrap(entry)
     with stages("warm-up solve"):
         entry(loads_sys[0])
-        sync(device)
+        sync_all(cards)
     spans = GraphSpans(slv)
     setup_s = time.perf_counter() - t_process
     log(f"set-up {setup_s:.3f} s; window of {seconds} s")
@@ -354,9 +440,19 @@ def run_cell(workload, seed, seconds, trace, device, t_process,
                                 solver=slv, device=device, seed=seed,
                                 setup_s=setup_s, build_s=build_s,
                                 window_s=window_s, walls=walls, its=its,
-                                graph_spans=span_s, loads=loads_sys, log=log)
+                                graph_spans=span_s, loads=loads_sys, log=log,
+                                cards=cards)
     out = {"correct": False, "attempted": attempted, "failed": 0,
            "metrics": {}, "device": device_info(device, peak)}
+    if sharded:
+        by_card = [torch.cuda.max_memory_allocated(d) if d.type == "cuda"
+                   else 0 for d in cards]
+        out["device"].update(count=len(cards),
+                             memory_peak_bytes=int(max(by_card)),
+                             memory_peak_bytes_by_card=[int(b)
+                                                        for b in by_card])
+        log("peak memory by card: " + ", ".join(
+            f"{d} {b} B" for d, b in zip(cards, by_card)))
     if walls:
         e2e = {"solve_s": window_s / len(walls),
                "solve_s_p90": yardstick.p90(walls), "setup_s": setup_s}
@@ -364,7 +460,13 @@ def run_cell(workload, seed, seconds, trace, device, t_process,
                  + bench["per_layer"]}
         if trace:
             busy = sum(span_s) if span_s else sum(walls)
-            out["device"].update(busy_s=busy, window_s=window_s)
+            traced_s = window_s
+            if sharded:
+                from benchmark import breakdown
+                prof = breakdown.cards_profile(run)
+                if prof is not None:
+                    busy, traced_s = prof["busy_s"], prof["wall_s"]
+            out["device"].update(busy_s=busy, window_s=traced_s)
             for m in bench["per_layer"]:
                 if "workloads" in m and workload not in m["workloads"]:
                     continue
@@ -416,27 +518,37 @@ def altered(x, seed):
     return y
 
 
-def readings(config, traffic, seeds, control_seeds, device, log):
+def readings(config, traffic, seeds, control_seeds, device, log, chips=1):
     """The readings a cell's limit rests on (controls.py): one set-up, then
     the largest reference residual of the timed entry over each of `seeds`'
     loads (each solved once), and on each of `control_seeds` the control's
     (the system's float32 direct solve, capped at control_max_it FGMRES
     iterations), the altered answer's and the unchanged state's (x = 0).
+    For a sharded configuration the timed entry is the sharded solver's
+    (placed on `chips` cards) and the control the single-card float32
+    direct solve, since the sharded path has no float32 form.
     Returns {"limit", "program", "control", "altered", "unchanged"}, each
     reading keyed by seed."""
     stages = Stages(log)
     precision = traffic["precision"]
+    check_sharded(config, traffic)
     with stages("system problem"):
         sysprob = system_problem(config)
         problem = reference_problem(config)
         ref = saddle(problem, device)
-    slv, build_s = build_solver(config, sysprob, device, precision)
+    slv, build_s = build_solver(config, sysprob, device, precision, chips)
     ctl, ctl_s = build_solver(config, sysprob, device, "float32")
     log(f"solvers built in {build_s:.3f} s ({precision}) and {ctl_s:.3f} s "
         f"(float32 control)")
+    if shards_of(config):
+        log(f"the program: {shards_of(config)} shards on "
+            f"{', '.join(str(d) for d in slv.smesh.devices)}; the control: "
+            f"the single-card float32 direct solve on {device} (the sharded "
+            "path has no float32 form)")
     entry = Entry(slv, config, precision)
     control = Entry(ctl, config, "float32")
     rhs_diri = np.asarray(slv.setup["rhs_diri"])
+    rhs_ctl = np.asarray(ctl.setup["rhs_diri"])
     out = {"limit": float(config["guarantee"]["rel_residual"]),
            "program": {}, "control": {}, "altered": {}, "unchanged": {}}
 
@@ -465,7 +577,7 @@ def readings(config, traffic, seeds, control_seeds, device, log):
                 f"{lo_a:.6e})")
     for seed in control_seeds:
         loads_ref = bloads.make_loads(traffic, seed, problem, ref)
-        xs = [control(F + rhs_diri)[0] for F in loads_ref]
+        xs = [control(F + rhs_ctl)[0] for F in loads_ref]
         hi, lo = worst(loads_ref, xs)
         out["control"][seed] = hi
         log(f"seed {seed}: control {hi:.6e} (least {lo:.6e})")

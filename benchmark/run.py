@@ -5,11 +5,13 @@
 
 The cell (BENCHMARK.json's "workloads") names a configuration and a
 traffic mix; set-up builds the system under test (exsaddle_tpu_torch's
-ABFSolver) and the seed's loads, the window solves them in a closed loop
-for `--seconds`, and the reference then judges every solution. The last
-line of standard output is the result (JSON); the last lines of standard
-error are the numbers compared, each beside its limit. --trace 1 reports
-the per-layer metrics in place of the end-to-end ones.
+ABFSolver, or for a sharded configuration its CartABFSolver with one
+shard per card of the cell's chips) and the seed's loads, the window
+solves them in a closed loop for `--seconds`, and the reference then
+judges every solution. The last line of standard output is the result
+(JSON); the last lines of standard error are the numbers compared, each
+beside its limit. --trace 1 reports the per-layer metrics in place of the
+end-to-end ones.
 
 Exits non-zero with no result where no CUDA card is present (or fewer
 than the cell asks for) and where JAX or the JAX package was loaded.
@@ -59,7 +61,7 @@ def main(argv=None):
         return 2
     out = harness.run_cell(args.workload, args.seed, args.seconds,
                            bool(args.trace), torch.device("cuda", 0),
-                           T_PROCESS, log=log)
+                           T_PROCESS, log=log, chips=int(cell["chips"]))
     hits = guard.banned_loaded()
     if hits:
         log(f"refused: the run loaded {', '.join(hits)}")

@@ -46,6 +46,7 @@ def test_a_run_imports_no_jax():
         "yardstick, guard\n"
         "from benchmark.reference.models import pseudoice, solcx\n"
         "import exsaddle_tpu_torch.abf, exsaddle_tpu_torch.driver\n"
+        "import exsaddle_tpu_torch.parallel.cart_abf\n"
         "from exsaddle_tpu_torch.kernels import a00, stencil, _build\n"
         + readers)
     assert "exsaddle_tpu_torch" in names
