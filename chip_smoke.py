@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card (H100).
 
     python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --peer       # device, build, then phase peer
+                                       # alone, and its kernels line
     python3 chip_smoke.py --profile    # device, build, then profiled
                                        # mx=32 IR solves under the bench's
                                        # tuned schedule: eager, the host
@@ -305,6 +307,26 @@ after the kernels line):
               solve's K3 and K6 launches as in phase main, and a third
               solve with K3's entries swapped for the parent's routing
               (the order witness of the tuned solve: its counts logged).
+14. peer -- the cross-card collectives (csrc/peer_collective.cu,
+              kernels/peer.py) on the first 4 cards (2 where there are 2
+              or 3; skipped, with a null entry in the kernels line, below
+              2 or without peer access between every pair): each mode at
+              the shapes of the mx=32 flagship's shard on that grid
+              (1 x 2 x 2, or 1 x 1 x 2) through shard_mesh.CardMesh views
+              over a kernels.peer.CudaGroup -- FOLD (psums of 1 and 31
+              values), COPY (the L-2 gather, the L-2 ghost extension of
+              every axis at once), ADD (halo_add_axes of the Q2 node grid
+              along each split axis) -- bitwise the one-card ShardMesh
+              psum / all_parts / ghost_extend_axis / halo_add_axes on the
+              same inputs. Each mode's device time per collective (100 of
+              it captured in one CUDA graph per card, the graphs launched
+              back to back, CUDA events on every card; the slowest card)
+              beside its bound (the bytes a card reads from its peers at
+              450 GB/s) and the share of it spent in the waits (the
+              group's wait counter). Then the main path on those cards:
+              pseudoice at mx=8, CartABFSolver's default loop (one
+              conditional graph per card), the peer counters zeroed just
+              before one solve, its peer launches read after it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -363,6 +385,205 @@ def log(*a):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def _peer_views(n):
+    """(the one-card ShardMesh on cuda:0, each card's CardMesh view over a
+    CudaGroup on cuda:0 .. cuda:n-1, the grid, the mx=32 shard's Q2 node
+    grid and L-2 slab shapes, reversed dims then components)."""
+    from exsaddle_tpu_torch.kernels import peer
+    from exsaddle_tpu_torch.parallel.shard_mesh import CardMesh, ShardMesh
+    grid = (1, 2, 2) if n == 4 else (1, 1, 2)
+    mloc = [32 // g for g in grid]
+    q2 = tuple(2 * m + 1 for m in reversed(mloc)) + (3,)
+    l2 = tuple(m + 1 for m in reversed(mloc)) + (3,)
+    devs = [torch.device("cuda", i) for i in range(n)]
+    group = peer.CudaGroup(devs, int(np.prod(q2)))
+    one = ShardMesh(grid, [devs[0]] * n)
+    cards = ShardMesh(grid, devs)
+    return one, [CardMesh(cards, i, group) for i in range(n)], grid, q2, l2
+
+
+def _on_every_card(views, fn, reps=1, time_it=False):
+    """fn(view) on every card: a warm-up with the group rehearsing
+    (nothing launched, every allocation made), then `reps` calls captured
+    in one CUDA graph per card, the graphs launched back to back (time_it:
+    twice, the second timed). Returns (the last call's result per card;
+    time_it: ms per call on the slowest card and seconds per call in the
+    waits on the card that waited longest)."""
+    group = views[0].group
+    group.rehearse = True
+    try:
+        for v in views:
+            with torch.cuda.device(v.devices[0]):
+                fn(v)
+    finally:
+        group.rehearse = False
+    out, graphs_ = [None] * len(views), []
+    for i, v in enumerate(views):
+        dev = v.devices[0]
+        torch.cuda.synchronize(dev)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(
+                g, stream=graphs.capture_stream(dev)):
+            for _ in range(reps):
+                out[i] = fn(v)
+        graphs_.append(g)
+
+    def replay(timed):
+        ev = []
+        for v, g in zip(views, graphs_):
+            with torch.cuda.device(v.devices[0]):
+                a = torch.cuda.Event(enable_timing=timed)
+                b = torch.cuda.Event(enable_timing=timed)
+                a.record()
+                g.replay()
+                b.record()
+                ev.append((a, b))
+        for v in views:
+            torch.cuda.synchronize(v.devices[0])
+        group.check()
+        return ev
+    if not time_it:
+        replay(False)
+        return out, None, None
+    replay(False)
+    w0 = group.wait_seconds()
+    ev = replay(True)
+    w1 = group.wait_seconds()
+    return (out, max(a.elapsed_time(b) for a, b in ev) / reps,
+            max(y - x for x, y in zip(w0, w1)) / reps)
+
+
+def phase_peer(card):
+    """Phase peer (module docstring, 14): the kernels line's entry for
+    peer_collective, its fields null where fewer than 2 cards with peer
+    access are present."""
+    from exsaddle_tpu_torch.assembly import assemble_rhs, scatter_vector
+    from exsaddle_tpu_torch.kernels import peer
+    from exsaddle_tpu_torch.parallel import cart_abf, shard_mesh
+    from exsaddle_tpu_torch.parallel.cart import CartPartition
+    from exsaddle_tpu_torch.treeops import ShardVec
+    entry = {"name": "peer_collective", "route": "cuda",
+             "source": "exsaddle_tpu_torch/csrc/peer_collective.cu",
+             "replaces": "exsaddle_tpu/parallel/cart.py:147",
+             "cards": None, "launches": None, "cart_launches": None,
+             "forms": None}
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        log(f"[peer] skipped: {n} CUDA card(s), the phase needs 2")
+        return entry
+    if n == 3:
+        n = 2
+    ok, why = peer.peer_access([torch.device("cuda", i) for i in range(n)])
+    if not ok:
+        log(f"[peer] skipped: {why}")
+        return entry
+    one, views, grid, q2, l2 = _peer_views(n)
+    rng = np.random.default_rng(14)
+    forms, reps = {}, 100
+
+    def on_cards(arrays):
+        return [torch.as_tensor(a, device=v.devices[0])
+                for a, v in zip(arrays, views)]
+
+    def same(want, got):
+        return all(_same_bits(w.cpu(), g.cpu()) for w, g in zip(want, got))
+
+    def record(name, want, fn, nbytes):
+        got, _, _ = _on_every_card(views, fn)
+        check(same(want, got),
+              f"peer {name}: the cards differ from the one-card mesh")
+        _, ms, wait = _on_every_card(views, fn, reps, time_it=True)
+        forms[name] = {"us": 1e3 * ms, "bound_us": 1e6 * nbytes / 450e9,
+                       "wait_share": wait / (1e-3 * ms), "bytes": nbytes,
+                       "bitwise": True}
+        log(f"[peer] {name}: {1e3 * ms:.2f} us a collective on the slowest "
+            f"card, {100 * forms[name]['wait_share']:.1f}% of it in its "
+            f"waits; bound {forms[name]['bound_us']:.4f} us ({nbytes} B "
+            f"from its peers at 450 GB/s); bitwise the one-card mesh")
+    for k in (1, 31):
+        p = [rng.standard_normal(k) for _ in range(n)]
+        want = one.psum(one.shard(p)).parts[0]
+        src = on_cards(p)
+        record(f"fold_{k}", [want] * n,
+               lambda v, src=src: v.psum(ShardVec([src[v.index]])).parts[0],
+               8 * (n - 1) * k)
+    slab = [rng.standard_normal(l2) for _ in range(n)]
+    src = on_cards(slab)
+    want = one.all_parts(one.shard(slab))
+    record("copy_gather", [torch.stack(want)] * n,
+           lambda v: torch.stack(v.all_parts(ShardVec([src[v.index]]))),
+           8 * (n - 1) * int(np.prod(l2)))
+    want = one.shard(slab)
+    for d in reversed(range(3)):
+        want = shard_mesh.ghost_extend_axis(one, want, d)
+    nodes = tuple(reversed(l2[:3]))                 # per grid axis
+    near = [o for o in np.ndindex(3, 3, 3) if o != (1, 1, 1) and all(
+        0 <= b + c - 1 < g for b, c, g in zip(views[0].boxes[0], o, grid))]
+    record("copy_ghosts", want.parts,
+           lambda v: shard_mesh.ghost_extend(
+               v, ShardVec([src[v.index]])).parts[0],
+           8 * 3 * sum(int(np.prod([m for m, c in zip(nodes, o) if c == 1]))
+                       for o in near))
+    q = [rng.standard_normal(q2) for _ in range(n)]
+    for d in (1, 2):
+        if grid[d] == 1:
+            continue
+        want = one.shard(q)
+        shard_mesh.halo_add_axes(one, [want], d)
+        fresh = on_cards(q)
+        got, _, _ = _on_every_card(views, lambda v, d=d: shard_mesh.
+                                   halo_add_axes(v, [ShardVec([fresh[
+                                       v.index]])], d)[0].parts[0])
+        check(same(want.parts, got),
+              f"peer add_axis{d}: the cards differ from the one-card mesh")
+        acc = on_cards(q)
+        _, ms, wait = _on_every_card(
+            views, lambda v, d=d: shard_mesh.halo_add_axes(
+                v, [ShardVec([acc[v.index]])], d), reps, time_it=True)
+        nbytes = 8 * int(np.prod(q2)) // q2[2 - d]
+        share = wait / (1e-3 * ms)
+        forms[f"add_axis{d}"] = {"us": 1e3 * ms,
+                                 "bound_us": 1e6 * nbytes / 450e9,
+                                 "wait_share": share,
+                                 "bytes": nbytes, "bitwise": True}
+        log(f"[peer] add_axis{d}: {1e3 * ms:.2f} us a collective on the "
+            f"slowest card, {100 * share:.1f}% of it in its waits; "
+            f"bound {1e6 * nbytes / 450e9:.4f} us ({nbytes} B from its "
+            f"peer at 450 GB/s); bitwise the one-card mesh")
+    # the main path on these cards: one solve's peer launches
+    opts = Options.from_args(["-model", "11", "-size_x", "0.1"])
+    ctx = emodels.ModelContext(opts, 3, log=lambda *a, **k: None)
+    mesh = SaddleMesh(3, (8, 8, 8), (0.1, 1.0, 1.0))
+    fes = FESpace(mesh)
+    bci, bcv = emodels.create_bc_list(ctx, mesh)
+    slv = cart_abf.CartABFSolver(
+        CartPartition(mesh, grid), ctx, bci, bcv,
+        [torch.device("cuda", i) for i in range(n)], nlevels=3)
+    check(slv.loop == "device"
+          and isinstance(slv._dev, cart_abf.CartCardsSolver),
+          f"peer: the main path over {n} cards runs loop {slv.loop}")
+    coeff = tdriver.fine_coefficients(ctx, fes)
+    f1, f2 = assemble_rhs(fes, coeff["Fu"], coeff["Fp"])
+    F = scatter_vector(mesh, f1, f2)
+    F[:mesh.nu][bci] = bcv
+    F = F + slv.setup["rhs_diri"]
+    slv.solve(F)
+    peer.PSUMS.n = peer.HALOS.n = 0
+    r = slv.solve(F)
+    launches = peer.PSUMS.n + peer.HALOS.n
+    col = r["collectives"]
+    per_card = [a + b for a, b in zip(col["psums"], col["halo_exchanges"])]
+    check(launches == sum(per_card) and len(set(per_card)) == 1,
+          f"peer: {launches} launches counted, {per_card} by card")
+    log(f"[peer] main path, pseudoice mx=8 on {n} cards ({r['its']} its): "
+        f"{launches} peer launches in one solve, {per_card[0]} a card "
+        f"({col['psums'][0]} psums and gathers, {col['halo_exchanges'][0]} "
+        f"halo and ghost exchanges)")
+    entry.update(cards=n, launches=launches, cart_launches=per_card[0],
+                 forms=forms)
+    return entry
 
 
 def phase_device():
@@ -4107,6 +4328,12 @@ def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    if "--peer" in sys.argv[1:]:
+        log(json.dumps({"kernels": [phase_peer(card)]}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--profile" in sys.argv[1:]:
         phase_profile(card)
         profile_cart(card)
@@ -4141,6 +4368,7 @@ def main():
     bench_launches, bench_applies, bench_k5, misses = phase_bench(device,
                                                                   card)
     log(f"[smoke] bench phase {time.perf_counter() - t_bench:.1f} s")
+    peer_entry = phase_peer(card)
     log(f"[smoke] compiled, outputs, ex42, cart, cart_procs and bench "
         f"phases "
         f"{time.perf_counter() - t0:.1f} s; whole script "
@@ -4217,7 +4445,7 @@ def main():
             "launches": (cart_counts if form == "mp_apply"
                          else k3_launches)[form],
             "cart_launches": cart_counts[form], **k3[form]}
-            for form in mp.FORMS]}))
+            for form in mp.FORMS] + [peer_entry]}))
     check(not misses, "; ".join(misses))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -380,6 +380,22 @@ def _set_counters(vals):
         c.n = v
 
 
+_CAPTURE_STREAMS = {}
+
+
+def capture_stream(device):
+    """The stream to capture on for `device`, or None for torch's default:
+    torch.cuda.graph's default capture stream is made once, on the device
+    current at its first use, so a capture on any other card is given a
+    stream of its own (else its work would run eagerly, uncaptured)."""
+    default = torch.cuda.graph.default_capture_stream
+    if default is None or default.device == device:
+        return None
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 # a run of Pieces as ControlGraph holds it: its name, captured torch graph,
 # the count slot of its executions (None: once per launch), the counter
 # deltas its capture recorded, the trace marks in it, and the Piece
@@ -435,6 +451,16 @@ class ControlGraph:
                                "puts memory nodes into captured graphs, "
                                "which a conditional body cannot hold")
         self.device = dev
+        # a conditional node, its handle and its body's nodes belong to the
+        # context current when they are made: the graph's own card
+        with torch.cuda.device(dev):
+            self._build(items, ctl, share)
+        self.launches = 0
+        self._nodes = {}
+
+    def _build(self, items, ctl, share):
+        """The three passes of the constructor, on the graph's card."""
+        dev = self.device
         self.root = self._out("gc_graph_create")
         handles = {}
         chains = []     # (graph, [node or (piece, count)] in order)
@@ -492,8 +518,6 @@ class ControlGraph:
         self.exec = self._out("gc_instantiate", _V(self.root),
                               dev.index or 0)
         self.capture_seconds = time.perf_counter() - t0
-        self.launches = 0
-        self._nodes = {}
 
     def _call(self, name, *args):
         err = getattr(self._lib, name)(*args)
@@ -544,7 +568,8 @@ class ControlGraph:
             mode = torch.cuda.get_sync_debug_mode()
             self.ctl.armed = True
             try:
-                with collector_held(), torch.cuda.graph(g):
+                with collector_held(), torch.cuda.graph(
+                        g, stream=capture_stream(self.device)):
                     torch.cuda.set_sync_debug_mode("error")
                     try:
                         fn()
@@ -561,9 +586,10 @@ class ControlGraph:
     def launch(self):
         """One launch of the whole graph on the current stream, after its
         handles (a device copy into Control.handles)."""
-        self.ctl.handles.copy_(self.handles)
-        self._call("gc_launch", _V(self.exec),
-                   _V(torch.cuda.current_stream(self.device).cuda_stream))
+        with torch.cuda.device(self.device):
+            self.ctl.handles.copy_(self.handles)
+            self._call("gc_launch", _V(self.exec), _V(
+                torch.cuda.current_stream(self.device).cuda_stream))
         self.launches += 1
 
     def account(self, counts):
@@ -575,6 +601,14 @@ class ControlGraph:
             n = 1 if p.slot is None else int(counts[p.slot])
             total = [t + n * d for t, d in zip(total, p.deltas)]
         _set_counters(total)
+
+    def counted(self, counts, counter):
+        """What one launch for `counts` added to `counter` (a tracked
+        counter, track()): each captured piece's delta times its
+        executions."""
+        k = len(_counters()) - len(_TRACKED) + _TRACKED.index(counter)
+        return sum((1 if p.slot is None else int(counts[p.slot]))
+                   * p.deltas[k] for p in self.pieces)
 
     def kernel_nodes(self, counts):
         """The kernel nodes one launch ran for `counts` (Control.counts on

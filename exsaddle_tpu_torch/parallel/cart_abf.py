@@ -33,6 +33,8 @@ returns stacked arrays laid out as the JAX package's ddata (leading device
 axes, z-major); shard_data places this process's shards on its devices."""
 
 import copy
+import logging
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,19 +45,22 @@ from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
                                     mp_apply, mp_csr, mp_stencil, mult_u_raw,
                                     mult_u_tree, mult_up_tree,
                                     stencil_from_csr, _esteig_bounds)
-from exsaddle_tpu_torch.kernels import cheb, stencil, transfer
+from exsaddle_tpu_torch.kernels import cheb, peer, stencil, transfer
 from exsaddle_tpu_torch.kernels._build import Launches
 from exsaddle_tpu_torch.kernels.a00 import node_gather_table
 from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
                                         strain_factors, tree_aux)
 from exsaddle_tpu_torch.parallel.cart import ghost_ring_coefficients
-from exsaddle_tpu_torch.parallel.shard_mesh import (DTYPE,
-                                                    ghost_extend_axis,
+from exsaddle_tpu_torch.parallel.shard_mesh import (DTYPE, CardMesh,
+                                                    ghost_extend,
                                                     halo_add_axes,
                                                     halo_add_axis,
                                                     owned_weight,
                                                     stack_boxes)
+from exsaddle_tpu_torch.trace import span
 from exsaddle_tpu_torch.treeops import ShardVec, smap
+
+_LOG = logging.getLogger(__name__)
 
 
 # --------------------------------------------------------------------------
@@ -574,15 +579,34 @@ def shard_data(ddata, smesh, nstack):
     return dd
 
 
+def card_data(dd, i):
+    """Shard i's share of placed data `dd` (shard_data): its part of every
+    sharded entry (a ShardVec of one part) and its device's replicated
+    entries; nothing copied."""
+    dev = dd["ks"].parts[i].device
+    out = {k: ShardVec([v.parts[i]]) if isinstance(v, ShardVec) else v
+           for k, v in dd.items()}
+    out["repl"] = {dev: dd["repl"][dev]}
+    return out
+
+
 # --------------------------------------------------------------------------
 # the sharded solver
 # --------------------------------------------------------------------------
 
-# halo exchanges (halo_u / halo_p calls, each every axis of the grid): a
-# Python count, tracked by graphs so that a graph replay or a device-loop
-# execution adds the exchanges its capture made
-HALO_EXCHANGES = Launches()
-graphs.track(HALO_EXCHANGES)
+# what the solve asks its mesh to exchange, per call of this process's
+# blocks (per card on the cards' path), whatever the mesh makes of it:
+# halo_u (K1's interface planes, every axis), halo_p (a pressure grid's),
+# halo_r (the L-2 slab the fine residual restricts to), ghost extensions
+# of an L-2 slab (every axis) and L-2 gathers. Python counts, tracked by
+# graphs so that a graph replay or a device-loop execution adds what its
+# capture made.
+HALOS_U, HALOS_P, HALOS_R, GHOSTS, L2_GATHERS = (
+    Launches(), Launches(), Launches(), Launches(), Launches())
+EXCHANGES = (("halo_u", HALOS_U), ("halo_p", HALOS_P), ("halo_r", HALOS_R),
+             ("ghosts", GHOSTS), ("l2_gathers", L2_GATHERS))
+for _, _c in EXCHANGES:
+    graphs.track(_c)
 
 
 class CartBlocks:
@@ -590,8 +614,9 @@ class CartBlocks:
     one ParityMatFreeOperator per shard over its local box (local nu, so
     K1's shape checks hold, kernels/a00.py; one node table per device),
     the keep/mask aux, the halos and the ownership weights. saddle_mult is
-    the sharded matfree.mult_tree (one K1 apply per shard); each halo_u /
-    halo_p adds one to HALO_EXCHANGES."""
+    the sharded matfree.mult_tree (one K1 apply per shard); each halo_u,
+    halo_p or halo_r adds one to HALOS_U, HALOS_P or HALOS_R (on the
+    cards' path, every card's view, card(), counts its own)."""
 
     def __init__(self, dcfg, smesh, dd):
         nd = len(dcfg.mloc)
@@ -648,6 +673,21 @@ class CartBlocks:
         self.dots_sad = treeops.make_dots(weight=self.w_sad,
                                           psum=smesh.psum)
 
+    def card(self, i, cmesh):
+        """Shard i's blocks over its card's view `cmesh` (a CardMesh):
+        every per-shard piece shared, nothing built again; the dots reduce
+        through cmesh's psum."""
+        v = copy.copy(self)
+        pick = lambda sv: ShardVec([sv.parts[i]])           # noqa: E731
+        v.smesh = cmesh
+        v.ops, v.mp_w = pick(self.ops), pick(self.mp_w)
+        v.aux = tuple(pick(a) for a in self.aux)
+        v.w_u, v.w_l1, v.w_sad = (pick(self.w_u), pick(self.w_l1),
+                                  pick(self.w_sad))
+        v.dots_u = treeops.make_dots(weight=v.w_u, psum=cmesh.psum)
+        v.dots_sad = treeops.make_dots(weight=v.w_sad, psum=cmesh.psum)
+        return v
+
     def halo_u(self, y):
         """Per-axis halo-add of K1's raw output: a class holds an interface
         plane along axis d only where its parity bit d is even; those
@@ -658,15 +698,21 @@ class CartBlocks:
         for d in range(self.nd):
             halo_add_axes(self.smesh, [c for p, c in enumerate(classes)
                                        if not (p >> d) & 1], d)
-        HALO_EXCHANGES.n += 1
+        HALOS_U.n += 1
         return y
 
-    def halo_p(self, g):
-        """Per-axis halo-add of a pressure-shaped grid (trailing dims ok)."""
+    def halo_p(self, g, counter=HALOS_P):
+        """Per-axis halo-add of a pressure-shaped grid (trailing dims ok),
+        counted in `counter`."""
         for d in range(self.nd):
             halo_add_axis(self.smesh, g, d)
-        HALO_EXCHANGES.n += 1
+        counter.n += 1
         return g
+
+    def halo_r(self, g):
+        """halo_p of the L-2 slab the fine residual restricts to (nd values
+        a node), counted in HALOS_R."""
+        return self.halo_p(g, HALOS_R)
 
     def saddle_mult(self, t):
         return mult_tree(self.ops, self.aux, t, halo_u=self.halo_u,
@@ -691,6 +737,7 @@ class CartBlocks:
         every process) into the full L-2 grid, in global shard order on the
         first local device, replicated."""
         w = self.w_l1 * slabs
+        L2_GATHERS.n += 1
         dev0 = self.smesh.devices[0]
         full = torch.zeros(tuple(full_shape) + (self.nd,), dtype=w.dtype,
                            device=dev0)
@@ -706,7 +753,7 @@ class CartBlocks:
 class _ShardedStencil:
     """The sharded L-2 block stencil as the smoothers and the V-cycle take
     it (kernels.stencil.StencilOp's interface on ShardVecs): each call
-    extends x by one ghost plane per axis (ghost_extend_axis: the
+    extends x by one ghost plane per axis (shard_mesh.ghost_extend: the
     neighbours' planes, zeros at the domain's edges), then runs the
     kernel's padded form on every shard, the fused residual and Chebyshev
     updates included."""
@@ -715,9 +762,8 @@ class _ShardedStencil:
         self.smesh, self.W, self.nd = smesh, W, nd
 
     def _ghosted(self, x):
-        for k in range(self.nd):
-            x = ghost_extend_axis(self.smesh, x, self.nd - 1 - k)
-        return x
+        GHOSTS.n += 1
+        return ghost_extend(self.smesh, x)
 
     def __call__(self, x):
         return smap(stencil.stencil_accum, self.W, self._ghosted(x))
@@ -765,7 +811,7 @@ class _ShardedFine:
             ks, ms, d, p_k, p_km1)
 
 
-def _cart_bodies(dcfg, smesh, dd, blk):
+def _cart_bodies(dcfg, smesh, dd, blk, trace=None):
     """The sharded ABF solve's bodies over placed data `dd` and the blocks
     `blk` (the structure of the JAX package's shard_map body): mg_pc (one
     V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev polynomial
@@ -778,7 +824,8 @@ def _cart_bodies(dcfg, smesh, dd, blk):
     distinct device), computed in K4's store, as is their residual. The
     transfers are K5's entries: the parity pair per shard (the
     prolongation adding the correction in its store), the grid pair on
-    the replicated levels."""
+    the replicated levels. With `trace` (trace.Trace) the V-cycle is the
+    device span vcycle."""
     cfg = dcfg.base
     # zero-guess pre-smooths skip the initial A x0 apply (bit-identical)
     pre_its = cfg.cheb_pre_its if cfg.cheb_pre_its > 0 else cfg.cheb_its
@@ -860,17 +907,19 @@ def _cart_bodies(dcfg, smesh, dd, blk):
                                    diag=dd["inv_diag_fine"])
 
     def mg_pc(r):
-        x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
-        # the ownership-weighted residual w_u * (r - A x), formed in K5's
-        # loads; L-2's first step stays K6 (smooth_l1): each shard's
-        # restriction is a partial slab that only halo_p completes
-        r1 = blk.halo_p(smap(
-            lambda b, y, w: transfer.restrict_parity_weighted_residual(
-                b, y, w, cls_loc, mloc), r, blk.fine_mult(x), blk.w_u))
-        x1 = vcycle_l1(r1)
-        x = smap(lambda v, a: transfer.prolong_parity(v, cls_loc, mloc,
-                                                      add=a), x1, x)
-        return smooth_fine(r, x)
+        with span(trace, "vcycle"):
+            x = smooth_fine(r, smap(torch.zeros_like, r), pre=True)
+            # the ownership-weighted residual w_u * (r - A x), formed in
+            # K5's loads; L-2's first step stays K6 (smooth_l1): each
+            # shard's restriction is a partial slab that only halo_r
+            # completes
+            r1 = blk.halo_r(smap(
+                lambda b, y, w: transfer.restrict_parity_weighted_residual(
+                    b, y, w, cls_loc, mloc), r, blk.fine_mult(x), blk.w_u))
+            x1 = vcycle_l1(r1)
+            x = smap(lambda v, a: transfer.prolong_parity(v, cls_loc, mloc,
+                                                          add=a), x1, x)
+            return smooth_fine(r, x)
 
     # Schur p-block: Chebyshev in Jacobi-preconditioned Mpscaled
     p_emin, p_emax = dd["p_bounds"]
@@ -941,23 +990,26 @@ class CartDeviceLoopSolver:
     (exsaddle_tpu/parallel/cart_abf.py, exsaddle_tpu/treeops.py), and the
     sharded twin of abf.DeviceLoopSolver.
 
-    Every shard of this process on one device (smesh: world 1, one
-    distinct device): treeops.DeviceFGMRES over blk.saddle_mult, its
-    fieldsplit PC a Piece (the p-block and the GCR start), the
-    treeops.DeviceGCR loop over blk.fine_mult and the V-cycle, and a Piece
-    that assembles z; the vectors and bases are ShardVecs of static
-    per-shard buffers, the dots ownership-weighted and summed by the mesh's
-    psum, the control state single. The bodies are the host loop's
-    (_cart_bodies).
+    Every shard of `smesh` on one device (world 1, one distinct device:
+    every shard of this process on one card, or one card's CardMesh view):
+    treeops.DeviceFGMRES over blk.saddle_mult, its fieldsplit PC a Piece
+    (the p-block and the GCR start), the treeops.DeviceGCR loop over
+    blk.fine_mult and the V-cycle, and a Piece that assembles z; the
+    vectors and bases are ShardVecs of static per-shard buffers, the dots
+    ownership-weighted and summed by the mesh's psum, the control state
+    single. The bodies are the host loop's (_cart_bodies).
 
     graph=True (CUDA, smesh.capturable): the items become one
     graphs.ControlGraph, captured here; a solve is one staged input copy,
     one graph launch under torch.cuda.set_sync_debug_mode("error") and one
     copy of the packed result (every shard's x, its, rnorm, state, hist,
-    Control.counts). graph=False: graphs.run_plain drives the same items
-    from Python, one host read per loop test."""
+    Control.counts, and on a CardMesh the card's peer error word).
+    graph=False: graphs.run_plain drives the same items from Python, one
+    host read per loop test. trace (trace.Trace): the solve, its pieces,
+    the V-cycle, the Krylov spans and a CardMesh's collectives are device
+    spans of it."""
 
-    def __init__(self, dcfg, smesh, dd, blk, graph):
+    def __init__(self, dcfg, smesh, dd, blk, graph, trace=None):
         if smesh.world != 1 or len(smesh.distinct) != 1:
             raise ValueError("the sharded device loop needs every shard in "
                              "this process on one device")
@@ -966,12 +1018,16 @@ class CartDeviceLoopSolver:
                              "(every shard on one CUDA device)")
         cfg = dcfg.base
         self.device = dev = smesh.distinct[0]
+        self.group = getattr(smesh, "group", None)
+        # the card's peer error word, copied into the result (a CudaGroup)
+        self.err = (self.group.state[smesh.index]["err"]
+                    if hasattr(self.group, "state") else None)
         ops = blk.ops
         nu, np_ = ops.parts[0].nu, ops.parts[0].np_
         self.n = n = nu + np_
         self.nloc = nloc = len(smesh.devices)
-        self.ctl = ctl = graphs.Control(dev)
-        b = _cart_bodies(dcfg, smesh, dd, blk)
+        self.ctl = ctl = graphs.Control(dev, trace=trace)
+        b = _cart_bodies(dcfg, smesh, dd, blk, trace)
         devs = list(smesh.devices)
         self.gcr = gcr = treeops.DeviceGCR(
             ctl, blk.fine_mult, b["mg_pc"], nu, DTYPE, devs,
@@ -1003,7 +1059,9 @@ class CartDeviceLoopSolver:
         parts = self.inp.view(2, nloc, n)
         self._F, self._x0 = ShardVec(parts[0]), ShardVec(parts[1])
         self.nc = nc = ctl.counts.numel()
-        self.out = torch.zeros(nloc * n + 3 + cfg.hist_len + nc,
+        m = nloc * n + 3 + cfg.hist_len
+        self.counts_at = slice(m, m + nc)
+        self.out = torch.zeros(m + nc + (4 if self.group else 0),
                                dtype=torch.float64, device=dev)
         self.items = [graphs.Piece(self._init, "fgmres init"), fg.loop(),
                       graphs.Piece(self._pack, "fgmres result")]
@@ -1027,7 +1085,42 @@ class CartDeviceLoopSolver:
         o[m + 1:m + 2].copy_(fg.sc[1])
         o[m + 2:m + 3].copy_(fg.ints[0])
         o[m + 3:m + 3 + fg.hist_len].copy_(fg.hist)
-        o[m + 3 + fg.hist_len:].copy_(self.ctl.counts)
+        o[self.counts_at].copy_(self.ctl.counts)
+        if self.err is not None:
+            o[self.counts_at.stop:].copy_(self.err)
+
+    def _stage(self, *host_inp):
+        """The input, host_inp's arrays one after another, in pinned host
+        memory (CUDA)."""
+        if self._pinned is None:
+            self._pinned = (torch.empty(self.inp.shape, dtype=DTYPE,
+                                        pin_memory=True),
+                            torch.empty(self.out.shape, dtype=DTYPE,
+                                        pin_memory=True))
+        staged = self._pinned[0].numpy()
+        off = 0
+        for a in host_inp:
+            staged[off:off + a.size] = a
+            off += a.size
+
+    def _launch(self):
+        """The staged input's copy, the graph's launch and the result's
+        copy back, enqueued on the device's current stream."""
+        pin_in, pin_out = self._pinned
+        with torch.cuda.device(self.device):
+            self.inp.copy_(pin_in, non_blocking=True)
+            self.graph.launch()
+            pin_out.copy_(self.out, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+    def _finish(self):
+        """Wait for the launched solve; the result buffer on the host, what
+        ran added to the counts."""
+        self._done.synchronize()
+        res = self._pinned[1].numpy().copy()
+        self.graph.account(res[self.counts_at])
+        return res
 
     def _run(self, host_inp):
         """Stage host_inp, run the items, return the result buffer on the
@@ -1036,15 +1129,10 @@ class CartDeviceLoopSolver:
             self.inp.copy_(torch.from_numpy(host_inp))
             graphs.run_plain(self.items, self.ctl)
             return self.out.numpy().copy()
-        if self._pinned is None:
-            self._pinned = (torch.empty(self.inp.shape, dtype=DTYPE,
-                                        pin_memory=True),
-                            torch.empty(self.out.shape, dtype=DTYPE,
-                                        pin_memory=True))
-        pin_in, pin_out = self._pinned
-        pin_in.copy_(torch.from_numpy(host_inp))
-        done = torch.cuda.Event()
+        self._stage(host_inp)
         if self.graph is None:
+            pin_in, pin_out = self._pinned
+            done = torch.cuda.Event()
             self.inp.copy_(pin_in, non_blocking=True)
             graphs.run_plain(self.items, self.ctl)
             pin_out.copy_(self.out, non_blocking=True)
@@ -1055,30 +1143,147 @@ class CartDeviceLoopSolver:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            self.inp.copy_(pin_in, non_blocking=True)
-            self.graph.launch()
-            pin_out.copy_(self.out, non_blocking=True)
-            done.record()
+            self._launch()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        done.synchronize()
+        self._done.synchronize()
         # counts the host moved during the solve (a wrapper called outside
         # the graph): 0 when the whole solve is the one launch
         self.host_launches = sum(b - a for a, b in zip(before,
                                                        graphs._counters()))
-        res = pin_out.numpy().copy()
-        self.graph.account(res[-self.nc:])
-        return res
+        return self._finish()
+
+    def unpack(self, out):
+        """(x parts, its, rnorm, state, hist, counts) of a result buffer."""
+        m, hl = self.nloc * self.n, self.fg.hist_len
+        return (list(out[:m].reshape(self.nloc, self.n)), int(out[m]),
+                np.float64(out[m + 1]), int(out[m + 2]),
+                out[m + 3:m + 3 + hl], out[self.counts_at].astype(np.int64))
 
     def solve(self, F_parts, x0_parts):
         """F_parts, x0_parts: per-shard numpy saddle vectors (this
         process's shards). Returns (x parts, its, rnorm, state, hist,
         counts)."""
-        m, hl = self.nloc * self.n, self.fg.hist_len
-        out = self._run(np.concatenate(list(F_parts) + list(x0_parts)))
-        return (list(out[:m].reshape(self.nloc, self.n)), int(out[m]),
-                np.float64(out[m + 1]), int(out[m + 2]),
-                out[m + 3:m + 3 + hl], out[m + 3 + hl:].astype(np.int64))
+        return self.unpack(self._run(np.concatenate(list(F_parts)
+                                                    + list(x0_parts))))
+
+
+class CartCardsSolver:
+    """The sharded solve with one shard on each card of one process, its
+    loops on the cards: card i runs a CartDeviceLoopSolver over its view of
+    the mesh (shard_mesh.CardMesh, its blocks CartBlocks.card(i), its data
+    card_data(i)), with its own Control and, with graph=True, its own
+    graphs.ControlGraph; the cards meet in the peer collectives of `group`
+    (kernels.peer: a CudaGroup, or on the CPU a ThreadGroup). Every card
+    runs the same loops on replicated control state and its own shard's
+    bodies: the psums fold in global shard order and the halos add in the
+    one-card order, so each card's control state, and x, are the bits of
+    the same shards' device loop on one card.
+
+    A conditional graph's body holds nodes of one device only, so a solve
+    is one graph launch per card: every card's input staged, the graphs
+    launched back to back from this thread with no host read between
+    them, then every result read. With graph=False (a ThreadGroup) each
+    card's plain driver runs in its own thread. The cards' its, rnorm,
+    state, history and counts must agree exactly (else it raises), and a
+    peer wait that timed out raises naming the card and the collective.
+    traces: one trace.Trace per card, or None."""
+
+    def __init__(self, dcfg, smesh, dd, blk, group, graph, traces=None):
+        if graph and not smesh.one_per_card:
+            raise ValueError("the cards' device loop needs one shard on each "
+                             "CUDA card of this process")
+        if not graph and isinstance(group, peer.CudaGroup):
+            # the plain drivers would allocate while the other cards'
+            # collectives wait, and an allocation waits for them in turn
+            raise ValueError("across cards the loops run on the device "
+                             "only: loop='plain' needs one card")
+        self.group, self.graph_mode = group, graph
+        self.views = []
+        group.rehearse = graph
+        try:
+            for i in range(smesh.ndev):
+                tr = None if traces is None else traces[i]
+                cm = CardMesh(smesh, i, group, trace=tr)
+                v = CartDeviceLoopSolver(dcfg, cm, card_data(dd, i),
+                                         blk.card(i, cm), graph, trace=tr)
+                self.views.append(v)
+        finally:
+            group.rehearse = False
+        self.nloc = len(self.views)
+        self.graphs = [v.graph for v in self.views] if graph else None
+        self.capture_seconds = sum(v.capture_seconds for v in self.views)
+        self.host_launches = 0
+        self.collectives = None
+
+    def _threads(self, inputs):
+        out, errs = [None] * self.nloc, [None] * self.nloc
+
+        def run(i):
+            try:
+                out[i] = self.views[i]._run(inputs[i])
+            except BaseException as e:         # raised after the join
+                errs[i] = e
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(self.nloc)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for e in errs:
+            if e is not None:
+                raise e
+        return out
+
+    def solve(self, F_parts, x0_parts):
+        """As CartDeviceLoopSolver.solve, shard i on card i."""
+        if not self.graph_mode:
+            res = self._threads([np.concatenate([F_parts[i], x0_parts[i]])
+                                 for i in range(self.nloc)])
+        else:
+            for v, F, x0 in zip(self.views, F_parts, x0_parts):
+                v._stage(F, x0)
+            before = graphs._counters()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for v in self.views:
+                    v._launch()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            for v in self.views:
+                v._done.synchronize()
+            self.host_launches = sum(b - a for a, b in zip(
+                before, graphs._counters()))
+            res = [v._finish() for v in self.views]
+        v0 = self.views[0]
+        if not self.graph_mode or any(r[v0.counts_at.stop] for r in res):
+            self.group.check()
+        tail = slice(v0.nloc * v0.n, v0.counts_at.stop)
+        if any(r[tail].tobytes() != res[0][tail].tobytes() for r in res):
+            raise RuntimeError("the cards' control results differ: "
+                               + "; ".join(f"card {i}: {v.unpack(r)[1:4]}"
+                                           for i, (v, r) in
+                                           enumerate(zip(self.views, res))))
+        if self.graph_mode:
+            self.collectives = self.counted(res[0][v0.counts_at])
+        parts = [v.unpack(r)[0][0] for v, r in zip(self.views, res)]
+        return (parts,) + v0.unpack(res[0])[1:]
+
+    def counted(self, counts):
+        """What one solve of `counts` (Control.counts by slot) ran across
+        the cards, from each card's captured graphs: graph launches, and per
+        card its collectives (psums, the L-2 gathers among them; halo and
+        ghost exchanges), the values its psums reduced, and what the solve
+        asked its mesh to exchange (EXCHANGES: halo_u, halo_p, ghosts,
+        l2_gathers), whatever the collectives made of it."""
+        per = {key: [g.counted(counts, c) for g in self.graphs]
+               for key, c in (("psums", peer.PSUMS),
+                              ("halo_exchanges", peer.HALOS),
+                              ("psum_values", peer.PSUM_VALUES))
+               + EXCHANGES}
+        per["graph_launches"] = len(self.graphs)
+        return per
 
 
 def _result(x, its, rnorm, state, hist):
@@ -1096,82 +1301,139 @@ class CartABFSolver:
 
     loop picks who runs the Krylov loops (as abf.ABFSolver's):
     - "device" (the default when the ShardMesh is capturable: one process,
-      every shard on one CUDA device): CartDeviceLoopSolver, the whole
-      solve one CUDA graph with conditional nodes, captured at
-      construction; a solve is one graph launch and no host read. It
-      raises on the CPU and on a mesh that cannot be captured.
+      every shard on one CUDA device; and when it has one shard on each
+      CUDA card of this process, every pair of cards with peer access):
+      the whole solve one CUDA graph with conditional nodes per card,
+      captured at construction (CartDeviceLoopSolver on one card,
+      CartCardsSolver across cards, whose collectives are peer kernels);
+      a solve is one graph launch per card and no host read. It raises on
+      the CPU and on a mesh that neither holds.
     - "plain": CartDeviceLoopSolver's steps driven from Python
       (graphs.run_plain), one host read of a loop predicate per test: the
       reference the graph is held against, and its CPU form (one process,
       one device).
-    - "host" (the default otherwise: on the CPU, and across processes,
-      whose halos and psums are staged through host memory over the group
-      and cannot be captured): make_cart_abf_solver, one host read per
-      iteration, with the device loop's window arithmetic, so it gives
-      "device"'s bits, in one process and in a group.
+    - "host" (the default otherwise: on the CPU, across processes, whose
+      halos and psums are staged through host memory over the group and
+      cannot be captured, and across cards without peer access, which is
+      logged): make_cart_abf_solver, one host read per iteration, with the
+      device loop's window arithmetic, so it gives "device"'s bits, in one
+      process and in a group.
+    trace: a trace.Trace per card of the device loop (a list, in the
+    order of smesh.distinct; one Trace for one card), or None; the host
+    loop takes none.
     The graph reads the placed data by address: the solver holds it for
     its lifetime and never rebinds it."""
 
     def __init__(self, part, ctx, bc_idx, bc_vals, devices, lame=False,
-                 nlevels=3, multihost=None, loop=None, **cfg_kw):
+                 nlevels=3, multihost=None, loop=None, trace=None,
+                 **cfg_kw):
         dcfg, ddata, setup = build_cart_abf(
             part, ctx, bc_idx, bc_vals, lame=lame, nlevels=nlevels,
             cfg_kw=cfg_kw, multihost=multihost)
-        self._init(part, dcfg, ddata, setup, devices, loop)
+        self._init(part, dcfg, ddata, setup, devices, loop, trace)
 
     @classmethod
-    def from_parts(cls, part, dcfg, ddata, setup, devices, loop=None):
+    def from_parts(cls, part, dcfg, ddata, setup, devices, loop=None,
+                   trace=None):
         """Solver over (dcfg, ddata, setup) built elsewhere -- e.g. the JAX
         package's CartABFSolver data brought to numpy (its dcfg through
         cart_config_from_dict), so a comparison isolates the solve."""
         self = cls.__new__(cls)
-        self._init(part, dcfg, ddata, setup, devices, loop)
+        self._init(part, dcfg, ddata, setup, devices, loop, trace)
         return self
 
-    def _init(self, part, dcfg, ddata, setup, devices, loop):
+    def _init(self, part, dcfg, ddata, setup, devices, loop, trace):
         self.part, self.mesh = part, part.mesh
         self.dcfg, self.setup = dcfg, setup
         self.smesh = part.device_mesh(devices)
         self.ddata = shard_data(ddata, self.smesh, self.mesh.ndim)
         self.blocks = CartBlocks(dcfg, self.smesh, self.ddata)
-        self._set_loop(loop)
+        self._group = self._boxes_at = None
+        self._set_loop(loop, trace)
 
-    def _set_loop(self, loop):
+    def _cards(self):
+        """(whether the cards' device loop can run, why not): one shard on
+        each CUDA card of this process, peer access between every pair."""
+        if not self.smesh.one_per_card:
+            return False, ""
+        ok, why = peer.peer_access(self.smesh.distinct)
+        if ok:
+            return True, ""
+        return False, (f"the cards' device loop needs peer access between "
+                       f"every pair of cards ({why}): the host loop runs")
+
+    def _set_loop(self, loop, trace=None):
         capturable = self.smesh.capturable
+        cards, why = self._cards()
         if loop is None:
-            loop = "device" if capturable else "host"
+            loop = "device" if capturable or cards else "host"
+            if why:
+                _LOG.warning(why)
         if loop not in ("device", "plain", "host"):
             raise ValueError(f"loop {loop!r}: 'device', 'plain' or 'host'")
-        if loop == "device" and not capturable:
+        if loop == "device" and not (capturable or cards):
             raise ValueError(
                 "loop='device' needs every shard in this process on one "
-                f"CUDA device (devices {list(self.smesh.devices)}, "
-                f"{self.smesh.world} processes)")
-        self.loop = loop
+                "CUDA device, or one shard on each CUDA card with peer "
+                f"access (devices {list(self.smesh.devices)}, "
+                f"{self.smesh.world} processes){'; ' + why if why else ''}")
+        traces = None
+        if trace is not None:
+            traces = list(trace) if isinstance(trace, (list, tuple)) \
+                else [trace]
+            if loop == "host" or len(traces) != len(self.smesh.distinct):
+                raise ValueError(f"trace: one Trace per card of the device "
+                                 f"loop ({len(self.smesh.distinct)}), not "
+                                 f"{len(traces)} with loop {loop!r}")
+        self.loop, self.traces = loop, traces
         self.capture_seconds = 0.0
         self._solve = self._dev = None
         if loop == "host":
             self._solve = make_cart_abf_solver(self.dcfg, self.smesh)
+        elif cards:
+            if self._group is None:
+                self._group = peer.CudaGroup(
+                    self.smesh.distinct, self.blocks.ops.parts[0].nu
+                    + self.blocks.ops.parts[0].np_)
+            self._dev = CartCardsSolver(self.dcfg, self.smesh, self.ddata,
+                                        self.blocks, self._group,
+                                        loop == "device", traces)
+            self.capture_seconds = self._dev.capture_seconds
         else:
-            self._dev = CartDeviceLoopSolver(self.dcfg, self.smesh,
-                                             self.ddata, self.blocks,
-                                             loop == "device")
+            self._dev = CartDeviceLoopSolver(
+                self.dcfg, self.smesh, self.ddata, self.blocks,
+                loop == "device", trace=traces[0] if traces else None)
             self.capture_seconds = self._dev.capture_seconds
 
-    def with_loop(self, loop):
+    def with_loop(self, loop, trace=None):
         """A solver over this one's placed data and blocks (the same setup,
-        nothing placed again) whose Krylov loops run as `loop`."""
+        nothing placed again) whose Krylov loops run as `loop`, traced by
+        `trace` (as the constructor's): the traced twin of a solver is
+        with_loop("device", trace=[Trace(d) for d in smesh.distinct])."""
         other = copy.copy(self)
-        other._set_loop(loop)
+        other._set_loop(loop, trace)
         return other
 
     # --- vector conversions ------------------------------------------------
+    def _box_index(self):
+        """Every shard's flat local parity-layout vector as indices into the
+        natural (ndof,) ordering, in stack order; made once. A plane that
+        two boxes share appears in both."""
+        if self._boxes_at is None:
+            self._boxes_at = self._box_slices(np.arange(self.mesh.ndof))
+        return self._boxes_at
+
     def _saddle_parts(self, x_flat):
         """Natural (ndof,) -> every shard's flat local parity-layout
         vector (numpy, stack order)."""
+        x = np.asarray(x_flat)
+        return [x[i] for i in self._box_index()]
+
+    def _box_slices(self, x):
+        """_saddle_parts by slicing: each box's node grids, split into
+        parity classes, then its pressure grid."""
         mesh, part = self.mesh, self.part
         nd = mesh.ndim
-        x = np.asarray(x_flat)
         g = x[: mesh.nu].reshape(tuple(reversed(mesh.nn_u)) + (nd,))
         gp = x[mesh.nu:].reshape(tuple(reversed(mesh.nn_p)))
         parts = []
@@ -1195,36 +1457,32 @@ class CartABFSolver:
 
     def _unshard_parts(self, parts):
         """Every shard's flat local vector (numpy, stack order) -> natural
-        (ndof,) host vector."""
-        mesh, part = self.mesh, self.part
-        nd = mesh.ndim
-        g = np.zeros(tuple(reversed(mesh.nn_u)) + (nd,))
-        gp = np.zeros(tuple(reversed(mesh.nn_p)))
-        for box, v in zip(stack_boxes(part.dev_shape), parts):
-            loc = np.zeros(tuple(reversed(part.nn_u_loc)) + (nd,), v.dtype)
-            off = 0
-            for p, s in enumerate(self.dcfg.cls_shapes_loc):
-                n = int(np.prod(s)) * nd
-                idx = tuple(slice((p >> (nd - 1 - k)) & 1, None, 2)
-                            for k in range(nd))
-                loc[idx] = v[off:off + n].reshape(tuple(s) + (nd,))
-                off += n
-            g[part._grid_slices(box, 2, (slice(None),))] = loc
-            gp[part._grid_slices(box, 1, ())] = v[off:].reshape(
-                tuple(reversed(part.nn_p_loc)))
-        return np.concatenate([g.reshape(-1), gp.reshape(-1)])
+        (ndof,) float64 host vector, box by box: a plane that two boxes
+        share takes the later box's values."""
+        x = np.zeros(self.mesh.ndof)
+        for i, v in zip(self._box_index(), parts):
+            x[i] = v
+        return x
 
     def solve(self, F_flat, x0_flat=None):
         """Solve A x = F (natural-ordering host vectors). Returns dict with
-        x, its, rnorm, state, reason, history, loop and halo_exchanges
-        (the solve's halo exchanges)."""
-        h0 = HALO_EXCHANGES.n
+        x, its, rnorm, state, reason, history, loop, halo_exchanges (the
+        solve's halo_u, halo_p and halo_r calls: on the cards' path each
+        card's),
+        counts (Control.counts by name, the device loop) and, across cards,
+        collectives (CartCardsSolver.counted)."""
+        h0 = HALOS_U.n + HALOS_P.n + HALOS_R.n
         if self._dev is not None:
             Fp = self._saddle_parts(F_flat)
             x0p = (self._saddle_parts(x0_flat) if x0_flat is not None
                    else [np.zeros_like(f) for f in Fp])
-            x, its, rnorm, state, hist, _ = self._dev.solve(Fp, x0p)
+            x, its, rnorm, state, hist, counts = self._dev.solve(Fp, x0p)
             res = _result(self._unshard_parts(x), its, rnorm, state, hist)
+            ctl = (self._dev.views[0] if hasattr(self._dev, "views")
+                   else self._dev).ctl
+            res["counts"] = ctl.named(counts)
+            if getattr(self._dev, "collectives", None) is not None:
+                res["collectives"] = self._dev.collectives
         else:
             Ft = self.shard_saddle(F_flat)
             x0 = (self.shard_saddle(x0_flat) if x0_flat is not None
@@ -1232,5 +1490,8 @@ class CartABFSolver:
             x, its, rnorm, state, hist = self._solve(self.ddata, Ft, x0,
                                                      blocks=self.blocks)
             res = _result(self.unshard_saddle(x), its, rnorm, state, hist)
-        res.update(loop=self.loop, halo_exchanges=HALO_EXCHANGES.n - h0)
+        views = len(getattr(self._dev, "views", ())) or 1
+        res.update(loop=self.loop,
+                   halo_exchanges=(HALOS_U.n + HALOS_P.n + HALOS_R.n - h0)
+                   // views)
         return res

@@ -28,13 +28,30 @@ JAX runtime):
 Nothing here reads a device value on the host within one process (with
 every shard on one CUDA device the collectives can be captured in a CUDA
 graph: ShardMesh.capturable); across processes every exchanged plane and
-partial is staged through host memory (the group is gloo)."""
+partial is staged through host memory (the group is gloo).
+
+With one shard on each of several CUDA cards of one process, a card's
+view of the mesh (CardMesh) runs the same collectives as peer-to-peer
+kernels (kernels/peer.py): each card's solve is then its own CUDA graph,
+the cards meeting in those kernels, and the results are the one-card
+mesh's bits (psum's fold in global shard order, the halo's adds in the
+order of its moves)."""
+
+import threading
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from exsaddle_tpu_torch import graphs
+from exsaddle_tpu_torch.kernels import peer
+from exsaddle_tpu_torch.trace import span
 from exsaddle_tpu_torch.treeops import ShardVec
+
+for _c in peer.COUNTERS:
+    graphs.track(_c)
+# the cards' views count from one thread each under a ThreadGroup
+_COUNTING = threading.Lock()
 
 # the sharded solves run in float64 (the JAX package's distributed path)
 DTYPE = torch.float64
@@ -84,6 +101,15 @@ class ShardMesh:
     @property
     def nd(self):
         return len(self.dev_shape)
+
+    @property
+    def one_per_card(self):
+        """True when one process holds every shard, each on its own CUDA
+        card: the mesh the cards' device loop takes (CardMesh views over a
+        kernels.peer group), where every pair of cards has peer access."""
+        return (self.world == 1 and self.ndev > 1
+                and len(self.distinct) == self.ndev
+                and all(d.type == "cuda" for d in self.distinct))
 
     @property
     def capturable(self):
@@ -233,7 +259,8 @@ class ShardMesh:
 
 def halo_add_axes(mesh, grid_list, d):
     """halo_add_axis of several ShardVecs along one axis d in one exchange
-    (one message per peer process for all of them); in place, returns
+    (one message per peer process for all of them; one peer kernel on a
+    CardMesh, which adds in the order of the moves); in place, returns
     grid_list."""
     if mesh.dev_shape[d] == 1:
         return grid_list
@@ -244,6 +271,10 @@ def halo_add_axes(mesh, grid_list, d):
     for g in grid_list:
         for lo, hi in mesh.pairs(d):
             moves += [(g, lo, hi, top), (g, hi, lo, bottom)]
+    if isinstance(mesh, CardMesh):
+        mesh.exchange_add(moves, lambda g, src, dst: (
+            bottom if dst > src else top)(mesh.part(g, dst)), f"axis {d}")
+        return grid_list
     got = mesh.exchange(moves)
     for (g, src, dst, _), plane in zip(moves, got):
         if plane is not None:
@@ -283,6 +314,57 @@ def ghost_extend_axis(mesh, grids, d):
     return ShardVec(out)
 
 
+def ghost_extend(mesh, grids):
+    """ghost_extend_axis along every grid axis, the last first, so that a
+    later axis's ghost planes carry the earlier ones' ghosts (the corners
+    and edges: a diagonal neighbour's values, zeros where there is none).
+    On a CardMesh one peer exchange brings every ghost at once, each from
+    the neighbour whose values the sequence would have put there
+    (CardMesh.ghost_extend): the same bits, half the exchanges over a
+    2 x 2 grid."""
+    if isinstance(mesh, CardMesh):
+        return mesh.ghost_extend(grids)
+    for d in reversed(range(mesh.nd)):
+        grids = ghost_extend_axis(mesh, grids, d)
+    return grids
+
+
+def ghost_moves(mesh):
+    """The moves of a ghost extension along every grid axis at once, in
+    the order every card lists them: (src, dst, offset), src the shard at
+    dst's box + offset (an offset per grid axis in {-1, 0, 1}, not all 0)
+    wherever that box exists."""
+    nd = mesh.nd
+    offsets = [o for o in np.ndindex(*(3,) * nd) if any(c != 1 for c in o)]
+    moves = []
+    for dst in range(mesh.ndev):
+        for o in offsets:
+            box = tuple(b + c - 1 for b, c in zip(mesh.boxes[dst], o))
+            src = mesh._index.get(box)
+            if src is not None:
+                moves.append((src, dst, tuple(c - 1 for c in o)))
+    return moves
+
+
+def ghost_regions(nd, offset, shape):
+    """(the source's region of its raw grid, the destination's region of
+    its extended grid) of a ghost move at `offset` (per grid axis, the
+    source's box less the destination's), as index tuples over the array
+    dims (grid axis d is array dim nd-1-d; trailing dims whole): along an
+    axis where the source lies below, its plane m-1 (its [-2]) into the
+    lower ghost; above, its plane 1 into the upper ghost; level, the whole
+    extent into the interior."""
+    src, dst = [], []
+    for k in range(nd):
+        c = offset[nd - 1 - k]
+        n = shape[k]
+        src.append(slice(n - 2, n - 1) if c < 0 else slice(1, 2) if c > 0
+                   else slice(None))
+        dst.append(slice(0, 1) if c < 0 else slice(n + 1, n + 2) if c > 0
+                   else slice(1, n + 1))
+    return tuple(src), tuple(dst)
+
+
 def owned_weight(mesh, i, shape, axes=None):
     """Ownership weight of global shard i for a local grid of `shape`
     (reversed spatial dims first; trailing dims broadcast): plane 0 along
@@ -297,3 +379,126 @@ def owned_weight(mesh, i, shape, axes=None):
             idx[nd - 1 - d] = 0
             w[tuple(idx)] = 0.0
     return w
+
+
+class CardMesh(ShardMesh):
+    """Card i's view of a ShardMesh whose shards sit one per CUDA card of
+    one process (ShardMesh.one_per_card), or one per thread of a
+    peer.ThreadGroup on the CPU: a mesh of the one shard i on its device
+    (world 1, so capturable on CUDA), whose collectives meet the other
+    cards' in the peer `group` (card c of the group is shard c):
+
+      psum        every card's partial, folded in global shard order
+                  (peer FOLD): ShardMesh.psum's bits on every card;
+      all_parts   every shard's part on this card (peer COPY): the L-2
+                  gather, summed by the caller in shard order;
+      exchange    the planes moved into this shard (peer COPY; the ghost
+                  planes of ghost_extend_axis);
+      ghost_extend  every axis's ghosts in one peer COPY (ghost_extend);
+      exchange_add  the planes added into this shard's in the order of the
+                  moves (peer ADD; halo_add_axes).
+
+    Every card lists the same moves; each sender packs its planes in that
+    order (peer.plan), every shard's parts having the same shape. Each
+    collective is a device span of `trace` ("psum" for the reductions,
+    "halo" for the exchanges) and is counted in peer.COUNTERS. In a warm-up
+    run before a capture (group.rehearsal()) it meets no peer: FOLD and
+    COPY give zeros and nothing is launched or counted."""
+
+    def __init__(self, mesh, i, group, trace=None):
+        self.dev_shape, self.ndev = mesh.dev_shape, mesh.ndev
+        self.shards, self.rank, self.world = (i,), 0, 1
+        self.devices = self.distinct = (mesh.devices[i],)
+        self.boxes, self._index = mesh.boxes, mesh._index
+        self.traffic = dict.fromkeys(mesh.traffic, 0)
+        self.index, self.group, self.trace = i, group, trace
+
+    def _collective(self, kind, what, mode, outs, ins):
+        if self.group.rehearsal():
+            for t, _, _ in ins:
+                if mode != peer.ADD:
+                    t.zero_()
+            return
+        with span(self.trace, "halo" if kind == "halo" else "psum"):
+            self.group.collective(self.index, what, mode, outs, ins)
+        with _COUNTING:
+            if kind == "halo":
+                peer.HALOS.n += 1
+            else:
+                peer.PSUMS.n += 1
+                if kind == "psum":
+                    peer.PSUM_VALUES.n += outs[0][0].numel()
+
+    def psum(self, partials):
+        p = partials.parts[0]
+        out = torch.empty_like(p, memory_format=torch.contiguous_format)
+        self._collective("psum", f"psum of {p.numel()}", peer.FOLD,
+                         [(p, 0)], [(out, None, 0)])
+        return ShardVec([out])
+
+    def all_parts(self, sv, device=None):
+        p = sv.parts[0]
+        if device is not None and torch.device(device) != self.devices[0]:
+            raise ValueError(f"a card's view gathers onto its own card "
+                             f"{self.devices[0]}, not {device}")
+        got = [p if c == self.index else
+               torch.empty_like(p, memory_format=torch.contiguous_format)
+               for c in range(self.ndev)]
+        self._collective("gather", f"gather of {p.numel()}", peer.COPY,
+                         [(p, 0)], [(t, c, 0) for c, t in enumerate(got)
+                                    if c != self.index])
+        return got
+
+    def _moves(self, moves):
+        """(outs, the moves into this shard with their senders' offsets)."""
+        me = self.index
+        planes = [take(self.part(g, me)) for g, _, _, take in moves]
+        offs = peer.plan([(src, t.numel()) for (_, src, _, _), t in
+                          zip(moves, planes)])
+        outs = [(t, off) for (_, src, _, _), t, off in
+                zip(moves, planes, offs) if src == me]
+        into = [(n, m, off) for n, (m, off) in enumerate(zip(moves, offs))
+                if m[2] == me]
+        return outs, into, planes
+
+    def exchange(self, moves):
+        out = [None] * len(moves)
+        if not moves:
+            return out
+        outs, into, planes = self._moves(moves)
+        ins = []
+        for n, (_, src, _, _), off in into:
+            out[n] = torch.empty_like(planes[n],
+                                      memory_format=torch.contiguous_format)
+            ins.append((out[n], src, off))
+        self._collective("halo", "ghost", peer.COPY, outs, ins)
+        return out
+
+    def ghost_extend(self, grids):
+        """ghost_extend(self, grids) in one peer exchange (COPY): the
+        extended grid zeroed, this shard's grid copied into its interior,
+        then every neighbour's ghost values (ghost_moves, ghost_regions)
+        copied into their places."""
+        nd, me = self.nd, self.index
+        a = grids.parts[0]
+        out = torch.zeros(tuple(n + 2 for n in a.shape[:nd]) + a.shape[nd:],
+                          dtype=a.dtype, device=a.device)
+        out[tuple(slice(1, n + 1) for n in a.shape[:nd])].copy_(a)
+        moves = ghost_moves(self)
+        if moves:
+            regions = [ghost_regions(nd, o, a.shape) for _, _, o in moves]
+            offs = peer.plan([(src, a[r[0]].numel()) for (src, _, _), r in
+                              zip(moves, regions)])
+            outs = [(a[r[0]], off) for (src, _, _), r, off in
+                    zip(moves, regions, offs) if src == me]
+            ins = [(out[r[1]], src, off) for (src, dst, _), r, off in
+                   zip(moves, regions, offs) if dst == me]
+            self._collective("halo", "ghost", peer.COPY, outs, ins)
+        return ShardVec([out])
+
+    def exchange_add(self, moves, put, what="halo"):
+        """Each move into this shard adds its plane into put(grids, src,
+        dst) (a view of this shard's part), in the order of the moves."""
+        outs, into, _ = self._moves(moves)
+        ins = [(put(m[0], m[1], m[2]), m[1], off) for _, m, off in into]
+        self._collective("halo", f"halo {what}", peer.ADD, outs, ins)

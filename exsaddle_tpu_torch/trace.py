@@ -209,22 +209,24 @@ class Trace:
         stream = torch.cuda.current_stream(self.device)
         stream.synchronize()
         best = None
-        for _ in range(CAL_ROUNDS):
-            t0 = time.perf_counter_ns()
-            _check(lib, "trace_now", lib.trace_now(
-                _V(self._now.data_ptr()), _V(stream.cuda_stream)))
-            stream.synchronize()
-            t1 = time.perf_counter_ns()
-            g = int(self._now[0])
-            if best is None or t1 - t0 < best[0]:
-                best = (t1 - t0, g - (t0 + t1) // 2, g)
+        with torch.cuda.device(self.device):
+            for _ in range(CAL_ROUNDS):
+                t0 = time.perf_counter_ns()
+                _check(lib, "trace_now", lib.trace_now(
+                    _V(self._now.data_ptr()), _V(stream.cuda_stream)))
+                stream.synchronize()
+                t1 = time.perf_counter_ns()
+                g = int(self._now[0])
+                if best is None or t1 - t0 < best[0]:
+                    best = (t1 - t0, g - (t0 + t1) // 2, g)
         return {"offset_ns": best[1], "error_ns": best[0] / 2,
                 "at_ns": best[2]}
 
     def _timer_step(self):
         lib = _lib()
-        _check(lib, "trace_timer_step", lib.trace_timer_step(
-            _V(self._now.data_ptr()), TIMER_READS, _V(self._stream())))
+        with torch.cuda.device(self.device):
+            _check(lib, "trace_timer_step", lib.trace_timer_step(
+                _V(self._now.data_ptr()), TIMER_READS, _V(self._stream())))
         least, changes, span_ns = self._now.tolist()
         return {"least_ns": least,
                 "mean_ns": span_ns / changes if changes else None}

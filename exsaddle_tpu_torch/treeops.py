@@ -214,6 +214,13 @@ def make_dots(weight=None, psum=None):
     return dot, bdots
 
 
+def _masked(h, mask):
+    """h (dots, or a ShardVec of them) times the window mask, formed on
+    each part's own device: the sharded parts may sit on several cards
+    while the mask is made on the first one's."""
+    return smap(lambda t: t * mask.to(t.device, t.dtype), h)
+
+
 def _safe(a):
     """a, with exact zeros replaced by 1 (a divisor that never branches)."""
     return torch.where(a == 0.0, torch.ones_like(a), a)
@@ -363,7 +370,7 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
             s = pc_apply(r)
             v = mult(s)
             if window:
-                beta = bdots(V, v) * (ar < nv).to(v.dtype)
+                beta = _masked(bdots(V, v), ar < nv)
                 v = v - beta @ V
                 s = s - beta @ S
             elif nv > 0:
@@ -473,7 +480,7 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
             w = mult(z)
             Z[it] = z
             if window:
-                h_t = bdots(V, w) * (ar <= it).to(w.dtype)
+                h_t = _masked(bdots(V, w), ar <= it)
                 w = w - h_t @ V
                 h_t = h_t[: it + 1]
             else:
