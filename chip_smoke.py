@@ -316,9 +316,12 @@ after the kernels line):
               over a kernels.peer.CudaGroup -- FOLD (psums of 1 and 31
               values), COPY (the L-2 gather, the L-2 ghost extension of
               every axis at once), ADD (halo_add_axes of the Q2 node grid
-              along each split axis) -- bitwise the one-card ShardMesh
-              psum / all_parts / ghost_extend_axis / halo_add_axes on the
-              same inputs. Each mode's device time per collective (100 of
+              along each split axis; K1's 8 Q2 parity classes and the
+              pressure grid over every split axis as one ADD,
+              halo_add_every_axis, beside the per-axis ADDs it replaces)
+              -- bitwise the one-card ShardMesh psum / all_parts /
+              ghost_extend_axis / halo_add_axes on the same inputs. Each
+              mode's device time per collective or halo (100 of
               it captured in one CUDA graph per card, the graphs launched
               back to back, CUDA events on every card; the slowest card)
               beside its bound (the bytes a card reads from its peers at
@@ -326,7 +329,8 @@ after the kernels line):
               group's wait counter). Then the main path on those cards:
               pseudoice at mx=8, CartABFSolver's default loop (one
               conditional graph per card), the peer counters zeroed just
-              before one solve, its peer launches read after it.
+              before one solve, its peer launches read after it (each
+              halo one exchange where two or more axes are split).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -455,6 +459,79 @@ def _on_every_card(views, fn, reps=1, time_it=False):
             max(y - x for x, y in zip(w0, w1)) / reps)
 
 
+def _peer_merged(one, views, grid, rng, forms, reps, on_cards, same):
+    """Phase peer's merged halos: K1's (the mx=32 shard's 8 Q2 parity
+    classes, each along the split axes where its bit is even) and the
+    pressure grid's, each as one ADD over every split axis
+    (halo_add_every_axis) beside the per-axis ADDs it replaces, bitwise
+    the one-card sequence; skipped with one split axis, where the halo is
+    one exchange either way."""
+    from exsaddle_tpu_torch.parallel import shard_mesh
+    from exsaddle_tpu_torch.treeops import ShardVec
+    split = [d for d in range(3) if grid[d] > 1]
+    if len(split) < 2:
+        log(f"[peer] merged halos: one split axis on grid {grid}, nothing "
+            f"to merge")
+        return
+    n, mloc = len(views), [32 // g for g in grid]
+    classes = [tuple(m + 1 - ((p >> d) & 1) for d, m in
+                     reversed(list(enumerate(mloc)))) + (3,)
+               for p in range(8)]
+    kinds = {"halo_u": (classes, lambda gs: [
+                 [g for p, g in enumerate(gs) if not (p >> d) & 1]
+                 for d in range(3)]),
+             "halo_p": ([tuple(m + 1 for m in reversed(mloc))],
+                        lambda gs: [list(gs)] * 3)}
+    for name, (shapes, lists) in kinds.items():
+        arrays = [[rng.standard_normal(s) for _ in range(n)] for s in shapes]
+        want = [one.shard(a) for a in arrays]
+        for d, grids in enumerate(lists(want)):
+            shard_mesh.halo_add_axes(one, grids, d)
+        # card 0's reads from its peers: a plane of each grid per split
+        # axis it is listed on, and, merged, the diagonal's edge line of
+        # each grid listed on both
+        idx = list(range(len(shapes)))
+        on = [[d for d in split if i in lists(idx)[d]] for i in idx]
+        pair = 8 * sum(int(np.prod(s)) // s[2 - d]
+                       for s, ds in zip(shapes, on) for d in ds)
+        edge = 8 * sum(int(np.prod(s)) // int(np.prod([s[2 - d]
+                                                        for d in split]))
+                       for s, ds in zip(shapes, on) if len(ds) == len(split))
+        runs = {
+            "merged": (lambda v, gs: shard_mesh.halo_add_every_axis(
+                v, lists(gs)), pair + edge),
+            "pair": (lambda v, gs: [shard_mesh.halo_add_axes(v, l, d)
+                                    for d, l in enumerate(lists(gs))
+                                    if d in split], pair)}
+        for form, (fn, nbytes) in runs.items():
+            fresh = [on_cards(a) for a in arrays]
+
+            def call(v, fn=fn, fresh=fresh):
+                gs = [ShardVec([f[v.index]]) for f in fresh]
+                fn(v, gs)
+                return [g.parts[0] for g in gs]
+            got, _, _ = _on_every_card(views, call)
+            check(all(same([w.parts[i] for w in want], got[i])
+                       for i in range(n)),
+                  f"peer {name} {form}: the cards differ from the one-card "
+                  f"mesh")
+            acc = [on_cards(a) for a in arrays]
+            _, ms, wait = _on_every_card(
+                views, lambda v, fn=fn, acc=acc: fn(
+                    v, [ShardVec([a[v.index]]) for a in acc]),
+                reps, time_it=True)
+            share = wait / (1e-3 * ms)
+            forms[f"add_{name}_{form}"] = {
+                "us": 1e3 * ms, "bound_us": 1e6 * nbytes / 450e9,
+                "wait_share": share, "bytes": nbytes, "bitwise": True}
+            how = "one ADD" if form == "merged" else f"{len(split)} ADDs"
+            log(f"[peer] {name} {form} ({how} over axes {split}): "
+                f"{1e3 * ms:.2f} us a halo on the "
+                f"slowest card, {100 * share:.1f}% of it in its waits; "
+                f"bound {1e6 * nbytes / 450e9:.4f} us ({nbytes} B from its "
+                f"peers at 450 GB/s); bitwise the one-card sequence")
+
+
 def phase_peer(card):
     """Phase peer (module docstring, 14): the kernels line's entry for
     peer_collective, its fields null where fewer than 2 cards with peer
@@ -552,6 +629,7 @@ def phase_peer(card):
             f"slowest card, {100 * share:.1f}% of it in its waits; "
             f"bound {1e6 * nbytes / 450e9:.4f} us ({nbytes} B from its "
             f"peer at 450 GB/s); bitwise the one-card mesh")
+    _peer_merged(one, views, grid, rng, forms, reps, on_cards, same)
     # the main path on these cards: one solve's peer launches
     opts = Options.from_args(["-model", "11", "-size_x", "0.1"])
     ctx = emodels.ModelContext(opts, 3, log=lambda *a, **k: None)
@@ -577,10 +655,18 @@ def phase_peer(card):
     per_card = [a + b for a, b in zip(col["psums"], col["halo_exchanges"])]
     check(launches == sum(per_card) and len(set(per_card)) == 1,
           f"peer: {launches} launches counted, {per_card} by card")
+    halos = col["halo_u"][0] + col["halo_p"][0] + col["halo_r"][0]
+    merged = halos if sum(g > 1 for g in grid) > 1 else 0
+    check(col["merged_halos"] == [merged] * n
+          and col["halo_exchanges"] == [halos + col["ghosts"][0]] * n,
+          f"peer: {col['merged_halos']} merged halos and "
+          f"{col['halo_exchanges']} exchanges by card for {halos} halos "
+          f"and {col['ghosts'][0]} ghost extensions")
     log(f"[peer] main path, pseudoice mx=8 on {n} cards ({r['its']} its): "
         f"{launches} peer launches in one solve, {per_card[0]} a card "
         f"({col['psums'][0]} psums and gathers, {col['halo_exchanges'][0]} "
-        f"halo and ghost exchanges)")
+        f"halo and ghost exchanges, {col['merged_halos'][0]} of them halos "
+        f"over every split axis at once)")
     entry.update(cards=n, launches=launches, cart_launches=per_card[0],
                  forms=forms)
     return entry

@@ -26,11 +26,23 @@
 //      (volatile local loads, then an acquire at system scope), for at
 //      most the group's timeout;
 //   4. apply: read the peers' slots (ld.global.cv, nothing cached) and
-//      add them into the card's planes (mode ADD, the halo's adds in the
-//      order of the moves), copy them out (COPY: ghost planes, gathered
-//      slabs), or fold every card's partial in global card order (FOLD:
-//      s = p0; s = s + p1; ...), which is ShardMesh.psum's fold, so every
-//      card gets the same bits, and the one-card psum's.
+//      add them into the card's planes (mode ADD), copy them out (COPY:
+//      ghost planes, gathered slabs), or fold every card's partial in
+//      global card order (FOLD: s = p0; s = s + p1; ...), which is
+//      ShardMesh.psum's fold, so every card gets the same bits, and the
+//      one-card psum's.
+//
+// A destination view takes its values from sources: a peer, an offset in
+// that peer's slot and strides laid over the view's index space (a
+// source may be a strided part of a plane the peer packed). COPY and
+// FOLD read one source, ADD 1, 3 or 7. ADD sums the destination's own
+// value and its sources pairwise, the source list ordered as the leaves
+// of the tree (v0 + v1) + (v2 + v3), ... with v0 the own value: the
+// one-card mesh's halo over k split axes in axis order, each axis adding
+// the neighbour's value after the earlier axes (the edge of two
+// interface planes takes (own + y) + (z + diagonal), the diagonal card's
+// value read from the plane it packed for its own neighbour). The
+// destinations of one launch must not overlap.
 //
 // Slot reuse: a card reads a peer's slot of epoch e only after that peer
 // posted e, and within its own epoch-e launch. The peer writes that slot
@@ -55,11 +67,15 @@
 #include <cuda_runtime.h>
 
 #define PEER_MAX_CARDS 8
-#define PEER_MAX_ITEMS 16
+#define PEER_MAX_OUT 16    // packed views per launch
+#define PEER_MAX_IN 24     // destination views per launch
+#define PEER_MAX_SRC 48    // their sources, over all destinations
+#define PEER_MAX_TERMS 8   // an ADD sums its own value and up to 7 sources
 #define PEER_THREADS 256
 #define PEER_SLOTS 4
 
-// A launch's parameters, passed by value (__grid_constant__). They sit
+// A launch's parameters, passed by value (__grid_constant__) within the
+// classic 4 KB kernel parameter limit (static_assert below). They sit
 // outside the anonymous namespace: the C entry takes them, and a function
 // of a type with internal linkage would not be exported.
 
@@ -69,6 +85,14 @@ struct PeerView {
   int n;
   int ndim;
   int size[4];
+  int stride[4];
+};
+
+// where a destination's values come from: card `card`'s slot, at `off`
+// plus the destination's index (its view's dims) times `stride`
+struct PeerSrc {
+  int card;
+  int off;
   int stride[4];
 };
 
@@ -86,12 +110,16 @@ struct PeerParams {
   int ncards, me, site, mode;
   int waits;                     // bit c: wait for card c's post
   int nout, nin;
-  PeerView out[PEER_MAX_ITEMS];  // outgoing values, packed in order
-  long long out_off[PEER_MAX_ITEMS];
-  PeerView in[PEER_MAX_ITEMS];   // where incoming values go
-  long long in_off[PEER_MAX_ITEMS];
-  int in_card[PEER_MAX_ITEMS];
+  PeerView out[PEER_MAX_OUT];    // outgoing values, packed in order
+  int out_off[PEER_MAX_OUT];
+  PeerView in[PEER_MAX_IN];      // where incoming values go
+  int in_src[PEER_MAX_IN];       // each destination's first source
+  int in_nsrc[PEER_MAX_IN];      // and their count
+  PeerSrc src[PEER_MAX_SRC];
 };
+
+static_assert(sizeof(PeerParams) <= 4096,
+              "PeerParams exceeds the classic 4 KB kernel parameter limit");
 
 namespace {
 
@@ -111,6 +139,28 @@ __device__ __forceinline__ long long view_off(const PeerView& v,
     off += (j % s) * v.stride[d];
     j /= s;
   }
+  return off;
+}
+
+// the index (row-major over the view's dims) of flat index j
+__device__ __forceinline__ void view_index(const PeerView& v, long long j,
+                                           int* idx) {
+#pragma unroll
+  for (int d = 3; d >= 0; --d) {
+    idx[d] = 0;
+    if (d < v.ndim) {
+      idx[d] = (int)(j % v.size[d]);
+      j /= v.size[d];
+    }
+  }
+}
+
+__device__ __forceinline__ long long index_off(const int* idx,
+                                               const int* stride, int ndim) {
+  long long off = 0;
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    if (d < ndim) off += (long long)idx[d] * stride[d];
   return off;
 }
 
@@ -220,13 +270,14 @@ __global__ void __launch_bounds__(PEER_THREADS)
   // 4. apply
   if (P.mode == MODE_FOLD) {
     const PeerView& d = P.in[0];
+    const long long off = P.src[P.in_src[0]].off;
     for (long long j = g0; j < d.n; j += gs) {
       double s = 0.0;
       if (!s_abort) {
         for (int c = 0; c < P.ncards; ++c) {
           const double v =
               c == P.me ? P.out[0].ptr[view_off(P.out[0], j)]
-                        : __ldcv(P.send[c] + slot + P.in_off[0] + j);
+                        : __ldcv(P.send[c] + slot + off + j);
           s = c == 0 ? v : __dadd_rn(s, v);
         }
       }
@@ -240,13 +291,35 @@ __global__ void __launch_bounds__(PEER_THREADS)
   for (long long t = g0; t < total; t += gs) {
     long long j = t;
     const int i = find_item(P.in, P.nin, &j);
-    double* dst = P.in[i].ptr + view_off(P.in[i], j);
+    const PeerView& d = P.in[i];
+    int idx[4];
+    view_index(d, j, idx);
+    double* dst = d.ptr + index_off(idx, d.stride, d.ndim);
     if (s_abort) {
       *dst = 0.0;
-    } else {
-      const double v = __ldcv(P.send[P.in_card[i]] + slot + P.in_off[i] + j);
-      *dst = P.mode == MODE_ADD ? __dadd_rn(*dst, v) : v;
+      continue;
     }
+    const PeerSrc* S = P.src + P.in_src[i];
+    if (P.mode == MODE_COPY) {
+      *dst = __ldcv(P.send[S[0].card] + slot + S[0].off +
+                    index_off(idx, S[0].stride, d.ndim));
+      continue;
+    }
+    // ADD: the own value and the sources, summed pairwise in leaf order
+    const int n = P.in_nsrc[i];
+    double v[PEER_MAX_TERMS];
+    v[0] = *dst;
+#pragma unroll
+    for (int q = 1; q < PEER_MAX_TERMS; ++q)
+      v[q] = q <= n ? __ldcv(P.send[S[q - 1].card] + slot + S[q - 1].off +
+                             index_off(idx, S[q - 1].stride, d.ndim))
+                    : 0.0;
+#pragma unroll
+    for (int w = 1; w < PEER_MAX_TERMS; w *= 2)
+#pragma unroll
+      for (int q = 0; q + w < PEER_MAX_TERMS; q += 2 * w)
+        if (q + w <= n) v[q] = __dadd_rn(v[q], v[q + w]);
+    *dst = v[0];
   }
 }
 

@@ -12,9 +12,17 @@ the same epoch (at most TIMEOUT_S), then reads what it needs from those
 cards' slots and adds it into its planes (ADD), copies it out (COPY) or
 folds every card's partial in global card order (FOLD). A psum and a
 gather read from every peer; a halo or ghost exchange only from the
-neighbours whose planes it takes, so the cards meet pairwise there and a
-card runs at most SLOTS - 1 collectives ahead of the slowest. The source
-states why a slot is never overwritten before every peer read it.
+cards whose planes it takes, so a card runs at most SLOTS - 1
+collectives ahead of the slowest. The source states why a slot is never
+overwritten before every peer read it.
+
+A collective's `ins` are destinations (dst, sources), each source (card,
+offset in its slot, strides over dst's dims or None: packed in dst's
+order). COPY and FOLD take one source per destination; ADD 1, 3 or 7,
+summed with dst's own value pairwise in the order listed ((dst + s0) +
+(s1 + s2) for 3): a halo over every split axis at once gives the
+axis-by-axis sequence's bits that way (parallel/shard_mesh.py
+CardMesh.halo_add_merged).
 
 Two groups share that protocol:
   CudaGroup    distinct CUDA cards with peer access between every pair:
@@ -48,7 +56,9 @@ from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels._build import Launches
 
 MAX_CARDS = 8
-MAX_ITEMS = 16
+# per collective: packed views, destinations and their sources (an ADD
+# destination sums its own value and 1, 3 or 7 sources)
+MAX_OUT, MAX_IN, MAX_SOURCES = 16, 24, 48
 THREADS = 256
 MAX_BLOCKS = 32
 SLOTS = 4
@@ -57,12 +67,14 @@ TIMEOUT_S = 10.0
 ADD, COPY, FOLD = 0, 1, 2
 
 # per card: cross-card reductions (psums and the L-2 gather) and halo and
-# ghost exchanges issued, and the values the psums reduce (Sigma of the
-# partials' lengths)
+# ghost exchanges issued, the values the psums reduce (Sigma of the
+# partials' lengths), and the halos among those exchanges done as one
+# collective over two or more axes
 PSUMS = Launches()
 HALOS = Launches()
 PSUM_VALUES = Launches()
-COUNTERS = (PSUMS, HALOS, PSUM_VALUES)
+MERGED_HALOS = Launches()
+COUNTERS = (PSUMS, HALOS, PSUM_VALUES, MERGED_HALOS)
 
 
 def slot_of(epoch):
@@ -72,13 +84,26 @@ def slot_of(epoch):
 
 def waits_of(card, n, mode, ins):
     """The cards a collective on `card` waits for (a bit mask): every peer
-    for FOLD, else the cards its moves come from."""
+    for FOLD, else the cards its destinations' sources come from."""
     if mode == FOLD:
         return ((1 << n) - 1) & ~(1 << card)
     mask = 0
-    for _, c, _ in ins:
-        mask |= 1 << c
+    for _, srcs in ins:
+        for c, _, _ in srcs:
+            mask |= 1 << c
     return mask
+
+
+def source_strides(dst, strides):
+    """A source's strides over the dims of dst (strides None: packed in
+    dst's row-major order)."""
+    if strides is not None:
+        return list(strides)
+    out, step = [], 1
+    for s in reversed(dst.shape):
+        out.append(step)
+        step *= s
+    return out[::-1]
 
 
 def plan(sizes):
@@ -117,6 +142,9 @@ class _Group:
             raise ValueError(f"a peer group holds 2 to {MAX_CARDS} cards, "
                              f"not {self.n}")
         self.capacity = int(capacity)
+        if not 0 < self.capacity < 2 ** 31:
+            raise ValueError(f"a send slot holds 1 to 2**31 - 1 values, not "
+                             f"{self.capacity}")
         self.timeout_s = TIMEOUT_S
         self.sites = []
         self.rehearse = False
@@ -125,14 +153,22 @@ class _Group:
         self.sites.append((card, what))
         return len(self.sites) - 1
 
-    def _check_items(self, outs, ins):
-        if len(outs) > MAX_ITEMS or len(ins) > MAX_ITEMS:
-            raise ValueError(f"a collective moves at most {MAX_ITEMS} items "
-                             f"each way, not {len(outs)} / {len(ins)}")
+    def _check_items(self, mode, outs, ins):
+        nsrc = sum(len(srcs) for _, srcs in ins)
+        if (len(outs) > MAX_OUT or len(ins) > MAX_IN
+                or nsrc > MAX_SOURCES):
+            raise ValueError(f"a collective packs at most {MAX_OUT} views "
+                             f"and fills {MAX_IN} from {MAX_SOURCES} "
+                             f"sources, not {len(outs)}, {len(ins)} and "
+                             f"{nsrc}")
+        counts = (1, 3, 7) if mode == ADD else (1,)
+        if any(len(srcs) not in counts for _, srcs in ins):
+            raise ValueError(f"a destination of mode {mode} takes "
+                             f"{' or '.join(map(str, counts))} sources")
         if sum(t.numel() for t, _ in outs) > self.capacity:
             raise ValueError(f"outgoing values exceed the slot's "
                              f"{self.capacity}")
-        for t in [t for t, _ in outs] + [t for t, _, _ in ins]:
+        for t in [t for t, _ in outs] + [t for t, _ in ins]:
             if t.dtype != torch.float64:
                 raise TypeError(f"peer collectives move float64, not "
                                 f"{t.dtype}")
@@ -193,9 +229,9 @@ class CudaGroup(_Group):
     def collective(self, card, what, mode, outs, ins):
         """One collective on `card` (an index into devices), on its current
         stream: outs [(tensor, offset in the slot)], ins [(destination,
-        source card, offset in its slot)] (FOLD: one destination, source
-        None)."""
-        self._check_items(outs, ins)
+        [(source card, offset in its slot, strides or None)])] (FOLD: one
+        destination, one source of card None)."""
+        self._check_items(mode, outs, ins)
         site = self._site(card, what)
         p = _Params()
         st = self.state[card]
@@ -208,15 +244,8 @@ class CudaGroup(_Group):
         p.cap, p.ncards, p.me, p.site, p.mode = (self.capacity, self.n, card,
                                                  site, mode)
         p.waits = waits_of(card, self.n, mode, ins)
-        p.nout, p.nin = len(outs), len(ins)
-        for k, (t, off) in enumerate(outs):
-            _fill(p.out[k], t)
-            p.out_off[k] = off
-        for k, (t, c, off) in enumerate(ins):
-            _fill(p.in_[k], t)
-            p.in_off[k] = off
-            p.in_card[k] = -1 if c is None else c
-        most = max([t.numel() for t, _ in outs] + [sum(t.numel() for t, _, _
+        fill_items(p, outs, ins)
+        most = max([t.numel() for t, _ in outs] + [sum(t.numel() for t, _
                                                        in ins)] + [1])
         blocks = max(1, min(MAX_BLOCKS, -(-most // (4 * THREADS))))
         dev = self.devices[card]
@@ -290,7 +319,7 @@ class ThreadGroup(_Group):
 
     def collective(self, card, what, mode, outs, ins):
         """As CudaGroup.collective, card being the calling thread's."""
-        self._check_items(outs, ins)
+        self._check_items(mode, outs, ins)
         with self.cond:
             site = self._site(card, what)
         e = self.epoch[card] + 1
@@ -314,25 +343,29 @@ class ThreadGroup(_Group):
                 abort = not self._wait(card, [c for c in others
                                               if (waits >> c) & 1], e, site, e)
 
-        def src(c, off, like):
-            return self.send[c][base + off:base + off + like.numel()].view(
-                like.shape)
+        def src(c, off, strides, like):
+            return self.send[c].as_strided(
+                like.shape, source_strides(like, strides), base + off)
         if mode == FOLD:
-            dst, _, off = ins[0]
+            dst, [(_, off, strides)] = ins[0]
             if abort:
                 dst.zero_()
             else:
                 dst.copy_(fold([outs[0][0] if c == card else
-                                src(c, off, dst) for c in range(self.n)]))
+                                src(c, off, strides, dst)
+                                for c in range(self.n)]))
             return
-        for dst, c, off in ins:
+        for dst, srcs in ins:
             if abort:
                 if mode == COPY:
                     dst.zero_()
-            elif mode == ADD:
-                dst.add_(src(c, off, dst))
+            elif mode == COPY:
+                dst.copy_(src(*srcs[0], dst))
             else:
-                dst.copy_(src(c, off, dst))
+                terms = [dst.clone()] + [src(*s, dst) for s in srcs]
+                while len(terms) > 1:
+                    terms = [a + b for a, b in zip(terms[::2], terms[1::2])]
+                dst.copy_(terms[0])
 
 
 # --- the C interface ---------------------------------------------------------
@@ -345,6 +378,11 @@ class _View(ctypes.Structure):
                 ("size", ctypes.c_int * 4), ("stride", ctypes.c_int * 4)]
 
 
+class _Src(ctypes.Structure):
+    _fields_ = [("card", ctypes.c_int), ("off", ctypes.c_int),
+                ("stride", ctypes.c_int * 4)]
+
+
 class _Params(ctypes.Structure):
     _fields_ = [("epoch", _V), ("mail", _V),
                 ("peer_mail", _V * MAX_CARDS), ("send", _V * MAX_CARDS),
@@ -354,11 +392,12 @@ class _Params(ctypes.Structure):
                 ("site", ctypes.c_int), ("mode", ctypes.c_int),
                 ("waits", ctypes.c_int),
                 ("nout", ctypes.c_int), ("nin", ctypes.c_int),
-                ("out", _View * MAX_ITEMS),
-                ("out_off", ctypes.c_longlong * MAX_ITEMS),
-                ("in_", _View * MAX_ITEMS),
-                ("in_off", ctypes.c_longlong * MAX_ITEMS),
-                ("in_card", ctypes.c_int * MAX_ITEMS)]
+                ("out", _View * MAX_OUT),
+                ("out_off", ctypes.c_int * MAX_OUT),
+                ("in_", _View * MAX_IN),
+                ("in_src", ctypes.c_int * MAX_IN),
+                ("in_nsrc", ctypes.c_int * MAX_IN),
+                ("src", _Src * MAX_SOURCES)]
 
 
 def view_dims(t):
@@ -378,6 +417,28 @@ def _fill(v, t):
     v.ptr, v.n, v.ndim = t.data_ptr(), t.numel(), len(sizes)
     for k, (s, st) in enumerate(zip(sizes, strides)):
         v.size[k], v.stride[k] = s, st
+
+
+def fill_items(p, outs, ins):
+    """A collective's views and sources into its _Params `p`: each view
+    and each source's strides over the view's dims without its unit dims
+    (view_dims), as the kernel indexes them."""
+    p.nout, p.nin = len(outs), len(ins)
+    for k, (t, off) in enumerate(outs):
+        _fill(p.out[k], t)
+        p.out_off[k] = off
+    ns = 0
+    for k, (t, srcs) in enumerate(ins):
+        _fill(p.in_[k], t)
+        p.in_src[k], p.in_nsrc[k] = ns, len(srcs)
+        for c, off, strides in srcs:
+            src = p.src[ns]
+            src.card, src.off = -1 if c is None else c, off
+            kept = [x for x, s in zip(source_strides(t, strides), t.shape)
+                    if s != 1] or [1]
+            for d, x in enumerate(kept):
+                src.stride[d] = x
+            ns += 1
 
 
 _bound = False

@@ -52,9 +52,8 @@ from exsaddle_tpu_torch.matfree import (ParityMatFreeOperator, mult_tree,
                                         strain_factors, tree_aux)
 from exsaddle_tpu_torch.parallel.cart import ghost_ring_coefficients
 from exsaddle_tpu_torch.parallel.shard_mesh import (DTYPE, CardMesh,
-                                                    ghost_extend,
-                                                    halo_add_axes,
-                                                    halo_add_axis,
+                                                    count, ghost_extend,
+                                                    halo_add_every_axis,
                                                     owned_weight,
                                                     stack_boxes)
 from exsaddle_tpu_torch.trace import span
@@ -607,6 +606,11 @@ EXCHANGES = (("halo_u", HALOS_U), ("halo_p", HALOS_P), ("halo_r", HALOS_R),
              ("ghosts", GHOSTS), ("l2_gathers", L2_GATHERS))
 for _, _c in EXCHANGES:
     graphs.track(_c)
+# what CartCardsSolver.collectives reports per card: the collectives, then
+# what the solve asked for
+COLLECTIVES = (("psums", peer.PSUMS), ("halo_exchanges", peer.HALOS),
+               ("merged_halos", peer.MERGED_HALOS),
+               ("psum_values", peer.PSUM_VALUES)) + EXCHANGES
 
 
 class CartBlocks:
@@ -692,21 +696,22 @@ class CartBlocks:
         """Per-axis halo-add of K1's raw output: a class holds an interface
         plane along axis d only where its parity bit d is even; those
         classes exchange along d together, axis by axis as each class
-        alone would (in place on the flat vectors, which it returns)."""
+        alone would (shard_mesh.halo_add_every_axis: across cards one
+        exchange for every axis; in place on the flat vectors, which it
+        returns)."""
         views = [o.split_u(v) for o, v in zip(self.ops.parts, y.parts)]
         classes = [ShardVec(v[p] for v in views) for p in range(2 ** self.nd)]
-        for d in range(self.nd):
-            halo_add_axes(self.smesh, [c for p, c in enumerate(classes)
-                                       if not (p >> d) & 1], d)
-        HALOS_U.n += 1
+        halo_add_every_axis(self.smesh, [
+            [c for p, c in enumerate(classes) if not (p >> d) & 1]
+            for d in range(self.nd)])
+        count(HALOS_U)
         return y
 
     def halo_p(self, g, counter=HALOS_P):
-        """Per-axis halo-add of a pressure-shaped grid (trailing dims ok),
-        counted in `counter`."""
-        for d in range(self.nd):
-            halo_add_axis(self.smesh, g, d)
-        counter.n += 1
+        """Per-axis halo-add of a pressure-shaped grid (trailing dims ok;
+        halo_add_every_axis), counted in `counter`."""
+        halo_add_every_axis(self.smesh, [[g]] * self.nd)
+        count(counter)
         return g
 
     def halo_r(self, g):
@@ -737,7 +742,7 @@ class CartBlocks:
         every process) into the full L-2 grid, in global shard order on the
         first local device, replicated."""
         w = self.w_l1 * slabs
-        L2_GATHERS.n += 1
+        count(L2_GATHERS)
         dev0 = self.smesh.devices[0]
         full = torch.zeros(tuple(full_shape) + (self.nd,), dtype=w.dtype,
                            device=dev0)
@@ -762,7 +767,7 @@ class _ShardedStencil:
         self.smesh, self.W, self.nd = smesh, W, nd
 
     def _ghosted(self, x):
-        GHOSTS.n += 1
+        count(GHOSTS)
         return ghost_extend(self.smesh, x)
 
     def __call__(self, x):
@@ -1238,8 +1243,10 @@ class CartCardsSolver:
     def solve(self, F_parts, x0_parts):
         """As CartDeviceLoopSolver.solve, shard i on card i."""
         if not self.graph_mode:
+            before = [c.n for _, c in COLLECTIVES]
             res = self._threads([np.concatenate([F_parts[i], x0_parts[i]])
                                  for i in range(self.nloc)])
+            ran = [c.n - n for (_, c), n in zip(COLLECTIVES, before)]
         else:
             for v, F, x0 in zip(self.views, F_parts, x0_parts):
                 v._stage(F, x0)
@@ -1265,8 +1272,8 @@ class CartCardsSolver:
                                + "; ".join(f"card {i}: {v.unpack(r)[1:4]}"
                                            for i, (v, r) in
                                            enumerate(zip(self.views, res))))
-        if self.graph_mode:
-            self.collectives = self.counted(res[0][v0.counts_at])
+        self.collectives = (self.counted(res[0][v0.counts_at])
+                            if self.graph_mode else self.shares(ran))
         parts = [v.unpack(r)[0][0] for v, r in zip(self.views, res)]
         return (parts,) + v0.unpack(res[0])[1:]
 
@@ -1274,15 +1281,28 @@ class CartCardsSolver:
         """What one solve of `counts` (Control.counts by slot) ran across
         the cards, from each card's captured graphs: graph launches, and per
         card its collectives (psums, the L-2 gathers among them; halo and
-        ghost exchanges), the values its psums reduced, and what the solve
-        asked its mesh to exchange (EXCHANGES: halo_u, halo_p, ghosts,
-        l2_gathers), whatever the collectives made of it."""
+        ghost exchanges, and the halos among them merged over two or more
+        axes), the values its psums reduced, and what the solve asked its
+        mesh to exchange (EXCHANGES: halo_u, halo_p, ghosts, l2_gathers),
+        whatever the collectives made of it."""
         per = {key: [g.counted(counts, c) for g in self.graphs]
-               for key, c in (("psums", peer.PSUMS),
-                              ("halo_exchanges", peer.HALOS),
-                              ("psum_values", peer.PSUM_VALUES))
-               + EXCHANGES}
+               for key, c in COLLECTIVES}
         per["graph_launches"] = len(self.graphs)
+        return per
+
+    def shares(self, ran):
+        """counted()'s dict for a solve of the cards' threads (graph=False),
+        whose steps count as they run: `ran` the counters' growth over the
+        solve (COLLECTIVES' order), every card's the same share of it; no
+        graph launched."""
+        per = {}
+        for (key, _), n in zip(COLLECTIVES, ran):
+            share, rest = divmod(n, self.nloc)
+            if rest:
+                raise RuntimeError(f"the cards ran unequal counts of {key}: "
+                                   f"{n} over {self.nloc}")
+            per[key] = [share] * self.nloc
+        per["graph_launches"] = 0
         return per
 
 

@@ -37,6 +37,7 @@ the cards meeting in those kernels, and the results are the one-card
 mesh's bits (psum's fold in global shard order, the halo's adds in the
 order of its moves)."""
 
+import itertools
 import threading
 
 import numpy as np
@@ -52,6 +53,13 @@ for _c in peer.COUNTERS:
     graphs.track(_c)
 # the cards' views count from one thread each under a ThreadGroup
 _COUNTING = threading.Lock()
+
+
+def count(counter, k=1):
+    """counter.n += k under the lock the cards' threads share."""
+    with _COUNTING:
+        counter.n += k
+
 
 # the sharded solves run in float64 (the JAX package's distributed path)
 DTYPE = torch.float64
@@ -259,10 +267,13 @@ class ShardMesh:
 
 def halo_add_axes(mesh, grid_list, d):
     """halo_add_axis of several ShardVecs along one axis d in one exchange
-    (one message per peer process for all of them; one peer kernel on a
-    CardMesh, which adds in the order of the moves); in place, returns
+    (one message per peer process for all of them; one peer ADD on a
+    CardMesh, CardMesh.halo_add_merged along d alone); in place, returns
     grid_list."""
     if mesh.dev_shape[d] == 1:
+        return grid_list
+    if isinstance(mesh, CardMesh):
+        mesh.halo_add_merged({d: grid_list})
         return grid_list
     k = mesh.nd - 1 - d
     top = lambda a: a.select(k, -1)
@@ -271,10 +282,6 @@ def halo_add_axes(mesh, grid_list, d):
     for g in grid_list:
         for lo, hi in mesh.pairs(d):
             moves += [(g, lo, hi, top), (g, hi, lo, bottom)]
-    if isinstance(mesh, CardMesh):
-        mesh.exchange_add(moves, lambda g, src, dst: (
-            bottom if dst > src else top)(mesh.part(g, dst)), f"axis {d}")
-        return grid_list
     got = mesh.exchange(moves)
     for (g, src, dst, _), plane in zip(moves, got):
         if plane is not None:
@@ -290,6 +297,21 @@ def halo_add_axis(mesh, grids, d):
     local grids or views of them), which it returns."""
     halo_add_axes(mesh, [grids], d)
     return grids
+
+
+def halo_add_every_axis(mesh, per_axis):
+    """halo_add_axes of the ShardVecs per_axis[d] along each grid axis d in
+    turn (a grid listed on several axes: its edges and corners take the
+    later axes' sums after the earlier ones'); in place. On a CardMesh
+    one peer exchange does every split axis at once
+    (CardMesh.halo_add_merged), each card's bits the sequence's."""
+    axes = [d for d, grids in enumerate(per_axis)
+            if grids and mesh.dev_shape[d] > 1]
+    if not isinstance(mesh, CardMesh):
+        for d in axes:
+            halo_add_axes(mesh, per_axis[d], d)
+    elif axes:
+        mesh.halo_add_merged({d: per_axis[d] for d in axes})
 
 
 def ghost_extend_axis(mesh, grids, d):
@@ -395,15 +417,17 @@ class CardMesh(ShardMesh):
       exchange    the planes moved into this shard (peer COPY; the ghost
                   planes of ghost_extend_axis);
       ghost_extend  every axis's ghosts in one peer COPY (ghost_extend);
-      exchange_add  the planes added into this shard's in the order of the
-                  moves (peer ADD; halo_add_axes).
+      halo_add_merged  halo_add_axes along one axis, or along several in
+                  turn, as one peer ADD (halo_add_axes,
+                  halo_add_every_axis).
 
     Every card lists the same moves; each sender packs its planes in that
     order (peer.plan), every shard's parts having the same shape. Each
     collective is a device span of `trace` ("psum" for the reductions,
-    "halo" for the exchanges) and is counted in peer.COUNTERS. In a warm-up
-    run before a capture (group.rehearsal()) it meets no peer: FOLD and
-    COPY give zeros and nothing is launched or counted."""
+    "halo" for the exchanges) and is counted in peer.COUNTERS (a halo
+    over two or more axes in HALOS and MERGED_HALOS). In a warm-up run before a capture
+    (group.rehearsal()) it meets no peer: FOLD and COPY give zeros and
+    nothing is launched or counted."""
 
     def __init__(self, mesh, i, group, trace=None):
         self.dev_shape, self.ndev = mesh.dev_shape, mesh.ndev
@@ -415,25 +439,27 @@ class CardMesh(ShardMesh):
 
     def _collective(self, kind, what, mode, outs, ins):
         if self.group.rehearsal():
-            for t, _, _ in ins:
+            for t, _ in ins:
                 if mode != peer.ADD:
                     t.zero_()
             return
-        with span(self.trace, "halo" if kind == "halo" else "psum"):
+        halo = kind in ("halo", "merged")
+        with span(self.trace, "halo" if halo else "psum"):
             self.group.collective(self.index, what, mode, outs, ins)
-        with _COUNTING:
-            if kind == "halo":
-                peer.HALOS.n += 1
-            else:
-                peer.PSUMS.n += 1
-                if kind == "psum":
-                    peer.PSUM_VALUES.n += outs[0][0].numel()
+        if halo:
+            count(peer.HALOS)
+            if kind == "merged":
+                count(peer.MERGED_HALOS)
+        else:
+            count(peer.PSUMS)
+            if kind == "psum":
+                count(peer.PSUM_VALUES, outs[0][0].numel())
 
     def psum(self, partials):
         p = partials.parts[0]
         out = torch.empty_like(p, memory_format=torch.contiguous_format)
         self._collective("psum", f"psum of {p.numel()}", peer.FOLD,
-                         [(p, 0)], [(out, None, 0)])
+                         [(p, 0)], [(out, [(None, 0, None)])])
         return ShardVec([out])
 
     def all_parts(self, sv, device=None):
@@ -445,32 +471,27 @@ class CardMesh(ShardMesh):
                torch.empty_like(p, memory_format=torch.contiguous_format)
                for c in range(self.ndev)]
         self._collective("gather", f"gather of {p.numel()}", peer.COPY,
-                         [(p, 0)], [(t, c, 0) for c, t in enumerate(got)
+                         [(p, 0)], [(t, [(c, 0, None)])
+                                    for c, t in enumerate(got)
                                     if c != self.index])
         return got
 
-    def _moves(self, moves):
-        """(outs, the moves into this shard with their senders' offsets)."""
+    def exchange(self, moves):
+        out = [None] * len(moves)
+        if not moves:
+            return out
         me = self.index
         planes = [take(self.part(g, me)) for g, _, _, take in moves]
         offs = peer.plan([(src, t.numel()) for (_, src, _, _), t in
                           zip(moves, planes)])
         outs = [(t, off) for (_, src, _, _), t, off in
                 zip(moves, planes, offs) if src == me]
-        into = [(n, m, off) for n, (m, off) in enumerate(zip(moves, offs))
-                if m[2] == me]
-        return outs, into, planes
-
-    def exchange(self, moves):
-        out = [None] * len(moves)
-        if not moves:
-            return out
-        outs, into, planes = self._moves(moves)
         ins = []
-        for n, (_, src, _, _), off in into:
-            out[n] = torch.empty_like(planes[n],
-                                      memory_format=torch.contiguous_format)
-            ins.append((out[n], src, off))
+        for n, ((_, src, dst, _), off) in enumerate(zip(moves, offs)):
+            if dst == me:
+                out[n] = torch.empty_like(
+                    planes[n], memory_format=torch.contiguous_format)
+                ins.append((out[n], [(src, off, None)]))
         self._collective("halo", "ghost", peer.COPY, outs, ins)
         return out
 
@@ -491,14 +512,99 @@ class CardMesh(ShardMesh):
                               zip(moves, regions)])
             outs = [(a[r[0]], off) for (src, _, _), r, off in
                     zip(moves, regions, offs) if src == me]
-            ins = [(out[r[1]], src, off) for (src, dst, _), r, off in
-                   zip(moves, regions, offs) if dst == me]
+            ins = [(out[r[1]], [(src, off, None)]) for (src, dst, _), r, off
+                   in zip(moves, regions, offs) if dst == me]
             self._collective("halo", "ghost", peer.COPY, outs, ins)
         return ShardVec([out])
 
-    def exchange_add(self, moves, put, what="halo"):
-        """Each move into this shard adds its plane into put(grids, src,
-        dst) (a view of this shard's part), in the order of the moves."""
-        outs, into, _ = self._moves(moves)
-        ins = [(put(m[0], m[1], m[2]), m[1], off) for _, m, off in into]
-        self._collective("halo", f"halo {what}", peer.ADD, outs, ins)
+    def halo_add_merged(self, per_axis):
+        """halo_add_axes(self, per_axis[d], d) for each split axis d of the
+        dict `per_axis` in turn, as one peer ADD: site "halo axis d" for one
+        axis, "halo axes d+e..." for more, counted in MERGED_HALOS. Every
+        card packs the planes the sequence's moves send, in the order of
+        those moves (peer.plan), before any add. A
+        value on one exchanged plane takes its neighbour's; where k planes
+        meet (an edge, a corner) the value sums the 2^k cards around it as
+        the sequence does, pairwise in axis order: (own + y) + (z +
+        diagonal) on an edge. The destinations are the regions of such
+        values (faces less their edges, edges less their corners, corners,
+        _merged_items), so none overlaps another."""
+        nd, me, axes = self.nd, self.index, list(per_axis)
+        grids = []
+        for d in axes:
+            grids += [g for g in per_axis[d] if all(g is not h for h in grids)]
+        sizes, keys = [], []
+        for d in axes:
+            for g in per_axis[d]:
+                u = next(i for i, h in enumerate(grids) if h is g)
+                n = self.part(g, me).select(nd - 1 - d, 0).numel()
+                for lo, hi in self.pairs(d):
+                    sizes += [(lo, n), (hi, n)]
+                    keys += [(d, u, lo, 1), (d, u, hi, -1)]
+        offs = dict(zip(keys, peer.plan(sizes)))
+        outs = [(grids[u].parts[0].select(nd - 1 - d, -1 if side > 0 else 0),
+                 off) for (d, u, src, side), off in offs.items() if src == me]
+        ins = []
+        for u, g in enumerate(grids):
+            on = [d for d in axes if any(g is h for h in per_axis[d])]
+            ins += self._merged_items(g.parts[0], u, on, offs)
+        kind, what = (("halo", f"halo axis {axes[0]}") if len(axes) == 1
+                      else ("merged", "halo axes " + "+".join(map(str, axes))))
+        self._collective(kind, what, peer.ADD, outs, ins)
+
+    def _merged_items(self, a, u, on, offs):
+        """The destinations in this shard's grid `a` (grids[u] of
+        halo_add_merged, exchanged along the axes `on`) with their sources.
+        Along each axis of `on` a value lies on the lower plane (-1), the
+        upper (+1), where that neighbour exists, or neither (0); a region
+        holds the values of one such choice. Its sources are the other
+        cards around those values, card b + sum over S of the choices'
+        steps for each nonempty subset S of the chosen axes A, listed
+        with S's bits in A's order as the leaves of the pairwise sum; each
+        is read from the plane that card packed along the first axis of S
+        (the one facing this card), with a stride, its coordinates along
+        the axes of S flipped (a lower plane there is its upper one)."""
+        nd, me, shape = self.nd, self.index, a.shape
+        sides = {d: [s for s in (-1, 1) if self.neighbour(me, d, s)
+                     is not None] for d in on}
+        if any(shape[nd - 1 - d] < 2 for d in on):
+            raise ValueError(f"a merged halo needs 2 or more planes along "
+                             f"each exchanged axis, not {tuple(shape)}")
+        items = []
+        for choice in itertools.product(*[[0] + sides[d] for d in on]):
+            pick = {d: c for d, c in zip(on, choice) if c}
+            if not pick:
+                continue
+            region = []
+            for k, n in enumerate(shape):
+                d = nd - 1 - k
+                if d in pick:
+                    region.append(slice(0, 1) if pick[d] < 0 else
+                                  slice(n - 1, n))
+                else:
+                    near = sides.get(d, ())
+                    region.append(slice(int(-1 in near),
+                                        n - int(1 in near)))
+            if any(r.stop <= r.start for r in region):
+                continue
+            chosen = sorted(pick)
+            srcs = []
+            for leaf in range(1, 2 ** len(chosen)):
+                S = [d for j, d in enumerate(chosen) if leaf >> j & 1]
+                box = list(self.boxes[me])
+                for d in S:
+                    box[d] += pick[d]
+                c = self._index[tuple(box)]
+                kf = nd - 1 - S[0]
+                strides = [int(np.prod([m for f, m in enumerate(shape[k + 1:],
+                                                               k + 1)
+                                        if f != kf])) if k != kf else 0
+                           for k in range(len(shape))]
+                flip = {nd - 1 - d for d in S}
+                base = offs[(S[0], u, c, -pick[S[0]])] + sum(
+                    (n - 1 - r.start if k in flip else r.start) * st
+                    for k, (n, r, st) in enumerate(zip(shape, region,
+                                                       strides)))
+                srcs.append((c, base, strides))
+            items.append((a[tuple(region)], srcs))
+        return items

@@ -9,12 +9,16 @@ thread per card:
   and the slot each epoch packs into; its collectives bitwise the one-card
   mesh's (ShardMesh psum, all_parts, halo_add_axes, ghost_extend_axis, and
   ghost_extend's every axis at once against the axis-by-axis sequence);
+- a halo over every split axis at once (halo_add_every_axis: one peer ADD
+  per card) bitwise the one-card mesh's axis-by-axis sequence, edges and
+  corners included, over every device grid _choose_dev_shape picks for 2-8
+  cards; a single split axis keeps its one exchange;
 - a halo waits only for the cards it reads from, and a card runs at most
   SLOTS - 1 collectives ahead of the slowest;
 - a wait that cannot complete raises, naming card and collective, within
   its timeout;
 - the cards' solve bitwise the same shards' plain device loop on one
-  device (x, its, rnorm, history, counts);
+  device (x, its, rnorm, history, counts), each halo one exchange;
 - the host loop's window masks, now formed on each part's device, give the
   bits the single expression gave;
 - the sharded solve of the benchmark's flagship at mx=8 over 4 CPU shards
@@ -123,9 +127,11 @@ def test_plan_packs_each_senders_moves_in_order():
     assert peer.SLOTS == 4
     assert [peer.slot_of(e) for e in range(1, 6)] == [1, 2, 3, 0, 1]
     # a psum waits for every peer, a halo for the cards it reads from
-    assert peer.waits_of(2, 4, peer.FOLD, [(None, None, 0)]) == 0b1011
-    assert peer.waits_of(2, 4, peer.ADD, [(None, 0, 0), (None, 0, 9),
-                                          (None, 3, 0)]) == 0b1001
+    assert peer.waits_of(2, 4, peer.FOLD, [(None, [(None, 0, None)])]) == \
+        0b1011
+    assert peer.waits_of(2, 4, peer.ADD, [(None, [(0, 0, None)]),
+                                          (None, [(0, 9, None)]),
+                                          (None, [(3, 0, None)])]) == 0b1001
 
 
 def _grids(seed, shape):
@@ -185,7 +191,8 @@ def test_halo_adds_in_the_order_of_the_moves():
     """The moves into one plane are added in the order halo_add_axes lists
     them: a shard with neighbours on both sides of an axis (a 1 x 1 x 4
     grid) takes its lower neighbour's plane into its bottom and its upper
-    one's into its top, each added once, as on one device."""
+    one's into its top, each added once, as on one device, in one peer ADD
+    of the single-axis site, which no merged halo counts."""
     smesh = ShardMesh((1, 1, 4), [CPU] * 4)
     a = _grids(4, (6, 3, 2))
     want = smesh.shard(a)
@@ -195,15 +202,23 @@ def test_halo_adds_in_the_order_of_the_moves():
         CardMesh(smesh, c, group), [CardMesh(smesh, c, group).shard(a)],
         2)[0].parts[0])
     assert all(torch.equal(g, w) for g, w in zip(got, want.parts))
+    assert group.epoch == [1] * 4
+    assert {what for _, what in group.sites} == {"halo axis 2"}
     # shard 1 receives from 0 (into its bottom plane) and from 2 (its top)
     cm = CardMesh(smesh, 1, group)
-    mine = ShardVec([want.parts[1]])
-    moves = []
-    for lo, hi in smesh.pairs(2):
-        moves += [(mine, lo, hi, lambda t: t.select(0, -1)),
-                  (mine, hi, lo, lambda t: t.select(0, 0))]
-    outs, into, _ = cm._moves(moves)
-    assert [(m[1], m[2]) for _, m, _ in into] == [(0, 1), (2, 1)]
+    mine = cm.shard(a)
+    seen = []
+    group.collective = lambda card, what, mode, outs, ins: seen.append(
+        (what, mode, outs, ins))
+    merged = peer.MERGED_HALOS.n
+    shard_mesh.halo_add_axes(cm, [mine], 2)
+    (what, mode, outs, ins), = seen
+    assert (what, mode, peer.MERGED_HALOS.n) == ("halo axis 2", peer.ADD,
+                                                  merged)
+    assert [[c for c, _, _ in srcs] for _, srcs in ins] == [[0], [2]]
+    p = mine.parts[0]
+    assert [t.data_ptr() for t, _ in ins] == [p[0].data_ptr(),
+                                             p[-1].data_ptr()]
     assert len(outs) == 2
 
 
@@ -231,6 +246,192 @@ def test_ghost_extend_in_one_exchange_equals_axis_by_axis():
         assert group.epoch == [1] * n
         assert all(g.shape == (6, 7, 8, 3) for g in got)
 
+
+# the device grids _choose_dev_shape gives for 2 to 8 cards
+# (test_dev_shapes_cover_every_chosen_grid), and 2 x 1 x 2
+DEV_SHAPES = [(1, 1, 2), (1, 1, 3), (1, 1, 4), (1, 1, 5), (1, 1, 6),
+              (1, 1, 7), (1, 1, 8), (1, 2, 2), (1, 2, 3), (1, 2, 4),
+              (2, 2, 2), (2, 1, 2)]
+
+
+def _wide(rng, shape):
+    """Values spread over twelve decades: summed in another order, most
+    sums of four or eight of them round to other bits."""
+    return rng.standard_normal(shape) * 10.0 ** rng.integers(-6, 7, shape)
+
+
+def _halo_lists(kind, grids):
+    """Per grid axis, the grids a halo exchanges along it: K1's parity
+    classes (a class along the axes where its parity bit is even, as
+    CartBlocks.halo_u lists them), or every grid along every axis (as
+    halo_p lists its grid)."""
+    if kind == "classes":
+        return [[g for p, g in enumerate(grids) if not (p >> d) & 1]
+                for d in range(3)]
+    return [list(grids)] * 3
+
+
+def _halo_arrays(kind, n, seed, mloc=(2, 3, 2)):
+    """Per grid, each shard's array: the 8 parity classes of a Q2 node box
+    of mloc elements (m + 1 nodes along an axis where the class's bit is
+    even, m where odd; 3 components), or two Q1-like grids, one with a
+    trailing dim."""
+    rng = np.random.default_rng(seed)
+    if kind == "classes":
+        shapes = [tuple(m + 1 - ((p >> d) & 1) for d, m in
+                        reversed(list(enumerate(mloc)))) + (3,)
+                  for p in range(8)]
+    else:
+        q1 = tuple(m + 1 for m in reversed(mloc))
+        shapes = [q1, q1 + (3,)]
+    return [[_wide(rng, s) for _ in range(n)] for s in shapes]
+
+
+def _merged_against_sequence(shape, kind, seed):
+    """Each card's view of a ThreadGroup runs halo_add_every_axis; the
+    one-card ShardMesh runs halo_add_axes axis by axis. Returns (the
+    cards' grids, the sequence's ShardVecs, the group)."""
+    n = int(np.prod(shape))
+    smesh = ShardMesh(shape, [CPU] * n)
+    arrays = _halo_arrays(kind, n, seed)
+    want = [smesh.shard(a) for a in arrays]
+    for d, grids in enumerate(_halo_lists(kind, want)):
+        shard_mesh.halo_add_axes(smesh, grids, d)
+    group = peer.ThreadGroup(n, 4000)
+
+    def card(c):
+        cm = CardMesh(smesh, c, group)
+        grids = [cm.shard(a) for a in arrays]
+        shard_mesh.halo_add_every_axis(cm, _halo_lists(kind, grids))
+        return [g.parts[0] for g in grids]
+    return _on_cards(n, card), want, group
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (2, 1, 2), (2, 2, 2)])
+@pytest.mark.parametrize("kind", ["classes", "grids"])
+def test_merged_halo_equals_axis_by_axis(shape, kind):
+    """Over 1 x 2 x 2, 2 x 1 x 2 and 2 x 2 x 2 grids, K1's parity classes
+    (each along the axes where its bit is even) and two pressure-like
+    grids (each along every axis): one peer ADD per card gives the
+    one-card mesh's axis-by-axis bits everywhere, the edges' (own + y) +
+    (z + diagonal) and the corners' pairwise sums of eight included, on
+    values for which the sequence in the other axis order gives other
+    bits on the edges."""
+    n = int(np.prod(shape))
+    before = peer.MERGED_HALOS.n
+    got, want, group = _merged_against_sequence(shape, kind, 31)
+    for c in range(n):
+        for g, w in zip(got[c], want):
+            assert torch.equal(g, w.parts[c])
+    assert group.epoch == [1] * n
+    assert all(what.startswith("halo axes ") for _, what in group.sites)
+    assert peer.MERGED_HALOS.n - before == n
+    # the same values summed axis by axis in the other order
+    smesh = ShardMesh(shape, [CPU] * n)
+    other = [smesh.shard(a) for a in _halo_arrays(kind, n, 31)]
+    for d, grids in reversed(list(enumerate(_halo_lists(kind, other)))):
+        shard_mesh.halo_add_axes(smesh, grids, d)
+    assert not all(torch.equal(o.parts[c], w.parts[c])
+                   for o, w in zip(other, want) for c in range(n))
+
+
+@pytest.mark.parametrize("shape", DEV_SHAPES)
+def test_merged_halo_over_every_dev_shape(shape):
+    """Every device grid of 2 to 8 cards: K1's parity classes bitwise the
+    axis-by-axis sequence, one collective per card; with one split axis
+    that collective is the single-axis exchange (site "halo axis d"), and
+    with two or more it waits for every card around the shard's edges
+    and corners."""
+    n = int(np.prod(shape))
+    got, want, group = _merged_against_sequence(shape, "classes", 32)
+    for c in range(n):
+        for g, w in zip(got[c], want):
+            assert torch.equal(g, w.parts[c])
+    assert group.epoch == [1] * n
+    split = [d for d in range(3) if shape[d] > 1]
+    names = {what for _, what in group.sites}
+    if len(split) == 1:
+        assert names == {f"halo axis {split[0]}"}
+    else:
+        assert names == {"halo axes " + "+".join(map(str, split))}
+
+
+def test_dev_shapes_cover_every_chosen_grid():
+    """DEV_SHAPES holds every grid _choose_dev_shape picks for 2 to
+    8 cards over cubes and boxes of several element counts."""
+    meshes = [(m, m, m) for m in (6, 8, 10, 12, 14, 20, 24, 30, 32, 42)] \
+        + [(8, 16, 32), (16, 16, 48), (4, 4, 16)]
+    got = {tdriver._choose_dev_shape(m, n) for m in meshes
+           for n in range(2, 9)} - {None}
+    assert got <= set(DEV_SHAPES)
+
+
+def test_a_rehearsal_meets_no_peer(monkeypatch):
+    """In the warm-up before a capture (group.rehearsal() true) a card's
+    collectives meet no peer and count nothing: its halos (over every
+    split axis at once and along one axis) leave its grids as they were,
+    a psum gives zeros, a gather zeros for every other card, a ghost
+    extension zero ghosts; no epoch moves."""
+    smesh = ShardMesh((1, 2, 2), [CPU] * 4)
+    group = peer.ThreadGroup(4, 1000)
+    monkeypatch.setattr(group, "rehearsal", lambda: True)
+    cm = CardMesh(smesh, 1, group)
+    counts = [c.n for c in peer.COUNTERS]
+    arrays = _halo_arrays("classes", 4, 5)
+    grids = [cm.shard(a) for a in arrays]
+    shard_mesh.halo_add_every_axis(cm, _halo_lists("classes", grids))
+    shard_mesh.halo_add_axes(cm, grids[:1], 1)
+    assert all(np.array_equal(g.parts[0].numpy(), a[1])
+               for g, a in zip(grids, arrays))
+    one = torch.ones(3, dtype=torch.float64)
+    assert torch.equal(cm.psum(ShardVec([one])).parts[0], 0 * one)
+    assert [p.sum().item() for p in cm.all_parts(ShardVec([one]))] == \
+        [0.0, 3.0, 0.0, 0.0]
+    box = torch.ones(3, 4, 5, 3, dtype=torch.float64)
+    ext = shard_mesh.ghost_extend(cm, ShardVec([box]))
+    assert ext.parts[0].shape == (5, 6, 7, 3)
+    assert ext.parts[0].sum().item() == 3 * 4 * 5 * 3
+    assert [c.n for c in peer.COUNTERS] == counts
+    assert group.epoch == [0] * 4 and group.sites == []
+
+
+def test_kernel_params_address_what_the_twin_reads(monkeypatch):
+    """The launch parameters of a merged halo (peer.fill_items, as
+    CudaGroup.collective fills them; the kernel's indexing done here in
+    Python) address, for every value of every destination, the element
+    of the destination and the slot values the ThreadGroup twin reads:
+    over 2 x 2 x 2, card 5's items (7 regions of a class along three
+    axes, their sources 1, 3 and 7 a region)."""
+    smesh = ShardMesh((2, 2, 2), [CPU] * 8)
+    group = peer.ThreadGroup(8, 4000)
+    cm = CardMesh(smesh, 5, group)
+    grids = [cm.shard(a) for a in _halo_arrays("classes", 8, 3)]
+    seen = []
+    monkeypatch.setattr(group, "collective",
+                        lambda card, what, mode, outs, ins:
+                        seen.append((outs, ins)))
+    shard_mesh.halo_add_every_axis(cm, _halo_lists("classes", grids))
+    (outs, ins), = seen
+    assert sorted({len(srcs) for _, srcs in ins}) == [1, 3, 7]
+    p = peer._Params()
+    peer.fill_items(p, outs, ins)
+    slot = torch.zeros(4000, dtype=torch.float64)
+    for k, (dst, srcs) in enumerate(ins):
+        v = p.in_[k]
+        sizes = list(v.size[:v.ndim])
+        assert p.in_nsrc[k] == len(srcs)
+        for j in range(dst.numel()):
+            at = tuple(int(i) for i in np.unravel_index(j, dst.shape))
+            idx = np.unravel_index(j, sizes)
+            off = sum(int(i) * st for i, st in zip(idx, v.stride))
+            assert dst[at].data_ptr() == v.ptr + 8 * off
+            for q, (c, base, strides) in enumerate(srcs):
+                src = p.src[p.in_src[k] + q]
+                twin = slot.as_strided(
+                    dst.shape, peer.source_strides(dst, strides), base)
+                got = src.off + sum(int(i) * st
+                                    for i, st in zip(idx, src.stride))
+                assert (src.card, got) == (c, twin[at].storage_offset())
 
 def test_halos_wait_only_for_their_neighbours(monkeypatch):
     """Over a 1 x 2 x 2 grid, cards 0 and 1 exchange halos along axis 1
@@ -293,7 +494,8 @@ def test_cards_solve_equals_the_one_device_plain_loop(one_thread):
     card (CPU threads of a ThreadGroup, each card's plain driver) against
     the same shards' plain device loop on one device: x, its, rnorm,
     state, history and counts bit for bit; every card ends at the same
-    epoch."""
+    epoch; each halo_u, halo_p and halo_r is one exchange over both split
+    axes (merged_halos), beside one per ghost extension."""
     slv, F = _solver([CPU] * 4)
     plain = slv.with_loop("plain")
     Fp = plain._saddle_parts(F)
@@ -309,6 +511,13 @@ def test_cards_solve_equals_the_one_device_plain_loop(one_thread):
     assert np.array_equal(got[4], ref[4]) and np.array_equal(got[5], ref[5])
     assert ref[3] == treeops.CONVERGED_RTOL
     assert len(set(group.epoch)) == 1 and group.epoch[0] > 0
+    # each halo one exchange over both split axes; every collective counted
+    col = cards.collectives
+    halos = col["halo_u"][0] + col["halo_p"][0] + col["halo_r"][0]
+    assert halos > 0 and col["ghosts"][0] > 0
+    assert col["merged_halos"] == [halos] * 4
+    assert col["halo_exchanges"] == [halos + col["ghosts"][0]] * 4
+    assert col["psums"][0] + col["halo_exchanges"][0] == group.epoch[0]
     # a card's input as the cards' graphs are given it: its F, then its x0,
     # staged into one host buffer (pinned on CUDA)
     v = cards.views[2]
