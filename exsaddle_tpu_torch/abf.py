@@ -39,7 +39,7 @@ import torch
 from exsaddle_tpu_torch import graphs, treeops
 from exsaddle_tpu_torch import trace as tracing
 from exsaddle_tpu_torch.kernels import krylov_ctl
-from exsaddle_tpu_torch.treeops import smap
+from exsaddle_tpu_torch.treeops import ShardVec, first, smap
 from exsaddle_tpu_torch.grid_ops import (gather_u_parity, scatter_u_parity,
                                          _gather_q1, _scatter_q1)
 # K1's and K3's entries, called through their modules (a00.<entry>,
@@ -876,25 +876,29 @@ def _mg_pc(cfg, data, fineA, trace=None):
     return mg_pc
 
 
-def _fieldsplit(op, aux, p_solve, u_solve):
-    """Fieldsplit Schur UPPER (exSaddle.c:313-318) on a flat saddle vector:
-    the p-block solve, its A01 coupling into the u right-hand side, then
-    the u-block solve."""
-    nu = op.nu
-
+def _fieldsplit(b, p_solve, u_solve):
+    """Fieldsplit Schur UPPER (exSaddle.c:313-318) on a saddle vector of
+    the bodies `b`: the p-block solve, its A01 coupling (b["up"]) into the
+    u right-hand side, then the u-block solve; b["split"] gives the u and
+    p views."""
     def pc_apply(t):
-        yp = p_solve(t[nu:].view(op.p_shape))
-        ru = t[:nu] - mult_up_tree(op, aux, yp)
-        return torch.cat([u_solve(ru), yp.reshape(-1)])
+        tu, tp = b["split"](t)
+        yp = p_solve(tp)
+        yu = u_solve(tu - b["up"](yp))
+        return smap(lambda u, p: torch.cat([u, p.reshape(-1)]), yu, yp)
 
     return pc_apply
 
 
 def _plain_bodies(cfg, data, trace=None):
-    """The ABF solve's bodies as plain functions: fineA (A00 with the
-    Dirichlet terms: a kernels.a00.A00Op, whose Chebyshev updates the
-    V-cycle's fine-level smoother calls), mg_pc (one V-cycle), p_solve (the
-    p-block's Chebyshev polynomial), mult (the full saddle apply) and, with
+    """The ABF solve's bodies on one device, under the keys every layout's
+    bodies share (parallel/cart_abf._cart_bodies): mult (the full saddle
+    apply), fineA (A00 with the Dirichlet terms: a kernels.a00.A00Op,
+    whose Chebyshev updates the V-cycle's fine-level smoother calls),
+    mg_pc (one V-cycle), p_solve (the p-block's Chebyshev polynomial), up
+    (the A01 coupling of a pressure grid), split (a flat saddle vector's
+    u head and its pressure tail as a grid, views), dots_u and dots_sad
+    (the Gram-Schmidt dots: None, the plain ones) and, with
     cfg.u_fixed_vcycles > 0, fixed_pc (the fieldsplit PC with fixed
     V-cycles in place of GCR). trace: mg_pc's spans (_mg_pc)."""
     op, aux = data["op"], data["aux"]
@@ -912,11 +916,11 @@ def _plain_bodies(cfg, data, trace=None):
             p_mult, None, p_emin, p_emax, cfg.p_cheb_its, bp,
             torch.zeros_like(bp), x0_zero=True, diag=data["inv_diag_p"])
 
-    def mult(t):
-        return mult_tree(op, aux, t)
-
-    bodies = {"fineA": fineA, "mg_pc": mg_pc, "p_solve": p_solve,
-              "mult": mult}
+    bodies = {"mult": lambda t: mult_tree(op, aux, t), "fineA": fineA,
+              "mg_pc": mg_pc, "p_solve": p_solve,
+              "up": lambda yp: mult_up_tree(op, aux, yp),
+              "split": lambda t: (t[:op.nu], t[op.nu:].view(op.p_shape)),
+              "dots_u": None, "dots_sad": None}
     if cfg.u_fixed_vcycles > 0:
         nfv = cfg.u_fixed_vcycles
 
@@ -926,8 +930,30 @@ def _plain_bodies(cfg, data, trace=None):
                 x = mg_pc(ru - fineA(x)) + x
             return x
 
-        bodies["fixed_pc"] = _fieldsplit(op, aux, p_solve, fixed_vcycles)
+        bodies["fixed_pc"] = _fieldsplit(bodies, p_solve, fixed_vcycles)
     return bodies
+
+
+def host_solver(cfg, b, window):
+    """solve(F, x0) -> (x, its, rnorm, state, hist) with the loops on the
+    host over the bodies `b` (_plain_bodies' keys, in any layout):
+    FGMRES over b["mult"], right-preconditioned by b["fixed_pc"] where
+    there is one, else by the fieldsplit PC whose u-block is GCR over
+    b["fineA"] preconditioned by b["mg_pc"]; the dots are b's. Returns
+    (solve, the fieldsplit PC). window: treeops.make_gcr's."""
+    if "fixed_pc" in b:
+        pc_apply = b["fixed_pc"]
+    else:
+        gcr = treeops.make_gcr(b["fineA"], b["mg_pc"],
+                               restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
+                               max_it=cfg.gcr_max_it, dots=b["dots_u"],
+                               window=window)
+        pc_apply = _fieldsplit(b, b["p_solve"], lambda ru: gcr(ru)[0])
+    solve = treeops.make_fgmres(b["mult"], pc_apply, restart=cfg.restart,
+                                rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
+                                max_it=cfg.max_it, hist_len=cfg.hist_len,
+                                dots=b["dots_sad"], window=window)
+    return solve, pc_apply
 
 
 def make_abf_solver(cfg, data, eager=False, window=None):
@@ -938,13 +964,14 @@ def make_abf_solver(cfg, data, eager=False, window=None):
     a u vector), p_solve (the p-block's Chebyshev polynomial on a pressure
     grid) and pc_apply (the fieldsplit PC on a saddle vector).
 
-    This is the host-loop solve (ABFSolver loop="host"): GCR and FGMRES
-    read one residual per iteration on the host and call the bodies. On a
-    CUDA device, unless eager, the fixed-work bodies (no host read, no
-    data-dependent branch) are captured here once as CUDA graphs
-    (graphs.Captured) and replayed by every solve: mult, and mg_pc and
-    p_solve or, with cfg.u_fixed_vcycles > 0, the whole pc_apply; each
-    graph has its own memory pool, since they replay interleaved. The
+    This is the host-loop solve (ABFSolver loop="host", host_solver over
+    _plain_bodies): GCR and FGMRES read one residual per iteration on the
+    host and call the bodies. On a CUDA device, unless eager, the
+    fixed-work bodies (no host read, no data-dependent branch) are
+    captured here once as CUDA graphs (graphs.Captured) and replayed by
+    every solve: mult, and mg_pc and p_solve or, with
+    cfg.u_fixed_vcycles > 0, the whole pc_apply; each graph has its own
+    memory pool, since they replay interleaved. The
     capture reads data's tensors by address, so the caller keeps `data`
     alive and never rebinds or writes its tensors while it solves.
     eager=True launches every op from Python (the plain version the graphs
@@ -954,40 +981,22 @@ def make_abf_solver(cfg, data, eager=False, window=None):
     default treeops.host_window's rule: True on CUDA, where the host loop
     then rounds as the device loop (DeviceLoopSolver) does, bit for bit,
     and False on the CPU, whose host loop keeps its pinned bits."""
-    op, aux = data["op"], data["aux"]
+    op = data["op"]
     b = _plain_bodies(cfg, data)
-    fineA, mg_pc, p_solve, mult = (b["fineA"], b["mg_pc"], b["p_solve"],
-                                   b["mult"])
-    cuda = op.Bs.device.type == "cuda"
-    capture = cuda and not eager
     if window is None:
         window = treeops.host_window(op.Bs.device)
-
-    def zeros(shape):
-        return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
-
-    # --- u-block solve (abf.opts:5-6) -------------------------------------
-    if cfg.u_fixed_vcycles > 0:
-        pc_apply = b["fixed_pc"]
-        if capture:
-            pc_apply = graphs.Captured(pc_apply, zeros((op.ndof,)))
-    else:
-        if capture:
-            mg_pc = graphs.Captured(mg_pc, zeros((op.nu,)))
-            p_solve = graphs.Captured(p_solve, zeros(op.p_shape))
-        gcr = treeops.make_gcr(fineA, mg_pc, restart=cfg.gcr_restart,
-                               rtol=cfg.gcr_rtol, max_it=cfg.gcr_max_it,
-                               window=window)
-        pc_apply = _fieldsplit(op, aux, p_solve, lambda ru: gcr(ru)[0])
-
-    if capture:
-        mult = graphs.Captured(mult, zeros((op.ndof,)))
-    solve = treeops.make_fgmres(mult, pc_apply, restart=cfg.restart,
-                                rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
-                                max_it=cfg.max_it, hist_len=cfg.hist_len,
-                                window=window)
-    return solve, {"mult": mult, "mg_pc": mg_pc, "p_solve": p_solve,
-                   "pc_apply": pc_apply}
+    if op.Bs.device.type == "cuda" and not eager:
+        def zeros(shape):
+            return torch.zeros(shape, dtype=op.Bs.dtype, device=op.Bs.device)
+        if "fixed_pc" in b:
+            b["fixed_pc"] = graphs.Captured(b["fixed_pc"], zeros((op.ndof,)))
+        else:
+            b["mg_pc"] = graphs.Captured(b["mg_pc"], zeros((op.nu,)))
+            b["p_solve"] = graphs.Captured(b["p_solve"], zeros(op.p_shape))
+        b["mult"] = graphs.Captured(b["mult"], zeros((op.ndof,)))
+    solve, pc_apply = host_solver(cfg, b, window)
+    return solve, {"mult": b["mult"], "mg_pc": b["mg_pc"],
+                   "p_solve": b["p_solve"], "pc_apply": pc_apply}
 
 
 def make_ir_solver(inner, wdt, max_rounds=10):
@@ -1056,95 +1065,112 @@ class DeviceIR:
 
 class DeviceLoopSolver:
     """The ABF solve and its float64 iterative refinement with the loops on
-    the device (ABFSolver loop="device"): the counterpart of the JAX
-    package's make_abf_solver + make_ir_solver, whose GCR, FGMRES and
-    refinement loops are lax.while_loops (exsaddle_tpu/abf.py:1106-1171,
+    the device: ABFSolver's loop="device" / "plain" over _plain_bodies,
+    and CartABFSolver's over parallel/cart_abf._cart_bodies (one per card
+    across cards). The counterpart of the JAX package's make_abf_solver +
+    make_ir_solver, whose GCR, FGMRES and refinement loops are
+    lax.while_loops (exsaddle_tpu/abf.py:1106-1171,
     exsaddle_tpu/treeops.py:238-434).
 
-    The solve is written as graphs.Pieces and Loops over static device
-    tensors: treeops.DeviceFGMRES over the saddle apply, preconditioned by
-    the fieldsplit PC, whose u-block is a treeops.DeviceGCR loop over the
-    V-cycle (or, with cfg.u_fixed_vcycles, fixed V-cycles: one Piece);
-    with ir, a DeviceIR round around it: cast to the working dtype, the
-    inner solve, the float64 residual, accept/reject and history
-    (exsaddle_tpu/abf.py:1143-1163). The bodies are the host-loop solve's
-    (_plain_bodies).
-
-    ir_ops: (op64, aux64), the float64 residual operator (setup["op64"]),
-    for the refinement; None for a solver of the direct solve only.
+    The solve is graphs.Pieces and Loops over static device tensors:
+    treeops.DeviceFGMRES over bodies["mult"], preconditioned by the
+    fieldsplit PC, whose u-block is a treeops.DeviceGCR loop over
+    bodies["fineA"] and the V-cycle (or bodies["fixed_pc"], where there is
+    one: one Piece); with ir, a DeviceIR round around it: cast to the
+    working dtype, the inner solve, the float64 residual, accept/reject
+    and history (exsaddle_tpu/abf.py:1143-1163). bodies: _plain_bodies'
+    keys over saddle vectors of n entries; parts: None for plain tensors
+    on `device`, else the number of shards, all on `device`, whose vectors
+    are ShardVecs. ir_ops: (op64, aux64), the float64 residual operator
+    (setup["op64"]), for the refinement (plain tensors only); None for a
+    solver of the direct solve only. err: a card's peer error word
+    (kernels.peer.CudaGroup), packed after the direct result's counts.
 
     graph=True (CUDA): the items become one graphs.ControlGraph, captured
     here (with ir, a second one for the direct solve, which shares the
-    first's captured FGMRES loop); a solve is one staged input copy, one
-    graph launch under torch.cuda.set_sync_debug_mode("error") and one
-    copy of the packed result. graph=False: graphs.run_plain drives the
-    same items from Python, one host read per loop test (the CPU's path,
-    and the reference on the card). rtol and n_rounds are device scalars:
-    a new tolerance replays the same graph. Counts, histories and x come
-    back in one float64 buffer (`out`, the direct solve's `out_direct`);
-    the counts by name are ctl.named(...) of its last entries.
+    first's captured FGMRES loop); graph=False: graphs.run_plain drives
+    the same items from Python, one host read per loop test (the CPU's
+    path, and the reference on the card). A solve is stage (the input into
+    pinned host memory), launch (the input's copy, one graph launch under
+    set_sync_debug_mode("error"), the packed result's copy back) and
+    finish (the wait, the result on the host). rtol and n_rounds are
+    device scalars: a new tolerance replays the same graph. Counts,
+    histories and x come back in one float64 buffer (`out`, the direct
+    solve's `out_direct`); the counts by name are ctl.named(...) of it.
 
     trace (trace.Trace): the solve's device spans (the graph's or the plain
     driver's solve and pieces, and the spans at the work sites: FGMRES's
     saddle_apply, GCR's and FGMRES's gram_schmidt, the vcycle and its
-    coarse_solve) and _run's host spans launch, wait and read_out, which
-    follow the caller's stage_in (ABFSolver opens solve_call and stage_in,
-    and closes read_out and solve_call)."""
+    coarse_solve); with host_spans also the host spans launch, wait and
+    read_out, after the caller's stage_in (ABFSolver opens solve_call and
+    stage_in, and closes read_out and solve_call)."""
 
-    def __init__(self, cfg, data, dtype, graph, ir_ops=None, max_rounds=10,
-                 trace=None):
-        op, aux = data["op"], data["aux"]
-        self.device = op.Bs.device
+    # what a solve ran across cards (cart_abf.CartCardsSolver): none here
+    collectives = None
+
+    def __init__(self, cfg, bodies, n, dtype, device, graph, parts=None,
+                 ir_ops=None, max_rounds=10, trace=None, err=None,
+                 host_spans=False):
+        self.device = dev = torch.device(device)
         ir = ir_ops is not None
-        self.dtype, self.ir = dtype, ir
-        self.max_rounds = max_rounds
-        n = op.ndof
-        self.n = n
-        self.ctl = ctl = graphs.Control(self.device, trace=trace)
-        b = _plain_bodies(cfg, data, trace)
-        wz = lambda *shape: torch.zeros(shape, dtype=dtype,     # noqa: E731
-                                        device=self.device)
-        if cfg.u_fixed_vcycles > 0:
+        self.dtype, self.parts, self.n = dtype, parts, n
+        self.max_rounds, self.err, self.host_spans = max_rounds, err, \
+            host_spans
+        self.ctl = ctl = graphs.Control(dev, trace=trace)
+        b = bodies
+        vdev = dev if parts is None else [dev] * parts
+        self.m = m = n * (parts or 1)
+        if "fixed_pc" in b:
             def pc_items(vin, zout):
                 return [graphs.Piece(lambda: zout.copy_(b["fixed_pc"](vin)),
                                      "fieldsplit fixed V-cycles")]
             self.gcr = None
         else:
+            # the u and p views' shapes, from a vector on no device
+            u0, p0 = b["split"](self._x(torch.empty(m, device="meta")))
             self.gcr = gcr = treeops.DeviceGCR(
-                ctl, b["fineA"], b["mg_pc"], op.nu, dtype, self.device,
+                ctl, b["fineA"], b["mg_pc"], first(u0).numel(), dtype, vdev,
                 restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
-                max_it=cfg.gcr_max_it)
-            yp = wz(*op.p_shape)
+                max_it=cfg.gcr_max_it, dots=b["dots_u"])
+            yp = smap(lambda p: torch.zeros(p.shape, dtype=dtype, device=dev),
+                      p0)
 
             def pc_items(vin, zout):
                 # fieldsplit Schur UPPER (_fieldsplit), the u-block a loop
                 def p_block():
-                    yp.copy_(b["p_solve"](vin[op.nu:].view(op.p_shape)))
-                    gcr.start(vin[:op.nu] - mult_up_tree(op, aux, yp))
+                    vu, vp = b["split"](vin)
+                    yp.copy_(b["p_solve"](vp))
+                    gcr.start(vu - b["up"](yp))
 
                 def assemble():
-                    zout[:op.nu].copy_(gcr.x)
-                    zout[op.nu:].copy_(yp.reshape(-1))
+                    zu, zp = b["split"](zout)
+                    zu.copy_(gcr.x)
+                    zp.copy_(yp)
                 return [graphs.Piece(p_block, "p-block + gcr start"),
                         gcr.loop(), graphs.Piece(assemble, "fieldsplit z")]
         self.fg = fg = treeops.DeviceFGMRES(
-            ctl, b["mult"], pc_items, n, dtype, self.device,
+            ctl, b["mult"], pc_items, n, dtype, vdev,
             restart=cfg.restart, rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
-            max_it=cfg.max_it, hist_len=cfg.hist_len)
+            max_it=cfg.max_it, hist_len=cfg.hist_len, dots=b["dots_sad"])
         nc = ctl.counts.numel()
         fl = fg.loop()
-        # the direct solve (solve): its own input and result buffers over
-        # the one FGMRES loop
-        self.inp = torch.zeros(2 * n, dtype=dtype, device=self.device)
-        self.out_direct = torch.zeros(n + 3 + cfg.hist_len + nc,
-                                      dtype=torch.float64, device=self.device)
+        # the direct solve (solve): its input (F, then x0) and its result
+        # buffer (x, its, rnorm, state, hist, counts, err) over the one
+        # FGMRES loop
+        self.inp = torch.zeros(2 * m, dtype=dtype, device=dev)
+        self._F, self._x0 = self._x(self.inp[:m]), self._x(self.inp[m:])
+        at = m + 3 + cfg.hist_len
+        self.counts_at = slice(at, at + nc)
+        self.out_direct = torch.zeros(
+            at + nc + (0 if err is None else err.numel()),
+            dtype=torch.float64, device=dev)
         self.direct_items = [graphs.Piece(self._init, "fgmres init"), fl,
                              graphs.Piece(self._pack, "fgmres result")]
         self.state = None
         if ir:
-            self.state = st = DeviceIR(ctl, n, self.device, max_rounds)
+            self.state = st = DeviceIR(ctl, n, dev, max_rounds)
             self.out = torch.zeros(n + 5 + max_rounds + 1 + nc,
-                                   dtype=torch.float64, device=self.device)
+                                   dtype=torch.float64, device=dev)
             self.items = [graphs.Piece(self._ir_init, "ir init"),
                           graphs.Loop("while", st.p, [
                               graphs.Piece(self._ir_pre, "ir round start"),
@@ -1154,8 +1180,10 @@ class DeviceLoopSolver:
                           graphs.Piece(self._ir_pack, "ir result")]
         else:
             self.out, self.items = self.out_direct, self.direct_items
-        self.op64, self.aux64 = ir_ops if ir else (None, None)
+        self.op64, self.aux64 = ir_ops or (None, None)
         self._pinned = {}
+        self._ir = False
+        self.host_launches = 0
         # graph: the solver's own solve (the refinement with ir);
         # direct_graph: solve's, which with ir shares every captured piece
         # of the FGMRES loop with graph and captures only its own ends
@@ -1169,21 +1197,29 @@ class DeviceLoopSolver:
             self.capture_seconds = self.graph.capture_seconds + (
                 self.direct_graph.capture_seconds if ir else 0.0)
 
+    def _x(self, flat):
+        """flat as the solve's vector: itself, or with parts a ShardVec of
+        its parts (one after another)."""
+        return flat if self.parts is None else ShardVec(
+            flat.view(self.parts, self.n))
+
     # --- pieces of the direct solve --------------------------------------
     def _init(self):
         self.ctl.counts.zero_()
-        n = self.n
-        self.fg.F.copy_(self.inp[:n])
-        self.fg.init(self.inp[n:])
+        self.fg.F.copy_(self._F)
+        self.fg.init(self._x0)
 
     def _pack(self):
-        n, fg, o = self.n, self.fg, self.out_direct
-        o[:n].copy_(fg.x)
-        o[n:n + 1].copy_(fg.ints[2])
-        o[n + 1:n + 2].copy_(fg.sc[1])
-        o[n + 2:n + 3].copy_(fg.ints[0])
-        o[n + 3:n + 3 + fg.hist_len].copy_(fg.hist)
-        o[n + 3 + fg.hist_len:].copy_(self.ctl.counts)
+        fg, o, m = self.fg, self.out_direct, self.m
+        self._x(o[:m]).copy_(fg.x)
+        o[m:m + 1].copy_(fg.ints[2])
+        o[m + 1:m + 2].copy_(fg.sc[1])
+        o[m + 2:m + 3].copy_(fg.ints[0])
+        o[m + 3:self.counts_at.start].copy_(fg.hist)
+        o[self.counts_at].copy_(self.ctl.counts)
+        if self.err is not None:
+            o[self.counts_at.stop:].copy_(self.err)
+
 
     # --- pieces of the refinement ----------------------------------------
     def _resid(self, x64):
@@ -1223,72 +1259,111 @@ class DeviceLoopSolver:
         o[n + 5:n + 5 + m].copy_(st.hist)
         o[n + 5 + m:].copy_(self.ctl.counts)
 
-    # --- a solve ----------------------------------------------------------
-    def _run(self, inp, host_inp, ir):
-        """Stage host_inp into inp, run the refinement's (ir) or the direct
-        solve's items, return their result buffer on the host (numpy
-        float64) and add what ran to the launch counts."""
-        items, out, graph = ((self.items, self.out, self.graph) if ir else
-                             (self.direct_items, self.out_direct,
-                              self.direct_graph))
-        tr = self.ctl.trace
+    # --- a solve: stage, launch, finish ----------------------------------
+    def _io(self):
+        """The staged solve's (input, result buffer, items, graph): the
+        refinement's or the direct solve's."""
+        if self._ir:
+            return self.state.inp, self.out, self.items, self.graph
+        return self.inp, self.out_direct, self.direct_items, \
+            self.direct_graph
+
+    def _span(self, name):
+        if self.host_spans and self.ctl.trace is not None:
+            self.ctl.trace.host_next(name)
+
+    def stage(self, *arrays, ir=False):
+        """The next solve's input, `arrays` one after another (the direct
+        solve's F and x0, per part with parts; with ir the refinement's
+        F64, then [rtol, n_rounds]), written into pinned host memory on
+        CUDA, which launch copies in, and into the input itself on the
+        CPU. A float64 array cast to float32 rounds as astype does."""
+        self._ir = ir
+        inp, out, _, _ = self._io()
         if self.device.type == "cpu":
-            inp.copy_(torch.from_numpy(host_inp))
-            if tr is not None:
-                tr.host_next("launch")
+            buf = inp.numpy()
+        else:
+            if ir not in self._pinned:
+                self._pinned[ir] = tuple(
+                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in (inp, out))
+            buf = self._pinned[ir][0].numpy()
+        off = 0
+        for a in map(np.asarray, arrays):
+            buf[off:off + a.size] = a
+            off += a.size
+
+    def launch(self):
+        """The staged solve: on the CPU its items run here (run_plain); on
+        CUDA the input's copy, the items (one graph launch under
+        set_sync_debug_mode("error"), or run_plain) and the result's copy
+        back are enqueued on the device's current stream. host_launches:
+        the counts the host moved meanwhile (0 when the whole solve is the
+        one graph launch)."""
+        inp, out, items, graph = self._io()
+        self._span("launch")
+        if self.device.type == "cpu":
             graphs.run_plain(items, self.ctl)
-            if tr is not None:
-                tr.host_next("read_out")
-            return out.numpy().copy()
-        if ir not in self._pinned:
-            self._pinned[ir] = (torch.empty(inp.shape, dtype=inp.dtype,
-                                            pin_memory=True),
-                                torch.empty(out.shape, dtype=out.dtype,
-                                            pin_memory=True))
-        pin_in, pin_out = self._pinned[ir]
-        pin_in.copy_(torch.from_numpy(host_inp))
-        if tr is not None:
-            tr.host_next("launch")
-        done = torch.cuda.Event()
-        if graph is None:
-            inp.copy_(pin_in, non_blocking=True)
-            graphs.run_plain(items, self.ctl)
-            pin_out.copy_(out, non_blocking=True)
-            done.record()
-            if tr is not None:
-                tr.host_next("wait")
-            done.synchronize()
-            if tr is not None:
-                tr.host_next("read_out")
-            return pin_out.numpy().copy()
+            return
+        pin_in, pin_out = self._pinned[self._ir]
+        before = graphs._counters()
         mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
+        if graph is not None:
+            torch.cuda.set_sync_debug_mode("error")
         try:
-            inp.copy_(pin_in, non_blocking=True)
-            graph.launch()
-            pin_out.copy_(out, non_blocking=True)
-            done.record()
+            with torch.cuda.device(self.device):
+                inp.copy_(pin_in, non_blocking=True)
+                if graph is None:
+                    graphs.run_plain(items, self.ctl)
+                else:
+                    graph.launch()
+                pin_out.copy_(out, non_blocking=True)
+                self._done = torch.cuda.Event()
+                self._done.record()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        if tr is not None:
-            tr.host_next("wait")
-        done.synchronize()
-        if tr is not None:
-            tr.host_next("read_out")
-        res = pin_out.numpy().copy()
-        graph.account(res[-self.ctl.counts.numel():])
+        self.host_launches = sum(b - a for a, b in zip(before,
+                                                       graphs._counters()))
+
+    def finish(self):
+        """Wait for the launched solve; its result buffer on the host
+        (numpy float64), what a graph ran added to the launch counts."""
+        _, out, _, graph = self._io()
+        if self.device.type == "cpu":
+            self._span("read_out")
+            return out.numpy().copy()
+        self._span("wait")
+        self._done.synchronize()
+        self._span("read_out")
+        res = self._pinned[self._ir][1].numpy().copy()
+        if graph is not None:
+            nc = self.ctl.counts.numel()
+            graph.account(res[-nc:] if self._ir else res[self.counts_at])
         return res
 
+    def _run(self, *arrays, ir=False):
+        """stage, launch and finish: the solve's result buffer."""
+        self.stage(*arrays, ir=ir)
+        self.launch()
+        return self.finish()
+
+    def unpack(self, out):
+        """(x, its, rnorm, state, hist, counts) of a direct solve's result
+        buffer, x and hist in the working dtype (x a list of parts with
+        parts)."""
+        npdt, m = treeops.NP_DTYPE[self.dtype], self.m
+        x = out[:m].astype(npdt)
+        return ((x if self.parts is None else list(x.reshape(self.parts,
+                                                             self.n))),
+                int(out[m]), npdt(out[m + 1]), int(out[m + 2]),
+                out[m + 3:self.counts_at.start].astype(npdt),
+                out[self.counts_at].astype(np.int64))
+
     def solve(self, F, x0):
-        """F, x0: numpy vectors in the solver's layout. Returns (x, its,
-        rnorm, state, hist, counts), x in the working dtype (numpy)."""
-        n, hl = self.n, self.fg.hist_len
-        npdt = treeops.NP_DTYPE[self.dtype]
-        out = self._run(self.inp, np.concatenate([F, x0]).astype(npdt),
-                        ir=False)
-        return (out[:n].astype(npdt), int(out[n]), npdt(out[n + 1]),
-                int(out[n + 2]), out[n + 3:n + 3 + hl].astype(npdt),
-                out[n + 3 + hl:].astype(np.int64))
+        """F, x0: numpy vectors in the solver's layout (with parts, lists
+        of one per part). Returns (x, its, rnorm, state, hist, counts)."""
+        arrays = (F, x0) if self.parts is None else list(F) + list(x0)
+        return self.unpack(self._run(*arrays))
 
     def solve_ir(self, F64, rtol, n_rounds):
         """F64: numpy float64 in the solver's layout. Returns (x64, rounds,
@@ -1297,8 +1372,7 @@ class DeviceLoopSolver:
             raise ValueError(f"n_rounds {n_rounds} > max_rounds "
                              f"{self.max_rounds}")
         n, m = self.n, self.max_rounds + 1
-        out = self._run(self.state.inp, np.concatenate(
-            [np.asarray(F64, np.float64), [rtol, n_rounds]]), ir=True)
+        out = self._run(F64, [rtol, n_rounds], ir=True)
         hist = out[n + 5:n + 5 + m]
         return (out[:n], int(out[n]), int(out[n + 1]), float(out[n + 2]),
                 float(out[n + 3]), [float(h) for h in hist if h >= 0.0],
@@ -1310,7 +1384,9 @@ class ABFSolver:
 
     device is required: nothing here probes for a GPU. loop picks who
     runs the Krylov loops:
-    - "device" (the default on CUDA unless eager): DeviceLoopSolver. On
+    - "device" (the default on CUDA unless eager): DeviceLoopSolver over
+      _plain_bodies (the class parallel/cart_abf runs over its sharded
+      bodies, on one card and on each card). On
       CUDA the whole solve (with ir, the whole refinement) is one CUDA
       graph with conditional nodes, captured once at construction (setup
       stage "graph capture"); a solve is one graph launch and no host
@@ -1398,8 +1474,11 @@ class ABFSolver:
             ir_ops = (setup["op64"], setup["aux64"]) if ir else None
             with _stage("graph capture", trace) if graph else \
                     contextlib.nullcontext():
-                self._dev = DeviceLoopSolver(cfg, data, dtype, graph, ir_ops,
-                                             trace=trace)
+                op = data["op"]
+                self._dev = DeviceLoopSolver(
+                    cfg, _plain_bodies(cfg, data, trace), op.ndof, dtype,
+                    op.Bs.device, graph, ir_ops=ir_ops, trace=trace,
+                    host_spans=True)
             self.capture_seconds = self._dev.capture_seconds
             return
         if cuda and not eager:

@@ -22,8 +22,9 @@ BENCH_* environment variables; every function takes an explicit device.
    over the same setup, alternated with it in one call. On a card every
    schedule's solver is the ABFSolver default, loop="device": its whole
    refinement is one CUDA graph with conditional nodes, launched once per
-   solve (abf.DeviceLoopSolver); solve_loop / solve_<name>_loop say which
-   loop ran, and solve_peak_mem_gib holds every solver's graph.
+   solve (abf.DeviceLoopSolver over abf._plain_bodies); solve_loop /
+   solve_<name>_loop say which loop ran, and solve_peak_mem_gib holds
+   every solver's graph.
 
 main() prints exactly one JSON line {"metric", "value", "unit",
 "vs_baseline", "extras"}. On the CPU, which runs only when asked

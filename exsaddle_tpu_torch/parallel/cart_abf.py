@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from exsaddle_tpu_torch import graphs, treeops
-from exsaddle_tpu_torch.abf import (ABFConfig, config_from_dict,
+from exsaddle_tpu_torch.abf import (ABFConfig, DeviceLoopSolver,
+                                    config_from_dict, host_solver,
                                     mp_apply, mp_csr, mp_stencil, mult_u_raw,
                                     mult_u_tree, mult_up_tree,
                                     stencil_from_csr, _esteig_bounds)
@@ -818,13 +819,16 @@ class _ShardedFine:
 
 def _cart_bodies(dcfg, smesh, dd, blk, trace=None):
     """The sharded ABF solve's bodies over placed data `dd` and the blocks
-    `blk` (the structure of the JAX package's shard_map body): mg_pc (one
-    V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev polynomial
-    on pressure grids) and up (the A01 apply of a p ShardVec, halos
-    included). Every Chebyshev smoother takes its level's inverse diagonal
-    as diag=, so its update is K6 per shard on the p level, K6's masked
-    form after K1 (keep in its loads) and the halo on the fine level
-    (_ShardedFine) and,
+    `blk` (the structure of the JAX package's shard_map body), under
+    abf._plain_bodies' keys: mult (blk.saddle_mult), fineA (blk.fine_mult),
+    mg_pc (one V-cycle on a u ShardVec), p_solve (the p-block's Chebyshev
+    polynomial on pressure grids), up (the A01 apply of a p ShardVec,
+    halos included), split (each shard's u head and its pressure tail as
+    a grid, views) and the ownership-weighted dots
+    blk.dots_u and blk.dots_sad; no fixed_pc. Every Chebyshev smoother
+    takes its level's inverse diagonal as diag=, so its update is K6 per
+    shard on the p level, K6's masked form after K1 (keep in its loads)
+    and the halo on the fine level (_ShardedFine) and,
     on the stencil levels (L-2 per shard, the replicated levels per
     distinct device), computed in K4's store, as is their residual. The
     transfers are K5's entries: the parity pair per shard (the
@@ -941,249 +945,69 @@ def _cart_bodies(dcfg, smesh, dd, blk, trace=None):
     def up(yp):
         return mult_up_tree(ops, aux, yp, halo_u=blk.halo_u)
 
-    return {"mg_pc": mg_pc, "p_solve": p_solve, "up": up}
+    def split(t):
+        return (smap(lambda o, v: v[: o.nu], ops, t),
+                smap(lambda o, v: v[o.nu:].view(o.p_shape), ops, t))
 
-
-def _split(ops, t):
-    """(u, p) views of a ShardVec of saddle vectors: each shard's velocity
-    head and its pressure tail as a grid."""
-    return (smap(lambda o, v: v[: o.nu], ops, t),
-            smap(lambda o, v: v[o.nu:].view(o.p_shape), ops, t))
+    return {"mult": blk.saddle_mult, "fineA": blk.fine_mult,
+            "mg_pc": mg_pc, "p_solve": p_solve, "up": up, "split": split,
+            "dots_u": blk.dots_u, "dots_sad": blk.dots_sad}
 
 
 def make_cart_abf_solver(dcfg, smesh):
     """solve(dd, F, x0) -> (x, its, rnorm, state, hist) over `smesh`, with
     dd from shard_data and F / x0 ShardVecs of flat local parity-layout
-    saddle vectors: the host loop (treeops.make_gcr / make_fgmres, one host
-    read per iteration) over _cart_bodies, with the device loop's window
+    saddle vectors: the host loop (abf.host_solver, one host read per
+    iteration) over _cart_bodies, with the device loop's window
     arithmetic on every device (treeops.host_window), so it gives
-    CartDeviceLoopSolver's bits (in one process and in a group)."""
-    cfg = dcfg.base
+    abf.DeviceLoopSolver's bits (in one process and in a group)."""
     window = treeops.host_window(smesh.devices[0], sharded=True)
 
     def solver(dd, F, x0, blocks=None):
         blk = blocks if blocks is not None else CartBlocks(dcfg, smesh, dd)
-        ops = blk.ops
-        b = _cart_bodies(dcfg, smesh, dd, blk)
-        gcr = treeops.make_gcr(blk.fine_mult, b["mg_pc"],
-                               restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
-                               max_it=cfg.gcr_max_it, dots=blk.dots_u,
-                               window=window)
-
-        # fieldsplit Schur UPPER (exSaddle.c:313-318)
-        def pc_apply(t):
-            bu, bp = _split(ops, t)
-            yp = b["p_solve"](bp)
-            yu, _, _ = gcr(bu - b["up"](yp))
-            return smap(lambda u, p: torch.cat([u, p.reshape(-1)]), yu, yp)
-
-        fgmres = treeops.make_fgmres(blk.saddle_mult, pc_apply,
-                                     restart=cfg.restart, rtol=cfg.rtol,
-                                     atol=cfg.atol, dtol=cfg.dtol,
-                                     max_it=cfg.max_it,
-                                     hist_len=cfg.hist_len,
-                                     dots=blk.dots_sad, window=window)
-        return fgmres(F, x0)
+        solve, _ = host_solver(dcfg.base, _cart_bodies(dcfg, smesh, dd, blk),
+                               window)
+        return solve(F, x0)
 
     return solver
 
 
-class CartDeviceLoopSolver:
-    """The sharded ABF solve with its loops on the device (CartABFSolver
-    loop="device" / "plain"): the counterpart of the JAX package's
-    jit(shard_map(...)) whose GCR and FGMRES are lax.while_loops
-    (exsaddle_tpu/parallel/cart_abf.py, exsaddle_tpu/treeops.py), and the
-    sharded twin of abf.DeviceLoopSolver.
-
-    Every shard of `smesh` on one device (world 1, one distinct device:
-    every shard of this process on one card, or one card's CardMesh view):
-    treeops.DeviceFGMRES over blk.saddle_mult, its fieldsplit PC a Piece
-    (the p-block and the GCR start), the treeops.DeviceGCR loop over
-    blk.fine_mult and the V-cycle, and a Piece that assembles z; the
-    vectors and bases are ShardVecs of static per-shard buffers, the dots
-    ownership-weighted and summed by the mesh's psum, the control state
-    single. The bodies are the host loop's (_cart_bodies).
-
-    graph=True (CUDA, smesh.capturable): the items become one
-    graphs.ControlGraph, captured here; a solve is one staged input copy,
-    one graph launch under torch.cuda.set_sync_debug_mode("error") and one
-    copy of the packed result (every shard's x, its, rnorm, state, hist,
-    Control.counts, and on a CardMesh the card's peer error word).
-    graph=False: graphs.run_plain drives the same items from Python, one
-    host read per loop test. trace (trace.Trace): the solve, its pieces,
-    the V-cycle, the Krylov spans and a CardMesh's collectives are device
-    spans of it."""
-
-    def __init__(self, dcfg, smesh, dd, blk, graph, trace=None):
-        if smesh.world != 1 or len(smesh.distinct) != 1:
-            raise ValueError("the sharded device loop needs every shard in "
-                             "this process on one device")
-        if graph and not smesh.capturable:
-            raise ValueError("graph=True needs a capturable ShardMesh "
-                             "(every shard on one CUDA device)")
-        cfg = dcfg.base
-        self.device = dev = smesh.distinct[0]
-        self.group = getattr(smesh, "group", None)
-        # the card's peer error word, copied into the result (a CudaGroup)
-        self.err = (self.group.state[smesh.index]["err"]
-                    if hasattr(self.group, "state") else None)
-        ops = blk.ops
-        nu, np_ = ops.parts[0].nu, ops.parts[0].np_
-        self.n = n = nu + np_
-        self.nloc = nloc = len(smesh.devices)
-        self.ctl = ctl = graphs.Control(dev, trace=trace)
-        b = _cart_bodies(dcfg, smesh, dd, blk, trace)
-        devs = list(smesh.devices)
-        self.gcr = gcr = treeops.DeviceGCR(
-            ctl, blk.fine_mult, b["mg_pc"], nu, DTYPE, devs,
-            restart=cfg.gcr_restart, rtol=cfg.gcr_rtol,
-            max_it=cfg.gcr_max_it, dots=blk.dots_u)
-        yp = ShardVec(torch.zeros(o.p_shape, dtype=DTYPE, device=dev)
-                      for o in ops.parts)
-
-        def pc_items(vin, zout):
-            # fieldsplit Schur UPPER, the u-block a loop
-            def p_block():
-                vu, vp = _split(ops, vin)
-                yp.copy_(b["p_solve"](vp))
-                gcr.start(vu - b["up"](yp))
-
-            def assemble():
-                zu, zp = _split(ops, zout)
-                zu.copy_(gcr.x)
-                zp.copy_(yp)
-            return [graphs.Piece(p_block, "p-block + gcr start"),
-                    gcr.loop(), graphs.Piece(assemble, "fieldsplit z")]
-
-        self.fg = fg = treeops.DeviceFGMRES(
-            ctl, blk.saddle_mult, pc_items, n, DTYPE, devs,
-            restart=cfg.restart, rtol=cfg.rtol, atol=cfg.atol, dtol=cfg.dtol,
-            max_it=cfg.max_it, hist_len=cfg.hist_len, dots=blk.dots_sad)
-        # staged input: every shard's F, then every shard's x0
-        self.inp = torch.zeros(2 * nloc * n, dtype=DTYPE, device=dev)
-        parts = self.inp.view(2, nloc, n)
-        self._F, self._x0 = ShardVec(parts[0]), ShardVec(parts[1])
-        self.nc = nc = ctl.counts.numel()
-        m = nloc * n + 3 + cfg.hist_len
-        self.counts_at = slice(m, m + nc)
-        self.out = torch.zeros(m + nc + (4 if self.group else 0),
-                               dtype=torch.float64, device=dev)
-        self.items = [graphs.Piece(self._init, "fgmres init"), fg.loop(),
-                      graphs.Piece(self._pack, "fgmres result")]
-        self.graph = None
-        self.capture_seconds = 0.0
-        self._pinned = None
-        self.host_launches = 0
-        if graph:
-            self.graph = graphs.ControlGraph(self.items, ctl)
-            self.capture_seconds = self.graph.capture_seconds
-
-    def _init(self):
-        self.ctl.counts.zero_()
-        self.fg.F.copy_(self._F)
-        self.fg.init(self._x0)
-
-    def _pack(self):
-        m, fg, o = self.nloc * self.n, self.fg, self.out
-        ShardVec(o[:m].view(self.nloc, self.n)).copy_(fg.x)
-        o[m:m + 1].copy_(fg.ints[2])
-        o[m + 1:m + 2].copy_(fg.sc[1])
-        o[m + 2:m + 3].copy_(fg.ints[0])
-        o[m + 3:m + 3 + fg.hist_len].copy_(fg.hist)
-        o[self.counts_at].copy_(self.ctl.counts)
-        if self.err is not None:
-            o[self.counts_at.stop:].copy_(self.err)
-
-    def _stage(self, *host_inp):
-        """The input, host_inp's arrays one after another, in pinned host
-        memory (CUDA)."""
-        if self._pinned is None:
-            self._pinned = (torch.empty(self.inp.shape, dtype=DTYPE,
-                                        pin_memory=True),
-                            torch.empty(self.out.shape, dtype=DTYPE,
-                                        pin_memory=True))
-        staged = self._pinned[0].numpy()
-        off = 0
-        for a in host_inp:
-            staged[off:off + a.size] = a
-            off += a.size
-
-    def _launch(self):
-        """The staged input's copy, the graph's launch and the result's
-        copy back, enqueued on the device's current stream."""
-        pin_in, pin_out = self._pinned
-        with torch.cuda.device(self.device):
-            self.inp.copy_(pin_in, non_blocking=True)
-            self.graph.launch()
-            pin_out.copy_(self.out, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record()
-
-    def _finish(self):
-        """Wait for the launched solve; the result buffer on the host, what
-        ran added to the counts."""
-        self._done.synchronize()
-        res = self._pinned[1].numpy().copy()
-        self.graph.account(res[self.counts_at])
-        return res
-
-    def _run(self, host_inp):
-        """Stage host_inp, run the items, return the result buffer on the
-        host (numpy float64) and add what ran to the counts."""
-        if self.device.type == "cpu":
-            self.inp.copy_(torch.from_numpy(host_inp))
-            graphs.run_plain(self.items, self.ctl)
-            return self.out.numpy().copy()
-        self._stage(host_inp)
-        if self.graph is None:
-            pin_in, pin_out = self._pinned
-            done = torch.cuda.Event()
-            self.inp.copy_(pin_in, non_blocking=True)
-            graphs.run_plain(self.items, self.ctl)
-            pin_out.copy_(self.out, non_blocking=True)
-            done.record()
-            done.synchronize()
-            return pin_out.numpy().copy()
-        before = graphs._counters()
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            self._launch()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        self._done.synchronize()
-        # counts the host moved during the solve (a wrapper called outside
-        # the graph): 0 when the whole solve is the one launch
-        self.host_launches = sum(b - a for a, b in zip(before,
-                                                       graphs._counters()))
-        return self._finish()
-
-    def unpack(self, out):
-        """(x parts, its, rnorm, state, hist, counts) of a result buffer."""
-        m, hl = self.nloc * self.n, self.fg.hist_len
-        return (list(out[:m].reshape(self.nloc, self.n)), int(out[m]),
-                np.float64(out[m + 1]), int(out[m + 2]),
-                out[m + 3:m + 3 + hl], out[self.counts_at].astype(np.int64))
-
-    def solve(self, F_parts, x0_parts):
-        """F_parts, x0_parts: per-shard numpy saddle vectors (this
-        process's shards). Returns (x parts, its, rnorm, state, hist,
-        counts)."""
-        return self.unpack(self._run(np.concatenate(list(F_parts)
-                                                    + list(x0_parts))))
+def _device_loop(dcfg, smesh, dd, blk, graph, trace=None):
+    """The sharded solve with its loops on the device: abf.DeviceLoopSolver
+    over _cart_bodies, every shard of `smesh` on one device (world 1, one
+    distinct device: every shard of this process on one card, or one
+    card's CardMesh view), its vectors and bases ShardVecs of static
+    per-shard buffers, its dots ownership-weighted and summed by the
+    mesh's psum, its control state single; on a CardMesh of a CudaGroup
+    the card's peer error word rides in the result. graph=True needs
+    smesh.capturable (CUDA)."""
+    if smesh.world != 1 or len(smesh.distinct) != 1:
+        raise ValueError("the sharded device loop needs every shard in "
+                         "this process on one device")
+    if graph and not smesh.capturable:
+        raise ValueError("graph=True needs a capturable ShardMesh "
+                         "(every shard on one CUDA device)")
+    group = getattr(smesh, "group", None)
+    err = (group.state[smesh.index]["err"]
+           if isinstance(group, peer.CudaGroup) else None)
+    o = blk.ops.parts[0]
+    return DeviceLoopSolver(dcfg.base, _cart_bodies(dcfg, smesh, dd, blk,
+                                                    trace),
+                            o.nu + o.np_, DTYPE, smesh.distinct[0], graph,
+                            parts=len(smesh.devices), trace=trace, err=err)
 
 
 class CartCardsSolver:
     """The sharded solve with one shard on each card of one process, its
-    loops on the cards: card i runs a CartDeviceLoopSolver over its view of
-    the mesh (shard_mesh.CardMesh, its blocks CartBlocks.card(i), its data
-    card_data(i)), with its own Control and, with graph=True, its own
-    graphs.ControlGraph; the cards meet in the peer collectives of `group`
-    (kernels.peer: a CudaGroup, or on the CPU a ThreadGroup). Every card
-    runs the same loops on replicated control state and its own shard's
-    bodies: the psums fold in global shard order and the halos add in the
-    one-card order, so each card's control state, and x, are the bits of
-    the same shards' device loop on one card.
+    loops on the cards: card i runs an abf.DeviceLoopSolver over its view
+    of the mesh (_device_loop: shard_mesh.CardMesh, its blocks
+    CartBlocks.card(i), its data card_data(i)), with its own Control and,
+    with graph=True, its own graphs.ControlGraph; the cards meet in the
+    peer collectives of `group` (kernels.peer: a CudaGroup, or on the CPU
+    a ThreadGroup). Every card runs the same loops on replicated control
+    state and its own shard's bodies: the psums fold in global shard order
+    and the halos add in the one-card order, so each card's control state,
+    and x, are the bits of the same shards' device loop on one card.
 
     A conditional graph's body holds nodes of one device only, so a solve
     is one graph launch per card: every card's input staged, the graphs
@@ -1192,6 +1016,7 @@ class CartCardsSolver:
     card's plain driver runs in its own thread. The cards' its, rnorm,
     state, history and counts must agree exactly (else it raises), and a
     peer wait that timed out raises naming the card and the collective.
+    ctl is card 0's Control (every card's counts name the same slots).
     traces: one trace.Trace per card, or None."""
 
     def __init__(self, dcfg, smesh, dd, blk, group, graph, traces=None):
@@ -1210,23 +1035,24 @@ class CartCardsSolver:
             for i in range(smesh.ndev):
                 tr = None if traces is None else traces[i]
                 cm = CardMesh(smesh, i, group, trace=tr)
-                v = CartDeviceLoopSolver(dcfg, cm, card_data(dd, i),
-                                         blk.card(i, cm), graph, trace=tr)
-                self.views.append(v)
+                self.views.append(_device_loop(dcfg, cm, card_data(dd, i),
+                                               blk.card(i, cm), graph, tr))
         finally:
             group.rehearse = False
         self.nloc = len(self.views)
+        self.ctl = self.views[0].ctl
         self.graphs = [v.graph for v in self.views] if graph else None
         self.capture_seconds = sum(v.capture_seconds for v in self.views)
         self.host_launches = 0
         self.collectives = None
 
-    def _threads(self, inputs):
-        out, errs = [None] * self.nloc, [None] * self.nloc
+    def _threads(self):
+        """Every card's launch (its plain driver) in a thread of its own."""
+        errs = [None] * self.nloc
 
         def run(i):
             try:
-                out[i] = self.views[i]._run(inputs[i])
+                self.views[i].launch()
             except BaseException as e:         # raised after the join
                 errs[i] = e
         threads = [threading.Thread(target=run, args=(i,))
@@ -1238,35 +1064,25 @@ class CartCardsSolver:
         for e in errs:
             if e is not None:
                 raise e
-        return out
 
     def solve(self, F_parts, x0_parts):
-        """As CartDeviceLoopSolver.solve, shard i on card i."""
-        if not self.graph_mode:
-            before = [c.n for _, c in COLLECTIVES]
-            res = self._threads([np.concatenate([F_parts[i], x0_parts[i]])
-                                 for i in range(self.nloc)])
-            ran = [c.n - n for (_, c), n in zip(COLLECTIVES, before)]
-        else:
-            for v, F, x0 in zip(self.views, F_parts, x0_parts):
-                v._stage(F, x0)
-            before = graphs._counters()
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for v in self.views:
-                    v._launch()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        """As abf.DeviceLoopSolver.solve, shard i on card i."""
+        for v, F, x0 in zip(self.views, F_parts, x0_parts):
+            v.stage(F, x0)
+        if self.graph_mode:
             for v in self.views:
-                v._done.synchronize()
-            self.host_launches = sum(b - a for a, b in zip(
-                before, graphs._counters()))
-            res = [v._finish() for v in self.views]
+                v.launch()
+            self.host_launches = sum(v.host_launches for v in self.views)
+        else:
+            before = [c.n for _, c in COLLECTIVES]
+            self._threads()
+            ran = [c.n - n for (_, c), n in zip(COLLECTIVES, before)]
+        res = [v.finish() for v in self.views]
         v0 = self.views[0]
         if not self.graph_mode or any(r[v0.counts_at.stop] for r in res):
             self.group.check()
-        tail = slice(v0.nloc * v0.n, v0.counts_at.stop)
+        # its, rnorm, state, history and counts, after x (one shard a card)
+        tail = slice(v0.n, v0.counts_at.stop)
         if any(r[tail].tobytes() != res[0][tail].tobytes() for r in res):
             raise RuntimeError("the cards' control results differ: "
                                + "; ".join(f"card {i}: {v.unpack(r)[1:4]}"
@@ -1324,11 +1140,12 @@ class CartABFSolver:
       every shard on one CUDA device; and when it has one shard on each
       CUDA card of this process, every pair of cards with peer access):
       the whole solve one CUDA graph with conditional nodes per card,
-      captured at construction (CartDeviceLoopSolver on one card,
-      CartCardsSolver across cards, whose collectives are peer kernels);
+      captured at construction (abf.DeviceLoopSolver over _cart_bodies
+      on one card, CartCardsSolver across cards, one per card, whose
+      collectives are peer kernels);
       a solve is one graph launch per card and no host read. It raises on
       the CPU and on a mesh that neither holds.
-    - "plain": CartDeviceLoopSolver's steps driven from Python
+    - "plain": the device loop's steps driven from Python
       (graphs.run_plain), one host read of a loop predicate per test: the
       reference the graph is held against, and its CPU form (one process,
       one device).
@@ -1408,6 +1225,8 @@ class CartABFSolver:
         self.loop, self.traces = loop, traces
         self.capture_seconds = 0.0
         self._solve = self._dev = None
+        # each card counts its own halos (CartABFSolver.solve)
+        self._cards_n = self.smesh.ndev if cards and loop != "host" else 1
         if loop == "host":
             self._solve = make_cart_abf_solver(self.dcfg, self.smesh)
         elif cards:
@@ -1420,7 +1239,7 @@ class CartABFSolver:
                                         loop == "device", traces)
             self.capture_seconds = self._dev.capture_seconds
         else:
-            self._dev = CartDeviceLoopSolver(
+            self._dev = _device_loop(
                 self.dcfg, self.smesh, self.ddata, self.blocks,
                 loop == "device", trace=traces[0] if traces else None)
             self.capture_seconds = self._dev.capture_seconds
@@ -1498,10 +1317,8 @@ class CartABFSolver:
                    else [np.zeros_like(f) for f in Fp])
             x, its, rnorm, state, hist, counts = self._dev.solve(Fp, x0p)
             res = _result(self._unshard_parts(x), its, rnorm, state, hist)
-            ctl = (self._dev.views[0] if hasattr(self._dev, "views")
-                   else self._dev).ctl
-            res["counts"] = ctl.named(counts)
-            if getattr(self._dev, "collectives", None) is not None:
+            res["counts"] = self._dev.ctl.named(counts)
+            if self._dev.collectives is not None:
                 res["collectives"] = self._dev.collectives
         else:
             Ft = self.shard_saddle(F_flat)
@@ -1510,8 +1327,7 @@ class CartABFSolver:
             x, its, rnorm, state, hist = self._solve(self.ddata, Ft, x0,
                                                      blocks=self.blocks)
             res = _result(self.unshard_saddle(x), its, rnorm, state, hist)
-        views = len(getattr(self._dev, "views", ())) or 1
         res.update(loop=self.loop,
                    halo_exchanges=(HALOS_U.n + HALOS_P.n + HALOS_R.n - h0)
-                   // views)
+                   // self._cards_n)
         return res

@@ -645,7 +645,8 @@ class DeviceFGMRES:
     pc_items(vin, zout) gives the preconditioner as items (Pieces and
     Loops) that compute zout from vin, two static vectors: one Piece for a
     fixed-work preconditioner, a Piece, a nested GCR loop and a Piece for
-    the fieldsplit PC with GCR (abf.DeviceLoopSolver).
+    the fieldsplit PC with GCR (abf.DeviceLoopSolver, over plain tensors
+    or ShardVecs).
 
     init(x0) is a piece (a new solve: x = x0 or 0, bases zeroed,
     fgmres_start_ctl mode 0), loop() the WHILE whose body is IF(cycle

@@ -519,12 +519,11 @@ def test_cards_solve_equals_the_one_device_plain_loop(one_thread):
     assert col["halo_exchanges"] == [halos + col["ghosts"][0]] * 4
     assert col["psums"][0] + col["halo_exchanges"][0] == group.epoch[0]
     # a card's input as the cards' graphs are given it: its F, then its x0,
-    # staged into one host buffer (pinned on CUDA)
+    # staged into one buffer (on CUDA pinned host memory, on the CPU the
+    # input itself)
     v = cards.views[2]
-    v._pinned = (torch.empty(v.inp.shape, dtype=torch.float64),
-                 torch.empty(v.out.shape, dtype=torch.float64))
-    v._stage(Fp[2], x0p[2] + 1.0)
-    assert np.array_equal(v._pinned[0].numpy(),
+    v.stage(Fp[2], x0p[2] + 1.0)
+    assert np.array_equal(v.inp.numpy(),
                           np.concatenate([Fp[2], x0p[2] + 1.0]))
 
 
@@ -677,10 +676,10 @@ def test_a_lone_cards_wait_raises_on_cuda(monkeypatch):
     assert dev.group.timeout_s == 0.5
     Fp = slv._saddle_parts(F)
     v = dev.views[0]
-    v._stage(np.concatenate([Fp[0], np.zeros_like(Fp[0])]))
+    v.stage(Fp[0], np.zeros_like(Fp[0]))
     t0 = time.perf_counter()
-    v._launch()
-    res = v._finish()
+    v.launch()
+    res = v.finish()
     assert time.perf_counter() - t0 < 30.0
     assert res[v.counts_at.stop] == 1
     with pytest.raises(RuntimeError, match=r"cuda:0 in .* waiting for "

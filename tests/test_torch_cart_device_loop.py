@@ -1,5 +1,6 @@
 """The port's sharded ABF solve with its Krylov loops on the device
-(parallel/cart_abf.py CartDeviceLoopSolver, CartABFSolver loop=) on the CPU,
+(abf.DeviceLoopSolver over parallel/cart_abf.py _cart_bodies, CartABFSolver
+loop=) on the CPU,
 where the plain driver (graphs.run_plain) runs the steps that the card runs
 as one CUDA graph:
 

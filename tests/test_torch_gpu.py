@@ -1023,6 +1023,64 @@ def test_device_loop_direct_solve_of_ir_solver_on_cuda(cuda):
 
 
 @pytest.mark.gpu
+def test_shadowed_graph_launch_runs_once_per_solve_on_cuda(cuda):
+    """What the benchmark's per-solve device spans rely on: a launch
+    shadowed on the instance slv._dev.graph (as benchmark/harness.py's
+    GraphSpans shadows it) is called exactly once per solve, and the
+    solve's result is the unshadowed one's, for ABFSolver without ir
+    (solve) and with it (solve_ir) and for the one-card CartABFSolver; the
+    cards' solver (CartCardsSolver, here over CPU threads) has no graph,
+    so nothing attaches there."""
+    from exsaddle_tpu_torch.abf import ABFSolver
+    from exsaddle_tpu_torch.kernels import peer
+    from exsaddle_tpu_torch.parallel import cart_abf
+    p = _device_problem(4)
+    runs = []
+    for kw in (dict(dtype=torch.float64), dict(dtype=torch.float32,
+                                              ir=True)):
+        g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
+                      p["bc_vals"], device=cuda, nlevels=3, **kw)
+        F = p["F_raw"] + g.setup["rhs_diri"]
+        runs.append((g, (lambda s, F=F: s.solve_ir(F, rtol=1e-8))
+                     if kw.get("ir") else (lambda s, F=F: s.solve(F))))
+    cart, (mesh, fes, coeff, bci, bcv) = _cart_solver([cuda] * 4, model="2",
+                                                      mx=4)
+    assert cart.loop == "device"
+    f1, f2 = assemble_rhs(fes, coeff["Fu"], coeff["Fp"])
+    F = scatter_vector(mesh, f1, f2)
+    F[:mesh.nu][bci] = bcv
+    F = F + cart.setup["rhs_diri"]
+    runs.append((cart, lambda s: s.solve(F)))
+    for slv, run in runs:
+        graph = slv._dev.graph
+        assert graph is not None
+        want = run(slv)
+        calls = []
+        launch = graph.launch
+
+        def counted(launch=launch, calls=calls):
+            calls.append(1)
+            launch()
+        graph.launch = counted
+        try:
+            for k in (1, 2):
+                got = run(slv)
+                assert len(calls) == k
+                assert np.array_equal(got["x"], want["x"])
+                assert got["history"] == want["history"]
+        finally:
+            del graph.launch
+    slv, _ = _cart_solver(["cpu"] * 4, model="2", mx=4)
+    ops = slv.blocks.ops.parts[0]
+    cards = cart_abf.CartCardsSolver(slv.dcfg, slv.smesh, slv.ddata,
+                                     slv.blocks,
+                                     peer.ThreadGroup(4, ops.nu + ops.np_),
+                                     graph=False)
+    assert getattr(cards, "graph", None) is None
+    assert cards.ctl is cards.views[0].ctl
+
+
+@pytest.mark.gpu
 def test_device_loop_build_failure_raises(cuda, monkeypatch):
     """loop="device" on CUDA never falls back: a shim that fails to build
     raises out of the constructor, and so does the cudaMallocAsync

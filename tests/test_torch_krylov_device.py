@@ -513,8 +513,9 @@ def test_window_host_loop_equals_device_loop(schedule, monkeypatch):
     solve, _ = tabf.make_abf_solver(slv.cfg, slv.data, window=True)
     x64, rounds, inner, _, _, hist, stalled = tabf.make_ir_solver(
         solve, torch.float32)(op64, aux64, F64, 1e-8, 10)
-    dev = tabf.DeviceLoopSolver(slv.cfg, slv.data, torch.float32,
-                                graph=False, ir_ops=(op64, aux64))
+    dev = tabf.DeviceLoopSolver(
+        slv.cfg, tabf._plain_bodies(slv.cfg, slv.data), slv.data["op"].ndof,
+        torch.float32, "cpu", graph=False, ir_ops=(op64, aux64))
     xd, rd, innerd, _, _, histd, stalledd, _ = dev.solve_ir(
         F64.numpy(), 1e-8, 10)
     assert not stalled and not stalledd
@@ -562,9 +563,9 @@ def test_plain_driver_reads_only_the_predicates(monkeypatch):
     monkeypatch.setattr(graphs.Control, "read", counted)
     run = dev._run
 
-    def patched_run(inp, host_inp, ir):
+    def patched_run(*arrays, ir=False):
         assert ir
-        inp.copy_(torch.from_numpy(host_inp))
+        dev.stage(*arrays, ir=ir)
         with monkeypatch.context() as m:
             for attr in HOST_READS:
                 m.setattr(torch.Tensor, attr, guard(attr))
@@ -623,5 +624,7 @@ def test_loop_option_and_defaults():
     with pytest.raises(ValueError):
         graphs.ControlGraph([graphs.Piece(lambda: None, "noop")], ctl)
     fixed = dataclasses.replace(slv.cfg, u_fixed_vcycles=1)
-    d = tabf.DeviceLoopSolver(fixed, slv.data, torch.float64, graph=False)
+    d = tabf.DeviceLoopSolver(fixed, tabf._plain_bodies(fixed, slv.data),
+                              slv.data["op"].ndof, torch.float64, "cpu",
+                              graph=False)
     assert d.gcr is None and d.graph is None
