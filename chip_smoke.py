@@ -111,6 +111,21 @@ after the kernels line):
               weights, stride 2, groups nd, TF32 off) against the twin to
               TOL and timed likewise; the bound (bytes). Builds its own
               mx=32 setup (~5 s).
+3d. K7     -- the Gram-Schmidt kernels (csrc/gram_schmidt.cu: gs_dots,
+              gs_combine, gs_normalize) at the main path's windows: GCR's
+              (30 rows of the mx=32 fine level's 823,875 entries, V and S)
+              and FGMRES's (31 rows of the 859,812-entry saddle vector, V
+              only), in float32 and float64, for live counts L in {0, 1, 2,
+              5, ..., rows - 1, rows}: every output bit for bit its plain
+              twin (gs.TWINS); then each kernel and the three together
+              timed cold (the windows cycled through copies that move 3x
+              the 50 MB L2 between two uses: the kernels line's ms, at GCR
+              float32 L = 2, the main path's usual live count) and hot
+              (graphs of 50 calls), beside the bound (the bytes of the live
+              rows and vectors each must move), the twin and the masked
+              whole-window torch ops the kernels replace. No single
+              PyTorch call computes a masked Gram-Schmidt step
+              (library_ms null).
 4. anchor  -- the driver in direct float64 mode at mx=6 (3 MG levels) must
               reach CONVERGED_RTOL in <= 20 iterations with the reference's
               initial residual.
@@ -123,7 +138,10 @@ after the kernels line):
               from the device's loop-body counters), and K4, each of its
               fused entries and K6, every K4 launch a fused one, and every
               K5 kernel and fused form but the cart path's weighted
-              residual restriction (never run here). The residual is
+              residual restriction (never run here), and K7's three
+              kernels, as often each (their launches from this run, the
+              counters reset before it, are the kernels line's). The
+              residual is
               recomputed with the port's float64 operator. Then over the
               same setup the device loop, the host loop over captured
               bodies (loop="host") and eager=True, 3 solves each,
@@ -366,6 +384,7 @@ from exsaddle_tpu_torch.grid_ops import (GridSaddleOperator, gather_u_parity,
 from exsaddle_tpu_torch.kernels import _build
 from exsaddle_tpu_torch.kernels import a00
 from exsaddle_tpu_torch.kernels import cheb
+from exsaddle_tpu_torch.kernels import gram_schmidt as gs
 from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.kernels import mp
 from exsaddle_tpu_torch.kernels import stencil
@@ -1461,6 +1480,149 @@ def _mg_times(kernel, plain, args, nbytes):
     return hot, cold, len(copies)
 
 
+# phase K7's windows: (name, rows, entries, with S, plus, live counts L
+# timed); every L in {0, 1, 2, 5, rows - 1, rows} and those timed is held
+# against the twins. The kernels line reads GCR float32 at L = 2 (a pseudoice
+# GCR solve runs ~5 steps, so ~2 rows are live on average)
+K7_WINDOWS = (("gcr_fine", 30, 823875, True, 0, (1, 2, 5, 29)),
+              ("fgmres_saddle", 31, 859812, False, 1, (1, 8, 16, 30)))
+K7_LINE = ("gcr_fine", torch.float32, 2)
+# K7's kernels by the kernels line's names (csrc/gram_schmidt.cu's)
+K7_NAMES = {"gs_" + f: f for f in gs.FORMS}
+
+
+def _k7_step(fns, V, S, v, s, live, plus, ix, sc):
+    """One orthogonalisation through fns (dots, combine, normalize): h, v',
+    s', alpha; V and S get the new row."""
+    h = fns[0](V, v, live, plus, sc)
+    vo, so, sq = fns[1](V, h, v, live, plus, sc, S, s)
+    return h, vo, so, fns[2](vo, sq, V, ix, S, so, in_place=S is not None)
+
+
+def _k7_whole(V, S, v, s, live, plus, ix):
+    """The masked whole-window Gram-Schmidt the kernels replace (treeops
+    before K7)."""
+    mask = (torch.arange(V.shape[0], device=V.device)
+            < live + plus).to(v.dtype)
+    h = (V @ v) * mask
+    v = v - h @ V
+    alpha = torch.sqrt(torch.dot(v, v))
+    inv = 1.0 / torch.where(alpha == 0.0, torch.ones_like(alpha), alpha)
+    V.index_copy_(0, ix, (inv * v)[None])
+    if S is not None:
+        S.index_copy_(0, ix, (inv * (s - h @ S))[None])
+
+
+def _k7_bytes(L, n, with_s, itemsize):
+    """What each kernel must move: dots L + 1 vectors; combine (2 L + 2
+    reads, 2 writes) for GCR, (L + 1, 1) for FGMRES; normalize (2 reads,
+    4 writes) / (1, 1)."""
+    vecs = {"dots": L + 1, "combine": 2 * L + 4 if with_s else L + 2,
+            "normalize": 6 if with_s else 2}
+    vecs["all"] = sum(vecs.values())
+    return {k: v * n * itemsize for k, v in vecs.items()}
+
+
+def phase_k7(device, card):
+    """K7 against its twins, bit for bit, at the main path's windows, then
+    timed (see the module docstring); returns {kernel name: its kernels
+    line entry}."""
+    kernels = (gs.dots, gs.combine, gs.normalize)
+    twins = tuple(gs.TWINS[f] for f in gs.FORMS)
+    line = {}
+    for name, rows, n, with_s, plus, timed in K7_WINDOWS:
+        for dt in (torch.float32, torch.float64):
+            g = torch.Generator(device=device).manual_seed(rows)
+            r = lambda *sh: torch.randn(*sh, generator=g,  # noqa: E731
+                                        dtype=dt, device=device)
+            V, v = r(rows, n), r(n)
+            S, s = (r(rows, n), r(n)) if with_s else (None, None)
+            sc = gs.Scratch(n, rows, dt, device)
+            item = V.element_size()
+            for L in sorted({0, 1, 2, 5, rows - 1, rows, *timed}):
+                live = torch.tensor([L - plus], dtype=torch.int32,
+                                    device=device)
+                ix = torch.tensor([min(L, rows - 1)], dtype=torch.int64,
+                                  device=device)
+                a, b = ((V.clone(), None if S is None else S.clone())
+                        for _ in range(2))
+                a += _k7_step(kernels, *a, v, s, live, plus, ix, sc)
+                b += _k7_step(twins, *b, v, s, live, plus, ix, sc)
+                check(all(x is None and y is None or torch.equal(x, y)
+                          for x, y in zip(a, b)),
+                      f"K7: a kernel differs from its twin ({name}, {dt}, "
+                      f"L = {L})")
+                if L not in timed:
+                    continue
+                nb = _k7_bytes(L, n, with_s, item)
+                vecs = tuple(t for t in (V, S, v, s) if t is not None)
+                copies = _cold_copies(vecs, nb["all"])
+
+                def expand(c):
+                    return (c[0], c[1], c[2], c[3]) if with_s else \
+                        (c[0], None, c[1], None)
+                h0 = gs.dots(V, v, live, plus, sc)
+                one = torch.ones((), dtype=dt, device=device)
+                calls = {
+                    "gs_dots": lambda q: gs.dots(q[0], q[2], live, plus, sc),
+                    "gs_combine": lambda q: gs.combine(
+                        q[0], h0, q[2], live, plus, sc, q[1], q[3]),
+                    # sumsq 1: the scaling leaves its inputs as they are
+                    "gs_normalize": lambda q: gs.normalize(
+                        q[2], one, q[0], ix, q[1], q[3], in_place=with_s),
+                    "all": lambda q: _k7_step(kernels, *q, live, plus, ix,
+                                              sc),
+                    "twin": lambda q: _k7_step(twins, *q, live, plus, ix,
+                                               sc),
+                    "whole_window": lambda q: _k7_whole(*q, live, plus,
+                                                        ix)}
+                sets = [expand(c) for c in copies]
+                reps = -(-MG_REPS // len(sets))
+                rec = {"window": name, "dtype": str(dt).split(".")[1],
+                       "rows": rows, "n": n, "L": L, "bitwise_twin": True,
+                       "cold_copies": len(sets),
+                       "bound_us": {("all" if k == "all" else "gs_" + k):
+                                    1e6 * b / PEAK_BYTES
+                                    for k, b in nb.items()},
+                       "cold_us": {}, "hot_us": {}}
+                for what, fn in calls.items():
+                    rec["cold_us"][what] = 1e3 * _graph_ms(
+                        [lambda q=q, fn=fn: fn(q) for q in sets] * reps)
+                    if (name, dt, L) == K7_LINE:
+                        rec["hot_us"][what] = 1e3 * _graph_ms(
+                            [lambda fn=fn: fn(expand(vecs))] * MG_REPS)
+                log(f"[K7] {json.dumps(rec)}")
+                del copies, sets
+                if (name, dt, L) != K7_LINE:
+                    continue
+                cold, hot, bound = rec["cold_us"], rec["hot_us"], \
+                    rec["bound_us"]
+                for kname in K7_NAMES:
+                    line[kname] = {
+                        "max_abs_err": 0.0, "ms": cold[kname] / 1e3,
+                        "hot_ms": hot[kname] / 1e3,
+                        "plain_ms": None, "bound_ms": bound[kname] / 1e3,
+                        "bound_by": "bytes", "library_ms": None,
+                        "step_ms": cold["all"] / 1e3,
+                        "step_plain_ms": cold["twin"] / 1e3,
+                        "step_bound_ms": bound["all"] / 1e3,
+                        "step_replaced_ms": cold["whole_window"] / 1e3,
+                        "at": f"{name} {rows} x {n} {rec['dtype']} L = {L}"}
+                # each twin alone, on the line's window
+                h = gs.dots(V, v, live, plus, sc)
+                vo, so, sq = gs.combine(V, h, v, live, plus, sc, S, s)
+                alone = {"gs_dots": lambda: gs.dots_plain(V, v, live, plus),
+                         "gs_combine": lambda: gs.combine_plain(
+                             V, h, v, live, plus, None, S, s),
+                         "gs_normalize": lambda: gs.normalize_plain(
+                             vo, sq, V, ix, S, so, in_place=with_s)}
+                for kname, fn in alone.items():
+                    line[kname]["plain_ms"] = _events_ms([fn] * 5)
+            del V, S, v, s, sc
+    log(f"[K7] kernels line entries {json.dumps(line)} ({card})")
+    return line
+
+
 def _cheb_scalars(emin, emax, npdt=np.float64):
     """The Chebyshev smoother's first-step scale and omega in the working
     numpy dtype, as treeops.cheb_smooth computes them."""
@@ -2257,9 +2419,9 @@ MAIN_ORDER = ("device", "host", "eager", "eager", "host", "device",
 
 
 def _reset_launches():
-    """Every kernel's launch count to 0: K1, K3, K4, K5, K6, the control
-    kernels."""
-    for k in (a00, mp, stencil, transfer, cheb, krylov_ctl):
+    """Every kernel's launch count to 0: K1, K3, K4, K5, K6, K7, the
+    control kernels."""
+    for k in (a00, mp, stencil, transfer, cheb, gs, krylov_ctl):
         k.LAUNCHES.reset()
 
 
@@ -2324,7 +2486,7 @@ def phase_main(card):
     """The driver on the flagship (its solver runs the device loop), then
     the three modes timed over one setup; returns the driver run's K1
     (launches, applies), K4 and K6 launches, control-kernel launches, K5
-    launches, K1's by form and K3's by form."""
+    launches, K1's by form, K3's by form and K7's launches by kernel."""
     argv = tdriver.ABF_OPTS + (
         "-model 11 -size_x 0.1 -mx 32 -ir -rtol_true 1e-8 "
         "-saddle_fieldsplit_u_pc_mg_levels 4 -saddle_ksp_monitor_short "
@@ -2342,13 +2504,15 @@ def phase_main(card):
     k5_launches = _k5_counts()
     a00_by = dict(a00.LAUNCHES.by)
     k3_by = dict(mp.LAUNCHES.by)
+    k7_by = {k: gs.LAUNCHES.by[f] for k, f in K7_NAMES.items()}
     res = r["res"]
     slv = r["solver"]
     graph = slv._dev.graph if slv._dev is not None else None
     log(f"[main] driver run: loop {r['loop']}, A00 kernels {launches} device "
         f"launches in {applies} applies (by form {a00_by}), K4 / K6 "
         f"{mg_launches}, K5 "
-        f"{k5_launches}, K3 by form {k3_by}, control kernels {ctl_launches} "
+        f"{k5_launches}, K3 by form {k3_by}, K7 {k7_by}, control kernels "
+        f"{ctl_launches} "
         f"(capture warm-ups included); graph capture "
         f"{slv.capture_seconds:.3f} s, {len(graph.pieces) if graph else 0} "
         f"captured pieces, {graph.launches if graph else 0} graph launches")
@@ -2375,6 +2539,9 @@ def phase_main(card):
           f"ran there: {k3_by}")
     check(all(ctl_launches[k] > 0 for k in krylov_ctl.NAMES),
           f"a control kernel never ran on the main path: {ctl_launches}")
+    check(len(set(k7_by.values())) == 1 and k7_by["gs_dots"] > 0,
+          f"K7 never ran on the main path, or its three kernels ran unequal "
+          f"times: {k7_by}")
     check(all(a00_by[f] > 0 for f in A00_FUSED[1:])
           and a00_by["a00_apply_keep"] == 0,
           f"a fused K1 form never ran on the main path, or the cart path's "
@@ -2511,7 +2678,7 @@ def phase_main(card):
     del solvers, plain, slv, r
     _main_witness(card)
     return (launches, applies, mg_launches, ctl_launches, k5_launches,
-            a00_by, k3_by)
+            a00_by, k3_by, k7_by)
 
 
 def _check_fine_fused(rec, vcycles, cfg, where):
@@ -3411,7 +3578,8 @@ def _launch_counts():
                for e in stencil.EPILOGUES}, **krylov_ctl.LAUNCHES.n,
             **_k5_counts(), **{f: a00.LAUNCHES.by[f] for f in A00_FUSED},
             **{f: cheb.LAUNCHES.by[f] for f in K6_MASKED},
-            **{f: mp.LAUNCHES.by[f] for f in mp.FORMS}}
+            **{f: mp.LAUNCHES.by[f] for f in mp.FORMS},
+            **{k: gs.LAUNCHES.by[f] for k, f in K7_NAMES.items()}}
 
 
 def _cart_solve(slv, F):
@@ -4121,8 +4289,8 @@ def _ranged(name, fn):
 
 
 # ROADMAP section 2's K2-K7, as the port's functions whose device work each
-# counts (the innermost enclosing one; the hand-written K1, K3, K4, K5 and
-# K6 by kernel name wherever they run; restrict_grid_kernel and
+# counts (the innermost enclosing one; the hand-written K1, K3, K4, K5, K6
+# and K7 by kernel name wherever they run; restrict_grid_kernel and
 # restrict_parity_kernel cover their fused forms, mp_stencil_kernel K3's)
 PROFILE_KERNELS = (("K1 a00_apply", "a00_factored_kernel"),
                    ("K1 a00_apply", "a00_element_kernel"),
@@ -4138,7 +4306,10 @@ PROFILE_KERNELS = (("K1 a00_apply", "a00_factored_kernel"),
                    ("K6 cheb_smooth", "cheb_first_kernel"),
                    ("K6 cheb_smooth", "cheb_step_kernel"),
                    ("K6 cheb_smooth", "cheb_first_masked_kernel"),
-                   ("K6 cheb_smooth", "cheb_step_masked_kernel"))
+                   ("K6 cheb_smooth", "cheb_step_masked_kernel"),
+                   ("K7 gram_schmidt", "gs_dots_kernel"),
+                   ("K7 gram_schmidt", "gs_combine_kernel"),
+                   ("K7 gram_schmidt", "gs_normalize_kernel"))
 PROFILE_RANGES = (("K2 mult_tree", tabf, "mult_tree"),
                   ("K3 mp_apply", tabf, "mp_apply"),
                   ("K6 cheb_smooth", treeops, "cheb_smooth"),
@@ -4432,9 +4603,12 @@ def main():
     t_mg = time.perf_counter()
     k4, fused, k6, k5, k3 = phase_mg_kernels(device, card)
     log(f"[smoke] mg_kernels phase {time.perf_counter() - t_mg:.1f} s")
+    t_k7 = time.perf_counter()
+    k7 = phase_k7(device, card)
+    log(f"[smoke] K7 phase {time.perf_counter() - t_k7:.1f} s")
     phase_anchor()
     launches, applies, mg_launches, ctl_launches, k5_launches, \
-        a00_fused_launches, k3_launches = phase_main(card)
+        a00_fused_launches, k3_launches, k7_launches = phase_main(card)
     phase_host_anchor()
     phase_host_mg(device)
     t0 = time.perf_counter()
@@ -4531,7 +4705,13 @@ def main():
             "launches": (cart_counts if form == "mp_apply"
                          else k3_launches)[form],
             "cart_launches": cart_counts[form], **k3[form]}
-            for form in mp.FORMS] + [peer_entry]}))
+            for form in mp.FORMS] + [{
+            "name": name, "route": "cuda",
+            "source": "exsaddle_tpu_torch/csrc/gram_schmidt.cu",
+            "replaces": "exsaddle_tpu/treeops.py:106/128",
+            "launches": k7_launches[name],
+            "cart_launches": cart_counts[name], **k7[name]}
+            for name in K7_NAMES] + [peer_entry]}))
     check(not misses, "; ".join(misses))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,8 @@ import time
 
 import torch
 
-from exsaddle_tpu_torch.kernels import (_build, a00, cheb, krylov_ctl, mp,
-                                       stencil, transfer)
+from exsaddle_tpu_torch.kernels import (_build, a00, cheb, gram_schmidt,
+                                       krylov_ctl, mp, stencil, transfer)
 
 
 def _check_inputs(inputs, what):
@@ -177,6 +177,13 @@ class Control:
             raise ValueError("Control: out of counter slots")
         self.count_names.extend(names)
         return first
+
+    def shared_slot(self, name):
+        """The counter slot `name`, made at its first request: a count that
+        several loops add to (gs_rows)."""
+        if name in self.count_names:
+            return self.count_names.index(name)
+        return self.count_slots(name)
 
     def named(self, counts):
         """{slot name: int} of counts (Control.counts on the host)."""
@@ -328,7 +335,8 @@ def _counters():
     """Every count a body or piece can move: K1's launches and applies,
     K4's, K6's, K4's by fused epilogue, each control kernel's, K5's and
     K5's by form, K1's by form and its factored applies, K6's by form,
-    K3's and K3's by form, then the tracked counters."""
+    K3's and K3's by form, K7's and K7's by form, then the tracked
+    counters."""
     return ((a00.LAUNCHES.n, a00.LAUNCHES.applies, stencil.LAUNCHES.n,
              cheb.LAUNCHES.n)
             + tuple(stencil.LAUNCHES.fused[e] for e in stencil.EPILOGUES)
@@ -339,6 +347,8 @@ def _counters():
             + (a00.LAUNCHES.factored,)
             + tuple(cheb.LAUNCHES.by[f] for f in cheb.FORMS)
             + (mp.LAUNCHES.n,) + tuple(mp.LAUNCHES.by[f] for f in mp.FORMS)
+            + (gram_schmidt.LAUNCHES.n,)
+            + tuple(gram_schmidt.LAUNCHES.by[f] for f in gram_schmidt.FORMS)
             + tuple(c.n for c in _TRACKED))
 
 
@@ -354,6 +364,8 @@ def _counter_names():
             + tuple(f"a00.{f}" for f in a00.FORMS) + ("a00.factored",)
             + tuple(f"cheb.{f}" for f in cheb.FORMS)
             + ("mp.n",) + tuple(f"mp.{f}" for f in mp.FORMS)
+            + ("gram_schmidt.n",)
+            + tuple(f"gram_schmidt.{f}" for f in gram_schmidt.FORMS)
             + tuple(f"tracked.{i}" for i in range(len(_TRACKED))))
 
 
@@ -376,6 +388,9 @@ def _set_counters(vals):
     mp.LAUNCHES.n = vals.pop(0)
     for f in mp.FORMS:
         mp.LAUNCHES.by[f] = vals.pop(0)
+    gram_schmidt.LAUNCHES.n = vals.pop(0)
+    for f in gram_schmidt.FORMS:
+        gram_schmidt.LAUNCHES.by[f] = vals.pop(0)
     for c, v in zip(_TRACKED, vals):
         c.n = v
 

@@ -26,6 +26,11 @@ plain PyTorch version beside it and a launch count.
                 preconditioner, one pass per step (replaces the loop body
                 of exsaddle_tpu/treeops.py:cheb_smooth, an XLA fusion),
                 and its masked forms for the cart path's fine level
+  gram_schmidt -- K7, classical Gram-Schmidt of a Krylov step against the
+                live rows of its window (the live count read on the
+                device), GCR's two combinations in one pass (replaces
+                exsaddle_tpu/treeops.py:buf_dots and buf_comb, XLA fusions
+                on the TPU)
   krylov_ctl -- the Krylov control kernels: the scalar tails of the GCR,
                 FGMRES and refinement loop bodies, run inside the solve's
                 CUDA graph (the JAX package compiles them into its

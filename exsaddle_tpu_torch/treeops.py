@@ -27,9 +27,11 @@ Two forms of the loops:
   them the device loop's arithmetic, so the two forms agree bit for bit.
   host_window states where the solvers take it.
 - DeviceGCR / DeviceFGMRES (device loop control), the JAX formulation:
-  a fixed-shape state of device tensors, masked Gram-Schmidt over the
-  whole window (buf_dots/buf_comb, exsaddle_tpu/treeops.py:106-133), basis
-  writes at a device index, and step functions that end in a Krylov
+  a fixed-shape state of device tensors, Gram-Schmidt over the window's
+  live rows with the live count read on the device (K7,
+  kernels/gram_schmidt.py, in place of buf_dots/buf_comb,
+  exsaddle_tpu/treeops.py:106-133), basis writes at a device index, and
+  step functions that end in a Krylov
   control kernel (kernels/krylov_ctl.py) which updates the scalars and
   writes the loop predicates. Their loops are graphs.Loop items: one CUDA
   graph with conditional nodes on the card (graphs.ControlGraph), or
@@ -42,6 +44,7 @@ import torch
 
 from exsaddle_tpu_torch.graphs import Loop, Piece, run_plain
 from exsaddle_tpu_torch.kernels import cheb
+from exsaddle_tpu_torch.kernels import gram_schmidt as gs
 from exsaddle_tpu_torch.kernels import krylov_ctl
 from exsaddle_tpu_torch.trace import span
 # state codes (sign convention matches PETSc: >0 converged, <0 diverged)
@@ -188,8 +191,19 @@ def _bdots(V, t):
     return V @ t
 
 
+class Dots(tuple):
+    """make_dots' (dot, bdots) pair, unpacked as a pair, with the `weight`
+    and `psum` it was made from, which the window Gram-Schmidt
+    (gram_schmidt_window) hands to its kernels and between them."""
+
+    def __new__(cls, dot, bdots, weight=None, psum=None):
+        self = super().__new__(cls, (dot, bdots))
+        self.weight, self.psum = weight, psum
+        return self
+
+
 def make_dots(weight=None, psum=None):
-    """(dot, bdots) pair for make_gcr / make_fgmres / compiled cycles:
+    """Dots (dot, bdots) for make_gcr / make_fgmres / compiled cycles:
     dot(a, b) and bdots(V, t) = the dots of the rows of the basis V with t.
 
     Default: plain tensors on one device. weight: ShardVec of per-entry
@@ -199,7 +213,7 @@ def make_dots(weight=None, psum=None):
     psum: the mesh's sum of per-shard partials (parallel.shard_mesh), which
     returns the replicated total."""
     if weight is None and psum is None:
-        return tdot, _bdots
+        return Dots(tdot, _bdots)
 
     def dot(a, b):
         aw = a if weight is None else weight * a
@@ -211,7 +225,7 @@ def make_dots(weight=None, psum=None):
         s = V @ tw
         return s if psum is None else psum(s)
 
-    return dot, bdots
+    return Dots(dot, bdots, weight, psum)
 
 
 def _masked(h, mask):
@@ -219,6 +233,50 @@ def _masked(h, mask):
     each part's own device: the sharded parts may sit on several cards
     while the mask is made on the first one's."""
     return smap(lambda t: t * mask.to(t.device, t.dtype), h)
+
+
+def _first_only(x, like):
+    """x for the first part of `like` and None for its other parts (x
+    itself where like is a plain tensor)."""
+    if not isinstance(like, ShardVec):
+        return x
+    return ShardVec((x,) + (None,) * (len(like.parts) - 1))
+
+
+def gram_schmidt_window(dots, scratch, V, v, live, plus, ix, S=None, s=None,
+                        count=None):
+    """Classical Gram-Schmidt of v against the live rows of the window V,
+    the new basis vector written into row ix (K7, kernels/gram_schmidt.py:
+    three launches per part, each reading only the live rows; the CPU runs
+    their twins). L = live + plus clamped to the window's rows, read on
+    the device (live: a one-entry int32 tensor, or a ShardVec of one per
+    part's device). dots: make_dots' Dots; scratch: a gram_schmidt.Scratch
+    per part.
+
+    h = the dots of V's first L rows with v (weighted), zero past them;
+    then v' = v - sum_{j<L} h_j V_j, alpha = ||v'||, V[ix] = v' / alpha (1
+    where alpha is 0). GCR (S and s given): also s' = s - sum_{j<L} h_j
+    S_j and S[ix] = s' / alpha, and the scaled v', s' are returned; FGMRES
+    (S None): v' is returned unscaled. In a sharded layout dots.psum sums
+    the parts' dots and sums of squares, where make_dots' bdots and dot
+    sum theirs, and the window mask multiplies the summed dots. count
+    (int64, one entry: a Control.counts slot) gets L added, by the first
+    part only. Returns (h, alpha, v', s')."""
+    weight, psum = dots.weight, dots.psum
+    h = smap(lambda V_, v_, lv, sc, w, c: gs.dots(V_, v_, lv, plus, sc, w, c),
+             V, v, live, scratch, weight, _first_only(count, v))
+    if psum is not None:
+        lv = first(live)
+        h = _masked(psum(h), torch.arange(first(V).shape[0],
+                                          device=lv.device) < lv + plus)
+    vo, so, sq = smap(lambda V_, h_, v_, lv, sc, S_, s_, w: gs.combine(
+        V_, h_, v_, lv, plus, sc, S_, s_, w), V, h, v, live, scratch, S, s,
+        weight)
+    if psum is not None:
+        sq = psum(sq)
+    alpha = smap(lambda v_, q, V_, i, S_, s_: gs.normalize(
+        v_, q, V_, i, S_, s_, in_place=S_ is not None), vo, sq, V, ix, S, so)
+    return h, alpha, vo, so
 
 
 def _safe(a):
@@ -345,12 +403,14 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
              max_it=200, dots=None, window=False):
     """KSPGCR: right-preconditioned, unpreconditioned norm, truncated
     restart (gcr.c semantics as in exsaddle_tpu/treeops.make_gcr).
-    dots: optional (dot, bdots) pair from make_dots (sharded layouts).
-    window=True: project against the whole window with the unused rows
-    masked, as DeviceGCR does, so the two loops round alike (plain
-    tensors and ShardVecs); False projects against the live rows only.
+    dots: optional Dots from make_dots (sharded layouts).
+    window=True: DeviceGCR's Gram-Schmidt (gram_schmidt_window, the live
+    rows of the whole window, L read on the device), so the two loops
+    round alike (plain tensors and ShardVecs); False projects against the
+    live rows with torch products.
     Returns solve(b) -> (x, its, rnorm). Zero initial guess."""
-    dot, bdots = dots if dots is not None else make_dots()
+    dots = dots if dots is not None else make_dots()
+    dot, bdots = dots
 
     def solve(b):
         npdt = np_dtype(b)
@@ -359,8 +419,8 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
         rnorm0 = npdt(first(_norm(dot, r)).item())
         V = _basis(b, restart)
         S = _basis(b, restart)
-        ar = torch.arange(restart, device=first(b).device) if window \
-            else None
+        scratch = smap(lambda a: gs.Scratch(a.numel(), restart, a.dtype,
+                                            a.device), b) if window else None
         target = max(npdt(rtol) * rnorm0, npdt(atol))
         state = CONVERGED_ATOL if rnorm0 <= npdt(atol) else RUNNING
         nv = 0
@@ -370,19 +430,20 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
             s = pc_apply(r)
             v = mult(s)
             if window:
-                beta = _masked(bdots(V, v), ar < nv)
-                v = v - beta @ V
-                s = s - beta @ S
-            elif nv > 0:
-                beta = bdots(V[:nv], v)
-                v = v - beta @ V[:nv]
-                s = s - beta @ S[:nv]
-            alpha = _norm(dot, v)
-            inv = 1.0 / smap(_safe, alpha)
-            v = inv * v
-            s = inv * s
-            V[nv] = v
-            S[nv] = s
+                _, alpha, v, s = gram_schmidt_window(
+                    dots, scratch, V, v, _host_int(b, nv, torch.int32), 0,
+                    _host_int(b, nv, torch.int64), S, s)
+            else:
+                if nv > 0:
+                    beta = bdots(V[:nv], v)
+                    v = v - beta @ V[:nv]
+                    s = s - beta @ S[:nv]
+                alpha = _norm(dot, v)
+                inv = 1.0 / smap(_safe, alpha)
+                v = inv * v
+                s = inv * s
+                V[nv] = v
+                S[nv] = s
             gamma = dot(r, v)
             x = gamma * s + x
             r = -gamma * v + r
@@ -403,6 +464,13 @@ def make_gcr(mult, pc_apply, restart=30, rtol=1e-2, atol=1e-50,
     return solve
 
 
+def _host_int(like, value, dtype):
+    """value as a one-entry `dtype` tensor on each part's device of `like`
+    (the host loops' live count and row for gram_schmidt_window)."""
+    return smap(lambda a: torch.full((1,), value, dtype=dtype,
+                                     device=a.device), like)
+
+
 # --- FGMRES ------------------------------------------------------------------
 
 def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
@@ -411,19 +479,20 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
     """KSPFGMRES: right preconditioning, classical Gram-Schmidt, Givens
     recurrence, unpreconditioned norm, KSPConvergedDefault, restarts with
     the solution built at each cycle end (BuildGmresSoln).
-    dots: optional (dot, bdots) pair from make_dots (sharded layouts).
+    dots: optional Dots from make_dots (sharded layouts).
     window=True: DeviceFGMRES's arithmetic (plain tensors and ShardVecs) --
-    dots against the whole basis with the unused rows masked, the
-    triangle solved in krylov_ctl's order and the correction summed over
-    the whole Z -- so the host loop rounds as the device loop does; False
-    works on the live rows and solves the triangle with scipy.
+    its Gram-Schmidt (gram_schmidt_window), the triangle solved in
+    krylov_ctl's order and the correction summed over the whole Z -- so
+    the host loop rounds as the device loop does; False works on the live
+    rows with torch products and solves the triangle with scipy.
 
     Returns solve(F, x0) -> (x, its, rnorm, state, hist); hist[i] is the
     residual at iteration i (the -ksp_monitor_short values), length
     hist_len (default max_it+1); entries never reached hold -1."""
     if hist_len is None:
         hist_len = max_it + 1
-    dot, bdots = dots if dots is not None else make_dots()
+    dots = dots if dots is not None else make_dots()
+    dot, bdots = dots
     k = restart
 
     def solve(F, x0):
@@ -431,8 +500,8 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
         x = smap(torch.clone, x0)
         V = _basis(F, k + 1)
         Z = _basis(F, k)
-        ar = torch.arange(k + 1, device=first(F).device) if window \
-            else None
+        scratch = smap(lambda a: gs.Scratch(a.numel(), k + 1, a.dtype,
+                                            a.device), F) if window else None
         H = np.zeros((k + 1, k), npdt)
         g = np.zeros(k + 1, npdt)
         cs = np.zeros(k, npdt)
@@ -480,14 +549,15 @@ def make_fgmres(mult, pc_apply, restart=30, rtol=1e-5, atol=1e-50,
             w = mult(z)
             Z[it] = z
             if window:
-                h_t = _masked(bdots(V, w), ar <= it)
-                w = w - h_t @ V
+                h_t, tt_t, _, _ = gram_schmidt_window(
+                    dots, scratch, V, w, _host_int(F, it, torch.int32), 1,
+                    _host_int(F, it + 1, torch.int64))
                 h_t = h_t[: it + 1]
             else:
                 h_t = bdots(V[: it + 1], w)
                 w = w - h_t @ V[: it + 1]
-            tt_t = _norm(dot, w)
-            V[it + 1] = (1.0 / smap(_safe, tt_t)) * w
+                tt_t = _norm(dot, w)
+                V[it + 1] = (1.0 / smap(_safe, tt_t)) * w
             hv = torch.cat([first(h_t), first(tt_t).reshape(1)]).cpu().numpy()
             h, tt = hv[:-1], hv[-1]
             git = g[it]
@@ -564,36 +634,41 @@ class DeviceGCR:
     fixed-shape device state: x, r, the (restart, n) windows V and S, and
     the control state of kernels/krylov_ctl.gcr_ctl. start(b) is a piece
     (x = 0, r = b, ||b||, gcr_ctl mode 0); loop() the WHILE over step().
-    The step projects against the whole window with masked dots, writes
-    the new basis row at a device index and ends in gcr_ctl: nothing in it
-    is read on the host.
+    The step projects against the window's nv live rows (nv read on the
+    device), writes the new basis row at a device index and ends in
+    gcr_ctl: nothing in it is read on the host.
 
     device: the vectors' device, or one device per shard (the vectors are
     then ShardVecs, each shard's window its own); the control state lives
-    on ctl's device, which every shard must share. dots: the (dot, bdots)
-    pair of make_dots; in a sharded layout its psum hands the control
-    kernel the replicated sum (first), and the window mask multiplies the
-    summed dots, as in the JAX body. With ctl.trace the step's
-    orthogonalisation and normalisation are the device span gram_schmidt.
-    Counts: gcr_solves (starts), gcr_steps."""
+    on ctl's device, which every shard must share. dots: make_dots' Dots;
+    in a sharded layout its psum hands the control kernel the replicated
+    sum (first), and the window mask multiplies the summed dots, as in
+    the JAX body. The step's Gram-Schmidt is gram_schmidt_window over the
+    nv live rows; with ctl.trace it and the normalisation are the device
+    span gram_schmidt. Counts: gcr_solves (starts), gcr_steps, and gs_rows
+    (the window rows the Gram-Schmidt read, shared with DeviceFGMRES)."""
 
     def __init__(self, ctl, mult, pc_apply, n, dtype, device, restart=30,
                  rtol=1e-2, atol=1e-50, max_it=200, dots=None):
         self.ctl, self.mult, self.pc_apply = ctl, mult, pc_apply
-        self.dot, self.bdots = dots if dots is not None else make_dots()
+        self.dots = dots if dots is not None else make_dots()
+        self.dot = self.dots[0]
         self.restart, self.max_it = restart, max_it
         cdev = ctl.pred.device
         self.x = _vec(device, dtype, n)
         self.r = _vec(device, dtype, n)
         self.V = _vec(device, dtype, restart, n)
         self.S = _vec(device, dtype, restart, n)
+        self.scratch = smap(lambda a: gs.Scratch(n, restart, dtype,
+                                                 a.device), self.x)
         self.sc = _zeros(cdev, dtype, 3)
         self.par = torch.tensor([rtol, atol], dtype=dtype, device=cdev)
         self.ints = torch.zeros(3, dtype=torch.int32, device=cdev)
         self.ix = torch.zeros(1, dtype=torch.int64, device=cdev)
-        self.ar = torch.arange(restart, device=cdev)
         self.p = ctl.pred_slots(1)
         self.c0 = ctl.count_slots("gcr_solves", "gcr_steps")
+        g = ctl.shared_slot("gs_rows")
+        self.gs_rows = ctl.counts[g:g + 1]
 
     def start(self, b):
         self.x.zero_()
@@ -605,16 +680,9 @@ class DeviceGCR:
         s = self.pc_apply(self.r)
         v = self.mult(s)
         with span(self.ctl.trace, "gram_schmidt"):
-            mask = (self.ar < self.ints[1]).to(v.dtype)
-            beta = self.bdots(self.V, v) * mask
-            v = v - beta @ self.V
-            s = s - beta @ self.S
-            alpha = _norm(self.dot, v)
-            inv = 1.0 / smap(_safe, alpha)
-            v = inv * v
-            s = inv * s
-            self.V.index_copy_(0, self.ix, v[None])
-            self.S.index_copy_(0, self.ix, s[None])
+            _, alpha, v, s = gram_schmidt_window(
+                self.dots, self.scratch, self.V, v, self.ints[1:2], 0,
+                self.ix, self.S, s, count=self.gs_rows)
         gamma = self.dot(self.r, v)
         self.x.add_(gamma * s)
         self.r.add_(-gamma * v)
@@ -651,23 +719,27 @@ class DeviceFGMRES:
     init(x0) is a piece (a new solve: x = x0 or 0, bases zeroed,
     fgmres_start_ctl mode 0), loop() the WHILE whose body is IF(cycle
     start) then IF(arnoldi) -- the JAX body's lax.cond -- with the
-    arnoldi body ending in IF(build_soln). With ctl.trace each operator
-    apply is the device span saddle_apply and the Arnoldi step's
+    arnoldi body ending in IF(build_soln). The Arnoldi step's Gram-Schmidt
+    is gram_schmidt_window over the it + 1 live rows. With ctl.trace each
+    operator apply is the device span saddle_apply and the Arnoldi step's
     orthogonalisation and normalisation gram_schmidt. Counts:
     fgmres_solves, fgmres_cycles (cycle starts), fgmres_its (Arnoldi
-    steps), build_soln."""
+    steps), build_soln, and gs_rows (shared with DeviceGCR)."""
 
     def __init__(self, ctl, mult, pc_items, n, dtype, device, restart=30,
                  rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
                  hist_len=None, dots=None):
         k = restart
         self.ctl, self.mult = ctl, mult
-        self.dot, self.bdots = dots if dots is not None else make_dots()
+        self.dots = dots if dots is not None else make_dots()
+        self.dot = self.dots[0]
         self.k, self.max_it = k, max_it
         self.hist_len = max_it + 1 if hist_len is None else hist_len
         v = lambda *shape: _vec(device, dtype, *shape)      # noqa: E731
         self.x, self.F, self.vin, self.zout = v(n), v(n), v(n), v(n)
         self.V, self.Z = v(k + 1, n), v(k, n)
+        self.scratch = smap(lambda a: gs.Scratch(n, k + 1, dtype, a.device),
+                            self.x)
         cdev = ctl.pred.device
         z = lambda *shape: _zeros(cdev, dtype, *shape)      # noqa: E731
         self.H, self.g, self.cs, self.sn, self.y = (z(k + 1, k), z(k + 1),
@@ -678,10 +750,11 @@ class DeviceFGMRES:
                                 device=cdev)
         self.ints = torch.zeros(3, dtype=torch.int32, device=cdev)
         self.ix = torch.zeros(2, dtype=torch.int64, device=cdev)
-        self.ar = torch.arange(k + 1, device=cdev)
         self.p0 = ctl.pred_slots(4)
         self.c0 = ctl.count_slots("fgmres_solves", "fgmres_cycles",
                                   "fgmres_its", "build_soln")
+        g = ctl.shared_slot("gs_rows")
+        self.gs_rows = ctl.counts[g:g + 1]
         self.pc_items = pc_items(self.vin, self.zout)
 
     def init(self, x0=None):
@@ -712,12 +785,9 @@ class DeviceFGMRES:
             w = self.mult(z)
         self.Z.index_copy_(0, self.ix[0:1], z[None])
         with span(self.ctl.trace, "gram_schmidt"):
-            mask = (self.ar <= self.ints[1]).to(w.dtype)
-            h = self.bdots(self.V, w) * mask
-            w = w - h @ self.V
-            tt = _norm(self.dot, w)
-            self.V.index_copy_(0, self.ix[1:2],
-                               ((1.0 / smap(_safe, tt)) * w)[None])
+            h, tt, _, _ = gram_schmidt_window(
+                self.dots, self.scratch, self.V, w, self.ints[1:2], 1,
+                self.ix[1:2], count=self.gs_rows)
         krylov_ctl.fgmres_arnoldi_ctl(self, first(h), first(tt), self.ctl)
 
     def build_soln(self):

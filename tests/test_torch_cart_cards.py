@@ -27,8 +27,9 @@ thread per card:
 
 On the card (marked gpu; skip below 2 or 4 cards): the device loop across
 2 and 4 cards bitwise the same shards' device loop on one card at mx=8,
-and a peer wait that cannot complete (one card's graph launched alone)
-raising within its timeout. This file imports nothing of JAX:
+the cards' collectives per solve reading none of the Gram-Schmidt's
+gs_rows, and a peer wait that cannot complete (one card's graph launched
+alone) raising within its timeout. This file imports nothing of JAX:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cart_cards.py
@@ -660,6 +661,22 @@ def test_cards_device_loop_equals_one_card(n):
         assert col["graph_launches"] == n
         assert len(set(col["psums"])) == 1 and col["psums"][0] > 0
         assert min(col["halo_u"]) > 0 and min(col["ghosts"]) > 0
+
+
+@pytest.mark.gpu
+def test_cards_counted_reads_no_gs_rows():
+    """The cards' collectives per solve (CartCardsSolver.counted over each
+    card's graphs) read only the loops' counts: the Gram-Schmidt's
+    gs_rows slot, changed, changes nothing; every card counted the same
+    gs_rows (the solve compares the cards' counts)."""
+    _need_cards(2)
+    cards, F = _solver([torch.device("cuda", i) for i in range(2)],
+                       model="11", mx=8, dev_shape=(1, 1, 2))
+    a = cards.solve(F)
+    dev, c = cards._dev, a["counts"]
+    assert c["gs_rows"] > 0
+    assert dev.counted(dev.ctl.slots(dict(c, gs_rows=0))) == \
+        dev.counted(dev.ctl.slots(c)) == a["collectives"]
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ from exsaddle_tpu_torch import matfree as tmf
 from exsaddle_tpu_torch import models as tmodels
 from exsaddle_tpu_torch.assembly import FESpace, assemble_rhs, scatter_vector
 from exsaddle_tpu_torch.kernels import a00, cheb, mp, stencil, transfer
+from exsaddle_tpu_torch.kernels import gram_schmidt as gs
 from exsaddle_tpu_torch.mesh import SaddleMesh
 from exsaddle_tpu_torch.options import Options
 from exsaddle_tpu_torch.precond import PCLU
@@ -1932,3 +1933,177 @@ def test_mp_kernel_captures_with_launches_counted(cuda):
         assert mp.LAUNCHES.n == mp.LAUNCHES.by["mp_cheb_step"] == \
             (its - 1) * (i + 2)
         assert cheb.LAUNCHES.n == i + 2
+
+
+# --- K7, the Gram-Schmidt kernels -------------------------------------------
+
+# (window rows, S and s given (GCR) or V only (FGMRES), weighted (a sharded
+# part's ownership weight), plus: L = live + plus)
+K7_FORMS = {"gcr": (30, True, False, 0), "fgmres": (31, False, False, 1),
+            "gcr_weighted": (30, True, True, 0),
+            "fgmres_weighted": (31, False, True, 1)}
+
+
+def _gs_inputs(n, rows, dtype, device, seed, with_s, weighted):
+    """(V, S, v, s, w) from a numpy seed; S, s, w None where not asked."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    V, v = t(rng.standard_normal((rows, n))), t(rng.standard_normal(n))
+    S = t(rng.standard_normal((rows, n))) if with_s else None
+    s = t(rng.standard_normal(n)) if with_s else None
+    w = t(rng.integers(0, 2, n)) if weighted else None
+    return V, S, v, s, w
+
+
+def _gs_run(fns, V, S, v, s, w, live, plus, ix, scratch):
+    """The three steps by `fns` (the entries or their twins) on copies of
+    the windows: h, the count, v' and s' (scaled for GCR), sumsq, alpha
+    and the windows after."""
+    V, S = V.clone(), None if S is None else S.clone()
+    count = torch.zeros(1, dtype=torch.int64, device=V.device)
+    h = fns[0](V, v, live, plus, scratch, w, count)
+    vo, so, sq = fns[1](V, h, v, live, plus, scratch, S, s, w)
+    alpha = fns[2](vo, sq, V, ix, S, so, in_place=S is not None)
+    return [x for x in (h, count, vo, so, sq, alpha, V, S) if x is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("form", list(K7_FORMS))
+def test_gram_schmidt_kernels_bitwise_twins(cuda, form, dtype):
+    """K7's dots, combine and normalize against their twins on the card,
+    bit for bit, for L in {0, 1, 5, rows - 1, rows} (read from a device
+    int32, FGMRES's it = L - 1 with plus 1, so L = 0 comes from -1), at 1,
+    1,000 and 823,875 entries (the mx=32 fine level); the dots exactly +0
+    past L; one launch each; the count gets L."""
+    rows, with_s, weighted, plus = K7_FORMS[form]
+    twins = (gs.dots_plain, gs.combine_plain, gs.normalize_plain)
+    for n in (1, 1000, 823875):
+        V, S, v, s, w = _gs_inputs(n, rows, dtype, cuda, n, with_s, weighted)
+        scratch = gs.Scratch(n, rows, dtype, cuda)
+        for L in (0, 1, 5, rows - 1, rows):
+            live = torch.tensor([L - plus], dtype=torch.int32, device=cuda)
+            ix = torch.tensor([min(L, rows - 1)], dtype=torch.int64,
+                              device=cuda)
+            n0 = gs.LAUNCHES.n
+            got = _gs_run((gs.dots, gs.combine, gs.normalize), V, S, v, s,
+                          w, live, plus, ix, scratch)
+            assert gs.LAUNCHES.n == n0 + 3
+            want = _gs_run(twins, V, S, v, s, w, live, plus, ix, scratch)
+            torch.cuda.synchronize()
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert _same_bits(a, b), (n, L)
+            assert int(got[1]) == L
+            assert _same_bits(got[0][L:], torch.zeros_like(got[0][L:]))
+            assert int(scratch.ticket) == 0
+
+
+@pytest.mark.gpu
+def test_gram_schmidt_kernels_refuse_bad_input(cuda):
+    """A window of more than 64 rows, without its scratch or with a
+    scratch of another dtype, a live count that is not one int32, a vector
+    of another length, dtype or device, a non-contiguous vector, and S
+    without s raise before a launch."""
+    V, S, v, s, w = _gs_inputs(100, 30, torch.float32, cuda, 1, True, True)
+    sc = gs.Scratch(100, 30, torch.float32, cuda)
+    live = torch.tensor([3], dtype=torch.int32, device=cuda)
+    n0 = gs.LAUNCHES.n
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        gs.dots(torch.zeros(65, 100, device=cuda), v, live, 0, sc)
+    with pytest.raises(ValueError, match="needs a Scratch"):
+        gs.dots(V, v, live, 0, None)
+    with pytest.raises(TypeError, match="part is torch.float64"):
+        gs.dots(V, v, live, 0, gs.Scratch(100, 30, torch.float64, cuda))
+    with pytest.raises(TypeError, match="live is torch.int64"):
+        gs.dots(V, v, live.long(), 0, sc)
+    with pytest.raises(ValueError, match="t is"):
+        gs.dots(V, v[:-1], live, 0, sc)
+    with pytest.raises(TypeError, match="weight is torch.float64"):
+        gs.dots(V, v, live, 0, sc, weight=w.double())
+    with pytest.raises(ValueError, match="v on cpu"):
+        gs.combine(V, v[:30], v.cpu(), live, 0, sc)
+    with pytest.raises(ValueError, match="s is not contiguous"):
+        gs.combine(V, v[:30], v, live, 0, sc, S,
+                   torch.stack([s, s], 1)[:, 0])
+    with pytest.raises(ValueError, match="S and s come together"):
+        gs.combine(V, v[:30], v, live, 0, sc, S, None)
+    assert gs.LAUNCHES.n == n0
+
+
+@pytest.mark.gpu
+def test_gram_schmidt_replays_bitwise(cuda):
+    """A GCR Gram-Schmidt (its three launches, L = 7 of 30 rows read on
+    the device, the new row written at L) captured as one CUDA graph under
+    the sync debug mode "error": two replays give the eager bits, each
+    counting its three launches; the ticket is 0 after each."""
+    from exsaddle_tpu_torch import graphs
+    n, rows = 823875, 30
+    V, S, v, s, _ = _gs_inputs(n, rows, torch.float32, cuda, 7, True, False)
+    sc = gs.Scratch(n, rows, torch.float32, cuda)
+    live = torch.tensor([7], dtype=torch.int32, device=cuda)
+    ix = torch.tensor([7], dtype=torch.int64, device=cuda)
+
+    def body(x):
+        h = gs.dots(V, x, live, 0, sc)
+        vo, so, sq = gs.combine(V, h, x, live, 0, sc, S, s)
+        alpha = gs.normalize(vo, sq, V, ix, S, so)
+        return torch.cat([h, vo, so, alpha[None], V[7], S[7]])
+
+    want = body(v)
+    g = graphs.Captured(body, v)
+    deltas = dict(zip(graphs._counter_names(), g.deltas))
+    assert deltas["gram_schmidt.n"] == 3
+    for i in range(2):
+        n0 = gs.LAUNCHES.n
+        got = g(v)
+        assert _same_bits(got, want) and gs.LAUNCHES.n == n0 + 3
+        assert int(sc.ticket) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f64_direct", "f32_ir"])
+def test_device_loop_gram_schmidt_through_kernels_on_cuda(cuda, case,
+                                                          monkeypatch):
+    """A device-loop solve (mx=8, 3 levels) runs its Gram-Schmidt through
+    K7: three launches per GCR step and per FGMRES iteration by its kernel
+    nodes and by the launch counts its graph added; gs_rows is the sum of
+    the live counts L over those steps, which the host loop over the same
+    setup (the device loop's bits, test_device_loop_graph_equals_plain_
+    driver_on_cuda) takes one by one; kernel_nodes reads no gs_rows."""
+    from exsaddle_tpu_torch import treeops
+    from exsaddle_tpu_torch.abf import ABFSolver
+    kw = GRAPH_CASES[case]
+    ir = kw.get("ir", False)
+    p = _device_problem()
+    g = ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"], p["bc_vals"],
+                  device=cuda, nlevels=3, **kw)
+    host = ABFSolver.from_parts(g.cfg, g.data, g.setup, device=cuda,
+                                dtype=kw["dtype"], ir=ir, loop="host")
+    F = p["F_raw"] + g.setup["rhs_diri"]
+    run = (lambda s: s.solve_ir(F, rtol=1e-8)) if ir else \
+        (lambda s: s.solve(F))
+    n0 = gs.LAUNCHES.n
+    r = run(g)
+    c = r["counts"]
+    steps = c["gcr_steps"] + c["fgmres_its"]
+    kn = g.kernel_nodes(c)
+    assert steps > 0 and c["gs_rows"] > 0
+    assert kn["launches"]["gram_schmidt.n"] == 3 * steps
+    assert [kn["launches"][f"gram_schmidt.{f}"] for f in gs.FORMS] == \
+        [steps] * 3
+    assert gs.LAUNCHES.n - n0 == 3 * steps
+    assert g.kernel_nodes(dict(c, gs_rows=0)) == kn
+    rows = []
+    orig = treeops.gram_schmidt_window
+
+    def recorded(dots, scratch, V, v, live, plus, *a, **k):
+        rows.append(min(max(int(treeops.first(live)) + plus, 0),
+                        treeops.first(V).shape[0]))
+        return orig(dots, scratch, V, v, live, plus, *a, **k)
+
+    monkeypatch.setattr(treeops, "gram_schmidt_window", recorded)
+    rh = run(host)
+    assert np.array_equal(rh["x"], r["x"])
+    assert len(rows) == steps and sum(rows) == c["gs_rows"]

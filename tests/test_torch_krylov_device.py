@@ -462,10 +462,25 @@ def test_device_loop_solve_ir_matches_jax(dt):
             assert _rel(rt["x"], rj["x"]) < 1e-6
 
 
-def test_device_loop_fixed_vcycles_matches_host_loop():
+def test_device_loop_fixed_vcycles_matches_host_loop(monkeypatch):
     """u_fixed_vcycles=2 (no GCR loop: the fieldsplit PC is one piece),
-    float64 direct, mx=4: the host loop's reason and iteration count,
-    history and x to 1e-12 relative."""
+    float64 direct, mx=4, 3 levels. On the torch build's numbers: the
+    sliced host loop's (window=False, the CPU's default) reason and
+    iteration count, and the host loop with the device loop's arithmetic
+    (make_abf_solver window=True: the Gram-Schmidt twins over the live
+    rows, the control kernels' triangle) bit for bit in reason,
+    iterations, history and x, torch.sqrt correctly rounded as in
+    test_window_host_loop_equals_device_loop. The sliced host loop sums
+    its dots in BLAS's order, the device loop in the Gram-Schmidt
+    kernels' blocked order, so their x agree only to rounding amplified
+    over the 52 iterations (4.0e-8 relative, history 9.0e-8, in one CPU
+    run). So x is held to an independent computation, the JAX package's
+    solve on its own build, with the device loop built from the JAX
+    build's numbers: the JAX reason and first residual norm (1e-12),
+    iterations within 5% (this configuration takes 54 in JAX and 52 in
+    both torch loops) and x to 1e-4 (7.6e-6 for both torch loops in one
+    CPU run)."""
+    monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
     p = bench._build_problem(4, with_rhs=True)
     host = tabf.ABFSolver(p["mesh"], p["fes"], p["coeff"], p["bc_idx"],
                           p["bc_vals"], device="cpu", nlevels=3,
@@ -476,8 +491,24 @@ def test_device_loop_fixed_vcycles_matches_host_loop():
     F = p["F_raw"] + host.setup["rhs_diri"]
     rh, rd = host.solve(F), dev.solve(F)
     assert (rd["reason"], rd["its"]) == (rh["reason"], rh["its"])
-    assert _rel(rd["history"], rh["history"]) < 1e-12
-    assert _rel(rd["x"], rh["x"]) < 1e-12
+    solve, _ = tabf.make_abf_solver(host.cfg, host.data, window=True)
+    Ft = host.vec_to_tree(F)
+    x, its, _, state, hist = solve(Ft, torch.zeros_like(Ft))
+    assert (treeops.reason_name(state), its) == (rd["reason"], rd["its"])
+    assert [float(h) for h in hist[: its + 1] if h >= 0.0] == rd["history"]
+    assert np.array_equal(host.tree_to_vec(x), rd["x"])
+
+    jslv, Fj = _jax_solver(3, (4, 4, 4), (0.1, 1.0, 1.0), 11, nlevels=3,
+                           u_fixed_vcycles=2)
+    rj = jslv.solve(Fj)
+    t = _from_jax(jslv, torch.float64)
+    rt = tabf.ABFSolver.from_parts(t.cfg, t.data, t.setup, device="cpu",
+                                   dtype=torch.float64,
+                                   loop="device").solve(Fj)
+    assert rt["reason"] == rj["reason"] == "CONVERGED_RTOL"
+    assert abs(rt["its"] - rj["its"]) <= 0.05 * rj["its"]
+    assert rt["history"][0] == pytest.approx(rj["history"][0], rel=1e-12)
+    assert _rel(rt["x"], rj["x"]) < 1e-4
 
 
 def _ieee_sqrt(t):
